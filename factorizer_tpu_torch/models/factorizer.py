@@ -1,0 +1,212 @@
+"""Factorizer models: NMF-mixing pre-norm blocks in a U-Net.
+
+PyTorch counterpart of ``factorizer_tpu/models/factorizer.py``
+(FactMixer -> FactorizerBlock -> FactorizerStage -> Factorizer), channels-last
+inside.  Two kernels carry the blocks:
+
+* ``FactMixer`` sends every 3-D (SW)Matricize mixer with a head_dim, cubic
+  patches and a rank-1 hals/mu NMF through K1 (``ops.kernels.windowed_nmf``); other mixers
+  take the plain fold -> NMF -> unfold path.
+* ``FactorizerBlock`` sends its tail ``x + mlp(norm2(x))`` through K2
+  (``ops.kernels.prenorm_mlp``), reading the ``norm2`` and ``mlp`` parameters.
+
+in_proj, out_proj, the stage adapter and the convolutions stay stock PyTorch.
+Dropout is not ported: the serving path runs without it.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Sequence
+
+import torch
+from torch import nn
+
+from ..factorization.nmf import NMF
+from ..layers.basic import ACTIVATIONS, LayerNorm, Linear, MLP
+from ..layers.pos_embed import PositionalEmbedding
+from ..ops.kernels import prenorm_mlp, windowed_nmf
+from ..ops.reshape import Matricize, SWMatricize
+from .unet import UNet
+
+__all__ = ["FactMixer", "FactorizerBlock", "FactorizerStage", "Factorizer"]
+
+# Reshape spec: (class, keyword arguments), as the bundle configs write it.
+ReshapeSpec = tuple[type, dict]
+DEFAULT_RESHAPE: ReshapeSpec = (Matricize, {"num_heads": 1, "grid_size": 1})
+
+
+class FactMixer(nn.Module):
+    """Token mixing: project -> act -> fold -> factorize -> unfold -> project.
+
+    ``factorize_kwargs`` go to :class:`NMF` (``rank``, ``num_iters``,
+    ``num_grad_steps``, ``init_method``, ``solver``).
+    """
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        spatial_size: Sequence[int],
+        reshape: ReshapeSpec = DEFAULT_RESHAPE,
+        act: str = "relu",
+        factorize_kwargs: Optional[dict[str, Any]] = None,
+        dtype: Optional[torch.dtype] = None,
+        device=None,
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__()
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.in_proj = Linear(in_channels, out_channels, bias=False, **kw)
+        cls, reshape_kwargs = reshape
+        self.reshape = cls((None, *spatial_size, out_channels), **reshape_kwargs)
+        self.act = ACTIVATIONS[act]
+        self.factorize = NMF(tuple(self.reshape.output_size[2:]), device=device, generator=generator,
+                             **(factorize_kwargs or {}))
+        self.out_proj = Linear(out_channels, out_channels, bias=True, **kw)
+        self.windowed = self._windowed_config(len(spatial_size))
+
+    def _windowed_config(self, spatial_dims: int) -> Optional[tuple[int, int, tuple]]:
+        """``(head_dim, patch, shifts)`` when K1 computes this mixer, else None."""
+        if isinstance(self.reshape, SWMatricize):
+            mats = self.reshape.shifted_windows
+        elif isinstance(self.reshape, Matricize):
+            mats = [self.reshape]
+        else:
+            return None
+        ax = mats[0].axis_sizes
+        ps = [ax.get(f"p{i}") for i in range(3)]
+        fact = self.factorize
+        if (
+            spatial_dims != 3
+            or "d" not in ax
+            or ps[0] is None
+            or ps.count(ps[0]) != 3
+            or fact.rank != 1
+            or fact.solver not in ("hals", "mu")
+        ):
+            return None
+        return ax["d"], ps[0], tuple(m.shifts for m in mats)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.act(self.in_proj(x))  # elementwise, so it commutes with the fold
+        if self.windowed is not None:
+            d, p, shifts = self.windowed
+            fact = self.factorize
+            out = windowed_nmf(
+                out, fact.init.u0, fact.init.v0, d, p, shifts, fact.solver, fact.num_iters,
+                fact.eps, fact.num_grad_steps,
+            )
+        else:
+            out = self.reshape.inverse_forward(self.factorize(self.reshape.forward(out)))
+        return self.out_proj(out)
+
+
+class FactorizerBlock(nn.Module):
+    """Pre-norm residual block: ``x + fact(norm1(x))``, then ``x + mlp(norm2(x))`` (K2)."""
+
+    def __init__(
+        self,
+        channels: int,
+        spatial_size: Sequence[int],
+        mlp_ratio: float = 2,
+        reshape: ReshapeSpec = DEFAULT_RESHAPE,
+        act: str = "relu",
+        factorize_kwargs: Optional[dict[str, Any]] = None,
+        dtype: Optional[torch.dtype] = None,
+        device=None,
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__()
+        self.norm1 = LayerNorm(channels, dtype=dtype, device=device)
+        self.fact = FactMixer(channels, channels, spatial_size, reshape, act, factorize_kwargs,
+                              dtype=dtype, device=device, generator=generator)
+        self.norm2 = LayerNorm(channels, dtype=dtype, device=device)
+        self.mlp = MLP(channels, ratio=mlp_ratio, dtype=dtype, device=device, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.fact(self.norm1(x))
+        ln, fc1, fc2 = self.norm2.norm, self.mlp.fc1.linear, self.mlp.fc2.linear
+        return prenorm_mlp(x, ln.weight, ln.bias, fc1.weight, fc1.bias, fc2.weight, fc2.bias, self.norm2.eps)
+
+
+class FactorizerStage(nn.Module):
+    """One resolution stage: channel adapter, optional positional embedding, ``depth`` blocks."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        spatial_size: Sequence[int],
+        depth: int = 1,
+        pos_embed: bool = False,
+        dtype: Optional[torch.dtype] = None,
+        device=None,
+        generator: Optional[torch.Generator] = None,
+        **block_kwargs: Any,
+    ) -> None:
+        super().__init__()
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.adapter = Linear(in_channels, out_channels, bias=False, **kw) if in_channels != out_channels else None
+        self.pos_embed = (
+            PositionalEmbedding(out_channels, tuple(spatial_size), device=device, generator=generator)
+            if pos_embed
+            else None
+        )
+        self.blocks = nn.ModuleList(
+            FactorizerBlock(out_channels, spatial_size, **block_kwargs, **kw) for _ in range(depth)
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.adapter is not None:
+            x = self.adapter(x)
+        if self.pos_embed is not None:
+            x = self.pos_embed(x)
+        for blk in self.blocks:
+            x = blk(x)
+        return x
+
+
+class Factorizer(UNet):
+    """Swin-Factorizer segmentation U-Net; the bottleneck stage carries a positional embedding.
+
+    Factorization options left at None take :class:`NMF`'s defaults, as in the
+    JAX model.
+    """
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        spatial_size: Sequence[int],
+        encoder_depth: Sequence[int] = (1, 1, 1, 1, 1),
+        encoder_width: Sequence[int] = (32, 64, 128, 256, 512),
+        strides: Sequence[int] = (1, 2, 2, 2, 2),
+        decoder_depth: Sequence[int] = (1, 1, 1, 1),
+        mlp_ratio: float = 2,
+        reshape: ReshapeSpec = DEFAULT_RESHAPE,
+        act: str = "relu",
+        rank: Optional[int] = None,
+        num_iters: Optional[int] = None,
+        num_grad_steps: Optional[int] = None,
+        init_method: Optional[str] = None,
+        solver: Optional[str] = None,
+        dtype: Optional[torch.dtype] = None,
+        device=None,
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
+        fact_opts = dict(rank=rank, num_iters=num_iters, num_grad_steps=num_grad_steps,
+                         init_method=init_method, solver=solver)
+        factorize_kwargs = {k: v for k, v in fact_opts.items() if v is not None}
+        bottleneck = len(encoder_depth) - 1
+
+        def stage(i: int, cin: int, cout: int, depth: int, size: tuple) -> nn.Module:
+            return FactorizerStage(
+                cin, cout, size, depth, pos_embed=i == bottleneck, mlp_ratio=mlp_ratio,
+                reshape=reshape, act=act, factorize_kwargs=factorize_kwargs,
+                dtype=dtype, device=device, generator=generator,
+            )
+
+        super().__init__(
+            in_channels, out_channels, spatial_size, encoder_depth, encoder_width, strides,
+            decoder_depth, stage, dtype=dtype, device=device, generator=generator,
+        )

@@ -1,0 +1,151 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+All ``csrc/*.cu`` sources compile, at first use, into one shared library with
+a plain C interface (no PyTorch headers, so the build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+
+The library lands in ``factorizer_tpu_torch/build/`` (listed in .gitignore),
+named by a hash of the sources and flags, so an edited source rebuilds and an
+unchanged one is reused.  Nothing here runs at import time.
+
+Every C entry point returns ``cudaGetLastError()``; :func:`check` raises on a
+non-zero status.  Kernels launch on PyTorch's current stream, allocate
+nothing and never synchronise.
+
+:func:`reference_kernels` is the one switch that sends the wrappers of CUDA
+tensors to their plain PyTorch versions, for a whole-model comparison on the
+card.  It is off unless a caller enters it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Iterator
+
+import torch
+
+__all__ = ["nvcc_path", "build", "build_info", "library", "check", "dtype_code", "stream_of", "reference_kernels", "launches_kernel"]
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_SIGNATURES = {
+    # x, acc, out, u0, v0, dtype, B, S1, S2, S3, C, d, p, sh1, sh2, sh3, mu,
+    # num_iters, eps, first, last, scale, stream
+    "ftt_windowed_nmf_shift": [_P, _P, _P, _P, _P] + [_I] * 13 + [_F, _I, _I, _F, _P],
+    # x, y, gamma, beta, w1, b1, w2, b2, dtype, M, C, H, eps, stream
+    "ftt_prenorm_mlp": [_P] * 8 + [_I, _L, _I, _I, _F, _P],
+}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_state = {"lib": None, "build_seconds": None, "build_log": "", "reference": False}
+
+
+def nvcc_path() -> str:
+    """The nvcc to build with: the one on PATH, else the CUDA toolkit's default location."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit on PATH")
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into the build directory unless an identical build exists."""
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    headers = sorted(CSRC_DIR.glob("*.cuh"))
+    digest = hashlib.sha256()
+    for path in (*sources, *headers):
+        digest.update(path.name.encode() + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    out = BUILD_DIR / f"libftt_kernels_{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    _state["build_seconds"] = time.perf_counter() - t0
+    _state["build_log"] = proc.stdout + proc.stderr
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    if _state["lib"] is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.ftt_error_string.argtypes = [ctypes.c_int]
+        lib.ftt_error_string.restype = ctypes.c_char_p
+        _state["lib"] = lib
+    return _state["lib"]
+
+
+def build_info() -> tuple[float | None, str]:
+    """Seconds the last build in this process took (None if it was reused) and nvcc's output."""
+    return _state["build_seconds"], _state["build_log"]
+
+
+def check(status: int, name: str) -> None:
+    """Raise if a kernel entry point reported a CUDA error."""
+    if status != 0:
+        msg = library().ftt_error_string(status).decode()
+        raise RuntimeError(f"{name}: CUDA error {status} ({msg})")
+
+
+def dtype_code(dtype: torch.dtype) -> int:
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"kernels take float32 or bfloat16 activations, got {dtype}")
+    return _DTYPE_CODES[dtype]
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """PyTorch's current stream on ``t``'s card, as the handle the C entry points take."""
+    if t.device.index != torch.cuda.current_device():
+        raise ValueError(f"tensor on {t.device}, but the current device is cuda:{torch.cuda.current_device()}")
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@contextlib.contextmanager
+def reference_kernels() -> Iterator[None]:
+    """Within this context, the wrappers run their plain PyTorch versions on CUDA tensors too."""
+    previous = _state["reference"]
+    _state["reference"] = True
+    try:
+        yield
+    finally:
+        _state["reference"] = previous
+
+
+def launches_kernel(x: torch.Tensor) -> bool:
+    """Whether a wrapper launches its kernel for ``x``: CUDA tensors do, CPU tensors take the plain
+    version; any other device raises."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"kernels run on CUDA tensors; got a tensor on {x.device}")
+    return not _state["reference"]
