@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: build, check and time its kernels, serve BraTS volumes.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: build, check and time its kernels, serve and train the bundle.
 
 Run from the repository root:
 
@@ -6,22 +6,36 @@ Run from the repository root:
 
 Phases, one or more result lines each:
   1. environment: the card (name, power limit), torch / CUDA / nvcc versions; TF32 off.
-  2. build: nvcc compiles csrc/*.cu for sm_90a into factorizer_tpu_torch/build/.
+  2. build: one nvcc per csrc/*.cu for sm_90a, started together, into factorizer_tpu_torch/build/.
   3. K1 (windowed NMF) against its plain PyTorch version at the five stage shapes
      of a batch-2 128^3 forward, f32 and bf16, plus MU and a single zero shift.
   4. K2 (fused pre-norm MLP) against its plain version at the five block-tail shapes.
-  5. the slice: the full-width factorizer_brats23 network (random weights from a
-     seed) serves 3 synthetic BraTS-native (1, 4, 240, 240, 155) volumes through
-     ensemble_predict, in f32 and in bf16; the launch counters show every mixer
-     and every block tail on a kernel; the first request's logits are compared
-     with the same call on the plain versions.
-Then a JSON line per kernel, and as the last line {"ok": true, "device": {...}}.
-Any failed check raises, so the exit code is non-zero and no result line is printed.
+  5. the serving slice: the full-width factorizer_brats23 network (random weights
+     from a seed) serves 2 synthetic BraTS-native (1, 4, 240, 240, 155) volumes
+     through ensemble_predict, in f32 and in bf16; the launch counters show every
+     mixer and every block tail on a kernel; the first request's logits are
+     compared with the same call on the plain versions.
+  6. K1 backward against autograd through the plain version: the five stage shapes,
+     f32 and bf16, plus MU, a single zero shift, num_grad_steps=2 and an input
+     with whole windows set to zero.
+  7. K2 backward (dx and the six parameter gradients) against autograd through the
+     plain version at the five shapes, f32 and bf16.
+  8. the training slice: brats23_network() -> create_train_state -> make_train_step
+     takes 1 warm-up and 3 timed steps on a synthetic batch 2 x 128^3, in f32 and in
+     bf16; the launch counters show 36 K1 forward, 36 K1 backward, 9 K2 forward and
+     9 K2 backward launches per step; the first step's loss and gradients are
+     compared with the same step on the plain versions.
+Then the card's line, a JSON line with every kernel, and as the last line
+{"ok": true, "device": {...}}.  Any failed check raises, so the exit code is
+non-zero and no result line is printed.
 """
 
 from __future__ import annotations
 
+import gc
 import json
+import math
+import re
 import statistics
 import subprocess
 import sys
@@ -54,6 +68,18 @@ def cuda_time_ms(fn, warmup: int = 3, runs: int = 15) -> float:
     return statistics.median(times)
 
 
+def kernel_label(mangled: str) -> str:
+    """``prenorm_mlp_bwd_kernel<f32,512,16,16,16>`` from the mangled name ptxas reports."""
+    found = re.search(r"\d+((?:windowed_nmf|prenorm_mlp|sum_partials)\w*?_kernel)(?:I(.+?)EEv)?", mangled)
+    if not found:
+        return mangled
+    name, targs = found.groups()
+    if not targs:
+        return name
+    dtype = "bf16" if "bfloat16" in targs else "f32"
+    return f"{name}<{','.join([dtype, *re.findall(r'Li(\d+)', targs)])}>"
+
+
 def dname(dtype) -> str:
     return str(dtype).split(".")[1]
 
@@ -70,11 +96,62 @@ def compare(out, ref) -> tuple[float, float]:
 # f32 and round the output once, so they differ by at most one bf16 ulp
 # (2^-7 of the largest value) where the roundings fall apart.
 KERNEL_RTOL = {"float32": 1e-4, "bfloat16": 2.0**-7}
+# K1 backward: the reverse sweep repeats the forward's sums and divides by
+# the same small denominators, so f32 gets ten times the forward's band; bf16
+# rounds dx once, as the forward rounds y.
+K1_BWD_RTOL = {"float32": 1e-3, "bfloat16": 2.0**-7}
+# K2 backward parameter gradients, relative to the gradient's largest entry:
+# each entry sums one f32 term per token (4.2 M at stage 0) in the kernel's
+# fixed tile order and in the library's own order; either order's rounding
+# grows like sqrt(tokens) * 2^-24 of the terms' size, and cancellation leaves
+# entries far below that size, so the band is stated against the largest entry.
+# Both dtypes sum in f32 from the same inputs.
+K2_PARAM_RTOL = 1e-3
 # Whole-network logits, kernels against plain versions: the per-layer
 # differences above pass through 9 blocks and 9 convolutions.
 SLICE_RTOL = {"float32": 1e-3, "bfloat16": 5e-2}
+# One train step, kernels against plain versions: the loss, the global
+# gradient norm and three gradient leaves (relative to each leaf's largest
+# entry).  The forward differences above pass back through every layer; in
+# bf16 a rounding that falls the other way changes a whole activation by 2^-8.
+TRAIN_RTOL = {"float32": {"loss": 1e-4, "grad": 1e-2}, "bfloat16": {"loss": 1e-2, "grad": 1e-1}}
 
 STAGES = [(128, 32), (64, 64), (32, 128), (16, 256), (8, 512)]  # (S, C) at batch 2, roi 128^3
+NUM_ITERS = 5
+
+# Published peaks of one H100 SXM at 700 W: HBM bytes/s, f32 FLOP/s outside the
+# tensor cores, dense bf16 FLOP/s in them.  A bound takes the peak of the
+# activations' dtype.
+PEAK_BYTES, PEAK_FLOPS = 3.35e12, {"float32": 67e12, "bfloat16": 989e12}
+
+
+def bound_ms(n_bytes: float, flops: float, dtype) -> tuple[float, str]:
+    """The least time the card could take: each input read and output written once, or the operations at peak."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, flops / PEAK_FLOPS[dname(dtype)]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k1_work(x, n_shifts: int, backward: bool, grad_steps: int = NUM_ITERS, mu: bool = False) -> tuple[float, float]:
+    """(bytes, flops) of K1 on ``x``.  Per element and shift the solve does two mat-vecs (4 flops) per
+    iteration and the rank-1 product and the shift sum (2); the backward adds the seed's two mat-vecs (4)
+    and, per differentiated iteration, two mat-vecs and two rank-1 updates of dX (8; MU recomputes one
+    more mat-vec, 10).  Forward: x read, y written.  Backward: x and g read, dx written."""
+    n = x.numel()
+    flops = 4 * NUM_ITERS + 2
+    if backward:
+        flops += 4 + (10 if mu else 8) * grad_steps
+    return (3 if backward else 2) * n * x.element_size(), float(n_shifts * n * flops)
+
+
+def k2_work(x, hidden: int, backward: bool) -> tuple[float, float]:
+    """(bytes, flops) of K2 on ``x (..., C)``: two products of 2 C H flops per token forward, five backward;
+    x read and y written (backward: x and g read, dx written), the f32 parameters read (and their
+    gradients written) once."""
+    c = x.shape[-1]
+    tokens = x.numel() // c
+    n_params = 3 * c + hidden + 2 * c * hidden
+    n_bytes = (3 if backward else 2) * x.numel() * x.element_size() + (2 if backward else 1) * 4 * n_params
+    return n_bytes, float(tokens * (10 if backward else 4) * c * hidden)
 
 
 def main() -> None:
@@ -85,13 +162,27 @@ def main() -> None:
         sys.exit(1)
 
     # The port: imported only once a card is known to be there.
-    from factorizer_tpu_torch.ops.kernels import build, prenorm_mlp, prenorm_mlp_plain
-    from factorizer_tpu_torch.ops.kernels import reference_kernels, windowed_nmf, windowed_nmf_plain
+    import torch.nn.functional as F
+
+    from factorizer_tpu_torch.ops.kernels import (
+        build, prenorm_mlp, prenorm_mlp_backward, prenorm_mlp_backward_plain, prenorm_mlp_plain,
+        reference_kernels, windowed_nmf, windowed_nmf_backward, windowed_nmf_backward_plain, windowed_nmf_plain,
+    )
     from factorizer_tpu_torch.train.sliding_window import sliding_window_inference
-    from factorizer_tpu_torch.zoo_scripts import brats23_network, ensemble_predict
+    from factorizer_tpu_torch.train.trainer import create_train_state, make_train_step
+    from factorizer_tpu_torch.zoo_scripts import brats23_network, brats23_optimizer_settings, ensemble_predict
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
+    wrappers = {"windowed_nmf": windowed_nmf, "windowed_nmf_bwd": windowed_nmf_backward,
+                "prenorm_mlp": prenorm_mlp, "prenorm_mlp_bwd": prenorm_mlp_backward}
+
+    def reset_counts() -> None:
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read_counts() -> dict:
+        return {name: w.launches for name, w in wrappers.items()}
 
     # 1. environment
     smi = subprocess.run(
@@ -111,22 +202,34 @@ def main() -> None:
     build.library()
     seconds, log = build.build_info()
     print(f"[build] {time.perf_counter() - t0:.1f} s (nvcc {'reused an identical build' if seconds is None else f'{seconds:.1f} s'})")
+    kernel = ""
     for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            kernel = kernel_label(entry.group(1))
         if "registers" in line or ("spill" in line and " 0 bytes spill stores" not in line):
-            print(f"[build] {line.strip()}")
+            print(f"[build] {kernel}: {line.strip()}")
 
-    results = {"windowed_nmf": {"errs": [], "times": None}, "prenorm_mlp": {"errs": [], "times": None}}
+    # Per kernel: the errors of every comparison, and the times at the first case, (2,128^3,32) f32.
+    results = {name: {"errs": [], "times": None} for name in wrappers}
+
+    def record(name: str, err: float, label: str, ms: float, plain_ms: float, bound: tuple[float, str]) -> None:
+        results[name]["errs"].append(err)
+        if results[name]["times"] is None:
+            results[name]["times"] = (label, ms, plain_ms, *bound)
+
     gen = torch.Generator(device=dev)
+    four, zero_shift = (None, 2, 4, 6), ((0, 0, 0),)
 
     # 3. K1 against its plain version
     u0 = torch.rand(8, 1, device=dev, generator=gen.manual_seed(1))
     v0 = torch.rand(512, 1, device=dev, generator=gen)
-    cases = [(s, c, dt, "hals", (None, 2, 4, 6)) for s, c in STAGES for dt in (torch.float32, torch.bfloat16)]
-    cases += [(32, 128, torch.float32, "mu", (None, 2, 4, 6)), (32, 128, torch.float32, "hals", ((0, 0, 0),))]
+    cases = [(s, c, dt, "hals", four) for s, c in STAGES for dt in (torch.float32, torch.bfloat16)]
+    cases += [(32, 128, torch.float32, "mu", four), (32, 128, torch.float32, "hals", zero_shift)]
     with torch.inference_mode():
         for s, c, dt, solver, shifts in cases:
             x = torch.relu(torch.randn(2, s, s, s, c, device=dev, generator=gen.manual_seed(s + c))).to(dt)
-            args = (x, u0, v0, 8, 8, shifts, solver, 5)
+            args = (x, u0, v0, 8, 8, shifts, solver, NUM_ITERS)
             out, ref = windowed_nmf(*args), windowed_nmf_plain(*args)
             torch.cuda.synchronize()
             err, rel = compare(out, ref)
@@ -134,44 +237,49 @@ def main() -> None:
             label = f"(2,{s}^3,{c}) {dname(dt)} {solver} shifts={len(shifts)}"
             check(out.dtype == dt and out.shape == x.shape, f"K1 {label}: wrong output")
             check(rel <= tol, f"K1 {label}: max_abs {err:.3e} max_rel {rel:.3e} above {tol:.1e}")
-            ms, plain_ms = cuda_time_ms(lambda: windowed_nmf(*args)), cuda_time_ms(lambda: windowed_nmf_plain(*args))
+            ms = cuda_time_ms(lambda: windowed_nmf(*args))
+            plain_ms = cuda_time_ms(lambda: windowed_nmf_plain(*args), warmup=1, runs=5)
+            bound = bound_ms(*k1_work(x, len(shifts), backward=False), dt)
             print(f"[K1] {label}: max_abs={err:.3e} max_rel={rel:.3e} (tol {tol:.1e}) "
-                  f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
-            results["windowed_nmf"]["errs"].append(err)
-            if results["windowed_nmf"]["times"] is None:
-                results["windowed_nmf"]["times"] = (label, ms, plain_ms)
+                  f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound {bound[0]:.3f} ms ({bound[1]})")
+            record("windowed_nmf", err, label, ms, plain_ms, bound)
             del x, out, ref
 
     # 4. K2 against its plain version
+    def mlp_params(c: int) -> tuple:
+        h = 4 * c
+        return (
+            1 + 0.1 * torch.randn(c, device=dev, generator=gen.manual_seed(c)),
+            0.1 * torch.randn(c, device=dev, generator=gen),
+            torch.randn(h, c, device=dev, generator=gen) / c**0.5,
+            0.1 * torch.randn(h, device=dev, generator=gen),
+            torch.randn(c, h, device=dev, generator=gen) / h**0.5,
+            0.1 * torch.randn(c, device=dev, generator=gen),
+        )
+
     with torch.inference_mode():
         for s, c in STAGES:
-            h = 4 * c
-            gamma = 1 + 0.1 * torch.randn(c, device=dev, generator=gen.manual_seed(c))
-            beta = 0.1 * torch.randn(c, device=dev, generator=gen)
-            w1 = torch.randn(h, c, device=dev, generator=gen) / c**0.5
-            b1 = 0.1 * torch.randn(h, device=dev, generator=gen)
-            w2 = torch.randn(c, h, device=dev, generator=gen) / h**0.5
-            b2 = 0.1 * torch.randn(c, device=dev, generator=gen)
+            params = mlp_params(c)
             for dt in (torch.float32, torch.bfloat16):
                 x = torch.randn(2, s, s, s, c, device=dev, generator=gen).to(dt)
-                args = (x, gamma, beta, w1, b1, w2, b2)
+                args = (x, *params)
                 out, ref = prenorm_mlp(*args), prenorm_mlp_plain(*args)
                 torch.cuda.synchronize()
                 err, rel = compare(out, ref)
                 tol = KERNEL_RTOL[dname(dt)]
-                label = f"(2,{s}^3,{c}) H={h} {dname(dt)}"
+                label = f"(2,{s}^3,{c}) H={4 * c} {dname(dt)}"
                 check(out.dtype == dt and out.shape == x.shape, f"K2 {label}: wrong output")
                 check(rel <= tol, f"K2 {label}: max_abs {err:.3e} max_rel {rel:.3e} above {tol:.1e}")
-                ms, plain_ms = cuda_time_ms(lambda: prenorm_mlp(*args)), cuda_time_ms(lambda: prenorm_mlp_plain(*args))
+                ms = cuda_time_ms(lambda: prenorm_mlp(*args))
+                plain_ms = cuda_time_ms(lambda: prenorm_mlp_plain(*args), warmup=1, runs=5)
+                bound = bound_ms(*k2_work(x, 4 * c, backward=False), dt)
                 print(f"[K2] {label}: max_abs={err:.3e} max_rel={rel:.3e} (tol {tol:.1e}) "
-                      f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
-                results["prenorm_mlp"]["errs"].append(err)
-                if results["prenorm_mlp"]["times"] is None:
-                    results["prenorm_mlp"]["times"] = (label, ms, plain_ms)
+                      f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound {bound[0]:.3f} ms ({bound[1]})")
+                record("prenorm_mlp", err, label, ms, plain_ms, bound)
                 del x, out, ref
 
-    # 5. the slice
-    roi, sw_batch, overlap, n_requests = (128, 128, 128), 2, 0.5, 3
+    # 5. the serving slice
+    roi, sw_batch, overlap, n_requests = (128, 128, 128), 2, 0.5, 2
     n_windows = 3 * 3 * 2
     forwards = -(-n_windows // sw_batch)
     n_blocks, n_shifts = 9, 4
@@ -180,7 +288,7 @@ def main() -> None:
         "float32": brats23_network(device=dev, generator=torch.Generator().manual_seed(0)).eval(),
         "bfloat16": brats23_network(dtype=torch.bfloat16, device=dev, generator=torch.Generator().manual_seed(0)).eval(),
     }
-    windowed_nmf.launches = prenorm_mlp.launches = 0
+    reset_counts()
     for name, model in models.items():
         ensemble_predict([model], volumes[-1], roi, sw_batch, overlap)  # warm-up request
         torch.cuda.synchronize()
@@ -203,8 +311,9 @@ def main() -> None:
         print(f"[slice] {name}: {mean_s:.3f} s/volume (requests {', '.join(f'{s:.3f}' for s in seconds)} s), "
               f"{n_windows / mean_s:.2f} windows/s, peak memory {mem / 2**30:.2f} GiB, "
               f"foreground share {mask.float().mean().item():.4f}")
-    launches = {"windowed_nmf": windowed_nmf.launches, "prenorm_mlp": prenorm_mlp.launches}
-    check(all(n > 0 for n in launches.values()), f"a kernel of the path never launched: {launches}")
+    serve_launches = read_counts()
+    check(serve_launches["windowed_nmf"] > 0 and serve_launches["prenorm_mlp"] > 0,
+          f"a kernel of the serving path never launched: {serve_launches}")
 
     with torch.inference_mode():
         for name, model in models.items():
@@ -217,18 +326,182 @@ def main() -> None:
                   f"(tol {SLICE_RTOL[name]:.1e})")
             check(bool(torch.isfinite(logits).all()), f"slice {name}: non-finite logits")
             check(rel <= SLICE_RTOL[name], f"slice {name}: logits differ from the plain versions by {rel:.3e}")
+    del models, volumes, mask, probs, logits, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 6. K1 backward against autograd through the plain version
+    # MU runs on a strictly positive input: where a whole row of a window is zero its factor decays to
+    # ~eps and 1 / (v b + eps) ~ 1e16 makes the gradient so ill-conditioned that f32 keeps no digit of it,
+    # in the kernel and in the plain version alike.
+    cases = [(s, c, dt, "hals", four, None, False) for s, c in STAGES for dt in (torch.float32, torch.bfloat16)]
+    cases += [
+        (32, 128, torch.float32, "mu", four, None, False),
+        (32, 128, torch.float32, "hals", zero_shift, None, False),
+        (32, 128, torch.float32, "hals", four, 2, False),
+        (64, 64, torch.float32, "hals", four, None, True),  # a quarter of the volume all zero, as BraTS background
+    ]
+    for s, c, dt, solver, shifts, grad_steps, zero_windows in cases:
+        x = torch.relu(torch.randn(2, s, s, s, c, device=dev, generator=gen.manual_seed(s + c)))
+        if solver == "mu":
+            x = torch.rand(2, s, s, s, c, device=dev, generator=gen) + 0.05
+        if zero_windows:
+            x[:, : s // 2, : s // 2] = 0
+        x = x.to(dt)
+        g = torch.randn(x.shape, device=dev, generator=gen).to(dt)
+        args = (x, g, u0, v0, 8, 8, shifts, solver, NUM_ITERS, 1e-16, grad_steps)
+        out, ref = windowed_nmf_backward(*args), windowed_nmf_backward_plain(*args)
+        torch.cuda.synchronize()
+        err, rel = compare(out, ref)
+        tol = K1_BWD_RTOL[dname(dt)]
+        label = (f"(2,{s}^3,{c}) {dname(dt)} {solver} shifts={len(shifts)}"
+                 + (f" num_grad_steps={grad_steps}" if grad_steps is not None else "")
+                 + (" zero windows" if zero_windows else "") + (" positive x" if solver == "mu" else ""))
+        check(out.dtype == dt and out.shape == x.shape, f"K1 bwd {label}: wrong output")
+        check(bool(torch.isfinite(out).all()), f"K1 bwd {label}: non-finite dx")
+        check(rel <= tol, f"K1 bwd {label}: max_abs {err:.3e} max_rel {rel:.3e} above {tol:.1e}")
+        del out, ref
+        ms = cuda_time_ms(lambda: windowed_nmf_backward(*args))
+        plain_ms = cuda_time_ms(lambda: windowed_nmf_backward_plain(*args), warmup=1, runs=3)
+        bound = bound_ms(*k1_work(x, len(shifts), True, grad_steps or NUM_ITERS, solver == "mu"), dt)
+        print(f"[K1 bwd] {label}: max_abs={err:.3e} max_rel={rel:.3e} (tol {tol:.1e}) "
+              f"kernel {ms:.3f} ms plain forward+backward {plain_ms:.3f} ms bound {bound[0]:.3f} ms ({bound[1]})")
+        record("windowed_nmf_bwd", err, label, ms, plain_ms, bound)
+        del x, g, args
+        torch.cuda.empty_cache()  # the plain version's graph holds several GB at 128^3 x 32
+
+    # 7. K2 backward against autograd through the plain version
+    grad_names = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
+    for s, c in STAGES:
+        params = mlp_params(c)
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(2, s, s, s, c, device=dev, generator=gen).to(dt)
+            g = torch.randn(x.shape, device=dev, generator=gen).to(dt)
+            args = (x, g, *params)
+            outs, refs = prenorm_mlp_backward(*args), prenorm_mlp_backward_plain(*args)
+            torch.cuda.synchronize()
+            label = f"(2,{s}^3,{c}) H={4 * c} {dname(dt)}"
+            rels = {}
+            for name, out, ref in zip(grad_names, outs, refs):
+                err, rels[name] = compare(out, ref)
+                tol = KERNEL_RTOL[dname(dt)] if name == "dx" else K2_PARAM_RTOL
+                check(out.dtype == ref.dtype and out.shape == ref.shape, f"K2 bwd {label}: wrong {name}")
+                check(rels[name] <= tol, f"K2 bwd {label}: {name} max_abs {err:.3e} max_rel {rels[name]:.3e} above {tol:.1e}")
+                if name == "dx":
+                    dx_err = err
+            del outs, refs
+            ms = cuda_time_ms(lambda: prenorm_mlp_backward(*args))
+            plain_ms = cuda_time_ms(lambda: prenorm_mlp_backward_plain(*args), warmup=1, runs=3)
+            bound = bound_ms(*k2_work(x, 4 * c, backward=True), dt)
+            print(f"[K2 bwd] {label}: dx max_abs={dx_err:.3e} max_rel={rels['dx']:.3e} (tol {KERNEL_RTOL[dname(dt)]:.1e}) "
+                  f"params max_rel " + " ".join(f"{n}={rels[n]:.1e}" for n in grad_names[1:]) + f" (tol {K2_PARAM_RTOL:.1e}) "
+                  f"kernel {ms:.3f} ms plain forward+backward {plain_ms:.3f} ms bound {bound[0]:.3f} ms ({bound[1]})")
+            record("prenorm_mlp_bwd", dx_err, label, ms, plain_ms, bound)
+            del x, g, args
+            torch.cuda.empty_cache()
+
+    # 8. the training slice.  The optimiser is the bundle's AdamW (lr 1e-4, weight decay 1e-5) at a
+    # constant lr: the bundle's warm-up-cosine schedule starts at lr 0, so its first steps would not move.
+    # cuDNN times its algorithms per shape from here on, as a training run with fixed shapes would have it:
+    # without it the stem's f32 weight gradient alone takes 92 ms of a step.
+    settings = brats23_optimizer_settings(steps_per_epoch=1)
+    settings = {k: settings[k] for k in ("lr", "weight_decay")}
+    torch.backends.cudnn.benchmark = True
+    print(f"[train] AdamW {settings}, constant lr (the bundle's schedule warms up from lr 0), batch 2 x 128^3, DiceCE, "
+          "torch.backends.cudnn.benchmark=True")
+    image = torch.randn(2, 4, 128, 128, 128, device=dev, generator=gen.manual_seed(7))
+    field = F.interpolate(torch.randn(2, 3, 8, 8, 8, device=dev, generator=gen), size=(128, 128, 128),
+                          mode="trilinear", align_corners=False)
+    batch = {"image": image, "label": (field > 0.3).float()}
+    print(f"[train] label foreground share {batch['label'].mean().item():.4f}")
+    leaves = {"stem.weight": "stem", "encoder.blocks.0.block.blocks.0.mlp.block.0.linear.weight": "enc0.fc1",
+              "encoder.blocks.4.block.blocks.0.fact.out_proj.linear.weight": "bottleneck.out_proj"}
+    per_step = {"windowed_nmf": n_blocks * n_shifts, "windowed_nmf_bwd": n_blocks * n_shifts,
+                "prenorm_mlp": n_blocks, "prenorm_mlp_bwd": n_blocks}
+    train_launches = dict.fromkeys(wrappers, 0)
+    n_steps = 4
+    for dt in (torch.float32, torch.bfloat16):
+        name = dname(dt)
+
+        def new_state():
+            # No device argument: the entry points' default, the card, is what runs.
+            model = brats23_network(dtype=None if dt == torch.float32 else dt, generator=torch.Generator().manual_seed(0))
+            check(next(model.parameters()).is_cuda, "brats23_network() did not build on the card")
+            return create_train_state(model, **settings)
+
+        # The first step on the plain versions, from the same weights.
+        state = new_state()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with reference_kernels():
+            _, metrics = make_train_step(state.model)(state, batch)
+        torch.cuda.synchronize()
+        ref_loss, ref_norm = metrics["loss"].item(), metrics["grad_norm"].item()
+        ref_grads = {k: p.grad.clone() for k, p in state.model.named_parameters() if k in leaves}
+        ref_mem = torch.cuda.max_memory_allocated(dev)
+        del state, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        state = new_state()
+        step = make_train_step(state.model)
+        losses, seconds = [], []
+        for i in range(n_steps):
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            counts = read_counts()
+            check(counts == per_step, f"train {name} step {i + 1}: launches {counts}, expected {per_step}")
+            for k, v in counts.items():
+                train_launches[k] += v
+            losses.append(metrics["loss"].item())
+            grads = dict(state.model.named_parameters())
+            bad = [k for k, p in grads.items() if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+            check(not bad, f"train {name} step {i + 1}: no finite gradient for {bad[:5]}")
+            if i == 0:
+                tol = TRAIN_RTOL[name]
+                loss_rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+                norm_rel = abs(metrics["grad_norm"].item() - ref_norm) / ref_norm
+                leaf_rel = {short: compare(grads[k].grad, ref_grads[k])[1] for k, short in leaves.items()}
+                print(f"[train] {name} step 1 vs plain versions: loss {losses[0]:.6f} / {ref_loss:.6f} (rel {loss_rel:.2e}, "
+                      f"tol {tol['loss']:.0e}), grad norm rel {norm_rel:.2e}, leaves max_rel "
+                      + " ".join(f"{k}={v:.2e}" for k, v in leaf_rel.items()) + f" (tol {tol['grad']:.0e}); "
+                      f"plain-version step peak memory {ref_mem / 2**30:.2f} GiB")
+                check(loss_rel <= tol["loss"], f"train {name}: loss differs from the plain versions by {loss_rel:.2e}")
+                check(norm_rel <= tol["grad"] and max(leaf_rel.values()) <= tol["grad"],
+                      f"train {name}: gradients differ from the plain versions: norm {norm_rel:.2e}, leaves {leaf_rel}")
+        mem = torch.cuda.max_memory_allocated(dev)
+        check(all(map(math.isfinite, losses)), f"train {name}: non-finite loss {losses}")
+        check(losses[-1] < losses[0], f"train {name}: loss did not fall: {losses}")
+        timed = seconds[1:]
+        print(f"[train] {name}: {statistics.mean(timed):.4f} s/step (steps {', '.join(f'{s:.4f}' for s in timed)} s after a "
+              f"{seconds[0]:.2f} s warm-up step), peak memory {mem / 2**30:.2f} GiB, loss {' -> '.join(f'{v:.6f}' for v in losses)}, "
+              f"launches per step {per_step}")
+        del state, step, metrics, grads, ref_grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(all(n > 0 for n in train_launches.values()), f"a kernel of the training path never launched: {train_launches}")
 
     sources = {
         "windowed_nmf": ("factorizer_tpu_torch/csrc/windowed_nmf.cu",
                          "factorizer_tpu/ops/pallas/windowed_nmf_kernel.py:379"),
+        "windowed_nmf_bwd": ("factorizer_tpu_torch/csrc/windowed_nmf_bwd.cu",
+                             "factorizer_tpu/ops/pallas/windowed_nmf_kernel.py:411"),
         "prenorm_mlp": ("factorizer_tpu_torch/csrc/mlp_block.cu", "factorizer_tpu/ops/pallas/mlp_block.py:183"),
+        "prenorm_mlp_bwd": ("factorizer_tpu_torch/csrc/mlp_block_bwd.cu", "factorizer_tpu/ops/pallas/mlp_block.py:197"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():
-        label, ms, plain_ms = results[name]["times"]
+        label, ms, plain_ms, b_ms, b_by = results[name]["times"]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": max(results[name]["errs"]),
-                        "ms": ms, "plain_ms": plain_ms, "timed_at": label})
+                        "launches": serve_launches[name] + train_launches[name],
+                        "launches_serving": serve_launches[name], "launches_training": train_launches[name],
+                        "max_abs_err": max(results[name]["errs"]),
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": None, "timed_at": label})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,8 +10,8 @@ from .layers import MLP, Conv, ConvTranspose, Identity, LayerNorm, Linear, Posit
 from .models import FactMixer, Factorizer, FactorizerBlock, FactorizerStage, UNet
 from .ops import Matricize, Reshape, SWMatricize
 from .ops.kernels import reference_kernels
-from .train import sliding_window_inference
-from .utils import load_flax_variables
-from .zoo_scripts import brats23_network, ensemble_predict
+from .train import create_train_state, dice_ce_loss, make_eval_step, make_train_step, sliding_window_inference
+from .utils import load_flax_variables, resolve_device
+from .zoo_scripts import brats23_network, brats23_optimizer_settings, ensemble_predict
 
 __version__ = "0.1.0"

@@ -24,16 +24,12 @@
 // channels (32 bytes in f32 at d = 8) are one full sector.  The TPU kernel's
 // lane packing, wrap padding and block-diagonal head mask are Mosaic layout
 // workarounds and have no counterpart here.
-#include <cstdint>
-
-#include "common.cuh"
+#include "windowed_nmf.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = ftt::kWindowThreads;
 
-// kD / kP > 0 fix head_dim / patch at compile time, which turns the index
-// arithmetic below into shifts and masks; 0 takes the runtime d / p.
 template <typename T, int kD, int kP>
 __global__ void __launch_bounds__(kThreads)
 windowed_nmf_shift_kernel(const T* __restrict__ x, float* __restrict__ acc, T* __restrict__ out,
@@ -41,10 +37,9 @@ windowed_nmf_shift_kernel(const T* __restrict__ x, float* __restrict__ acc, T* _
                           int S1, int S2, int S3, int C, int d_rt, int p_rt, int sh1, int sh2,
                           int sh3, int mu, int num_iters, float eps, int first, int last,
                           float scale) {
-  const int d = kD > 0 ? kD : d_rt;
-  const int p = kP > 0 ? kP : p_rt;
+  const ftt::Window<kD, kP> win(d_rt, p_rt, S1, S2, S3, C, sh1, sh2, sh3);
+  const int d = win.d, P3 = win.P3;
   extern __shared__ float smem[];
-  const int P3 = p * p * p;
   const int ld = d + 1;           // padded row: conflict-free column reads
   float* X = smem;                // [P3][ld]
   float* v = X + P3 * ld;         // [P3]
@@ -52,33 +47,11 @@ windowed_nmf_shift_kernel(const T* __restrict__ x, float* __restrict__ acc, T* _
   float* part = u + d;            // [kThreads]
   float* red = part + kThreads;   // [33]
 
-  const int heads = C / d;
-  const int G1 = S1 / p, G2 = S2 / p, G3 = S3 / p;
-  int64_t blk = blockIdx.x;
-  const int h = static_cast<int>(blk % heads); blk /= heads;
-  const int g3 = static_cast<int>(blk % G3); blk /= G3;
-  const int g2 = static_cast<int>(blk % G2); blk /= G2;
-  const int g1 = static_cast<int>(blk % G1); blk /= G1;
-  const int64_t b = blk;
   const int tid = threadIdx.x;
   const int n_elem = P3 * d;
 
-  // Element e of the window is (q, di) with di fastest; q = (a1, a2, a3),
-  // a1-major.  The rolled coordinate i maps to the volume coordinate
-  // (i - s) mod S for both the read and the write; i - s > -p >= -S, so one
-  // conditional add wraps it.
-  auto offset = [&](int e) -> int64_t {
-    const int q = e / d, di = e % d;
-    const int a1 = q / (p * p), a2 = (q / p) % p, a3 = q % p;
-    int c1 = g1 * p + a1 - sh1, c2 = g2 * p + a2 - sh2, c3 = g3 * p + a3 - sh3;
-    c1 += c1 < 0 ? S1 : 0;
-    c2 += c2 < 0 ? S2 : 0;
-    c3 += c3 < 0 ? S3 : 0;
-    return (((b * S1 + c1) * S2 + c2) * S3 + c3) * C + h * d + di;
-  };
-
   for (int e = tid; e < n_elem; e += kThreads) {
-    X[(e / d) * ld + e % d] = ftt::to_float(x[offset(e)]);
+    X[(e / d) * ld + e % d] = ftt::to_float(x[win.offset(e)]);
   }
   float bu_local = 0.f;
   for (int q = tid; q < P3; q += kThreads) {
@@ -88,19 +61,10 @@ windowed_nmf_shift_kernel(const T* __restrict__ x, float* __restrict__ acc, T* _
   if (tid < d) u[tid] = u0[tid];
   float bu = ftt::block_sum(bu_local, red);  // v^T v; ends with a barrier
 
-  const int nch = kThreads / d;  // partial sums of X v: thread = (chunk, di)
   for (int it = 0; it < num_iters; ++it) {
     // u <- HALS: relu((X v + eps) / (v^T v + eps));  MU: u (X v + eps) / (u v^T v + eps)
-    if (tid < nch * d) {
-      const int di = tid % d, ch = tid / d;
-      float s = 0.f;
-      for (int q = ch; q < P3; q += nch) s += X[q * ld + di] * v[q];
-      part[tid] = s;
-    }
-    __syncthreads();
+    const float a = ftt::column_dot(X, v, part, P3, d, ld);
     if (tid < d) {
-      float a = 0.f;
-      for (int k = 0; k < nch; ++k) a += part[k * d + tid];
       const float uo = u[tid];
       u[tid] = mu ? (uo * a + eps) / (uo * bu + eps) : fmaxf((a + eps) / (bu + eps), 0.f);
     }
@@ -110,10 +74,10 @@ windowed_nmf_shift_kernel(const T* __restrict__ x, float* __restrict__ acc, T* _
     for (int di = 0; di < d; ++di) bv += u[di] * u[di];
     float vv_local = 0.f;
     for (int q = tid; q < P3; q += kThreads) {
-      float a = 0.f;
-      for (int di = 0; di < d; ++di) a += X[q * ld + di] * u[di];
+      float av = 0.f;
+      for (int di = 0; di < d; ++di) av += X[q * ld + di] * u[di];
       const float vo = v[q];
-      const float vn = mu ? (vo * a + eps) / (vo * bv + eps) : fmaxf((a + eps) / (bv + eps), 0.f);
+      const float vn = mu ? (vo * av + eps) / (vo * bv + eps) : fmaxf((av + eps) / (bv + eps), 0.f);
       v[q] = vn;
       vv_local += vn * vn;
     }
@@ -121,17 +85,7 @@ windowed_nmf_shift_kernel(const T* __restrict__ x, float* __restrict__ acc, T* _
   }
 
   for (int e = tid; e < n_elem; e += kThreads) {
-    const float y = u[e % d] * v[e / d];
-    const int64_t o = offset(e);
-    if (first && last) {
-      out[o] = ftt::from_float<T>(y * scale);
-    } else if (first) {
-      acc[o] = y;
-    } else if (!last) {
-      acc[o] += y;
-    } else {
-      out[o] = ftt::from_float<T>((acc[o] + y) * scale);
-    }
+    ftt::store_pass(acc, out, win.offset(e), u[e % d] * v[e / d], first, last, scale);
   }
 }
 

@@ -88,7 +88,8 @@ class LayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(self.dtype, x, self.norm.weight)
-        y = F.layer_norm(x.float(), self.norm.normalized_shape, self.norm.weight, self.norm.bias, self.eps)
+        stat = torch.promote_types(x.dtype, torch.float32)  # float64 stays float64, for semantic checks
+        y = F.layer_norm(x.to(stat), self.norm.normalized_shape, self.norm.weight.to(stat), self.norm.bias.to(stat), self.eps)
         return y.to(dt)
 
 
@@ -148,6 +149,7 @@ class Conv(nn.Module):
         ks = to_ntuple(kernel_size, 3)
         self.stride = to_ntuple(stride, 3)
         self.padding = to_ntuple(padding, 3)
+        self.pointwise = ks == (1, 1, 1) and self.stride == (1, 1, 1) and self.padding == (0, 0, 0)
         self.dtype = dtype
         fan_in = in_channels * math.prod(ks)
         self.weight = _uniform((out_channels, in_channels, *ks), fan_in, device, generator)
@@ -156,6 +158,10 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(self.dtype, x, self.weight)
         b = None if self.bias is None else self.bias.to(dt)
+        if self.pointwise:
+            # A k1 convolution is a linear over the channel axis: one GEMM on the channels-last tensor,
+            # no layout transposes, and a GEMM for the weight gradient.
+            return F.linear(x.to(dt), self.weight.to(dt).flatten(1), b)
         y = F.conv3d(_to_channels_first(x.to(dt)), self.weight.to(dt), b, self.stride, self.padding)
         return _to_channels_last(y)
 

@@ -1,9 +1,11 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 All ``csrc/*.cu`` sources compile, at first use, into one shared library with
-a plain C interface (no PyTorch headers, so the build takes seconds):
+a plain C interface (no PyTorch headers, so the build takes seconds).  Each
+source gets its own nvcc, all started together, and one more links the objects:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c <source>
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o <library> <objects>
 
 The library lands in ``factorizer_tpu_torch/build/`` (listed in .gitignore),
 named by a hash of the sources and flags, so an edited source rebuilds and an
@@ -26,6 +28,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 from typing import Iterator
@@ -37,10 +40,8 @@ __all__ = ["nvcc_path", "build", "build_info", "library", "check", "dtype_code",
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
@@ -49,6 +50,11 @@ _SIGNATURES = {
     "ftt_windowed_nmf_shift": [_P, _P, _P, _P, _P] + [_I] * 13 + [_F, _I, _I, _F, _P],
     # x, y, gamma, beta, w1, b1, w2, b2, dtype, M, C, H, eps, stream
     "ftt_prenorm_mlp": [_P] * 8 + [_I, _L, _I, _I, _F, _P],
+    # x, g, acc, out, u0, v0, dtype, B, S1, S2, S3, C, d, p, sh1, sh2, sh3, mu,
+    # num_iters, grad_steps, eps, first, last, scale, stream
+    "ftt_windowed_nmf_shift_bwd": [_P] * 6 + [_I] * 14 + [_F, _I, _I, _F, _P],
+    # x, g, dx, gamma, beta, w1, b1, w2, b2, partials, grads, dtype, M, C, H, eps, blocks, stream
+    "ftt_prenorm_mlp_bwd": [_P] * 11 + [_I, _L, _I, _I, _F, _I, _P],
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -79,15 +85,29 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        objects = [Path(objdir) / f"{src.stem}.o" for src in sources]
+        compiles = []
+        for src, obj in zip(sources, objects):
+            with open(obj.with_suffix(".log"), "w") as log:  # a file, so no compile waits on a full pipe
+                compiles.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                                 stdout=log, stderr=subprocess.STDOUT))
+        for proc in compiles:
+            proc.wait()
+        logs = [obj.with_suffix(".log").read_text() for obj in objects]
+        for src, proc, log in zip(sources, compiles, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{log}")
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)],
+                              capture_output=True, text=True, check=False)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link ({link.returncode}):\n{link.stdout}\n{link.stderr}")
     os.replace(tmp, out)
     _state["build_seconds"] = time.perf_counter() - t0
-    _state["build_log"] = proc.stdout + proc.stderr
+    _state["build_log"] = "".join(logs)
     return out
 
 

@@ -1,15 +1,19 @@
-"""K2: fused pre-norm MLP residual, forward (``csrc/mlp_block.cu``).
+"""K2: fused pre-norm MLP residual, forward and backward (``csrc/mlp_block.cu``, ``csrc/mlp_block_bwd.cu``).
 
 Counterpart of ``fused_prenorm_mlp`` in ``factorizer_tpu/ops/pallas/mlp_block.py``:
 ``y = x + fc2(gelu(fc1(layer_norm(x))))`` per token, with the hidden
-activations kept out of device memory.  Parameters come in the torch
-``nn.Linear`` layouts: ``w1 (H, C)``, ``w2 (C, H)``.
+activations kept out of device memory in both directions.  Parameters come in
+the torch ``nn.Linear`` layouts: ``w1 (H, C)``, ``w2 (C, H)``.
 
-:func:`prenorm_mlp` launches the CUDA kernel for a CUDA tensor and runs
-:func:`prenorm_mlp_plain` for a CPU tensor.  Both compute in float32 with
-float32 parameters and cast the result to ``x``'s dtype; GELU is the exact
-erf form.  Only the forward is a kernel so far: on the card the wrapper
-refuses inputs that require a gradient.
+:func:`prenorm_mlp` launches the forward kernel for a CUDA tensor and is
+differentiable in ``x`` and the six parameters: its backward
+(:func:`prenorm_mlp_backward`) recomputes the hidden activations per token
+tile from the saved ``x`` and sums the parameter gradients in a fixed order
+(per-block partial sums, then one pass over the blocks), so a gradient is the
+same from run to run.  A CPU tensor takes :func:`prenorm_mlp_plain`, which
+autograd differentiates; :func:`prenorm_mlp_backward_plain` is that gradient
+by name.  Everything computes in float32 with float32 parameters and casts to
+``x``'s dtype; GELU and its derivative are the exact erf forms.
 """
 
 from __future__ import annotations
@@ -19,30 +23,41 @@ import torch.nn.functional as F
 
 from . import build
 
-__all__ = ["prenorm_mlp", "prenorm_mlp_plain", "KERNEL_WIDTHS"]
+__all__ = ["prenorm_mlp", "prenorm_mlp_plain", "prenorm_mlp_backward", "prenorm_mlp_backward_plain", "KERNEL_WIDTHS"]
 
 # Channel widths the kernel is instantiated for (one tile shape each).
 KERNEL_WIDTHS = (32, 64, 128, 256, 512)
+# Tokens per block of the backward kernel, per width (``csrc/mlp_block_bwd.cu``).
+_BWD_TILE_TOKENS = {32: 128, 64: 64, 128: 64, 256: 32, 512: 16}
+# Cap on the backward's per-block partial parameter gradients, which bounds its grid at wide C.
+_BWD_SCRATCH_BYTES = 2**30
+PARAM_NAMES = ("gamma", "beta", "w1", "b1", "w2", "b2")
 
 
 def prenorm_mlp_plain(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5) -> torch.Tensor:
-    """The plain PyTorch version, in float32, cast back to ``x``'s dtype."""
-    xf = x.float()
+    """The plain PyTorch version, in float32, cast back to ``x``'s dtype (float64 stays float64, for semantic checks)."""
+    dt = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(dt)
+    gamma, beta, w1, b1, w2, b2 = (p.to(dt) for p in (gamma, beta, w1, b1, w2, b2))
     h = F.linear(F.layer_norm(xf, (xf.shape[-1],), gamma, beta, eps), w1, b1)
     return (xf + F.linear(F.gelu(h), w2, b2)).to(x.dtype)
 
 
-def prenorm_mlp(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5) -> torch.Tensor:
-    """``x + fc2(gelu(fc1(LN(x))))`` over the trailing axis of ``x (..., C)``; K2 on the card."""
-    if not build.launches_kernel(x):
-        return prenorm_mlp_plain(x, gamma, beta, w1, b1, w2, b2, eps)
+def prenorm_mlp_backward_plain(x, g, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5) -> tuple[torch.Tensor, ...]:
+    """``(dx, dgamma, dbeta, dw1, db1, dw2, db2)`` for the cotangent ``g``: autograd through :func:`prenorm_mlp_plain`."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (x, gamma, beta, w1, b1, w2, b2)]
+        y = prenorm_mlp_plain(*leaves, eps)
+        return torch.autograd.grad(y, leaves, g)
 
+
+def _check(x, params: dict) -> tuple[int, int]:
+    """Raise on what the kernels do not take; returns ``(C, H)``."""
     c = x.shape[-1]
-    hidden = w1.shape[0]
+    hidden = params["w1"].shape[0]
     if c not in KERNEL_WIDTHS:
         raise ValueError(f"the kernel covers C in {KERNEL_WIDTHS}, got C={c}")
     expected = {"gamma": (c,), "beta": (c,), "w1": (hidden, c), "b1": (hidden,), "w2": (c, hidden), "b2": (c,)}
-    params = {"gamma": gamma, "beta": beta, "w1": w1, "b1": b1, "w2": w2, "b2": b2}
     for name, p in params.items():
         if tuple(p.shape) != expected[name]:
             raise ValueError(f"{name} has shape {tuple(p.shape)}, expected {expected[name]}")
@@ -50,8 +65,11 @@ def prenorm_mlp(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5) -> torch.Tens
             raise ValueError(f"{name} must be a contiguous float32 tensor on {x.device}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    if torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in params.values())):
-        raise NotImplementedError("the fused MLP backward kernel is not ported yet")
+    return c, hidden
+
+
+def _launch_forward(x, params: dict, eps: float) -> torch.Tensor:
+    c, hidden = _check(x, params)
     dtype = build.dtype_code(x.dtype)
     lib = build.library()
     y = torch.empty_like(x)
@@ -62,6 +80,63 @@ def prenorm_mlp(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5) -> torch.Tens
     build.check(status, "prenorm_mlp")
     prenorm_mlp.launches += 1
     return y
+
+
+def prenorm_mlp_backward(x, g, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5) -> tuple[torch.Tensor, ...]:
+    """``(dx, dgamma, dbeta, dw1, db1, dw2, db2)`` of :func:`prenorm_mlp` for the cotangent ``g``.
+
+    The backward kernel on the card, plain on the CPU.  ``g`` has ``x``'s shape
+    and dtype; ``dx`` too, and the parameter gradients are float32.
+    """
+    if not build.launches_kernel(x):
+        return prenorm_mlp_backward_plain(x, g, gamma, beta, w1, b1, w2, b2, eps)
+    params = dict(zip(PARAM_NAMES, (gamma, beta, w1, b1, w2, b2)))
+    c, hidden = _check(x, params)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device or not g.is_contiguous():
+        raise ValueError("g must be a contiguous tensor of x's shape, dtype and device")
+    dtype = build.dtype_code(x.dtype)
+    lib = build.library()
+    tokens = x.numel() // c
+    # One set of partial parameter gradients per block: gamma, beta, w1, b1, w2, b2, flat.
+    sizes = [p.numel() for p in params.values()]
+    tiles = -(-tokens // _BWD_TILE_TOKENS[c])
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    blocks = max(1, min(tiles, 2 * sms, _BWD_SCRATCH_BYTES // (4 * sum(sizes))))
+    partials = torch.empty(blocks, sum(sizes), dtype=torch.float32, device=x.device)
+    grads = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    status = lib.ftt_prenorm_mlp_bwd(
+        x.data_ptr(), g.data_ptr(), dx.data_ptr(), *(p.data_ptr() for p in params.values()),
+        partials.data_ptr(), grads.data_ptr(), dtype, tokens, c, hidden, eps, blocks, build.stream_of(x),
+    )
+    build.check(status, "prenorm_mlp_bwd")
+    prenorm_mlp_backward.launches += 1
+    return (dx, *(t.view(p.shape) for t, p in zip(grads.split(sizes), params.values())))
+
+
+prenorm_mlp_backward.launches = 0
+
+
+class _PrenormMLP(torch.autograd.Function):
+    """The kernels under autograd: forward saves ``x`` and the parameters, the hidden activations are recomputed."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, w1, b1, w2, b2, eps):
+        ctx.save_for_backward(x, gamma, beta, w1, b1, w2, b2)
+        ctx.eps = eps
+        return _launch_forward(x, dict(zip(PARAM_NAMES, (gamma, beta, w1, b1, w2, b2))), eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = prenorm_mlp_backward(ctx.saved_tensors[0], g.contiguous(), *ctx.saved_tensors[1:], ctx.eps)
+        return (*(gr if need else None for gr, need in zip(grads, ctx.needs_input_grad)), None)
+
+
+def prenorm_mlp(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5) -> torch.Tensor:
+    """``x + fc2(gelu(fc1(LN(x))))`` over the trailing axis of ``x (..., C)``; K2 on the card, plain on the CPU."""
+    if not build.launches_kernel(x):
+        return prenorm_mlp_plain(x, gamma, beta, w1, b1, w2, b2, eps)
+    return _PrenormMLP.apply(x, gamma, beta, w1, b1, w2, b2, eps)
 
 
 prenorm_mlp.launches = 0

@@ -1,4 +1,4 @@
-"""K1: shifted-window rank-1 NMF mixing, forward (``csrc/windowed_nmf.cu``).
+"""K1: shifted-window rank-1 NMF mixing, forward and backward (``csrc/windowed_nmf.cu``, ``csrc/windowed_nmf_bwd.cu``).
 
 Counterpart of ``windowed_nmf_multi`` in
 ``factorizer_tpu/ops/pallas/windowed_nmf_kernel.py``: the mean over shifts of
@@ -7,10 +7,14 @@ Counterpart of ``windowed_nmf_multi`` in
 into ``d x p^3`` matrices and the solve runs ``num_iters`` rank-1 HALS or MU
 updates from the shared tables ``u0 (d, 1)`` and ``v0 (p^3, 1)``.
 
-:func:`windowed_nmf` launches the CUDA kernel once per shift for a CUDA
-tensor and runs :func:`windowed_nmf_plain` for a CPU tensor.  The solve runs
-in float32 for every input dtype.  Only the forward is a kernel so far: on the
-card the wrapper refuses inputs that require a gradient.
+:func:`windowed_nmf` launches the forward kernel once per shift for a CUDA
+tensor and is differentiable in ``x``: its backward launches the backward
+kernel once per shift (:func:`windowed_nmf_backward`), which reruns the solve
+inside each block and walks back through the last ``num_grad_steps``
+iterations, so only ``x`` is saved between the two.  ``u0`` and ``v0`` get no
+gradient.  A CPU tensor takes :func:`windowed_nmf_plain`, which autograd
+differentiates; :func:`windowed_nmf_backward_plain` is that gradient by name.
+The solve runs in float32 for every input dtype.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import torch
 
 from . import build
 
-__all__ = ["windowed_nmf", "windowed_nmf_plain", "EPS"]
+__all__ = ["windowed_nmf", "windowed_nmf_plain", "windowed_nmf_backward", "windowed_nmf_backward_plain", "EPS"]
 
 EPS = 1e-16
 SOLVERS = ("hals", "mu")
@@ -64,8 +68,8 @@ def _rank1_solve(m, u0, v0, solver: str, num_iters: int, eps: float, num_grad_st
     num_grad = num_iters if num_grad_steps is None else num_grad_steps
     k = num_iters - num_grad  # leading iterations outside autograd
     m_ng = m.detach()
-    u = u0.float().expand(*m.shape[:-2], *u0.shape)
-    v = v0.float().expand(*m.shape[:-2], *v0.shape)
+    u = u0.to(m.dtype).expand(*m.shape[:-2], *u0.shape)
+    v = v0.to(m.dtype).expand(*m.shape[:-2], *v0.shape)
     for it in range(1, num_iters + 1):
         x = m_ng if it <= k else m
         a, b = x @ v, v.transpose(-1, -2) @ v
@@ -87,8 +91,10 @@ def windowed_nmf_plain(
     eps: float = EPS,
     num_grad_steps: Optional[int] = None,
 ) -> torch.Tensor:
-    """The plain PyTorch version: roll, fold, solve, unfold, un-roll per shift; f32 mean; cast."""
-    xf = x.float()
+    """The plain PyTorch version: roll, fold, solve, unfold, un-roll per shift; f32 mean; cast.
+
+    A float64 input is solved in float64, for the semantic checks."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     acc = None
     for shift in shifts:
         sh = _norm_shift(shift, patch)
@@ -99,6 +105,119 @@ def windowed_nmf_plain(
             ys = torch.roll(ys, tuple(-s for s in sh), (1, 2, 3))
         acc = ys if acc is None else acc + ys
     return (acc / len(shifts)).to(x.dtype)
+
+
+def windowed_nmf_backward_plain(
+    x: torch.Tensor,
+    g: torch.Tensor,
+    u0: torch.Tensor,
+    v0: torch.Tensor,
+    head_dim: int,
+    patch: int,
+    shifts: Sequence = (None,),
+    solver: str = "hals",
+    num_iters: int = 5,
+    eps: float = EPS,
+    num_grad_steps: Optional[int] = None,
+) -> torch.Tensor:
+    """``dx`` for the cotangent ``g`` of the output: autograd through :func:`windowed_nmf_plain`."""
+    if num_grad_steps is not None and num_grad_steps <= 0:
+        return torch.zeros_like(x)  # every iteration sees a detached x
+    with torch.enable_grad():
+        xd = x.detach().requires_grad_(True)
+        y = windowed_nmf_plain(xd, u0.detach(), v0.detach(), head_dim, patch, shifts, solver, num_iters, eps, num_grad_steps)
+        (dx,) = torch.autograd.grad(y, xd, g)
+    return dx
+
+
+def _check(x, u0, v0, head_dim: int, patch: int, solver: str) -> None:
+    """Raise on what the kernels do not take."""
+    if solver not in SOLVERS:
+        raise ValueError(f"solver must be one of {SOLVERS}, got {solver!r}")
+    if x.ndim != 5:
+        raise ValueError(f"expected a (B, S1, S2, S3, C) volume, got shape {tuple(x.shape)}")
+    _, s1, s2, s3, c = x.shape
+    if c % head_dim or s1 % patch or s2 % patch or s3 % patch:
+        raise ValueError(f"shape {tuple(x.shape)} does not split into heads of {head_dim} and patches of {patch}")
+    if tuple(u0.shape) != (head_dim, 1) or tuple(v0.shape) != (patch**3, 1):
+        raise ValueError(f"rank-1 tables of shapes ({head_dim}, 1) and ({patch**3}, 1) expected")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    if u0.device != x.device or v0.device != x.device:
+        raise ValueError("u0 and v0 must lie on x's device")
+
+
+def _launch(entry: str, counter, x, g, u0, v0, head_dim, patch, shifts, solver, num_iters, eps, extra=()):
+    """One launch of ``entry`` per shift; the passes sum into an f32 scratch, the last scales and casts."""
+    _check(x, u0, v0, head_dim, patch, solver)
+    dtype = build.dtype_code(x.dtype)
+    fn = getattr(build.library(), entry)
+    stream = build.stream_of(x)
+    u0f = u0.detach().reshape(-1).float().contiguous()
+    v0f = v0.detach().reshape(-1).float().contiguous()
+    out = torch.empty_like(x)
+    n = len(shifts)
+    acc = torch.empty(x.shape, dtype=torch.float32, device=x.device) if n > 1 else None
+    operands = (x.data_ptr(),) if g is None else (x.data_ptr(), g.data_ptr())
+    for i, shift in enumerate(shifts):
+        status = fn(
+            *operands, None if acc is None else acc.data_ptr(), out.data_ptr(),
+            u0f.data_ptr(), v0f.data_ptr(), dtype, *x.shape, head_dim, patch,
+            *_norm_shift(shift, patch), int(solver == "mu"), num_iters, *extra, eps,
+            int(i == 0), int(i == n - 1), 1.0 / n, stream,
+        )
+        build.check(status, entry)
+        counter.launches += 1
+    return out
+
+
+def windowed_nmf_backward(
+    x: torch.Tensor,
+    g: torch.Tensor,
+    u0: torch.Tensor,
+    v0: torch.Tensor,
+    head_dim: int,
+    patch: int,
+    shifts: Sequence = (None,),
+    solver: str = "hals",
+    num_iters: int = 5,
+    eps: float = EPS,
+    num_grad_steps: Optional[int] = None,
+) -> torch.Tensor:
+    """``dx`` of :func:`windowed_nmf` for the cotangent ``g``; the backward kernel on the card, plain on the CPU.
+
+    ``g`` has ``x``'s shape and dtype.  Only the last ``num_grad_steps``
+    iterations are differentiated (None = all; 0 gives exactly zero).
+    """
+    if not build.launches_kernel(x):
+        return windowed_nmf_backward_plain(x, g, u0, v0, head_dim, patch, shifts, solver, num_iters, eps, num_grad_steps)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device or not g.is_contiguous():
+        raise ValueError("g must be a contiguous tensor of x's shape, dtype and device")
+    grad_steps = num_iters if num_grad_steps is None else max(min(num_grad_steps, num_iters), 0)
+    if grad_steps == 0:
+        return torch.zeros_like(x)
+    return _launch("ftt_windowed_nmf_shift_bwd", windowed_nmf_backward, x, g, u0, v0, head_dim, patch,
+                   shifts, solver, num_iters, eps, extra=(grad_steps,))
+
+
+windowed_nmf_backward.launches = 0
+
+
+class _WindowedNMF(torch.autograd.Function):
+    """The kernels under autograd: forward saves ``x`` alone; ``u0`` and ``v0`` get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, u0, v0, head_dim, patch, shifts, solver, num_iters, eps, num_grad_steps):
+        ctx.save_for_backward(x, u0, v0)
+        ctx.config = (head_dim, patch, shifts, solver, num_iters, eps, num_grad_steps)
+        return _launch("ftt_windowed_nmf_shift", windowed_nmf, x, None, u0, v0, head_dim, patch,
+                       shifts, solver, num_iters, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, u0, v0 = ctx.saved_tensors
+        dx = windowed_nmf_backward(x, g.contiguous(), u0, v0, *ctx.config) if ctx.needs_input_grad[0] else None
+        return (dx,) + (None,) * 9
 
 
 def windowed_nmf(
@@ -116,45 +235,14 @@ def windowed_nmf(
     """Shifted-window NMF mixing of ``x (B, S1, S2, S3, C)``; K1 on the card, plain on the CPU.
 
     ``shifts`` holds ``None``, ints or 3-tuples.  Returns a tensor of ``x``'s
-    shape and dtype.  ``num_grad_steps`` matters only to gradients, which the
-    plain version alone computes so far.
+    shape and dtype, differentiable in ``x``.  ``num_grad_steps`` matters only
+    to the gradient.
     """
     if solver not in SOLVERS:
         raise ValueError(f"solver must be one of {SOLVERS}, got {solver!r}")
     if not build.launches_kernel(x):
         return windowed_nmf_plain(x, u0, v0, head_dim, patch, shifts, solver, num_iters, eps, num_grad_steps)
-
-    if x.ndim != 5:
-        raise ValueError(f"expected a (B, S1, S2, S3, C) volume, got shape {tuple(x.shape)}")
-    B, s1, s2, s3, c = x.shape
-    if c % head_dim or s1 % patch or s2 % patch or s3 % patch:
-        raise ValueError(f"shape {tuple(x.shape)} does not split into heads of {head_dim} and patches of {patch}")
-    if tuple(u0.shape) != (head_dim, 1) or tuple(v0.shape) != (patch**3, 1):
-        raise ValueError(f"rank-1 tables of shapes ({head_dim}, 1) and ({patch**3}, 1) expected")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
-    if u0.device != x.device or v0.device != x.device:
-        raise ValueError("u0 and v0 must lie on x's device")
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError("the windowed-NMF backward kernel is not ported yet")
-    dtype = build.dtype_code(x.dtype)
-    lib = build.library()
-    stream = build.stream_of(x)
-    u0f = u0.detach().reshape(-1).float().contiguous()
-    v0f = v0.detach().reshape(-1).float().contiguous()
-    out = torch.empty_like(x)
-    n = len(shifts)
-    acc = torch.empty(x.shape, dtype=torch.float32, device=x.device) if n > 1 else None
-    for i, shift in enumerate(shifts):
-        sh = _norm_shift(shift, patch)
-        status = lib.ftt_windowed_nmf_shift(
-            x.data_ptr(), None if acc is None else acc.data_ptr(), out.data_ptr(),
-            u0f.data_ptr(), v0f.data_ptr(), dtype, B, s1, s2, s3, c, head_dim, patch,
-            *sh, int(solver == "mu"), num_iters, eps, int(i == 0), int(i == n - 1), 1.0 / n, stream,
-        )
-        build.check(status, "windowed_nmf")
-        windowed_nmf.launches += 1
-    return out
+    return _WindowedNMF.apply(x, u0, v0, head_dim, patch, tuple(shifts), solver, num_iters, eps, num_grad_steps)
 
 
 windowed_nmf.launches = 0

@@ -1,9 +1,9 @@
-"""Bundle serving: the ``factorizer_brats23`` network and k-fold ensemble prediction.
+"""The ``factorizer_brats23`` bundle: its network, its optimiser settings and k-fold ensemble prediction.
 
 PyTorch counterpart of the model half of ``ensemble_inference`` in
 ``factorizer_tpu/zoo_scripts.py``: sliding-window logits per fold model, the
-mean of their sigmoids, and a threshold at 0.5.  NIfTI IO and the
-preprocessing transforms are not ported yet.
+mean of their sigmoids, and a threshold at 0.5.  NIfTI IO, the preprocessing
+transforms and the ``SegmentationTrainer`` workflow are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,8 +15,9 @@ import torch
 from .models.factorizer import Factorizer
 from .ops.reshape import SWMatricize
 from .train.sliding_window import sliding_window_inference
+from .utils.helpers import resolve_device
 
-__all__ = ["brats23_network", "ensemble_predict"]
+__all__ = ["brats23_network", "brats23_optimizer_settings", "ensemble_predict"]
 
 
 def brats23_network(
@@ -27,8 +28,10 @@ def brats23_network(
     """The bundle's ``network_def`` (zoo/factorizer_brats23/configs/train.yaml:24-48).
 
     ``dtype=torch.bfloat16`` is the bundle's ``amp: true``; None (f32) is
-    what it ships.  Weights are random, drawn from ``generator``.
+    what it ships.  Weights are random, drawn from ``generator``.  The network
+    is built on the card unless ``device`` names another one (``"cpu"``).
     """
+    device = resolve_device(device)
     return Factorizer(
         in_channels=4,
         out_channels=3,
@@ -49,6 +52,16 @@ def brats23_network(
         device=device,
         generator=generator,
     )
+
+
+def brats23_optimizer_settings(steps_per_epoch: int) -> dict:
+    """The bundle's AdamW and warm-up-cosine numbers (train.yaml:10-14), as ``create_train_state`` takes them.
+
+    Mirrors ``SegmentationTrainer`` (``factorizer_tpu/train/loop.py:124-130``):
+    lr 1e-4, weight decay 1e-5, 5 warm-up epochs of 500.
+    """
+    steps = max(steps_per_epoch, 1)
+    return {"lr": 1e-4, "weight_decay": 1e-5, "warmup_steps": 5 * steps, "total_steps": 500 * steps}
 
 
 @torch.inference_mode()

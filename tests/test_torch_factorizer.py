@@ -141,7 +141,7 @@ def test_factmixer_matches_jax(case):
 
 def test_bundle_network_names_match_jax_at_full_width():
     """brats23_network's state dict converts onto the JAX bundle network's variable tree (shapes)."""
-    port = ftt.brats23_network(generator=torch.Generator().manual_seed(0))
+    port = ftt.brats23_network(device="cpu", generator=torch.Generator().manual_seed(0))
     jax_model = ftx.Factorizer(
         in_channels=4, out_channels=3, spatial_size=(128, 128, 128),
         encoder_depth=(1, 1, 1, 1, 1), encoder_width=(32, 64, 128, 256, 512), strides=(1, 2, 2, 2, 2),

@@ -77,11 +77,32 @@ def test_reference_kernels_is_scoped():
 
 
 def test_sources_and_build_flags():
-    """The kernels compile from the package's own csrc/ for sm_90a, one shared library, no torch headers."""
+    """The kernels compile from the package's own csrc/ for sm_90a into one shared library, no torch headers, no fast math."""
     sources = sorted(p.name for p in build.CSRC_DIR.glob("*.cu"))
-    assert sources == ["mlp_block.cu", "windowed_nmf.cu"]
-    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS and "-shared" in build.NVCC_FLAGS
+    assert sources == ["mlp_block.cu", "mlp_block_bwd.cu", "windowed_nmf.cu", "windowed_nmf_bwd.cu"]
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in build.ARCH_FLAGS
+    assert "--use_fast_math" not in build.NVCC_FLAGS  # flush-to-zero would change K1's gradients at zero windows
     for path in build.CSRC_DIR.iterdir():
         text = path.read_text()
         assert "torch/extension.h" not in text and "cublas" not in text.lower(), path
     assert build.BUILD_DIR.parent == PACKAGE
+    entry_points = {name for path in build.CSRC_DIR.glob("*.cu") for name in build._SIGNATURES if f" {name}(" in path.read_text()}
+    assert entry_points == set(build._SIGNATURES)  # every bound entry point is defined in a source
+
+
+def test_entry_points_default_to_the_card():
+    """device=None means the card: without one, brats23_network() raises instead of building on the CPU."""
+    assert not torch.cuda.is_available()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ftt.brats23_network()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ftt.resolve_device(None)
+    assert ftt.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cuda_tensors_never_take_the_plain_version():
+    """No wrapper gives way to its plain version: the routing has no try, and the old refusals are gone."""
+    for name in ("windowed_nmf.py", "mlp_block.py"):
+        source = (PACKAGE / "ops" / "kernels" / name).read_text()
+        assert "NotImplementedError" not in source, name
+        assert not [n for n in ast.walk(ast.parse(source)) if isinstance(n, ast.Try)], name
