@@ -1,4 +1,15 @@
-from .basic import ACTIVATIONS, MLP, Conv, ConvTranspose, Identity, LayerNorm, Linear
+from .basic import (
+    ACTIVATIONS,
+    MLP,
+    Conv,
+    ConvTranspose,
+    GroupNorm,
+    Identity,
+    InstanceNorm,
+    LayerNorm,
+    Linear,
+    resolve_activation,
+)
 from .pos_embed import PositionalEmbedding
 
 __all__ = [
@@ -6,8 +17,11 @@ __all__ = [
     "MLP",
     "Conv",
     "ConvTranspose",
+    "GroupNorm",
     "Identity",
+    "InstanceNorm",
     "LayerNorm",
     "Linear",
     "PositionalEmbedding",
+    "resolve_activation",
 ]

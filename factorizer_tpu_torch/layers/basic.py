@@ -1,4 +1,4 @@
-"""Basic layers on channels-last tensors: Linear, LayerNorm, MLP, Conv, ConvTranspose.
+"""Basic layers on channels-last tensors: Linear, the norms, MLP, Conv, ConvTranspose.
 
 PyTorch counterpart of ``factorizer_tpu/layers/basic.py``.  Every layer takes
 ``(B, *spatial, C)``.  Submodules and parameters carry the reference torch
@@ -23,9 +23,21 @@ from torch import nn
 
 from ..utils.helpers import to_ntuple
 
-__all__ = ["Identity", "Linear", "LayerNorm", "MLP", "Conv", "ConvTranspose", "ACTIVATIONS"]
+__all__ = ["Identity", "Linear", "LayerNorm", "GroupNorm", "InstanceNorm", "MLP", "Conv", "ConvTranspose",
+           "ACTIVATIONS", "resolve_activation"]
 
-ACTIVATIONS = {"relu": torch.relu}
+ACTIVATIONS = {"relu": torch.relu, "identity": lambda x: x}  # the names the ported bundles use
+
+
+def resolve_activation(spec):
+    """An elementwise function from a name in :data:`ACTIVATIONS`, None (identity) or a callable."""
+    if spec is None:
+        return ACTIVATIONS["identity"]
+    if isinstance(spec, str):
+        return ACTIVATIONS[spec]
+    if not callable(spec):
+        raise TypeError(f"activation must be a name, None or a callable, got {spec!r}")
+    return spec
 
 LN_EPS = 1e-5  # torch's LayerNorm default, as the JAX model's
 
@@ -93,6 +105,69 @@ class LayerNorm(nn.Module):
         return y.to(dt)
 
 
+def _group_norm(x: torch.Tensor, groups: int, weight, bias, eps: float, dtype) -> torch.Tensor:
+    """Normalise ``x (B, *S, C)`` over the spatial axes and the channels of each of ``groups`` groups.
+
+    Reduces over the channels-last tensor directly (no transposes); statistics
+    and arithmetic in float32 (float64 stays float64), output in ``dtype``.
+    """
+    stat = torch.promote_types(x.dtype, torch.float32)
+    b, c = x.shape[0], x.shape[-1]
+    xg = x.to(stat).reshape(b, -1, groups, c // groups)
+    var, mean = torch.var_mean(xg, dim=(1, 3), correction=0, keepdim=True)
+    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    if weight is not None:
+        y = y * weight.to(stat) + bias.to(stat)
+    return y.to(dtype)
+
+
+class _Affine(nn.Module):
+    """Holder of a norm's ``weight`` and ``bias`` (ones and zeros), or of nothing."""
+
+    def __init__(self, dim: int, affine: bool, device=None) -> None:
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim, device=device)) if affine else None
+        self.bias = nn.Parameter(torch.zeros(dim, device=device)) if affine else None
+
+
+class GroupNorm(nn.Module):
+    """Group normalisation of channels-last tensors (eps 1e-5), torch's ``(num_groups, num_channels)`` signature."""
+
+    def __init__(self, num_groups: int, dim: int, eps: float = LN_EPS, dtype: Optional[torch.dtype] = None,
+                 device=None) -> None:
+        super().__init__()
+        if dim % num_groups:
+            raise ValueError(f"{dim} channels do not split into {num_groups} groups")
+        self.num_groups, self.eps, self.dtype = num_groups, eps, dtype
+        self.norm = _Affine(dim, True, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _compute_dtype(self.dtype, x, self.norm.weight)
+        return _group_norm(x, self.num_groups, self.norm.weight, self.norm.bias, self.eps, dt)
+
+
+class InstanceNorm(nn.Module):
+    """Instance normalisation: each channel of each sample over its spatial extent (eps 1e-5).
+
+    ``affine=False``, torch's default for ``InstanceNormNd``, holds no
+    parameters and so adds nothing to a state dict.  Statistics in float32
+    under a bfloat16 ``dtype``, which is the output's.
+    """
+
+    def __init__(self, dim: int, eps: float = LN_EPS, affine: bool = False, dtype: Optional[torch.dtype] = None,
+                 device=None) -> None:
+        super().__init__()
+        self.dim, self.eps, self.dtype = dim, eps, dtype
+        self.norm = _Affine(dim, affine, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.norm.weight is not None:
+            dt = _compute_dtype(self.dtype, x, self.norm.weight)
+        else:
+            dt = self.dtype if self.dtype is not None else x.dtype
+        return _group_norm(x, self.dim, self.norm.weight, self.norm.bias, self.eps, dt)
+
+
 class MLP(nn.Module):
     """Token-wise feed-forward ``C -> ratio*C -> C``: ``block`` = Linear, GELU (erf), -, Linear, -.
 
@@ -130,8 +205,12 @@ class MLP(nn.Module):
         return self.block(x)
 
 
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_CONV_TRANSPOSE = {1: F.conv_transpose1d, 2: F.conv_transpose2d, 3: F.conv_transpose3d}
+
+
 class Conv(nn.Module):
-    """3-D convolution on channels-last tensors (cuDNN on the card), torch-like signature."""
+    """``spatial_dims``-D convolution on channels-last tensors (cuDNN on the card), torch-like signature."""
 
     def __init__(
         self,
@@ -144,12 +223,14 @@ class Conv(nn.Module):
         dtype: Optional[torch.dtype] = None,
         device=None,
         generator: Optional[torch.Generator] = None,
+        spatial_dims: int = 3,
     ) -> None:
         super().__init__()
-        ks = to_ntuple(kernel_size, 3)
-        self.stride = to_ntuple(stride, 3)
-        self.padding = to_ntuple(padding, 3)
-        self.pointwise = ks == (1, 1, 1) and self.stride == (1, 1, 1) and self.padding == (0, 0, 0)
+        ks = to_ntuple(kernel_size, spatial_dims)
+        self.spatial_dims = spatial_dims
+        self.stride = to_ntuple(stride, spatial_dims)
+        self.padding = to_ntuple(padding, spatial_dims)
+        self.pointwise = set(ks) == {1} and set(self.stride) == {1} and set(self.padding) == {0}
         self.dtype = dtype
         fan_in = in_channels * math.prod(ks)
         self.weight = _uniform((out_channels, in_channels, *ks), fan_in, device, generator)
@@ -162,12 +243,12 @@ class Conv(nn.Module):
             # A k1 convolution is a linear over the channel axis: one GEMM on the channels-last tensor,
             # no layout transposes, and a GEMM for the weight gradient.
             return F.linear(x.to(dt), self.weight.to(dt).flatten(1), b)
-        y = F.conv3d(_to_channels_first(x.to(dt)), self.weight.to(dt), b, self.stride, self.padding)
+        y = _CONV[self.spatial_dims](_to_channels_first(x.to(dt)), self.weight.to(dt), b, self.stride, self.padding)
         return _to_channels_last(y)
 
 
 class ConvTranspose(nn.Module):
-    """3-D transposed convolution on channels-last tensors; weight ``(I, O, *k)`` as torch's."""
+    """``spatial_dims``-D transposed convolution on channels-last tensors; weight ``(I, O, *k)`` as torch's."""
 
     def __init__(
         self,
@@ -179,10 +260,12 @@ class ConvTranspose(nn.Module):
         dtype: Optional[torch.dtype] = None,
         device=None,
         generator: Optional[torch.Generator] = None,
+        spatial_dims: int = 3,
     ) -> None:
         super().__init__()
-        ks = to_ntuple(kernel_size, 3)
-        self.stride = to_ntuple(stride, 3)
+        ks = to_ntuple(kernel_size, spatial_dims)
+        self.spatial_dims = spatial_dims
+        self.stride = to_ntuple(stride, spatial_dims)
         self.dtype = dtype
         fan_in = in_channels * math.prod(ks)
         self.weight = _uniform((in_channels, out_channels, *ks), fan_in, device, generator)
@@ -191,5 +274,5 @@ class ConvTranspose(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(self.dtype, x, self.weight)
         b = None if self.bias is None else self.bias.to(dt)
-        y = F.conv_transpose3d(_to_channels_first(x.to(dt)), self.weight.to(dt), b, self.stride)
+        y = _CONV_TRANSPOSE[self.spatial_dims](_to_channels_first(x.to(dt)), self.weight.to(dt), b, self.stride)
         return _to_channels_last(y)

@@ -7,7 +7,7 @@ state dict converts with ``convert_state_dict``.  The public ``forward`` takes
 and returns channels-first ``(B, C, *S)``; everything between the stem and the
 head is channels-last ``(B, *S, C)``.
 
-The stem is a k3 convolution (padding 1, no bias), a stride-s stage
+Volumes (``spatial_dims=3``) and images (``spatial_dims=2``).  The stem is a k3 convolution (padding 1, no bias), a stride-s stage
 downsamples with a k2 stride-2 convolution, the decoder upsamples with a k2
 stride-2 transposed convolution and concatenates ``[skip, up]`` on the channel
 axis, and the head is a k1 convolution.  Deep supervision and
@@ -27,8 +27,9 @@ __all__ = ["UNet", "StageFactory"]
 
 # (stage index, in_channels, out_channels, depth, spatial_size) -> stage module.
 # Stages 0 .. n_enc-1 are the encoder (n_enc-1 is the bottleneck), then the
-# decoder stages deepest-first.
-StageFactory = Callable[[int, int, int, int, tuple], nn.Module]
+# decoder stages deepest-first.  ``spatial_size`` is None when the U-Net was
+# given none (translation-invariant stages need none).
+StageFactory = Callable[[int, int, int, int, Optional[tuple]], nn.Module]
 
 
 class _EncoderStage(nn.Module):
@@ -58,23 +59,24 @@ class _Blocks(nn.Module):
 
 
 class UNet(nn.Module):
-    """U-shaped encoder/decoder with skip connections, over 3-D volumes.
+    """U-shaped encoder/decoder with skip connections, over 3-D volumes or 2-D images.
 
     Args:
         in_channels / out_channels: model input / output channels.
-        spatial_size: input spatial size, handed to the stage blocks.
+        spatial_size: input spatial size, handed to the stage blocks; None if no stage needs it.
         encoder_depth / encoder_width / strides: per encoder stage.
         decoder_depth: per decoder stage, deepest first.
         block: builds each stage's block (see :data:`StageFactory`).
         dtype: compute dtype of the stem, resampling convs and stages
             (the head computes in float32, as the JAX model's does).
+        spatial_dims: 3 or 2, the rank of the convolutions.
     """
 
     def __init__(
         self,
         in_channels: int,
         out_channels: int,
-        spatial_size: Sequence[int],
+        spatial_size: Optional[Sequence[int]],
         encoder_depth: Sequence[int],
         encoder_width: Sequence[int],
         strides: Sequence[int],
@@ -83,16 +85,19 @@ class UNet(nn.Module):
         dtype: Optional[torch.dtype] = None,
         device=None,
         generator: Optional[torch.Generator] = None,
+        spatial_dims: int = 3,
     ) -> None:
         super().__init__()
-        conv_kw = dict(dtype=dtype, device=device, generator=generator)
+        if spatial_size is not None and len(spatial_size) != spatial_dims:
+            raise ValueError(f"spatial_size {tuple(spatial_size)} does not have {spatial_dims} axes")
+        conv_kw = dict(dtype=dtype, device=device, generator=generator, spatial_dims=spatial_dims)
         widths = [encoder_width[0], *encoder_width]
         self.stem = Conv(in_channels, widths[0], kernel_size=3, padding=1, bias=False, **conv_kw)
 
-        size = tuple(spatial_size)
+        size = None if spatial_size is None else tuple(spatial_size)
         encoder = []
         for i, stride in enumerate(strides[: len(encoder_depth)]):
-            size = tuple(s // stride for s in size)
+            size = None if size is None else tuple(s // stride for s in size)
             if stride == 1:
                 if widths[i] != widths[i + 1]:
                     raise ValueError(f"stride-1 stage {i} needs matching widths, got {widths[i]} -> {widths[i + 1]}")
@@ -107,13 +112,14 @@ class UNet(nn.Module):
         dec_strides = list(strides[::-1][: len(decoder_depth)])
         decoder = []
         for i, stride in enumerate(dec_strides):
-            size = tuple(s * stride for s in size)
+            size = None if size is None else tuple(s * stride for s in size)
             up = ConvTranspose(dec_widths[i], dec_widths[i + 1], kernel_size=2, stride=stride, **conv_kw)
             stage = block(len(encoder_depth) + i, 2 * dec_widths[i + 1], dec_widths[i + 1], decoder_depth[i], size)
             decoder.append(_DecoderStage(up, stage))
         self.decoder = _Blocks(decoder)
 
-        self.head = Conv(encoder_width[0], out_channels, kernel_size=1, device=device, generator=generator)
+        self.head = Conv(encoder_width[0], out_channels, kernel_size=1, device=device, generator=generator,
+                         spatial_dims=spatial_dims)
 
     def forward_features(self, x: torch.Tensor) -> list[torch.Tensor]:
         """Channels-last feature pass; returns the decoder pyramid, finest first."""

@@ -55,6 +55,10 @@ _SIGNATURES = {
     "ftt_windowed_nmf_shift_bwd": [_P] * 6 + [_I] * 14 + [_F, _I, _I, _F, _P],
     # x, g, dx, gamma, beta, w1, b1, w2, b2, partials, grads, dtype, M, C, H, eps, blocks, stream
     "ftt_prenorm_mlp_bwd": [_P] * 11 + [_I, _L, _I, _I, _F, _I, _P],
+    # x, w, y, dtype, B, S1, S2, S3, C, k1, k2, k3, stream
+    "ftt_depthwise_conv": [_P] * 3 + [_I] * 9 + [_P],
+    # x, g, partials, dw, dtype, B, S1, S2, S3, C, k1, k2, k3, blocks, stream
+    "ftt_depthwise_conv_dw": [_P] * 4 + [_I] * 10 + [_P],
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -10,6 +10,9 @@ and undoes the layout changes that ``convert_state_dict`` makes:
 * LayerNorm ``scale``                   -> ``weight``
 * positional embedding ``(1, *S, C)``   -> ``(1, C, *S)``
 * NMF tables u0 / v0                    -> buffers ``factorize.init.u0`` / ``.v0``
+* Deconv ``h0`` and its ``linear`` head -> ``deconv.init.h0`` / ``deconv.init.linear``
+
+Convolutions of either rank (2-D images, 3-D volumes) go through the same rules.
 
 So ``convert_state_dict(model.state_dict())`` reproduces the variables leaf for leaf.
 """
@@ -68,6 +71,11 @@ _STAGE_RULES: list[tuple[str, str, Transform]] = [
     (r"blocks\.(\d+)\.fact\.(in_proj|out_proj)\.linear\.weight", "block{0}.fact.{1}.linear.kernel", _linear_weight),
     (r"blocks\.(\d+)\.fact\.out_proj\.linear\.bias", "block{0}.fact.out_proj.linear.bias", None),
     (r"blocks\.(\d+)\.fact\.factorize\.init\.(u0|v0)", "buffers:block{0}.fact.factorize_op.initializer.{1}", None),
+    (r"blocks\.(\d+)\.dcm\.(in_proj|out_proj)\.linear\.weight", "block{0}.dcm.{1}.linear.kernel", _linear_weight),
+    (r"blocks\.(\d+)\.dcm\.out_proj\.linear\.bias", "block{0}.dcm.out_proj.linear.bias", None),
+    (r"blocks\.(\d+)\.dcm\.deconv\.init\.h0", "block{0}.dcm.deconv.h0", None),
+    (r"blocks\.(\d+)\.dcm\.deconv\.init\.linear\.linear\.weight", "block{0}.dcm.deconv.linear.linear.kernel", _linear_weight),
+    (r"blocks\.(\d+)\.dcm\.deconv\.init\.linear\.linear\.bias", "block{0}.dcm.deconv.linear.linear.bias", None),
     # MLP Sequential: block.0 = fc1, block.3 = fc2
     (r"blocks\.(\d+)\.mlp\.block\.0\.linear\.weight", "block{0}.mlp.fc1.linear.kernel", _linear_weight),
     (r"blocks\.(\d+)\.mlp\.block\.0\.linear\.bias", "block{0}.mlp.fc1.linear.bias", None),

@@ -1,4 +1,5 @@
-"""The ``factorizer_brats23`` bundle: its network, its optimiser settings and k-fold ensemble prediction.
+"""The bundles' networks (``factorizer_brats23``, ``deconver_brats23``, ``deconver_fives``), their optimiser
+settings and k-fold ensemble prediction.
 
 PyTorch counterpart of the model half of ``ensemble_inference`` in
 ``factorizer_tpu/zoo_scripts.py``: sliding-window logits per fold model, the
@@ -12,12 +13,15 @@ from typing import Optional, Sequence
 
 import torch
 
+from .layers.basic import InstanceNorm
+from .models.deconver import Deconver
 from .models.factorizer import Factorizer
 from .ops.reshape import SWMatricize
 from .train.sliding_window import sliding_window_inference
 from .utils.helpers import resolve_device
 
-__all__ = ["brats23_network", "brats23_optimizer_settings", "ensemble_predict"]
+__all__ = ["brats23_network", "brats23_optimizer_settings", "deconver_brats23_network", "deconver_fives_network",
+           "ensemble_predict"]
 
 
 def brats23_network(
@@ -54,8 +58,57 @@ def brats23_network(
     )
 
 
+def _deconver_bundle(in_channels, out_channels, kernel_size, dtype, device, generator) -> Deconver:
+    """What the two Deconver bundles share: five stages of one depthwise block each, ``InstanceNorm``, one update."""
+    return Deconver(
+        in_channels=in_channels,
+        out_channels=out_channels,
+        spatial_dims=len(kernel_size),
+        encoder_depth=(1, 1, 1, 1, 1),
+        encoder_width=(32, 64, 128, 256, 512),
+        strides=(1, 2, 2, 2, 2),
+        decoder_depth=(1, 1, 1, 1),
+        norm=InstanceNorm,
+        act="relu",
+        groups=-1,
+        ratio=1,
+        kernel_size=kernel_size,
+        num_iters=1,
+        num_grad_iters=None,
+        mlp_ratio=4,
+        dtype=dtype,
+        device=resolve_device(device),
+        generator=generator,
+    )
+
+
+def deconver_brats23_network(
+    dtype: Optional[torch.dtype] = None,
+    device=None,
+    generator: Optional[torch.Generator] = None,
+) -> Deconver:
+    """The ``deconver_brats23`` bundle's ``network_def`` (zoo/deconver_brats23/configs/train.yaml:24-42):
+    4 modalities in, 3 regions out, 3-D, kernel 3x3x3, roi 128^3, batch 2.
+
+    ``dtype``, ``device`` and ``generator`` as in :func:`brats23_network`: the
+    card unless ``device`` names another one.
+    """
+    return _deconver_bundle(4, 3, (3, 3, 3), dtype, device, generator)
+
+
+def deconver_fives_network(
+    dtype: Optional[torch.dtype] = None,
+    device=None,
+    generator: Optional[torch.Generator] = None,
+) -> Deconver:
+    """The ``deconver_fives`` bundle's ``network_def`` (zoo/deconver_fives/configs/train.yaml:24-42):
+    RGB in, one vessel mask out, 2-D, kernel 7x7, roi 512^2, batch 16."""
+    return _deconver_bundle(3, 1, (7, 7), dtype, device, generator)
+
+
 def brats23_optimizer_settings(steps_per_epoch: int) -> dict:
-    """The bundle's AdamW and warm-up-cosine numbers (train.yaml:10-14), as ``create_train_state`` takes them.
+    """The bundle's AdamW and warm-up-cosine numbers (train.yaml:10-14), as ``create_train_state`` takes them;
+    the two Deconver bundles ship the same numbers.
 
     Mirrors ``SegmentationTrainer`` (``factorizer_tpu/train/loop.py:124-130``):
     lr 1e-4, weight decay 1e-5, 5 warm-up epochs of 500.

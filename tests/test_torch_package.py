@@ -9,7 +9,7 @@ import pytest
 import torch
 
 import factorizer_tpu_torch as ftt
-from factorizer_tpu_torch.ops.kernels import build, prenorm_mlp, windowed_nmf
+from factorizer_tpu_torch.ops.kernels import build, depthwise_conv, depthwise_conv_dw, prenorm_mlp, windowed_nmf
 
 torch.set_num_threads(1)
 
@@ -43,14 +43,16 @@ def test_cpu_calls_build_nothing():
     """Importing the wrappers and calling them on CPU tensors loads no kernel library."""
     code = (
         "import torch\n"
-        "from factorizer_tpu_torch.ops.kernels import build, prenorm_mlp, windowed_nmf\n"
+        "from factorizer_tpu_torch.ops.kernels import build, depthwise_conv, depthwise_conv_dw, prenorm_mlp, windowed_nmf\n"
         "x = torch.rand(1, 8, 8, 8, 8)\n"
+        "depthwise_conv(x, torch.rand(1, 27, 8), (3, 3, 3)); depthwise_conv_dw(x, x, (3, 3, 3))\n"
         "windowed_nmf(x, torch.rand(4, 1), torch.rand(64, 1), 4, 4, (None, 2))\n"
         "c = 32; y = torch.rand(5, c)\n"
         "prenorm_mlp(y, torch.ones(c), torch.zeros(c), torch.rand(4 * c, c), torch.zeros(4 * c),\n"
         "            torch.rand(c, 4 * c), torch.zeros(c))\n"
         "assert build._state['lib'] is None\n"
         "assert windowed_nmf.launches == 0 and prenorm_mlp.launches == 0\n"
+        "assert depthwise_conv.launches == 0 and depthwise_conv_dw.launches == 0\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, cwd=PACKAGE.parent, timeout=120)
 
@@ -79,7 +81,8 @@ def test_reference_kernels_is_scoped():
 def test_sources_and_build_flags():
     """The kernels compile from the package's own csrc/ for sm_90a into one shared library, no torch headers, no fast math."""
     sources = sorted(p.name for p in build.CSRC_DIR.glob("*.cu"))
-    assert sources == ["mlp_block.cu", "mlp_block_bwd.cu", "windowed_nmf.cu", "windowed_nmf_bwd.cu"]
+    assert sources == ["depthwise_conv.cu", "depthwise_conv_dw.cu", "mlp_block.cu", "mlp_block_bwd.cu",
+                       "windowed_nmf.cu", "windowed_nmf_bwd.cu"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in build.ARCH_FLAGS
     assert "--use_fast_math" not in build.NVCC_FLAGS  # flush-to-zero would change K1's gradients at zero windows
     for path in build.CSRC_DIR.iterdir():
@@ -91,10 +94,11 @@ def test_sources_and_build_flags():
 
 
 def test_entry_points_default_to_the_card():
-    """device=None means the card: without one, brats23_network() raises instead of building on the CPU."""
+    """device=None means the card: without one, the bundle factories raise instead of building on the CPU."""
     assert not torch.cuda.is_available()
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        ftt.brats23_network()
+    for factory in (ftt.brats23_network, ftt.deconver_brats23_network, ftt.deconver_fives_network):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            factory()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ftt.resolve_device(None)
     assert ftt.resolve_device("cpu") == torch.device("cpu")
@@ -102,7 +106,43 @@ def test_entry_points_default_to_the_card():
 
 def test_cuda_tensors_never_take_the_plain_version():
     """No wrapper gives way to its plain version: the routing has no try, and the old refusals are gone."""
-    for name in ("windowed_nmf.py", "mlp_block.py"):
+    for name in ("windowed_nmf.py", "mlp_block.py", "depthwise_conv.py"):
         source = (PACKAGE / "ops" / "kernels" / name).read_text()
         assert "NotImplementedError" not in source, name
         assert not [n for n in ast.walk(ast.parse(source)) if isinstance(n, ast.Try)], name
+
+
+def test_depthwise_kernels_stay_off_the_libraries():
+    """On a CUDA tensor K3's wrappers reach no convolution of torch's: ``F.conv*`` appears in the plain version alone,
+    and the Deconv layer sends every depthwise "same" convolution to the wrapper."""
+    tree = ast.parse((PACKAGE / "ops" / "kernels" / "depthwise_conv.py").read_text())
+    users = {
+        fn.name
+        for fn in ast.walk(tree) if isinstance(fn, ast.FunctionDef)
+        for node in ast.walk(fn)
+        if isinstance(node, ast.Attribute) and isinstance(node.value, ast.Name) and node.value.id == "F"
+    }
+    assert users == {"depthwise_conv_plain"}
+    source = (PACKAGE / "ops" / "kernels" / "depthwise_conv.py").read_text()
+    assert "torch.compile" not in source and "cudnn" not in source.lower()
+    assert depthwise_conv.launches == 0 and depthwise_conv_dw.launches == 0
+
+
+@pytest.mark.parametrize("factory,kernel_size,in_out", [
+    (ftt.deconver_brats23_network, (3, 3, 3), (4, 3)),
+    (ftt.deconver_fives_network, (7, 7), (3, 1)),
+])
+def test_deconver_bundle_factories(factory, kernel_size, in_out):
+    """The Deconver bundles' networks as their train.yaml has them: full width and depth, depthwise, one update,
+    InstanceNorm without parameters (built on ``meta``: no memory, no arithmetic)."""
+    model = factory(device="meta")
+    blocks = [m for m in model.modules() if isinstance(m, ftt.DeconverBlock)]
+    assert len(blocks) == 9
+    assert [b.dcm.deconv.channels for b in blocks] == [32, 64, 128, 256, 512, 256, 128, 64, 32]
+    for b in blocks:
+        d = b.dcm.deconv
+        assert (d.groups, d.source_channels, d.kernel_size, d.num_iters, d.num_grad_iters) == (d.channels, 1, kernel_size, 1, None)
+        assert isinstance(b.norm1, ftt.InstanceNorm) and not list(b.norm1.parameters())
+        assert b.mlp.fc1.linear.out_features == 4 * d.channels
+    assert (model.stem.weight.shape[1], model.head.weight.shape[0]) == in_out
+    assert model.stem.weight.ndim == 2 + len(kernel_size)

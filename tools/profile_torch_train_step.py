@@ -1,13 +1,15 @@
-"""Device time of one train step of the PyTorch port's bundle network, by kernel.
+"""Device time of one train step of one of the PyTorch port's bundle networks, by kernel.
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
-    python3 tools/profile_torch_train_step.py [--dtype float32|bfloat16] [--steps 3] [--top 25] [--cudnn-benchmark]
+    python3 tools/profile_torch_train_step.py [--model factorizer|deconver] [--dtype float32|bfloat16]
+                                              [--steps 3] [--top 25] [--cudnn-benchmark]
 
-Builds ``brats23_network()`` from seed 0, takes two warm-up steps on a
+Builds ``brats23_network()`` (``--model factorizer``, the default) or
+``deconver_brats23_network()`` from seed 0, takes two warm-up steps on a
 synthetic batch 2 x 128^3, then traces ``--steps`` steps with
 ``torch.profiler`` and prints, per kernel name, the device milliseconds per
-step, grouped under a few headings (the port's four kernels, LayerNorm,
+step, grouped under a few headings (the port's six kernels, the norms,
 cuDNN, GEMMs, the optimiser, elementwise and the rest), the wall time per
 step under the profiler and the share of it that the device was busy, and
 the convolution calls by input shape.
@@ -29,7 +31,10 @@ GROUPS = (  # first match wins
     ("K1 fwd (windowed_nmf.cu)", ("windowed_nmf_shift",)),
     ("K2 bwd (mlp_block_bwd.cu)", ("prenorm_mlp_bwd", "sum_partials")),
     ("K2 fwd (mlp_block.cu)", ("prenorm_mlp",)),
+    ("K3 dw (depthwise_conv_dw.cu)", ("depthwise_conv_dw", "sum_dw_partials")),
+    ("K3 fwd and dx (depthwise_conv.cu)", ("depthwise_conv",)),
     ("LayerNorm fwd+bwd", ("layer_norm", "LayerNorm", "GammaBeta")),
+    ("InstanceNorm statistics (var_mean)", ("WelfordOps", "welford", "var_mean")),
     ("GEMMs (cuBLAS)", ("cublas", "gemv", "splitK", "cutlass")),
     ("cuDNN convolutions and their layout transposes", ("cudnn", "conv", "nchwToNhwc", "nhwcToNchw", "xmma", "wgrad", "dgrad")),
     ("optimiser (fused AdamW)", ("adam",)),
@@ -41,6 +46,8 @@ GROUPS = (  # first match wins
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--model", default="factorizer", choices=("factorizer", "deconver"),
+                    help="factorizer_brats23 or deconver_brats23, at full width and depth")
     ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=25)
@@ -54,7 +61,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("profile_torch_train_step: no CUDA device")
     from factorizer_tpu_torch.train.trainer import create_train_state, make_train_step
-    from factorizer_tpu_torch.zoo_scripts import brats23_network
+    from factorizer_tpu_torch.zoo_scripts import brats23_network, deconver_brats23_network
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -63,8 +70,8 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     dtype = None if args.dtype == "float32" else torch.bfloat16
-    state = create_train_state(brats23_network(dtype=dtype, generator=torch.Generator().manual_seed(0)),
-                               lr=1e-4, weight_decay=1e-5)
+    network = {"factorizer": brats23_network, "deconver": deconver_brats23_network}[args.model]
+    state = create_train_state(network(dtype=dtype, generator=torch.Generator().manual_seed(0)), lr=1e-4, weight_decay=1e-5)
     step = make_train_step(state.model)
     gen = torch.Generator(device="cuda").manual_seed(7)
     field = F.interpolate(torch.randn(2, 3, 8, 8, 8, device="cuda", generator=gen), size=(128,) * 3, mode="trilinear")
@@ -72,6 +79,7 @@ def main() -> None:
     for _ in range(2):
         step(state, batch)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
         t0 = time.perf_counter()
@@ -97,8 +105,9 @@ def main() -> None:
         group = next((g for g, keys in GROUPS if any(k in name for k in keys)), "other")
         by_group[group] += ms
     total = sum(by_kernel.values())
-    print(f"[profile] {args.dtype}: {wall_ms:.1f} ms wall per step under the profiler, {total:.1f} ms of device time "
-          f"per step ({100 * total / wall_ms:.1f} % busy), {args.steps} steps")
+    print(f"[profile] {args.model} {args.dtype}: {wall_ms:.1f} ms wall per step under the profiler, {total:.1f} ms of device time "
+          f"per step ({100 * total / wall_ms:.1f} % busy), {args.steps} steps, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for group, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
         print(f"[profile] {ms:8.2f} ms  {100 * ms / total:5.1f} %  {group}")
     for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[: args.top]:
