@@ -8,7 +8,8 @@ Phases, one or more result lines each:
   1. environment: the card (name, power limit), torch / CUDA / nvcc versions; TF32 off.
   2. build: one nvcc per csrc/*.cu for sm_90a, started together, into factorizer_tpu_torch/build/.
   3. K1 (windowed NMF) against its plain PyTorch version at the five stage shapes
-     of a batch-2 128^3 forward, f32 and bf16, plus MU and a single zero shift.
+     of a batch-2 128^3 forward, f32 and bf16, plus MU, a single zero shift, and the
+     factorizer_isles22 shapes (8,64^3,32) and (8,8^3,256) with patches of 4^3.
   4. K2 (fused pre-norm MLP) against its plain version at the five block-tail shapes.
   5. the serving slice: the full-width factorizer_brats23 network (random weights
      from a seed) serves 2 synthetic BraTS-native (1, 4, 240, 240, 155) volumes
@@ -16,8 +17,8 @@ Phases, one or more result lines each:
      mixer and every block tail on a kernel; the first request's logits are
      compared with the same call on the plain versions.
   6. K1 backward against autograd through the plain version: the five stage shapes,
-     f32 and bf16, plus MU, a single zero shift, num_grad_steps=2 and an input
-     with whole windows set to zero.
+     f32 and bf16, plus MU, a single zero shift, num_grad_steps=2, an input
+     with whole windows set to zero, and the two factorizer_isles22 shapes.
   7. K2 backward (dx and the six parameter gradients) against autograd through the
      plain version at the five shapes, f32 and bf16.
   8. the training slice: brats23_network() -> create_train_state -> make_train_step
@@ -38,6 +39,21 @@ Phases, one or more result lines each:
      the plain versions.
  13. the Deconver training slice: 1 warm-up and 3 timed steps, f32 and bf16: 54 forward-kernel launches
      (27 forward, 27 dx) and 27 dw launches per step; the first step against the plain versions.
+ 14. K4 (NMF of a flat batch of small matrices, rank 1 to 4) against its plain version: the five folded stage
+     shapes of the flat factorizer_brats23 forward at batch 2, (n, 8, 512) with n = 131072 ... 512, f32 and bf16;
+     the 2-D shapes (524288, 8, 64) and (32768, 8, 64); MU; ranks 2, 3, 4; (1000, 5, 37) at rank 3; an input
+     with a quarter of its matrices all zero.
+ 15. K4 backward at rank 1 against autograd through the plain version at the same shapes, with MU,
+     num_grad_steps=2 and the zero matrices; rank 2 through the autograd function, whose backward is a
+     recompute in torch operations (counted, not a kernel launch).
+ 16. the flat-route serving slices: brats23_network(factorize_options={"use_windowed": False}) serves a
+     2 BraTS-native volumes in f32 and bf16 (9 K4 launches per forward, none of K1; logits against the plain
+     versions and against the windowed route from the same seed); a 2-D Swin-Factorizer at the FIVES data
+     shape, one forward of (16, 3, 512, 512); brats23_network(rank=2), one forward of a window pair;
+     factorizer_isles22_network() and deconver_isles22_network() each serve 2 (1, 2, 112, 112, 73) volumes.
+ 17. the flat-route training slices: the flat factorizer_brats23 step at batch 2 x 128^3, f32 and bf16 (9 K4
+     forward and 9 K4 backward launches per step beside K2's), and the factorizer_isles22 step at batch
+     8 x 64^3, f32; each first step against the plain versions.
 Then the card's line, a JSON line with every kernel, and as the last line
 {"ok": true, "device": {...}}.  Any failed check raises, so the exit code is
 non-zero and no result line is printed.
@@ -83,7 +99,7 @@ def cuda_time_ms(fn, warmup: int = 3, runs: int = 15) -> float:
 
 def kernel_label(mangled: str) -> str:
     """``prenorm_mlp_bwd_kernel<f32,512,16,16,16>`` from the mangled name ptxas reports."""
-    found = re.search(r"\d+((?:windowed_nmf|prenorm_mlp|sum_partials|depthwise_conv|sum_dw_partials)\w*?_kernel)(?:I(.+?)EEv)?", mangled)
+    found = re.search(r"\d+((?:windowed_nmf|nmf_reconstruct|prenorm_mlp|sum_partials|depthwise_conv|sum_dw_partials)\w*?_kernel)(?:I(.+?)EEv)?", mangled)
     if not found:
         return mangled
     name, targs = found.groups()
@@ -136,7 +152,18 @@ TRAIN_RTOL = {"float32": {"loss": 1e-4, "grad": 1e-2}, "bfloat16": {"loss": 1e-2
 K3_DW_RTOL = 1e-4
 DECONV_RTOL = 1e-3
 
+# K4 at rank 2 to 4: HALS sweeps column by column and subtracts sums of nearly equal size
+# (a[:, r] - sum_j u[:, j] b[j, r]) before each division, so the order of summation moves the f32 result
+# more than at rank 1, where the update is one quotient.  Measured 9e-7, 3e-6 and 2e-5 to 6e-5 at ranks 2, 3
+# and 4 (the difference grows with the rank and moves with the input); the band is that of the backward kernels.
+K4_RANK_RTOL = 1e-3
+# The flat route against the windowed route, whole-network logits from the same weights: the same function.
+# f32: two summation orders per mixer, as kernels against plain versions.  bf16: K1 sums the shifts in f32 and
+# rounds once, the flat route rounds each shift's reconstruction to bf16 before the mean.
+ROUTE_RTOL = {"float32": 1e-3, "bfloat16": 5e-2}
+
 STAGES = [(128, 32), (64, 64), (32, 128), (16, 256), (8, 512)]  # (S, C) at batch 2, roi 128^3
+FLAT_STAGES = [131072, 32768, 8192, 2048, 512]  # matrices of (8, 512) per stage: 4 shifts x B*heads x windows
 NUM_ITERS = 5
 
 # Published peaks of one H100 SXM at 700 W: HBM bytes/s, f32 FLOP/s outside the
@@ -161,6 +188,19 @@ def k1_work(x, n_shifts: int, backward: bool, grad_steps: int = NUM_ITERS, mu: b
     if backward:
         flops += 4 + (10 if mu else 8) * grad_steps
     return (3 if backward else 2) * n * x.element_size(), float(n_shifts * n * flops)
+
+
+def k4_work(x, rank: int, backward: bool, grad_steps: int = NUM_ITERS, mu: bool = False) -> tuple[float, float]:
+    """(bytes, flops) of K4 on ``x (..., M, N)``.  Per element the solve does two products with the factors
+    (4 R flops) per iteration and the reconstruction (2 R); the R x R Gram matrices and the sweeps over a row's
+    R columns add 2 R^2 (M + N + 2) / (M N) per element, left out.  The rank-1 backward adds the seed's two
+    products (4) and, per differentiated iteration, two products and two rank-1 updates of dX (8; MU 10).
+    Forward: x read, y written.  Backward: x and g read, dx written."""
+    n = x.numel()
+    flops = (4 * NUM_ITERS + 2) * rank
+    if backward:
+        flops += 4 + (10 if mu else 8) * grad_steps
+    return (3 if backward else 2) * n * x.element_size(), float(n * flops)
 
 
 def k2_work(x, hidden: int, backward: bool) -> tuple[float, float]:
@@ -192,22 +232,27 @@ def main() -> None:
     import torch.nn.functional as F
 
     from factorizer_tpu_torch.factorization.deconv import Deconv
+    from factorizer_tpu_torch.factorization.nmf import MatrixFactorization
     from factorizer_tpu_torch.ops.kernels import (
         build, depthwise_conv, depthwise_conv_dw, depthwise_conv_dw_plain, depthwise_conv_plain,
-        prenorm_mlp, prenorm_mlp_backward, prenorm_mlp_backward_plain, prenorm_mlp_plain,
+        nmf_reconstruct, nmf_reconstruct_backward, nmf_reconstruct_backward_plain, nmf_reconstruct_plain, prenorm_mlp, prenorm_mlp_backward, prenorm_mlp_backward_plain, prenorm_mlp_plain,
         reference_kernels, windowed_nmf, windowed_nmf_backward, windowed_nmf_backward_plain, windowed_nmf_plain,
     )
-    from factorizer_tpu_torch.train.sliding_window import sliding_window_inference
+    from factorizer_tpu_torch.models.factorizer import Factorizer
+    from factorizer_tpu_torch.ops.reshape import SWMatricize
+    from factorizer_tpu_torch.train.sliding_window import sliding_window_inference, sliding_window_positions
     from factorizer_tpu_torch.train.trainer import create_train_state, make_train_step
     from factorizer_tpu_torch.zoo_scripts import (
-        brats23_network, brats23_optimizer_settings, deconver_brats23_network, deconver_fives_network, ensemble_predict,
+        brats23_network, brats23_optimizer_settings, deconver_brats23_network, deconver_fives_network,
+        deconver_isles22_network, ensemble_predict, factorizer_isles22_network,
     )
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
     wrappers = {"windowed_nmf": windowed_nmf, "windowed_nmf_bwd": windowed_nmf_backward,
                 "prenorm_mlp": prenorm_mlp, "prenorm_mlp_bwd": prenorm_mlp_backward,
-                "depthwise_conv": depthwise_conv, "depthwise_conv_dw": depthwise_conv_dw}
+                "depthwise_conv": depthwise_conv, "depthwise_conv_dw": depthwise_conv_dw,
+                "nmf_reconstruct": nmf_reconstruct, "nmf_reconstruct_bwd": nmf_reconstruct_backward}
 
     def reset_counts() -> None:
         for w in wrappers.values():
@@ -252,22 +297,25 @@ def main() -> None:
             results[name]["times"] = (label, ms, plain_ms, *bound, library_ms)
 
     gen = torch.Generator(device=dev)
-    four, zero_shift = (None, 2, 4, 6), ((0, 0, 0),)
+    four, zero_shift, isles_shifts = (None, 2, 4, 6), ((0, 0, 0),), (None, 1, 2, 3)
+    # factorizer_isles22 at batch 8, roi 64^3: patches of 4^3, so K1's run-time-size instance; stages 0 and 3.
+    isles_shapes = [(8, 64, 32), (8, 8, 256)]
 
     # 3. K1 against its plain version
     u0 = torch.rand(8, 1, device=dev, generator=gen.manual_seed(1))
-    v0 = torch.rand(512, 1, device=dev, generator=gen)
-    cases = [(s, c, dt, "hals", four) for s, c in STAGES for dt in (torch.float32, torch.bfloat16)]
-    cases += [(32, 128, torch.float32, "mu", four), (32, 128, torch.float32, "hals", zero_shift)]
+    v0 = {8: torch.rand(512, 1, device=dev, generator=gen), 4: torch.rand(64, 1, device=dev, generator=gen)}
+    cases = [(2, s, c, 8, dt, "hals", four) for s, c in STAGES for dt in (torch.float32, torch.bfloat16)]
+    cases += [(2, 32, 128, 8, torch.float32, "mu", four), (2, 32, 128, 8, torch.float32, "hals", zero_shift)]
+    cases += [(b, s, c, 4, dt, "hals", isles_shifts) for b, s, c in isles_shapes for dt in (torch.float32, torch.bfloat16)]
     with torch.inference_mode():
-        for s, c, dt, solver, shifts in cases:
-            x = torch.relu(torch.randn(2, s, s, s, c, device=dev, generator=gen.manual_seed(s + c))).to(dt)
-            args = (x, u0, v0, 8, 8, shifts, solver, NUM_ITERS)
+        for b, s, c, p, dt, solver, shifts in cases:
+            x = torch.relu(torch.randn(b, s, s, s, c, device=dev, generator=gen.manual_seed(s + c))).to(dt)
+            args = (x, u0, v0[p], 8, p, shifts, solver, NUM_ITERS)
             out, ref = windowed_nmf(*args), windowed_nmf_plain(*args)
             torch.cuda.synchronize()
             err, rel = compare(out, ref)
             tol = KERNEL_RTOL[dname(dt)]
-            label = f"(2,{s}^3,{c}) {dname(dt)} {solver} shifts={len(shifts)}"
+            label = f"({b},{s}^3,{c}){'' if p == 8 else f' p={p}'} {dname(dt)} {solver} shifts={len(shifts)}"
             check(out.dtype == dt and out.shape == x.shape, f"K1 {label}: wrong output")
             check(rel <= tol, f"K1 {label}: max_abs {err:.3e} max_rel {rel:.3e} above {tol:.1e}")
             ms = cuda_time_ms(lambda: windowed_nmf(*args))
@@ -312,21 +360,28 @@ def main() -> None:
                 del x, out, ref
 
     # 5. the serving slice
-    roi, sw_batch, overlap, n_requests = (128, 128, 128), 2, 0.5, 2
-    n_windows = 3 * 3 * 2
-    forwards = -(-n_windows // sw_batch)
+    sw_batch, overlap, n_requests = 2, 0.5, 2
     n_blocks, n_shifts = 9, 4
     serve_launches = dict.fromkeys(wrappers, 0)
+    brats = dict(volume=(1, 4, 240, 240, 155), roi=(128, 128, 128), out_channels=3)
+    isles = dict(volume=(1, 2, 112, 112, 73), roi=(64, 64, 64), out_channels=1)
 
-    def serve_slice(tag: str, network, per_forward: dict) -> None:
-        """Serve ``n_requests`` synthetic BraTS-native volumes after a warm-up request, f32 and bf16; check the
-        launches per request and the first request's logits against the plain versions."""
+    def serve_slice(tag: str, network, per_forward: dict, volume=brats["volume"], roi=brats["roi"],
+                    out_channels=brats["out_channels"], dtypes=("float32", "bfloat16"), same_function_as=None) -> None:
+        """Serve ``n_requests`` synthetic volumes after a warm-up request, per dtype; check the launches per request
+        and the first request's logits against the plain versions and, where ``same_function_as`` builds a network
+        that computes the same function by another route, against that network from the same seed."""
+        n_windows = len(sliding_window_positions(volume[2:], roi, overlap))
+        forwards = -(-n_windows // sw_batch)
         expected = {name: forwards * per_forward.get(name, 0) for name in wrappers}
-        volumes = [torch.randn(1, 4, 240, 240, 155, device=dev, generator=gen.manual_seed(100 + i)) for i in range(n_requests + 1)]
-        models = {
-            "float32": network(device=dev, generator=torch.Generator().manual_seed(0)).eval(),
-            "bfloat16": network(dtype=torch.bfloat16, device=dev, generator=torch.Generator().manual_seed(0)).eval(),
-        }
+        volumes = [torch.randn(volume, device=dev, generator=gen.manual_seed(100 + i)) for i in range(n_requests + 1)]
+
+        def build_models(factory) -> dict:
+            kw = {"float32": {}, "bfloat16": {"dtype": torch.bfloat16}}
+            return {name: factory(device=dev, generator=torch.Generator().manual_seed(0), **kw[name]).eval() for name in dtypes}
+
+        models = build_models(network)
+        out_shape = (1, out_channels, *volume[2:])
         reset_counts()
         for name, model in models.items():
             ensemble_predict([model], volumes[-1], roi, sw_batch, overlap)  # warm-up request
@@ -339,14 +394,13 @@ def main() -> None:
                 mask, probs = ensemble_predict([model], volumes[i], roi, sw_batch, overlap)
                 torch.cuda.synchronize()
                 seconds.append(time.perf_counter() - t0)
-                check(tuple(mask.shape) == (1, 3, 240, 240, 155) and tuple(probs.shape) == tuple(mask.shape),
-                      f"{tag} {name}: output shape {tuple(mask.shape)}")
+                check(tuple(mask.shape) == out_shape and tuple(probs.shape) == out_shape, f"{tag} {name}: output shape {tuple(mask.shape)}")
                 check(bool(torch.isfinite(probs).all()), f"{tag} {name}: non-finite probabilities")
                 made = {k: v - before[k] for k, v in read_counts().items()}
                 check(made == expected, f"{tag} {name}: launches {made} for {forwards} forwards, expected {expected}")
             mem = torch.cuda.max_memory_allocated(dev)
             mean_s = statistics.mean(seconds)
-            print(f"[{tag}] {name}: {mean_s:.3f} s/volume (requests {', '.join(f'{s:.3f}' for s in seconds)} s), "
+            print(f"[{tag}] {name}: {mean_s:.3f} s/volume {tuple(volume)} (requests {', '.join(f'{t:.3f}' for t in seconds)} s), "
                   f"{n_windows / mean_s:.2f} windows/s, peak memory {mem / 2**30:.2f} GiB, "
                   f"foreground share {mask.float().mean().item():.4f}, "
                   f"launches per request { {k: v for k, v in expected.items() if v} }")
@@ -354,6 +408,7 @@ def main() -> None:
             serve_launches[k] += v
             check(v > 0 or not per_forward.get(k), f"{tag}: kernel {k} of the serving path never launched")
 
+        others = build_models(same_function_as) if same_function_as is not None else {}
         with torch.inference_mode():
             for name, model in models.items():
                 logits = sliding_window_inference(volumes[0], roi, model, sw_batch, overlap)
@@ -365,9 +420,45 @@ def main() -> None:
                       f"(tol {SLICE_RTOL[name]:.1e})")
                 check(bool(torch.isfinite(logits).all()), f"{tag} {name}: non-finite logits")
                 check(rel <= SLICE_RTOL[name], f"{tag} {name}: logits differ from the plain versions by {rel:.3e}")
-        del models, volumes, mask, probs, logits, ref
+                if name in others:
+                    ref = sliding_window_inference(volumes[0], roi, others[name], sw_batch, overlap)
+                    torch.cuda.synchronize()
+                    err, rel = compare(logits, ref)
+                    print(f"[{tag}] {name} logits vs {same_function_as.__name__}() from the same seed: max_abs={err:.3e} "
+                          f"max_rel={rel:.3e} (tol {ROUTE_RTOL[name]:.1e})")
+                    check(rel <= ROUTE_RTOL[name], f"{tag} {name}: the two routes differ by {rel:.3e}")
+        del models, others, volumes, mask, probs, logits, ref
         gc.collect()
         torch.cuda.empty_cache()
+
+    def forward_slice(tag: str, model, inputs, expected_launches: dict, out_shape: tuple, what: str) -> None:
+        """One timed forward of ``inputs`` after a warm-up: launches, finite logits of ``out_shape``, and the
+        logits against the plain versions."""
+        check(next(model.parameters()).is_cuda, f"{tag}: the network did not build on the card")
+        with torch.inference_mode():
+            model(inputs)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            logits = model(inputs)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            made = read_counts()
+            mem = torch.cuda.max_memory_allocated(dev)
+            with reference_kernels():
+                ref = model(inputs)
+            torch.cuda.synchronize()
+        expected = {name: expected_launches.get(name, 0) for name in wrappers}
+        check(made == expected, f"{tag}: launches {made}, expected {expected}")
+        check(tuple(logits.shape) == out_shape and bool(torch.isfinite(logits).all()), f"{tag}: wrong or non-finite logits")
+        err, rel = compare(logits, ref)
+        print(f"[{tag}] float32: {seconds:.4f} s per forward of {tuple(inputs.shape)} ({what}), peak memory {mem / 2**30:.2f} GiB, "
+              f"launches { {k: v for k, v in expected.items() if v} }; logits vs plain versions: max_abs={err:.3e} "
+              f"max_rel={rel:.3e} (tol {SLICE_RTOL['float32']:.1e})")
+        check(rel <= SLICE_RTOL["float32"], f"{tag}: logits differ from the plain versions by {rel:.3e}")
+        for k, v in made.items():
+            serve_launches[k] += v
 
     serve_slice("slice", brats23_network, {"windowed_nmf": n_blocks * n_shifts, "prenorm_mlp": n_blocks})
 
@@ -375,27 +466,28 @@ def main() -> None:
     # MU runs on a strictly positive input: where a whole row of a window is zero its factor decays to
     # ~eps and 1 / (v b + eps) ~ 1e16 makes the gradient so ill-conditioned that f32 keeps no digit of it,
     # in the kernel and in the plain version alike.
-    cases = [(s, c, dt, "hals", four, None, False) for s, c in STAGES for dt in (torch.float32, torch.bfloat16)]
+    cases = [(2, s, c, 8, dt, "hals", four, None, False) for s, c in STAGES for dt in (torch.float32, torch.bfloat16)]
     cases += [
-        (32, 128, torch.float32, "mu", four, None, False),
-        (32, 128, torch.float32, "hals", zero_shift, None, False),
-        (32, 128, torch.float32, "hals", four, 2, False),
-        (64, 64, torch.float32, "hals", four, None, True),  # a quarter of the volume all zero, as BraTS background
+        (2, 32, 128, 8, torch.float32, "mu", four, None, False),
+        (2, 32, 128, 8, torch.float32, "hals", zero_shift, None, False),
+        (2, 32, 128, 8, torch.float32, "hals", four, 2, False),
+        (2, 64, 64, 8, torch.float32, "hals", four, None, True),  # a quarter of the volume all zero, as BraTS background
     ]
-    for s, c, dt, solver, shifts, grad_steps, zero_windows in cases:
-        x = torch.relu(torch.randn(2, s, s, s, c, device=dev, generator=gen.manual_seed(s + c)))
+    cases += [(b, s, c, 4, dt, "hals", isles_shifts, None, False) for b, s, c in isles_shapes for dt in (torch.float32, torch.bfloat16)]
+    for b, s, c, p, dt, solver, shifts, grad_steps, zero_windows in cases:
+        x = torch.relu(torch.randn(b, s, s, s, c, device=dev, generator=gen.manual_seed(s + c)))
         if solver == "mu":
-            x = torch.rand(2, s, s, s, c, device=dev, generator=gen) + 0.05
+            x = torch.rand(b, s, s, s, c, device=dev, generator=gen) + 0.05
         if zero_windows:
             x[:, : s // 2, : s // 2] = 0
         x = x.to(dt)
         g = torch.randn(x.shape, device=dev, generator=gen).to(dt)
-        args = (x, g, u0, v0, 8, 8, shifts, solver, NUM_ITERS, 1e-16, grad_steps)
+        args = (x, g, u0, v0[p], 8, p, shifts, solver, NUM_ITERS, 1e-16, grad_steps)
         out, ref = windowed_nmf_backward(*args), windowed_nmf_backward_plain(*args)
         torch.cuda.synchronize()
         err, rel = compare(out, ref)
         tol = K1_BWD_RTOL[dname(dt)]
-        label = (f"(2,{s}^3,{c}) {dname(dt)} {solver} shifts={len(shifts)}"
+        label = (f"({b},{s}^3,{c}){'' if p == 8 else f' p={p}'} {dname(dt)} {solver} shifts={len(shifts)}"
                  + (f" num_grad_steps={grad_steps}" if grad_steps is not None else "")
                  + (" zero windows" if zero_windows else "") + (" positive x" if solver == "mu" else ""))
         check(out.dtype == dt and out.shape == x.shape, f"K1 bwd {label}: wrong output")
@@ -450,19 +542,26 @@ def main() -> None:
     torch.backends.cudnn.benchmark = True
     print(f"[train] AdamW {settings}, constant lr (the bundle's schedule warms up from lr 0), batch 2 x 128^3, DiceCE, "
           "torch.backends.cudnn.benchmark=True")
-    image = torch.randn(2, 4, 128, 128, 128, device=dev, generator=gen.manual_seed(7))
-    field = F.interpolate(torch.randn(2, 3, 8, 8, 8, device=dev, generator=gen), size=(128, 128, 128),
-                          mode="trilinear", align_corners=False)
-    batch = {"image": image, "label": (field > 0.3).float()}
+
+    def synthetic_batch(b: int, c_in: int, c_out: int, size: int, seed: int) -> dict:
+        """A ``randn`` image and the labels of a thresholded smooth random field."""
+        image = torch.randn(b, c_in, size, size, size, device=dev, generator=gen.manual_seed(seed))
+        field = F.interpolate(torch.randn(b, c_out, 8, 8, 8, device=dev, generator=gen), size=(size,) * 3,
+                              mode="trilinear", align_corners=False)
+        return {"image": image, "label": (field > 0.3).float()}
+
+    batch = synthetic_batch(2, 4, 3, 128, seed=7)
     print(f"[train] label foreground share {batch['label'].mean().item():.4f}")
     train_launches = dict.fromkeys(wrappers, 0)
     n_steps = 4
 
-    def train_slice(tag: str, network, launches_per_step: dict, leaves: dict) -> None:
-        """1 warm-up and 3 timed steps on ``batch``, f32 and bf16: launches per step, a falling loss, and the
-        first step's loss and gradients (the norm and the ``leaves``) against the same step on the plain versions."""
+    def train_slice(tag: str, network, launches_per_step: dict, leaves: dict, batch=batch,
+                    dtypes=(torch.float32, torch.bfloat16), recomputes_per_step: int = 0) -> None:
+        """1 warm-up and 3 timed steps on ``batch``, per dtype: launches per step (and K4's rank > 1 backward
+        recomputes, which are no launches), a falling loss, and the first step's loss and gradients (the norm and
+        the ``leaves``) against the same step on the plain versions."""
         per_step = {name: launches_per_step.get(name, 0) for name in wrappers}
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in dtypes:
             name = dname(dt)
 
             def new_state():
@@ -491,12 +590,15 @@ def main() -> None:
                 if i == 1:
                     torch.cuda.reset_peak_memory_stats(dev)
                 reset_counts()
+                nmf_reconstruct_backward.recomputes = 0
                 t0 = time.perf_counter()
                 state, metrics = step(state, batch)
                 torch.cuda.synchronize()
                 seconds.append(time.perf_counter() - t0)
                 counts = read_counts()
                 check(counts == per_step, f"{tag} {name} step {i + 1}: launches {counts}, expected {per_step}")
+                check(nmf_reconstruct_backward.recomputes == recomputes_per_step,
+                      f"{tag} {name} step {i + 1}: {nmf_reconstruct_backward.recomputes} backward recomputes, expected {recomputes_per_step}")
                 for k, v in counts.items():
                     train_launches[k] += v
                 losses.append(metrics["loss"].item())
@@ -521,7 +623,8 @@ def main() -> None:
             timed = seconds[1:]
             print(f"[{tag}] {name}: {statistics.mean(timed):.4f} s/step (steps {', '.join(f'{s:.4f}' for s in timed)} s after a "
                   f"{seconds[0]:.2f} s warm-up step), peak memory {mem / 2**30:.2f} GiB, loss {' -> '.join(f'{v:.6f}' for v in losses)}, "
-                  f"launches per step { {k: v for k, v in per_step.items() if v} }")
+                  f"launches per step { {k: v for k, v in per_step.items() if v} }"
+                  + (f", K4 backward recomputes in torch operations per step {recomputes_per_step}" if recomputes_per_step else ""))
             del state, step, metrics, grads, ref_grads
             gc.collect()
             torch.cuda.empty_cache()
@@ -678,33 +781,10 @@ def main() -> None:
     # 12. the FIVES forward at full width: batch 16 x 3 x 512^2, kernel 7x7 (its serving loop and train step
     # at full width are not driven here).
     fives = deconver_fives_network(generator=torch.Generator().manual_seed(0)).eval()
-    check(next(fives.parameters()).is_cuda, "deconver_fives_network() did not build on the card")
     images = torch.randn(16, 3, 512, 512, device=dev, generator=gen.manual_seed(21))
-    with torch.inference_mode():
-        fives(images)  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        reset_counts()
-        t0 = time.perf_counter()
-        logits = fives(images)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        fives_launches = read_counts()
-        mem = torch.cuda.max_memory_allocated(dev)
-        with reference_kernels():
-            ref = fives(images)
-        torch.cuda.synchronize()
-    expected = {name: k3_per_forward if name == "depthwise_conv" else 0 for name in wrappers}
-    check(fives_launches == expected, f"slice fives: launches {fives_launches}, expected {expected}")
-    check(tuple(logits.shape) == (16, 1, 512, 512) and bool(torch.isfinite(logits).all()), "slice fives: wrong or non-finite logits")
-    err, rel = compare(logits, ref)
-    print(f"[slice fives] float32: {seconds:.4f} s per forward of (16, 3, 512, 512), {16 / seconds:.1f} images/s, peak memory "
-          f"{mem / 2**30:.2f} GiB, launches {k3_per_forward} K3; logits vs plain versions: max_abs={err:.3e} max_rel={rel:.3e} "
-          f"(tol {SLICE_RTOL['float32']:.1e})")
-    check(rel <= SLICE_RTOL["float32"], f"slice fives: logits differ from the plain versions by {rel:.3e}")
-    for k, v in fives_launches.items():
-        serve_launches[k] += v
-    del fives, images, logits, ref
+    forward_slice("slice fives", fives, images, {"depthwise_conv": k3_per_forward}, (16, 1, 512, 512),
+                  "deconver_fives_network(), 16 images")
+    del fives, images
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -718,6 +798,220 @@ def main() -> None:
          "encoder.blocks.4.block.blocks.0.dcm.out_proj.linear.weight": "bottleneck.out_proj"},
     )
 
+    # 14. K4 against its plain version.  No single library call computes it: the plain version is a chain of
+    # batched products and elementwise passes.
+    torch.backends.cudnn.benchmark = False
+    k4_cases = [((n, 8, 512), 1, "hals", dt, False) for n in FLAT_STAGES for dt in (torch.float32, torch.bfloat16)]
+    k4_cases += [
+        ((524288, 8, 64), 1, "hals", torch.float32, False),   # the 2-D model's stage 0: 2 shifts x 16 x 4 heads x 64^2 windows
+        ((32768, 8, 64), 1, "hals", torch.float32, False),    # its stage 2
+        ((32768, 8, 512), 1, "mu", torch.float32, False),
+        ((32768, 8, 512), 2, "hals", torch.float32, False),
+        ((32768, 8, 512), 3, "hals", torch.float32, False),
+        ((32768, 8, 512), 4, "hals", torch.float32, False),
+        ((32768, 8, 512), 2, "mu", torch.float32, False),
+        ((131072, 8, 512), 2, "hals", torch.float32, False),  # stage 0 of brats23_network(rank=2)
+        ((1000, 5, 37), 3, "hals", torch.float32, False),     # no size a multiple of anything
+        ((2048, 8, 4096), 1, "hals", torch.float32, False),   # patches of 16^3: fits the forward kernel alone
+        ((32768, 8, 512), 1, "hals", torch.float32, True),    # a quarter of the matrices all zero
+    ]
+
+    def k4_inputs(shape, rank, dt, zero_quarter, positive=False):
+        if positive:
+            x = torch.rand(shape, device=dev, generator=gen.manual_seed(sum(shape) + rank)) + 0.05
+        else:
+            x = torch.relu(torch.randn(shape, device=dev, generator=gen.manual_seed(sum(shape) + rank)))
+        if zero_quarter:
+            x[: shape[0] // 4] = 0
+        g = torch.randn(shape, device=dev, generator=gen)
+        return (x.to(dt), g.to(dt), torch.rand(shape[-2], rank, device=dev, generator=gen),
+                torch.rand(shape[-1], rank, device=dev, generator=gen))
+
+    def k4_label(shape, rank, solver, dt, zero_quarter) -> str:
+        return f"({','.join(map(str, shape))}) rank {rank} {solver} {dname(dt)}" + (" zero quarter" if zero_quarter else "")
+
+    with torch.inference_mode():
+        for shape, rank, solver, dt, zero_quarter in k4_cases:
+            x, _, tu, tv = k4_inputs(shape, rank, dt, zero_quarter)
+            args = (x, tu, tv, solver, NUM_ITERS)
+            out, ref = nmf_reconstruct(*args), nmf_reconstruct_plain(*args)
+            torch.cuda.synchronize()
+            err, rel = compare(out, ref)
+            tol = KERNEL_RTOL[dname(dt)] if rank == 1 else K4_RANK_RTOL
+            label = k4_label(shape, rank, solver, dt, zero_quarter)
+            check(out.dtype == dt and out.shape == x.shape, f"K4 {label}: wrong output")
+            check(bool(torch.isfinite(out).all()), f"K4 {label}: non-finite output")
+            check(rel <= tol, f"K4 {label}: max_abs {err:.3e} max_rel {rel:.3e} above {tol:.1e}")
+            ms = cuda_time_ms(lambda: nmf_reconstruct(*args))
+            plain_ms = cuda_time_ms(lambda: nmf_reconstruct_plain(*args), warmup=1, runs=5)
+            n_bytes, flops = k4_work(x, rank, backward=False)
+            bound = bound_ms(n_bytes, flops, dt)
+            print(f"[K4] {label}: max_abs={err:.3e} max_rel={rel:.3e} (tol {tol:.1e}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
+                  f"library none bound {bound[0]:.3f} ms ({bound[1]}; {n_bytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP)")
+            record("nmf_reconstruct", err, label, ms, plain_ms, bound)
+            del x, out, ref, args
+            torch.cuda.empty_cache()
+
+    # 15. K4 backward, rank 1, against autograd through the plain version.  MU runs on a strictly positive
+    # input, as K1's backward does (its gradient at all-zero rows keeps no digit in f32 on either side).
+    k4_bwd_cases = [((n, 8, 512), "hals", dt, None, False) for n in FLAT_STAGES for dt in (torch.float32, torch.bfloat16)]
+    k4_bwd_cases += [
+        ((524288, 8, 64), "hals", torch.float32, None, False),
+        ((32768, 8, 64), "hals", torch.float32, None, False),
+        ((32768, 8, 512), "mu", torch.float32, None, False),
+        ((32768, 8, 512), "hals", torch.float32, 2, False),
+        ((1000, 5, 37), "hals", torch.float32, None, False),
+        ((32768, 8, 512), "hals", torch.float32, None, True),
+    ]
+    for shape, solver, dt, grad_steps, zero_quarter in k4_bwd_cases:
+        x, g, tu, tv = k4_inputs(shape, 1, dt, zero_quarter, positive=solver == "mu")
+        args = (x, g, tu, tv, solver, NUM_ITERS, 1e-16, grad_steps)
+        out, ref = nmf_reconstruct_backward(*args), nmf_reconstruct_backward_plain(*args)
+        torch.cuda.synchronize()
+        err, rel = compare(out, ref)
+        tol = K1_BWD_RTOL[dname(dt)]
+        label = (k4_label(shape, 1, solver, dt, zero_quarter) + (f" num_grad_steps={grad_steps}" if grad_steps is not None else "")
+                 + (" positive x" if solver == "mu" else ""))
+        check(out.dtype == dt and out.shape == x.shape, f"K4 bwd {label}: wrong output")
+        check(bool(torch.isfinite(out).all()), f"K4 bwd {label}: non-finite dx")
+        check(rel <= tol, f"K4 bwd {label}: max_abs {err:.3e} max_rel {rel:.3e} above {tol:.1e}")
+        del out, ref
+        ms = cuda_time_ms(lambda: nmf_reconstruct_backward(*args))
+        plain_ms = cuda_time_ms(lambda: nmf_reconstruct_backward_plain(*args), warmup=1, runs=3)
+        bound = bound_ms(*k4_work(x, 1, True, grad_steps or NUM_ITERS, solver == "mu"), dt)
+        print(f"[K4 bwd] {label}: max_abs={err:.3e} max_rel={rel:.3e} (tol {tol:.1e}) "
+              f"kernel {ms:.3f} ms plain forward+backward {plain_ms:.3f} ms library none bound {bound[0]:.3f} ms ({bound[1]})")
+        record("nmf_reconstruct_bwd", err, label, ms, plain_ms, bound)
+        del x, g, args
+        torch.cuda.empty_cache()
+
+    # Through the autograd function: rank 1 launches the backward kernel, rank 2 reruns the solve in torch
+    # operations and differentiates that (counted in .recomputes, never in .launches); num_grad_steps=0 is zero.
+    for rank in (1, 2):
+        x, g, tu, tv = k4_inputs((32768, 8, 512), rank, torch.float32, False)
+        xg = x.requires_grad_(True)
+        before = nmf_reconstruct.launches, nmf_reconstruct_backward.launches, nmf_reconstruct_backward.recomputes
+        (dx,) = torch.autograd.grad(nmf_reconstruct(xg, tu, tv), xg, g)
+        made = (nmf_reconstruct.launches - before[0], nmf_reconstruct_backward.launches - before[1],
+                nmf_reconstruct_backward.recomputes - before[2])
+        check(made == ((1, 1, 0) if rank == 1 else (1, 0, 1)), f"K4 bwd rank {rank}: the autograd function made {made}")
+        (dx_ref,) = torch.autograd.grad(nmf_reconstruct_plain(xg, tu, tv), xg, g)
+        torch.cuda.synchronize()
+        err, rel = compare(dx, dx_ref)
+        check(rel <= K1_BWD_RTOL["float32"], f"K4 bwd rank {rank}: autograd dx max_rel {rel:.3e}")
+        (zero,) = torch.autograd.grad(nmf_reconstruct(xg, tu, tv, "hals", NUM_ITERS, 1e-16, 0), xg, g)
+        check(not bool(zero.any()), f"K4 bwd rank {rank}: num_grad_steps=0 gave a non-zero gradient")
+        ms = cuda_time_ms(lambda: torch.autograd.grad(nmf_reconstruct(xg, tu, tv), xg, g), warmup=1, runs=5)
+        how = "kernel" if rank == 1 else "recompute in torch operations"
+        print(f"[K4 bwd] (32768,8,512) rank {rank} hals float32 through the autograd function ({how}): dx max_abs={err:.3e} "
+              f"max_rel={rel:.3e} (tol {K1_BWD_RTOL['float32']:.1e}), forward+backward {ms:.3f} ms, num_grad_steps=0 exactly zero")
+        del x, g, xg, dx, dx_ref, zero
+        torch.cuda.empty_cache()
+
+    # What must raise on the card instead of giving way to a plain version: a dtype the kernels do not read
+    # (through the module, whose route never looks at the dtype), and a gradient at a rank-1 size that only the
+    # forward kernel can hold.  Under no_grad that size is served through K4; when a gradient is recorded the
+    # module takes its decompose chain, and the wrapper itself refuses.
+    before = read_counts()
+    layer = MatrixFactorization((8, 512), rank=1, init_method="uniform", solver="hals", device=dev)
+    for dt in (torch.float16, torch.float64):
+        try:
+            layer(torch.rand(64, 8, 512, device=dev).to(dt))
+        except TypeError as e:
+            print(f"[K4] MatrixFactorization on a {dname(dt)} CUDA tensor raises: {e}")
+        else:
+            check(False, f"K4: a {dname(dt)} CUDA tensor did not raise")
+    big = MatrixFactorization((8, 4096), rank=1, init_method="uniform", solver="hals", device=dev)
+    xb = torch.rand(64, 8, 4096, device=dev)
+    with torch.no_grad():
+        served = big(xb)
+    check(nmf_reconstruct.launches == before["nmf_reconstruct"] + 1, "K4: an (8,4096) batch was not served through the kernel")
+    try:
+        nmf_reconstruct_backward(xb, torch.ones_like(xb), big.init.u0, big.init.v0)
+    except ValueError as e:
+        print(f"[K4 bwd] (64,8,4096) rank 1 raises: {e}")
+    else:
+        check(False, "K4 bwd: a size the backward kernel cannot hold did not raise")
+    xg = xb.clone().requires_grad_(True)
+    (dx,) = torch.autograd.grad(big(xg), xg, torch.ones_like(xb))
+    torch.cuda.synchronize()
+    made = {k: v - before[k] for k, v in read_counts().items() if v != before[k]}
+    check(made == {"nmf_reconstruct": 1}, f"K4: the (8,4096) checks launched {made}")
+    err, rel = compare(big(xg).detach(), served)
+    check(rel <= KERNEL_RTOL["float32"] and bool(torch.isfinite(dx).all()), f"K4: the decompose chain at (8,4096) differs from the kernel by {rel:.3e}")
+    print(f"[K4] (64,8,4096) rank 1: served through the kernel; with a gradient recorded the module takes its decompose chain "
+          f"(no launch), output max_rel={rel:.2e} from the kernel's (tol {KERNEL_RTOL['float32']:.1e})")
+    del layer, big, xb, xg, dx, served
+    torch.cuda.empty_cache()
+
+    # 16. the flat-route serving slices.
+    def brats23_flat_network(**kw):
+        return brats23_network(factorize_options={"use_windowed": False}, **kw)
+
+    k4_forward = {"nmf_reconstruct": n_blocks, "prenorm_mlp": n_blocks}
+    serve_slice("slice flat", brats23_flat_network, k4_forward, same_function_as=brats23_network)
+
+    # A 2-D Swin-Factorizer at the FIVES data shape (RGB in, one mask out, 512^2, batch 16) and the 3-D bundles'
+    # widths: 2-D mixers take the flat route, two shifts (0 and half a patch).
+    def swin2d_network(**kw):
+        kw.setdefault("device", dev)  # the class builds where it is told; only the bundles' factories default to the card
+        return Factorizer(
+            in_channels=3, out_channels=1, spatial_size=(512, 512), encoder_depth=(1, 1, 1, 1, 1),
+            encoder_width=(32, 64, 128, 256, 512), strides=(1, 2, 2, 2, 2), decoder_depth=(1, 1, 1, 1), mlp_ratio=4,
+            reshape=(SWMatricize, {"head_dim": 8, "patch_size": 8}), act="relu", rank=1, num_iters=NUM_ITERS,
+            init_method="uniform", solver="hals", **kw,
+        )
+
+    swin2d = swin2d_network(device=dev, generator=torch.Generator().manual_seed(0)).eval()
+    images = torch.randn(16, 3, 512, 512, device=dev, generator=gen.manual_seed(31))
+    forward_slice("slice 2d", swin2d, images, k4_forward, (16, 1, 512, 512), "a 2-D Swin-Factorizer, 16 images")
+    del swin2d, images
+
+    def brats23_rank2_network(**kw):
+        return brats23_network(rank=2, **kw)
+
+    rank2 = brats23_rank2_network(generator=torch.Generator().manual_seed(0)).eval()
+    windows = torch.randn(2, 4, 128, 128, 128, device=dev, generator=gen.manual_seed(32))
+    forward_slice("slice rank2", rank2, windows, k4_forward, (2, 3, 128, 128, 128), "brats23_network(rank=2), a window pair")
+    del rank2, windows
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    f32_only = ("float32",)
+    serve_slice("slice isles", factorizer_isles22_network, {"windowed_nmf": n_blocks * n_shifts, "prenorm_mlp": n_blocks},
+                dtypes=f32_only, **isles)
+    serve_slice("slice isles deconver", deconver_isles22_network, {"depthwise_conv": k3_per_forward}, dtypes=f32_only, **isles)
+
+    # 17. the flat-route training slices.
+    torch.backends.cudnn.benchmark = True
+    factorizer_leaves = {"stem.weight": "stem", "encoder.blocks.0.block.blocks.0.mlp.block.0.linear.weight": "enc0.fc1",
+                         "encoder.blocks.4.block.blocks.0.fact.out_proj.linear.weight": "bottleneck.out_proj"}
+    train_slice(
+        "train flat", brats23_flat_network,
+        {"nmf_reconstruct": n_blocks, "nmf_reconstruct_bwd": n_blocks, "prenorm_mlp": n_blocks, "prenorm_mlp_bwd": n_blocks},
+        factorizer_leaves,
+    )
+    # A 2-D step: every mixer's matrices are 8 x 64, which the backward kernel takes in its 64-thread instance.
+    images = torch.randn(16, 3, 512, 512, device=dev, generator=gen.manual_seed(33))
+    field = F.interpolate(torch.randn(16, 1, 8, 8, device=dev, generator=gen), size=(512, 512), mode="bilinear", align_corners=False)
+    train_slice(
+        "train 2d", swin2d_network,
+        {"nmf_reconstruct": n_blocks, "nmf_reconstruct_bwd": n_blocks, "prenorm_mlp": n_blocks, "prenorm_mlp_bwd": n_blocks},
+        factorizer_leaves, batch={"image": images, "label": (field > 0.3).float()}, dtypes=(torch.float32,),
+    )
+    del images, field
+    # A rank-2 step: K4 forward, and its backward as the recompute in torch operations, counted but no launch.
+    train_slice(
+        "train rank2", brats23_rank2_network, {"nmf_reconstruct": n_blocks, "prenorm_mlp": n_blocks, "prenorm_mlp_bwd": n_blocks},
+        factorizer_leaves, dtypes=(torch.float32,), recomputes_per_step=n_blocks,
+    )
+    isles_batch = synthetic_batch(8, 2, 1, 64, seed=9)
+    print(f"[train isles] batch 8 x 64^3, label foreground share {isles_batch['label'].mean().item():.4f}")
+    train_slice(
+        "train isles", factorizer_isles22_network,
+        {"windowed_nmf": n_blocks * n_shifts, "windowed_nmf_bwd": n_blocks * n_shifts, "prenorm_mlp": n_blocks, "prenorm_mlp_bwd": n_blocks},
+        factorizer_leaves, batch=isles_batch, dtypes=(torch.float32,),
+    )
 
     sources = {
         "windowed_nmf": ("factorizer_tpu_torch/csrc/windowed_nmf.cu",
@@ -728,6 +1022,8 @@ def main() -> None:
         "prenorm_mlp_bwd": ("factorizer_tpu_torch/csrc/mlp_block_bwd.cu", "factorizer_tpu/ops/pallas/mlp_block.py:197"),
         "depthwise_conv": ("factorizer_tpu_torch/csrc/depthwise_conv.cu", "factorizer_tpu/ops/pallas/depthwise_packed.py:131"),
         "depthwise_conv_dw": ("factorizer_tpu_torch/csrc/depthwise_conv_dw.cu", "factorizer_tpu/ops/pallas/depthwise_packed.py:147"),
+        "nmf_reconstruct": ("factorizer_tpu_torch/csrc/nmf.cu", "factorizer_tpu/ops/pallas/nmf_kernel.py:142"),
+        "nmf_reconstruct_bwd": ("factorizer_tpu_torch/csrc/nmf_bwd.cu", "factorizer_tpu/ops/pallas/nmf_kernel.py:142"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():

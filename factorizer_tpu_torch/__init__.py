@@ -38,7 +38,9 @@ from .zoo_scripts import (
     brats23_optimizer_settings,
     deconver_brats23_network,
     deconver_fives_network,
+    deconver_isles22_network,
     ensemble_predict,
+    factorizer_isles22_network,
 )
 
 __version__ = "0.1.0"

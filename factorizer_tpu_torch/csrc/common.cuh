@@ -36,4 +36,31 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return red[32];
 }
 
+// The K sums of `v[0..K)` over the block, returned to every thread in `v`.
+// `red` holds 9 * K floats of shared memory; blockDim.x is a multiple of 32,
+// at least K and at most 256.  The sum runs warp by warp in a fixed order.
+template <int K>
+__device__ __forceinline__ void block_sum_vec(float (&v)[K], float* red) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    for (int o = 16; o > 0; o >>= 1) v[k] += __shfl_xor_sync(0xffffffffu, v[k], o);
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();  // `red` may still be read from a previous call
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) red[warp * K + k] = v[k];
+  }
+  __syncthreads();
+  if (threadIdx.x < K) {
+    const int nwarps = blockDim.x >> 5;
+    float t = 0.f;
+    for (int w = 0; w < nwarps; ++w) t += red[w * K + threadIdx.x];
+    red[8 * K + threadIdx.x] = t;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = red[8 * K + k];
+}
+
 }  // namespace ftt

@@ -63,7 +63,7 @@ windowed_nmf_shift_kernel(const T* __restrict__ x, float* __restrict__ acc, T* _
 
   for (int it = 0; it < num_iters; ++it) {
     // u <- HALS: relu((X v + eps) / (v^T v + eps));  MU: u (X v + eps) / (u v^T v + eps)
-    const float a = ftt::column_dot(X, v, part, P3, d, ld);
+    const float a = ftt::column_dot<kThreads>(X, v, part, P3, d, ld);
     if (tid < d) {
       const float uo = u[tid];
       u[tid] = mu ? (uo * a + eps) / (uo * bu + eps) : fmaxf((a + eps) / (bu + eps), 0.f);

@@ -1,5 +1,6 @@
 // What the forward and the backward kernel of K1 share: the block's window
 // and where its elements lie in the volume, and the sum over shift passes.
+// The column sum and the output pass also serve the flat kernels (nmf_bwd.cu).
 #pragma once
 
 #include <cstdint>
@@ -44,6 +45,13 @@ struct Window {
     c3 += c3 < 0 ? S3 : 0;
     return (((b * S1 + c1) * S2 + c2) * S3 + c3) * C + c0 + di;
   }
+
+  // Element e as (row q, column di) of the block's matrix, and where it lies.
+  __device__ int64_t locate(int e, int& q, int& di) const {
+    q = e / d;
+    di = e % d;
+    return offset(e);
+  }
 };
 
 // One shift pass's value `y` for the element at `o`: the first pass starts
@@ -66,11 +74,13 @@ __device__ __forceinline__ void store_pass(float* acc, T* out, int64_t o, float 
 
 // sum_q M[q][di] * w[q] for the matrix M [P3][ld] in shared memory, returned
 // to the threads tid < d (thread di gets column di; the others get 0).
-// `part` holds kWindowThreads floats; the call has one barrier inside, and
-// the caller puts another between two calls, which reuse `part`.
+// `part` holds kThreads floats, kThreads being the block's size and at least
+// d; the call has one barrier inside, and the caller puts another between two
+// calls, which reuse `part`.
+template <int kThreads>
 __device__ __forceinline__ float column_dot(const float* M, const float* w, float* part, int P3, int d, int ld) {
   const int tid = threadIdx.x;
-  const int nch = kWindowThreads / d;  // thread = (chunk, di)
+  const int nch = kThreads / d;  // thread = (chunk, di)
   if (tid < nch * d) {
     const int di = tid % d, ch = tid / d;
     float s = 0.f;

@@ -2,16 +2,24 @@
 
 PyTorch counterpart of ``factorizer_tpu/models/factorizer.py``
 (FactMixer -> FactorizerBlock -> FactorizerStage -> Factorizer), channels-last
-inside.  Two kernels carry the blocks:
+inside, over 3-D volumes or 2-D images (``spatial_size`` of length 3 or 2).
+Three kernels carry the blocks:
 
-* ``FactMixer`` sends every 3-D (SW)Matricize mixer with a head_dim, cubic
-  patches and a rank-1 hals/mu NMF through K1 (``ops.kernels.windowed_nmf``); other mixers
-  take the plain fold -> NMF -> unfold path.
+* ``FactMixer``, the windowed route: every 3-D (SW)Matricize mixer with a
+  head_dim, cubic patches and a rank-1 hals/mu NMF goes through K1
+  (``ops.kernels.windowed_nmf``), which never materialises the fold.
+* ``FactMixer``, the flat route: every other mixer (2-D, rank above 1,
+  non-cubic patches) and every mixer under
+  ``factorize_options={"use_windowed": False}`` runs fold -> NMF -> unfold,
+  where the NMF goes through K4 (``ops.kernels.nmf_reconstruct``) whenever
+  its matrices fit the kernel, else through the plain ``decompose`` chain
+  (the default global ``Matricize``).  The two routes compute the same
+  function.
 * ``FactorizerBlock`` sends its tail ``x + mlp(norm2(x))`` through K2
   (``ops.kernels.prenorm_mlp``), reading the ``norm2`` and ``mlp`` parameters.
 
-in_proj, out_proj, the stage adapter and the convolutions stay stock PyTorch.
-Dropout is not ported: the serving path runs without it.
+in_proj, out_proj, the stage adapter, the folds and the convolutions stay
+stock PyTorch.  Dropout is not ported: the serving path runs without it.
 """
 
 from __future__ import annotations
@@ -33,6 +41,10 @@ __all__ = ["FactMixer", "FactorizerBlock", "FactorizerStage", "Factorizer"]
 # Reshape spec: (class, keyword arguments), as the bundle configs write it.
 ReshapeSpec = tuple[type, dict]
 DEFAULT_RESHAPE: ReshapeSpec = (Matricize, {"num_heads": 1, "grid_size": 1})
+# What ``factorize_options`` may hold.  The JAX package's other keys steer its
+# TPU kernels and meshes (``use_pallas``, ``explain``, ``spatial_mesh``,
+# ``spatial_axis``); here ``reference_kernels()`` is the pure-torch mode.
+FACTORIZE_OPTIONS = ("use_windowed",)
 
 
 class FactMixer(nn.Module):
@@ -40,6 +52,12 @@ class FactMixer(nn.Module):
 
     ``factorize_kwargs`` go to :class:`NMF` (``rank``, ``num_iters``,
     ``num_grad_steps``, ``init_method``, ``solver``).
+    ``factorize_options={"use_windowed": False}`` takes a mixer that K1 would
+    compute to the flat route instead (fold -> NMF -> unfold, K4).  It is the
+    JAX package's opt-out, kept so that its configurations carry over and so
+    that the two routes can be held against each other; on one card the flat
+    route is the slower one and needs more memory (it copies the tensor for
+    every shift), so no single-card deployment should set it.
     """
 
     def __init__(
@@ -50,11 +68,15 @@ class FactMixer(nn.Module):
         reshape: ReshapeSpec = DEFAULT_RESHAPE,
         act: str = "relu",
         factorize_kwargs: Optional[dict[str, Any]] = None,
+        factorize_options: Optional[dict[str, Any]] = None,
         dtype: Optional[torch.dtype] = None,
         device=None,
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
+        unknown = sorted(set(factorize_options or {}) - set(FACTORIZE_OPTIONS))
+        if unknown:
+            raise ValueError(f"factorize_options takes {FACTORIZE_OPTIONS}, got {unknown}")
         kw = dict(dtype=dtype, device=device, generator=generator)
         self.in_proj = Linear(in_channels, out_channels, bias=False, **kw)
         cls, reshape_kwargs = reshape
@@ -63,7 +85,8 @@ class FactMixer(nn.Module):
         self.factorize = NMF(tuple(self.reshape.output_size[2:]), device=device, generator=generator,
                              **(factorize_kwargs or {}))
         self.out_proj = Linear(out_channels, out_channels, bias=True, **kw)
-        self.windowed = self._windowed_config(len(spatial_size))
+        opted_out = (factorize_options or {}).get("use_windowed") is False
+        self.windowed = None if opted_out else self._windowed_config(len(spatial_size))
 
     def _windowed_config(self, spatial_dims: int) -> Optional[tuple[int, int, tuple]]:
         """``(head_dim, patch, shifts)`` when K1 computes this mixer, else None."""
@@ -112,13 +135,14 @@ class FactorizerBlock(nn.Module):
         reshape: ReshapeSpec = DEFAULT_RESHAPE,
         act: str = "relu",
         factorize_kwargs: Optional[dict[str, Any]] = None,
+        factorize_options: Optional[dict[str, Any]] = None,
         dtype: Optional[torch.dtype] = None,
         device=None,
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
         self.norm1 = LayerNorm(channels, dtype=dtype, device=device)
-        self.fact = FactMixer(channels, channels, spatial_size, reshape, act, factorize_kwargs,
+        self.fact = FactMixer(channels, channels, spatial_size, reshape, act, factorize_kwargs, factorize_options,
                               dtype=dtype, device=device, generator=generator)
         self.norm2 = LayerNorm(channels, dtype=dtype, device=device)
         self.mlp = MLP(channels, ratio=mlp_ratio, dtype=dtype, device=device, generator=generator)
@@ -170,7 +194,8 @@ class Factorizer(UNet):
     """Swin-Factorizer segmentation U-Net; the bottleneck stage carries a positional embedding.
 
     Factorization options left at None take :class:`NMF`'s defaults, as in the
-    JAX model.
+    JAX model.  ``spatial_size`` of length 2 builds the 2-D model, whose mixers
+    take the flat route; ``factorize_options`` goes to every :class:`FactMixer`.
     """
 
     def __init__(
@@ -190,6 +215,7 @@ class Factorizer(UNet):
         num_grad_steps: Optional[int] = None,
         init_method: Optional[str] = None,
         solver: Optional[str] = None,
+        factorize_options: Optional[dict[str, Any]] = None,
         dtype: Optional[torch.dtype] = None,
         device=None,
         generator: Optional[torch.Generator] = None,
@@ -202,11 +228,12 @@ class Factorizer(UNet):
         def stage(i: int, cin: int, cout: int, depth: int, size: tuple) -> nn.Module:
             return FactorizerStage(
                 cin, cout, size, depth, pos_embed=i == bottleneck, mlp_ratio=mlp_ratio,
-                reshape=reshape, act=act, factorize_kwargs=factorize_kwargs,
+                reshape=reshape, act=act, factorize_kwargs=factorize_kwargs, factorize_options=factorize_options,
                 dtype=dtype, device=device, generator=generator,
             )
 
         super().__init__(
             in_channels, out_channels, spatial_size, encoder_depth, encoder_width, strides,
             decoder_depth, stage, dtype=dtype, device=device, generator=generator,
+            spatial_dims=len(spatial_size),
         )

@@ -59,6 +59,10 @@ _SIGNATURES = {
     "ftt_depthwise_conv": [_P] * 3 + [_I] * 9 + [_P],
     # x, g, partials, dw, dtype, B, S1, S2, S3, C, k1, k2, k3, blocks, stream
     "ftt_depthwise_conv_dw": [_P] * 4 + [_I] * 10 + [_P],
+    # x, y, u0, v0, dtype, n_mats, M, N, rank, mu, num_iters, eps, stream
+    "ftt_nmf_reconstruct": [_P] * 4 + [_I, _L] + [_I] * 5 + [_F, _P],
+    # x, g, dx, u0, v0, dtype, n_mats, M, N, mu, num_iters, grad_steps, eps, stream
+    "ftt_nmf_reconstruct_bwd": [_P] * 5 + [_I, _L] + [_I] * 5 + [_F, _P],
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -1,5 +1,8 @@
-"""The bundles' networks (``factorizer_brats23``, ``deconver_brats23``, ``deconver_fives``), their optimiser
-settings and k-fold ensemble prediction.
+"""The networks of five bundles (``factorizer_brats23``, ``factorizer_isles22``, ``deconver_brats23``,
+``deconver_isles22``, ``deconver_fives``), their optimiser settings and k-fold ensemble prediction.
+
+The two Factorizer factories pass ``rank`` and ``factorize_options`` through, as the bundles'
+``--network_def#...`` overrides do: rank above 1 and ``{"use_windowed": False}`` take the flat-NMF route.
 
 PyTorch counterpart of the model half of ``ensemble_inference`` in
 ``factorizer_tpu/zoo_scripts.py``: sliding-window logits per fold model, the
@@ -20,42 +23,68 @@ from .ops.reshape import SWMatricize
 from .train.sliding_window import sliding_window_inference
 from .utils.helpers import resolve_device
 
-__all__ = ["brats23_network", "brats23_optimizer_settings", "deconver_brats23_network", "deconver_fives_network",
-           "ensemble_predict"]
+__all__ = ["brats23_network", "brats23_optimizer_settings", "factorizer_isles22_network", "deconver_brats23_network",
+           "deconver_isles22_network", "deconver_fives_network", "ensemble_predict"]
+
+
+def _factorizer_bundle(in_channels, out_channels, roi, patch_size, shifts, rank, factorize_options, dtype, device,
+                       generator) -> Factorizer:
+    """What the two Factorizer bundles share: five stages of one block each, head_dim 8, five HALS iterations."""
+    return Factorizer(
+        in_channels=in_channels,
+        out_channels=out_channels,
+        spatial_size=roi,
+        encoder_depth=(1, 1, 1, 1, 1),
+        encoder_width=(32, 64, 128, 256, 512),
+        strides=(1, 2, 2, 2, 2),
+        decoder_depth=(1, 1, 1, 1),
+        mlp_ratio=4,
+        reshape=(SWMatricize, {"head_dim": 8, "patch_size": patch_size, "shifts": shifts}),
+        act="relu",
+        rank=rank,
+        num_iters=5,
+        num_grad_steps=None,
+        init_method="uniform",
+        solver="hals",
+        factorize_options=factorize_options,
+        dtype=dtype,
+        device=resolve_device(device),
+        generator=generator,
+    )
 
 
 def brats23_network(
     dtype: Optional[torch.dtype] = None,
     device=None,
     generator: Optional[torch.Generator] = None,
+    rank: int = 1,
+    factorize_options: Optional[dict] = None,
 ) -> Factorizer:
     """The bundle's ``network_def`` (zoo/factorizer_brats23/configs/train.yaml:24-48).
 
     ``dtype=torch.bfloat16`` is the bundle's ``amp: true``; None (f32) is
     what it ships.  Weights are random, drawn from ``generator``.  The network
     is built on the card unless ``device`` names another one (``"cpu"``).
+    ``rank`` and ``factorize_options`` are the bundle's overrides: the default
+    runs the windowed route (K1), ``rank`` above 1 or
+    ``{"use_windowed": False}`` the flat route (K4).
     """
-    device = resolve_device(device)
-    return Factorizer(
-        in_channels=4,
-        out_channels=3,
-        spatial_size=(128, 128, 128),
-        encoder_depth=(1, 1, 1, 1, 1),
-        encoder_width=(32, 64, 128, 256, 512),
-        strides=(1, 2, 2, 2, 2),
-        decoder_depth=(1, 1, 1, 1),
-        mlp_ratio=4,
-        reshape=(SWMatricize, {"head_dim": 8, "patch_size": 8, "shifts": [None, 2, 4, 6]}),
-        act="relu",
-        rank=1,
-        num_iters=5,
-        num_grad_steps=None,
-        init_method="uniform",
-        solver="hals",
-        dtype=dtype,
-        device=device,
-        generator=generator,
-    )
+    return _factorizer_bundle(4, 3, (128, 128, 128), 8, [None, 2, 4, 6], rank, factorize_options, dtype, device, generator)
+
+
+def factorizer_isles22_network(
+    dtype: Optional[torch.dtype] = None,
+    device=None,
+    generator: Optional[torch.Generator] = None,
+    rank: int = 1,
+    factorize_options: Optional[dict] = None,
+) -> Factorizer:
+    """The ``factorizer_isles22`` bundle's ``network_def`` (zoo/factorizer_isles22/configs/train.yaml:24-48):
+    DWI and ADC in, one lesion mask out, roi 64^3, batch 8, patches of 4^3 at shifts 0, 1, 2, 3.
+
+    Arguments as in :func:`brats23_network`.
+    """
+    return _factorizer_bundle(2, 1, (64, 64, 64), 4, [None, 1, 2, 3], rank, factorize_options, dtype, device, generator)
 
 
 def _deconver_bundle(in_channels, out_channels, kernel_size, dtype, device, generator) -> Deconver:
@@ -94,6 +123,16 @@ def deconver_brats23_network(
     card unless ``device`` names another one.
     """
     return _deconver_bundle(4, 3, (3, 3, 3), dtype, device, generator)
+
+
+def deconver_isles22_network(
+    dtype: Optional[torch.dtype] = None,
+    device=None,
+    generator: Optional[torch.Generator] = None,
+) -> Deconver:
+    """The ``deconver_isles22`` bundle's ``network_def`` (zoo/deconver_isles22/configs/train.yaml:24-42):
+    2 modalities in, one lesion mask out, 3-D, kernel 3x3x3, roi 64^3, batch 8."""
+    return _deconver_bundle(2, 1, (3, 3, 3), dtype, device, generator)
 
 
 def deconver_fives_network(

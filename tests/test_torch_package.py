@@ -9,7 +9,7 @@ import pytest
 import torch
 
 import factorizer_tpu_torch as ftt
-from factorizer_tpu_torch.ops.kernels import build, depthwise_conv, depthwise_conv_dw, prenorm_mlp, windowed_nmf
+from factorizer_tpu_torch.ops.kernels import build, depthwise_conv, depthwise_conv_dw, nmf_reconstruct, prenorm_mlp, windowed_nmf
 
 torch.set_num_threads(1)
 
@@ -43,8 +43,9 @@ def test_cpu_calls_build_nothing():
     """Importing the wrappers and calling them on CPU tensors loads no kernel library."""
     code = (
         "import torch\n"
-        "from factorizer_tpu_torch.ops.kernels import build, depthwise_conv, depthwise_conv_dw, prenorm_mlp, windowed_nmf\n"
+        "from factorizer_tpu_torch.ops.kernels import build, depthwise_conv, depthwise_conv_dw, nmf_reconstruct, prenorm_mlp, windowed_nmf\n"
         "x = torch.rand(1, 8, 8, 8, 8)\n"
+        "nmf_reconstruct(x, torch.rand(8, 2), torch.rand(8, 2)); assert nmf_reconstruct.launches == 0\n"
         "depthwise_conv(x, torch.rand(1, 27, 8), (3, 3, 3)); depthwise_conv_dw(x, x, (3, 3, 3))\n"
         "windowed_nmf(x, torch.rand(4, 1), torch.rand(64, 1), 4, 4, (None, 2))\n"
         "c = 32; y = torch.rand(5, c)\n"
@@ -62,6 +63,8 @@ def test_wrappers_refuse_other_devices():
     x = torch.empty(1, 8, 8, 8, 8, device="meta")
     with pytest.raises(ValueError, match="CUDA tensors"):
         windowed_nmf(x, torch.empty(4, 1, device="meta"), torch.empty(64, 1, device="meta"), 4, 4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        nmf_reconstruct(x, torch.empty(8, 1, device="meta"), torch.empty(8, 1, device="meta"))
     with pytest.raises(ValueError, match="CUDA tensors"):
         p = torch.empty(32, device="meta")
         prenorm_mlp(torch.empty(5, 32, device="meta"), p, p, torch.empty(128, 32, device="meta"),
@@ -82,7 +85,7 @@ def test_sources_and_build_flags():
     """The kernels compile from the package's own csrc/ for sm_90a into one shared library, no torch headers, no fast math."""
     sources = sorted(p.name for p in build.CSRC_DIR.glob("*.cu"))
     assert sources == ["depthwise_conv.cu", "depthwise_conv_dw.cu", "mlp_block.cu", "mlp_block_bwd.cu",
-                       "windowed_nmf.cu", "windowed_nmf_bwd.cu"]
+                       "nmf.cu", "nmf_bwd.cu", "windowed_nmf.cu", "windowed_nmf_bwd.cu"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in build.ARCH_FLAGS
     assert "--use_fast_math" not in build.NVCC_FLAGS  # flush-to-zero would change K1's gradients at zero windows
     for path in build.CSRC_DIR.iterdir():
@@ -96,7 +99,8 @@ def test_sources_and_build_flags():
 def test_entry_points_default_to_the_card():
     """device=None means the card: without one, the bundle factories raise instead of building on the CPU."""
     assert not torch.cuda.is_available()
-    for factory in (ftt.brats23_network, ftt.deconver_brats23_network, ftt.deconver_fives_network):
+    for factory in (ftt.brats23_network, ftt.factorizer_isles22_network, ftt.deconver_brats23_network,
+                    ftt.deconver_isles22_network, ftt.deconver_fives_network):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             factory()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -106,7 +110,7 @@ def test_entry_points_default_to_the_card():
 
 def test_cuda_tensors_never_take_the_plain_version():
     """No wrapper gives way to its plain version: the routing has no try, and the old refusals are gone."""
-    for name in ("windowed_nmf.py", "mlp_block.py", "depthwise_conv.py"):
+    for name in ("windowed_nmf.py", "mlp_block.py", "depthwise_conv.py", "nmf.py"):
         source = (PACKAGE / "ops" / "kernels" / name).read_text()
         assert "NotImplementedError" not in source, name
         assert not [n for n in ast.walk(ast.parse(source)) if isinstance(n, ast.Try)], name

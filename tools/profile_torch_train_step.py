@@ -2,14 +2,16 @@
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
-    python3 tools/profile_torch_train_step.py [--model factorizer|deconver] [--dtype float32|bfloat16]
+    python3 tools/profile_torch_train_step.py [--model factorizer|factorizer_flat|deconver] [--dtype float32|bfloat16]
                                               [--steps 3] [--top 25] [--cudnn-benchmark]
 
-Builds ``brats23_network()`` (``--model factorizer``, the default) or
+Builds ``brats23_network()`` (``--model factorizer``, the default), the same
+network on the flat-NMF route (``--model factorizer_flat``:
+``factorize_options={"use_windowed": False}``) or
 ``deconver_brats23_network()`` from seed 0, takes two warm-up steps on a
 synthetic batch 2 x 128^3, then traces ``--steps`` steps with
 ``torch.profiler`` and prints, per kernel name, the device milliseconds per
-step, grouped under a few headings (the port's six kernels, the norms,
+step, grouped under a few headings (the port's eight kernels, the norms,
 cuDNN, GEMMs, the optimiser, elementwise and the rest), the wall time per
 step under the profiler and the share of it that the device was busy, and
 the convolution calls by input shape.
@@ -27,6 +29,8 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 GROUPS = (  # first match wins
+    ("K4 bwd (nmf_bwd.cu)", ("nmf_reconstruct_bwd",)),
+    ("K4 fwd (nmf.cu)", ("nmf_reconstruct",)),
     ("K1 bwd (windowed_nmf_bwd.cu)", ("windowed_nmf_shift_bwd",)),
     ("K1 fwd (windowed_nmf.cu)", ("windowed_nmf_shift",)),
     ("K2 bwd (mlp_block_bwd.cu)", ("prenorm_mlp_bwd", "sum_partials")),
@@ -38,7 +42,8 @@ GROUPS = (  # first match wins
     ("GEMMs (cuBLAS)", ("cublas", "gemv", "splitK", "cutlass")),
     ("cuDNN convolutions and their layout transposes", ("cudnn", "conv", "nchwToNhwc", "nhwcToNchw", "xmma", "wgrad", "dgrad")),
     ("optimiser (fused AdamW)", ("adam",)),
-    ("concat / copies", ("CatArray", "copy", "Memcpy", "Memset")),
+    ("roll (the flat route's shifts)", ("roll",)),
+    ("concat / copies (the flat route's folds and unfolds among them)", ("CatArray", "copy", "Memcpy", "Memset")),
     ("reductions (loss, norms, bias grads)", ("reduce",)),
     ("elementwise", ("elementwise", "vectorized")),
 )
@@ -46,8 +51,8 @@ GROUPS = (  # first match wins
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--model", default="factorizer", choices=("factorizer", "deconver"),
-                    help="factorizer_brats23 or deconver_brats23, at full width and depth")
+    ap.add_argument("--model", default="factorizer", choices=("factorizer", "factorizer_flat", "deconver"),
+                    help="factorizer_brats23, the same on the flat-NMF route, or deconver_brats23, at full width and depth")
     ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=25)
@@ -70,8 +75,9 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     dtype = None if args.dtype == "float32" else torch.bfloat16
-    network = {"factorizer": brats23_network, "deconver": deconver_brats23_network}[args.model]
-    state = create_train_state(network(dtype=dtype, generator=torch.Generator().manual_seed(0)), lr=1e-4, weight_decay=1e-5)
+    network = {"factorizer": brats23_network, "factorizer_flat": brats23_network, "deconver": deconver_brats23_network}[args.model]
+    options = {"factorize_options": {"use_windowed": False}} if args.model == "factorizer_flat" else {}
+    state = create_train_state(network(dtype=dtype, generator=torch.Generator().manual_seed(0), **options), lr=1e-4, weight_decay=1e-5)
     step = make_train_step(state.model)
     gen = torch.Generator(device="cuda").manual_seed(7)
     field = F.interpolate(torch.randn(2, 3, 8, 8, 8, device="cuda", generator=gen), size=(128,) * 3, mode="trilinear")
