@@ -2,7 +2,8 @@
 
 Run from the repository root:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # one card: every phase below
+    python3 chip_smoke.py --cards 4   # a host with 4 cards: phases 1, 2, 20 and 21 alone, one process per card (NCCL)
 
 Phases, one or more result lines each:
   1. environment: the card (name, power limit), torch / CUDA / nvcc versions; TF32 off.
@@ -54,13 +55,30 @@ Phases, one or more result lines each:
  17. the flat-route training slices: the flat factorizer_brats23 step at batch 2 x 128^3, f32 and bf16 (9 K4
      forward and 9 K4 backward launches per step beside K2's), and the factorizer_isles22 step at batch
      8 x 64^3, f32; each first step against the plain versions.
-Then the card's line, a JSON line with every kernel, and as the last line
+ 18. K5 (K1 on a volume cut into slabs along S1: the slab kernels and a halo exchange) in one process, all
+     slabs of a ring held as a list: (2,128^3,32) f32 and bf16 as 4 slabs of 32 rows and as 2 of 64, the stage
+     shapes (2,64^3,64) and (2,32^3,128) and the factorizer_isles22 shape (8,64^3,32) with patches of 4^3 in 4
+     slabs, MU, a shift list whose first entry moves rows, one that moves none (no byte sent), a ring of one;
+     the joined output against the plain version and, bit for bit, against K1 on the whole volume; a slab of
+     rows that the patch does not divide must raise.
+ 19. K5 backward at the same cases and with num_grad_steps=2: autograd through the slab kernels against
+     autograd through the plain version and, bit for bit, against K1's backward on the whole volume.
+ 20. the spatial slice: two processes on the one card (gloo, halos staged through the host) run stage 0 of
+     brats23_network (a FactorizerStage of 32 channels on 128^3, batch 2) with spatial_mesh on slabs of 64
+     rows, forward and backward of a sum of squares; the first process gathers the output, the input gradient
+     and the summed parameter gradients and holds them against the one-process stage; launches per process.
+ 21. the data-parallel training slice: two processes on the one card take 1 warm-up and 3 timed steps of
+     make_train_step(model, mesh=data_parallel_mesh()) on brats23_network() at global batch 2, f32; loss,
+     gradient norm and every parameter against the one-process steps on the whole batch.
+     Two processes share one card in 20 and 21: their times show that the path runs, not how it scales.
+Then a check that no process started here is still alive, the card's line, a JSON line with every kernel, and as the last line
 {"ok": true, "device": {...}}.  Any failed check raises, so the exit code is
 non-zero and no result line is printed.
 """
 
 from __future__ import annotations
 
+import argparse
 import gc
 import json
 import math
@@ -99,7 +117,7 @@ def cuda_time_ms(fn, warmup: int = 3, runs: int = 15) -> float:
 
 def kernel_label(mangled: str) -> str:
     """``prenorm_mlp_bwd_kernel<f32,512,16,16,16>`` from the mangled name ptxas reports."""
-    found = re.search(r"\d+((?:windowed_nmf|nmf_reconstruct|prenorm_mlp|sum_partials|depthwise_conv|sum_dw_partials)\w*?_kernel)(?:I(.+?)EEv)?", mangled)
+    found = re.search(r"\d+((?:windowed_nmf|nmf_reconstruct|prenorm_mlp|sum_partials|depthwise_conv|sum_dw_partials|slab_tail)\w*?_kernel)(?:I(.+?)EEv)?", mangled)
     if not found:
         return mangled
     name, targs = found.groups()
@@ -165,6 +183,7 @@ ROUTE_RTOL = {"float32": 1e-3, "bfloat16": 5e-2}
 STAGES = [(128, 32), (64, 64), (32, 128), (16, 256), (8, 512)]  # (S, C) at batch 2, roi 128^3
 FLAT_STAGES = [131072, 32768, 8192, 2048, 512]  # matrices of (8, 512) per stage: 4 shifts x B*heads x windows
 NUM_ITERS = 5
+N_BLOCKS, N_SHIFTS = 9, 4  # blocks of the bundles' networks, shifts per mixer
 
 # Published peaks of one H100 SXM at 700 W: HBM bytes/s, f32 FLOP/s outside the
 # tensor cores, dense bf16 FLOP/s in them.  A bound takes the peak of the
@@ -220,13 +239,289 @@ def k3_work(x, taps: int, dw: bool) -> tuple[float, float]:
     n_taps = x.shape[0] * taps * x.shape[-1]
     return 2 * x.numel() * x.element_size() + 4 * n_taps, float(2 * taps * x.numel())
 
+BRATS_SHIFTS = (None, 2, 4, 6)
+# Published NVLink rate of an H100 SXM to one neighbour, each way; the halo's time at it is computed, not measured.
+NVLINK_BYTES = 450e9
+
+
+def kernel_counters() -> dict:
+    """Kernel name -> (the wrapper that counts its launches, the attribute that holds the count)."""
+    from factorizer_tpu_torch.ops.kernels import (
+        depthwise_conv, depthwise_conv_dw, nmf_reconstruct, nmf_reconstruct_backward, prenorm_mlp,
+        prenorm_mlp_backward, windowed_nmf, windowed_nmf_backward, windowed_nmf_multi_spatial,
+    )
+
+    return {"windowed_nmf": (windowed_nmf, "launches"), "windowed_nmf_bwd": (windowed_nmf_backward, "launches"),
+            "prenorm_mlp": (prenorm_mlp, "launches"), "prenorm_mlp_bwd": (prenorm_mlp_backward, "launches"),
+            "depthwise_conv": (depthwise_conv, "launches"), "depthwise_conv_dw": (depthwise_conv_dw, "launches"),
+            "nmf_reconstruct": (nmf_reconstruct, "launches"), "nmf_reconstruct_bwd": (nmf_reconstruct_backward, "launches"),
+            "windowed_nmf_slab": (windowed_nmf_multi_spatial, "launches"),
+            "windowed_nmf_slab_bwd": (windowed_nmf_multi_spatial, "backward_launches")}
+
+
+def reset_counters(counters: dict) -> None:
+    for wrapper, attr in counters.values():
+        setattr(wrapper, attr, 0)
+
+
+def read_counters(counters: dict) -> dict:
+    return {name: getattr(wrapper, attr) for name, (wrapper, attr) in counters.items()}
+
+
+def synthetic_batch(b: int, c_in: int, c_out: int, size: int, seed: int) -> dict:
+    """A ``randn`` image and the labels of a thresholded smooth random field, made on the card from ``seed``."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    image = torch.randn(b, c_in, size, size, size, device="cuda", generator=gen)
+    field = F.interpolate(torch.randn(b, c_out, 8, 8, 8, device="cuda", generator=gen), size=(size,) * 3,
+                          mode="trilinear", align_corners=False)
+    return {"image": image, "label": (field > 0.3).float()}
+
+
+def brats23_stage0(factorize_options=None):
+    """Stage 0 of ``brats23_network()`` on its own: one block of 32 channels on 128^3, weights from seed 0."""
+    import torch
+
+    from factorizer_tpu_torch.models.factorizer import FactorizerStage
+    from factorizer_tpu_torch.ops.reshape import SWMatricize
+
+    return FactorizerStage(
+        32, 32, (128, 128, 128), depth=1, pos_embed=False, mlp_ratio=4,
+        reshape=(SWMatricize, {"head_dim": 8, "patch_size": 8, "shifts": list(BRATS_SHIFTS)}), act="relu",
+        factorize_kwargs=dict(rank=1, num_iters=NUM_ITERS, init_method="uniform", solver="hals"),
+        factorize_options=factorize_options, device="cuda", generator=torch.Generator().manual_seed(0),
+    )
+
+
+def join_group_on_the_card(rank: int, world: int, init_method: str) -> str:
+    """A worker's start: its card, TF32 off, and the process group.  With a card per process each takes its own
+    and the group is NCCL's; else all share card 0 and the group is gloo's."""
+    import torch
+
+    from factorizer_tpu_torch.parallel import initialize_distributed
+
+    own_card = torch.cuda.device_count() >= world
+    torch.cuda.set_device(rank if own_card else 0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    backend = initialize_distributed(init_method, world, rank)
+    check(backend == ("nccl" if own_card else "gloo"), f"{world} processes on {torch.cuda.device_count()} card(s) took {backend}")
+    return f"{backend}, {'a card per process' if own_card else 'halos and shards staged through the host'}"
+
+
+def spatial_worker(rank: int, world: int, init_method: str) -> dict:
+    """Stage 0 of the bundle with ``spatial_mesh`` on this process's slab: forward and backward of a sum of squares,
+    once to warm up and once timed; the first process holds the gathered results against the one-process stage."""
+    import torch
+
+    from factorizer_tpu_torch.ops.kernels import windowed_nmf_multi_spatial
+    from factorizer_tpu_torch.parallel import all_gather_cat, make_mesh
+
+    backend = join_group_on_the_card(rank, world, init_method)
+    mesh = make_mesh({"model": world})
+    counters = kernel_counters()
+    stage = brats23_stage0({"spatial_mesh": mesh, "spatial_axis": "model"})
+    x = torch.randn(2, 128, 128, 128, 32, device="cuda", generator=torch.Generator(device="cuda").manual_seed(41))
+    mine = x.chunk(world, 1)[rank].contiguous().requires_grad_(True)
+    seconds = []
+    for _ in range(2):
+        stage.zero_grad(set_to_none=True)
+        mine.grad = None
+        reset_counters(counters)
+        windowed_nmf_multi_spatial.tail_launches = windowed_nmf_multi_spatial.bytes_sent = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = stage(mine)
+        (y.float() ** 2).sum().backward()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    report = {"backend": backend, "seconds": seconds[1], "warmup_seconds": seconds[0], "counts": read_counters(counters),
+              "tail_launches": windowed_nmf_multi_spatial.tail_launches, "bytes_sent": windowed_nmf_multi_spatial.bytes_sent,
+              "finite": bool(torch.isfinite(y).all()) and bool(torch.isfinite(mine.grad).all())}
+    # Every process takes part in the gathers; the first one alone compares.
+    y_all, dx_all = all_gather_cat(y.detach(), mesh, "model", 1), all_gather_cat(mine.grad, mesh, "model", 1)
+    grads = {k: p.grad.clone() for k, p in stage.named_parameters()}
+    for g in grads.values():
+        torch.distributed.all_reduce(g, group=mesh.group("model"))
+    if rank == 0:
+        whole = brats23_stage0()
+        xw = x.clone().requires_grad_(True)
+        for _ in range(2):  # warm-up, then timed, as above
+            whole.zero_grad(set_to_none=True)
+            xw.grad = None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = whole(xw)
+            (ref.float() ** 2).sum().backward()
+            torch.cuda.synchronize()
+            report["whole_seconds"] = time.perf_counter() - t0
+        report["y"], report["dx"] = compare(y_all, ref.detach()), compare(dx_all, xw.grad)
+        report["params"] = {k: compare(grads[k], p.grad)[1] for k, p in whole.named_parameters()}
+    return report
+
+
+def train_dp_worker(rank: int, world: int, init_method: str, settings: dict, n_steps: int, global_batch: int) -> dict:
+    """``n_steps`` data-parallel steps of the bundle's network on the whole synthetic batch, one shard per process."""
+    import torch
+
+    from factorizer_tpu_torch.parallel import data_parallel_mesh
+    from factorizer_tpu_torch.train.trainer import create_train_state, make_train_step
+    from factorizer_tpu_torch.zoo_scripts import brats23_network
+
+    backend = join_group_on_the_card(rank, world, init_method)
+    torch.backends.cudnn.benchmark = True
+    mesh = data_parallel_mesh()
+    counters = kernel_counters()
+    state = create_train_state(brats23_network(generator=torch.Generator().manual_seed(0)), **settings)
+    step = make_train_step(state.model, mesh=mesh)
+    batch = synthetic_batch(global_batch, 4, 3, 128, seed=7)
+    losses, norms, seconds, counts = [], [], [], []
+    for i in range(n_steps):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        reset_counters(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        counts.append(read_counters(counters))
+        losses.append(metrics["loss"].item())
+        norms.append(metrics["grad_norm"].item())
+    report = {"backend": backend, "losses": losses, "norms": norms, "seconds": seconds, "counts": counts,
+              "peak_memory": torch.cuda.max_memory_allocated()}
+    if rank == 0:
+        report["params"] = {k: p.detach().cpu() for k, p in state.model.named_parameters()}
+    else:  # a digest is enough to show that both processes made the same update
+        report["param_sum"] = sum(p.detach().double().sum().item() for p in state.model.parameters())
+    return report
+
+def shared_card_note(world: int) -> str:
+    import torch
+
+    if torch.cuda.device_count() >= world:
+        return f"{world} processes, one card each"
+    return f"{world} processes share one card: the time shows that the path runs, not how it scales"
+
+
+def spatial_slice(world: int) -> dict:
+    """Phase 20: ``world`` processes run stage 0 of the bundle on slabs of ``128 / world`` rows; the launches of
+    all processes, by kernel."""
+    import torch
+
+    from factorizer_tpu_torch.parallel import run_processes
+    from factorizer_tpu_torch.zoo_scripts import brats23_network
+
+    stage_ref, bundle_stage = brats23_stage0(), brats23_network(device="meta").encoder.blocks[0].block
+    check({k: v.shape for k, v in stage_ref.state_dict().items()} == {k: v.shape for k, v in bundle_stage.state_dict().items()}
+          and stage_ref.blocks[0].fact.windowed == bundle_stage.blocks[0].fact.windowed,
+          "spatial: the stage built here is not stage 0 of brats23_network()")
+    del stage_ref, bundle_stage
+    t0 = time.perf_counter()
+    reports = run_processes(spatial_worker, world, timeout=300)
+    expected = {"windowed_nmf_slab": N_SHIFTS, "windowed_nmf_slab_bwd": N_SHIFTS, "prenorm_mlp": 1, "prenorm_mlp_bwd": 1}
+    halo_rows = sum(s for s in BRATS_SHIFTS if s)
+    sent = halo_rows * 2 * 128 * 128 * 32 * 4 * 5  # per process: forward a halo and rows back, backward two halos and rows back
+    launches = dict.fromkeys(kernel_counters(), 0)
+    for rank, r in enumerate(reports):
+        made = {k: v for k, v in r["counts"].items() if v}
+        check(r["finite"], f"spatial rank {rank}: non-finite output or gradient")
+        check(made == expected and r["tail_launches"] == 6, f"spatial rank {rank}: launches {made}, tails {r['tail_launches']}")
+        check(r["bytes_sent"] == sent, f"spatial rank {rank}: {r['bytes_sent']} bytes sent, expected {sent}")
+        for k, v in r["counts"].items():
+            launches[k] += v
+    r = reports[0]
+    worst = max(r["params"], key=r["params"].get)
+    print(f"[spatial] stage 0 of brats23_network() on {world} slabs of {128 // world} rows ({r['backend']}), float32: forward+backward "
+          f"{' / '.join(f'{q['seconds']:.4f}' for q in reports)} s per process, one-process stage on the whole volume "
+          f"{r['whole_seconds']:.4f} s (warm-up {r['warmup_seconds']:.2f} s; {time.perf_counter() - t0:.1f} s with start-up), "
+          f"{sent / 1e6:.1f} MB sent per process, launches per process {expected} + 6 tails; gathered against the one-process stage: "
+          f"y max_rel={r['y'][1]:.3e} (tol {KERNEL_RTOL['float32']:.1e}) dx max_rel={r['dx'][1]:.3e} (tol {K1_BWD_RTOL['float32']:.1e}) "
+          f"parameter gradients summed over processes max_rel={r['params'][worst]:.3e} at {worst} (tol {K2_PARAM_RTOL:.1e}). "
+          + shared_card_note(world))
+    check(r["y"][1] <= KERNEL_RTOL["float32"] and r["dx"][1] <= K1_BWD_RTOL["float32"] and r["params"][worst] <= K2_PARAM_RTOL,
+          f"spatial: differs from the one-process stage: y {r['y']}, dx {r['dx']}, parameters {r['params']}")
+    return launches
+
+
+def train_dp_slice(world: int, settings: dict, n_steps: int) -> dict:
+    """Phase 21: ``world`` processes take ``n_steps`` data-parallel steps on a global batch of ``max(2, world)``,
+    held against the one-process steps on the whole batch; the launches of all processes and steps, by kernel."""
+    import torch
+
+    from factorizer_tpu_torch.parallel import run_processes
+    from factorizer_tpu_torch.train.trainer import create_train_state, make_train_step
+    from factorizer_tpu_torch.zoo_scripts import brats23_network
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    global_batch = max(2, world)
+    t0 = time.perf_counter()
+    reports = run_processes(train_dp_worker, world, settings, n_steps, global_batch, timeout=400)
+    started = time.perf_counter() - t0
+    state = create_train_state(brats23_network(generator=torch.Generator().manual_seed(0)), **settings)
+    step = make_train_step(state.model)
+    batch = synthetic_batch(global_batch, 4, 3, 128, seed=7)
+    ref_losses, ref_norms, ref_seconds = [], [], []
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        ref_seconds.append(time.perf_counter() - t0)
+        ref_losses.append(metrics["loss"].item())
+        ref_norms.append(metrics["grad_norm"].item())
+    per_step = {"windowed_nmf": N_BLOCKS * N_SHIFTS, "windowed_nmf_bwd": N_BLOCKS * N_SHIFTS, "prenorm_mlp": N_BLOCKS,
+                "prenorm_mlp_bwd": N_BLOCKS}
+    launches = dict.fromkeys(kernel_counters(), 0)
+    for rank, r in enumerate(reports):
+        for counts in r["counts"]:
+            check({k: v for k, v in counts.items() if v} == per_step, f"train dp rank {rank}: launches {counts}")
+            for k, v in counts.items():
+                launches[k] += v
+        check(r["losses"] == reports[0]["losses"] and r["norms"] == reports[0]["norms"],
+              f"train dp: the processes report different metrics: {r['losses']} / {reports[0]['losses']}")
+    r = reports[0]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], ref_losses))
+    norm_rel = max(abs(a - b) / b for a, b in zip(r["norms"], ref_norms))
+    # Each AdamW update moves an entry by about lr whatever the gradient's size, so where a gradient is within
+    # rounding of zero the two summation orders may step apart by up to 2 lr per step; elsewhere they agree closely.
+    lr = settings["lr"]
+    diffs = {k: (r["params"][k].to(dev) - p.detach()).abs() for k, p in state.model.named_parameters()}
+    worst = max(diffs, key=lambda k: diffs[k].max().item())
+    far = sum((d > 0.1 * lr).sum().item() for d in diffs.values()) / sum(d.numel() for d in diffs.values())
+    digest = sum(p.double().sum().item() for p in r["params"].values())
+    print(f"[train dp] make_train_step(brats23_network(), mesh=data_parallel_mesh()) ({r['backend']}), global batch {global_batch} x "
+          f"128^3, float32: {' / '.join(f'{statistics.mean(q['seconds'][1:]):.4f}' for q in reports)} s/step per process, "
+          f"one-process step on the whole batch {statistics.mean(ref_seconds[1:]):.4f} s (after a {r['seconds'][0]:.2f} s warm-up step; "
+          f"{started:.1f} s with start-up), peak memory per process {r['peak_memory'] / 2**30:.2f} GiB, loss "
+          f"{' -> '.join(f'{v:.6f}' for v in r['losses'])}, launches per step and process {per_step}; against the one-process "
+          f"steps on the whole batch: loss rel {loss_rel:.2e} (tol {TRAIN_RTOL['float32']['loss']:.0e}), grad norm rel {norm_rel:.2e} "
+          f"(tol {TRAIN_RTOL['float32']['grad']:.0e}), parameters after {n_steps} steps max |diff| {diffs[worst].max().item():.2e} at "
+          f"{worst} (tol 2 lr per step = {2 * lr * n_steps:.1e}), share of entries off by more than lr / 10: {far:.2e} (tol 1e-3). "
+          + shared_card_note(world))
+    check(loss_rel <= TRAIN_RTOL["float32"]["loss"] and norm_rel <= TRAIN_RTOL["float32"]["grad"],
+          f"train dp: loss {r['losses']} / {ref_losses}, grad norm {r['norms']} / {ref_norms}")
+    check(diffs[worst].max().item() <= 2 * lr * n_steps and far <= 1e-3, f"train dp: parameters differ from the one-process steps: {worst}")
+    check(all(abs(q["param_sum"] - digest) <= 1e-9 * abs(digest) for q in reports[1:]),
+          "train dp: the processes hold different parameters")
+    check(r["losses"][-1] < r["losses"][0], f"train dp: loss did not fall: {r['losses']}")
+    return launches
+
 
 def main() -> None:
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--cards", type=int, default=1,
+                        help="above 1: run the two multi-process phases alone, one process per card over NCCL")
+    cards = parser.parse_args().cards
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         sys.exit(1)
+    if not 1 <= cards <= torch.cuda.device_count():
+        fail(f"--cards {cards}, but the host has {torch.cuda.device_count()} CUDA device(s)")
 
     # The port: imported only once a card is known to be there.
     import torch.nn.functional as F
@@ -236,7 +531,8 @@ def main() -> None:
     from factorizer_tpu_torch.ops.kernels import (
         build, depthwise_conv, depthwise_conv_dw, depthwise_conv_dw_plain, depthwise_conv_plain,
         nmf_reconstruct, nmf_reconstruct_backward, nmf_reconstruct_backward_plain, nmf_reconstruct_plain, prenorm_mlp, prenorm_mlp_backward, prenorm_mlp_backward_plain, prenorm_mlp_plain,
-        reference_kernels, windowed_nmf, windowed_nmf_backward, windowed_nmf_backward_plain, windowed_nmf_plain,
+        reference_kernels, windowed_nmf, windowed_nmf_backward, windowed_nmf_backward_plain, windowed_nmf_multi_spatial,
+        windowed_nmf_multi_spatial_local, windowed_nmf_multi_spatial_plain, windowed_nmf_plain,
     )
     from factorizer_tpu_torch.models.factorizer import Factorizer
     from factorizer_tpu_torch.ops.reshape import SWMatricize
@@ -249,17 +545,13 @@ def main() -> None:
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
-    wrappers = {"windowed_nmf": windowed_nmf, "windowed_nmf_bwd": windowed_nmf_backward,
-                "prenorm_mlp": prenorm_mlp, "prenorm_mlp_bwd": prenorm_mlp_backward,
-                "depthwise_conv": depthwise_conv, "depthwise_conv_dw": depthwise_conv_dw,
-                "nmf_reconstruct": nmf_reconstruct, "nmf_reconstruct_bwd": nmf_reconstruct_backward}
+    wrappers = kernel_counters()
 
     def reset_counts() -> None:
-        for w in wrappers.values():
-            w.launches = 0
+        reset_counters(wrappers)
 
     def read_counts() -> dict:
-        return {name: w.launches for name, w in wrappers.items()}
+        return read_counters(wrappers)
 
     # 1. environment
     smi = subprocess.run(
@@ -286,6 +578,25 @@ def main() -> None:
             kernel = kernel_label(entry.group(1))
         if "registers" in line or ("spill" in line and " 0 bytes spill stores" not in line):
             print(f"[build] {kernel}: {line.strip()}")
+
+    def last_lines(kernels=None) -> None:
+        from factorizer_tpu_torch.parallel import child_processes
+
+        left = child_processes()
+        check(not left, f"processes that this run started are still alive: {left}")
+        print(smi)
+        if kernels is not None:
+            print(json.dumps({"kernels": kernels}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+
+    if cards > 1:  # the multi-process phases across cards, and nothing else
+        settings = brats23_optimizer_settings(steps_per_epoch=1)
+        spatial_slice(cards)
+        torch.backends.cudnn.benchmark = True
+        train_dp_slice(cards, {k: settings[k] for k in ("lr", "weight_decay")}, 4)
+        last_lines()
+        return
 
     # Per kernel: the errors of every comparison, and the times at the first case, (2,128^3,32) f32.
     results = {name: {"errs": [], "times": None} for name in wrappers}
@@ -361,7 +672,7 @@ def main() -> None:
 
     # 5. the serving slice
     sw_batch, overlap, n_requests = 2, 0.5, 2
-    n_blocks, n_shifts = 9, 4
+    n_blocks, n_shifts = N_BLOCKS, N_SHIFTS
     serve_launches = dict.fromkeys(wrappers, 0)
     brats = dict(volume=(1, 4, 240, 240, 155), roi=(128, 128, 128), out_channels=3)
     isles = dict(volume=(1, 2, 112, 112, 73), roi=(64, 64, 64), out_channels=1)
@@ -542,13 +853,6 @@ def main() -> None:
     torch.backends.cudnn.benchmark = True
     print(f"[train] AdamW {settings}, constant lr (the bundle's schedule warms up from lr 0), batch 2 x 128^3, DiceCE, "
           "torch.backends.cudnn.benchmark=True")
-
-    def synthetic_batch(b: int, c_in: int, c_out: int, size: int, seed: int) -> dict:
-        """A ``randn`` image and the labels of a thresholded smooth random field."""
-        image = torch.randn(b, c_in, size, size, size, device=dev, generator=gen.manual_seed(seed))
-        field = F.interpolate(torch.randn(b, c_out, 8, 8, 8, device=dev, generator=gen), size=(size,) * 3,
-                              mode="trilinear", align_corners=False)
-        return {"image": image, "label": (field > 0.3).float()}
 
     batch = synthetic_batch(2, 4, 3, 128, seed=7)
     print(f"[train] label foreground share {batch['label'].mean().item():.4f}")
@@ -1013,6 +1317,143 @@ def main() -> None:
         factorizer_leaves, batch=isles_batch, dtypes=(torch.float32,),
     )
 
+    # 18. K5 in one process: every slab of a ring held as a list, the halos wired by hand.  The plain version is
+    # the whole ring in torch operations; K1 on the gathered volume is the second reference, bit for bit: the slab
+    # kernel runs K1's block, the routed rows are f32 and the passes sum in K1's order.
+    torch.backends.cudnn.benchmark = False
+    s1_first, s1_none = ((2, 3, 1), None, 6), ((0, 2, 4), (0, 6, 2))
+    k5_cases = [(2, 128, 32, 8, dt, "hals", four, n, None) for dt in (torch.float32, torch.bfloat16) for n in (4, 2)]
+    k5_cases += [
+        (2, 64, 64, 8, torch.float32, "hals", four, 4, None),
+        (2, 32, 128, 8, torch.float32, "hals", four, 4, None),
+        (8, 64, 32, 4, torch.float32, "hals", isles_shifts, 4, None),  # factorizer_isles22: the run-time-size instance
+        (2, 32, 128, 8, torch.float32, "mu", four, 4, None),
+        (2, 32, 128, 8, torch.float32, "hals", s1_first, 4, None),     # the first pass already routes rows
+        (2, 32, 128, 8, torch.float32, "hals", s1_none, 4, None),      # dims 2 and 3 alone: no byte leaves a slab
+        (2, 32, 128, 8, torch.float32, "hals", four, 1, None),         # a ring of one
+        (2, 32, 128, 8, torch.float32, "hals", four, 4, 2),            # num_grad_steps: the backward alone differs
+    ]
+    k5 = windowed_nmf_multi_spatial
+
+    def k5_inputs(b, s, c, p, dt, solver, n):
+        x = torch.relu(torch.randn(b, s, s, s, c, device=dev, generator=gen.manual_seed(s + c + n)))
+        if solver == "mu":  # strictly positive, as K1's backward check
+            x = torch.rand(b, s, s, s, c, device=dev, generator=gen) + 0.05
+        x = x.to(dt)
+        g = torch.randn(x.shape, device=dev, generator=gen).to(dt)
+        return x, g, [t.contiguous() for t in x.chunk(n, 1)], [t.contiguous() for t in g.chunk(n, 1)]
+
+    def k5_label(b, s, c, p, dt, solver, shifts, n, grad_steps) -> str:
+        return (f"({b},{s}^3,{c}){'' if p == 8 else f' p={p}'} {dname(dt)} {solver} shifts={list(shifts)} as {n} slab(s) of "
+                f"{s // n} rows" + (f" num_grad_steps={grad_steps}" if grad_steps is not None else ""))
+
+    def rows_moved(shifts, p) -> list:
+        """Per shift that moves rows between slabs, how many: its first component modulo the patch, where not 0."""
+        firsts = [0 if sh is None else (sh if isinstance(sh, int) else sh[0]) % p for sh in shifts]
+        return [s1 for s1 in firsts if s1]
+
+    def k5_work(x, shifts, p, backward, grad_steps=NUM_ITERS, mu=False):
+        """K1's work on the whole volume, and per row that moves: the halo read (x's dtype; the backward reads
+        two), the routed row written in f32 and read again by the neighbour."""
+        n_bytes, flops = k1_work(x, len(shifts), backward, grad_steps, mu)
+        row_elems = x.numel() // x.shape[1]
+        return n_bytes + sum(rows_moved(shifts, p)) * row_elems * ((2 if backward else 1) * x.element_size() + 8), flops
+
+    with torch.inference_mode():
+        for case in (c for c in k5_cases if c[-1] is None):
+            b, s, c, p, dt, solver, shifts, n, _ = case
+            x, _, xs, _ = k5_inputs(b, s, c, p, dt, solver, n)
+            args = (u0, v0[p], 8, p, shifts, solver, NUM_ITERS)
+            before = (k5.launches, k5.tail_launches, k5.bytes_sent)
+            out = torch.cat(windowed_nmf_multi_spatial_local(xs, *args), 1)
+            made = (k5.launches - before[0], k5.tail_launches - before[1], k5.bytes_sent - before[2])
+            ref = torch.cat(windowed_nmf_multi_spatial_plain(xs, *args), 1)
+            whole = windowed_nmf(x, *args)
+            torch.cuda.synchronize()
+            err, rel = compare(out, ref)
+            tol = KERNEL_RTOL[dname(dt)]
+            label = k5_label(*case)
+            moving = rows_moved(shifts, p)
+            sent = n * sum(moving) * (x.numel() // x.shape[1]) * (x.element_size() + 4)
+            check(out.dtype == dt and out.shape == x.shape, f"K5 {label}: wrong output")
+            check(rel <= tol, f"K5 {label}: max_abs {err:.3e} max_rel {rel:.3e} above {tol:.1e}")
+            check(torch.equal(out, whole), f"K5 {label}: differs from K1 on the whole volume by {compare(out, whole)[0]:.3e}")
+            check(made == (n * len(shifts), n * len(moving), sent),
+                  f"K5 {label}: launches, tail launches, bytes sent {made}, expected {(n * len(shifts), n * len(moving), sent)}")
+            ms = cuda_time_ms(lambda: windowed_nmf_multi_spatial_local(xs, *args))
+            k1_ms = cuda_time_ms(lambda: windowed_nmf(x, *args))
+            plain_ms = cuda_time_ms(lambda: windowed_nmf_multi_spatial_plain(xs, *args), warmup=1, runs=5)
+            n_bytes, flops = k5_work(x, shifts, p, backward=False)
+            bound = bound_ms(n_bytes, flops, dt)
+            passes = n * len(shifts)
+            per_shift = sent / n / max(len(moving), 1)
+            print(f"[K5] {label}: max_abs={err:.3e} max_rel={rel:.3e} (tol {tol:.1e}), equal to K1 on the whole volume bit for bit; "
+                  f"ring {ms:.3f} ms = {ms / passes:.4f} ms per slab pass (K1 {k1_ms:.3f} ms = {k1_ms / passes:.4f} per pass and slab's "
+                  f"share) plain {plain_ms:.3f} ms bound {bound[0]:.3f} ms ({bound[1]}; {bound[0] / passes:.4f} ms per slab pass); "
+                  f"sent per slab {sent / n / 1e6:.2f} MB, {per_shift / 1e6:.2f} MB per moving shift "
+                  f"(= {1e3 * per_shift / NVLINK_BYTES:.4f} ms at NVLink's published 450 GB/s each way, not measured)")
+            record("windowed_nmf_slab", err, label, ms, plain_ms, bound)
+            del x, xs, out, ref, whole
+            torch.cuda.empty_cache()
+
+    # A slab of rows that the patch does not divide raises, on the card as on the CPU.
+    bad = [torch.rand(2, 20, 32, 32, 128, device=dev) for _ in range(2)]
+    try:
+        windowed_nmf_multi_spatial_local(bad, u0, v0[8], 8, 8, four)
+    except ValueError as e:
+        print(f"[K5] two slabs of 20 rows, patch 8, raise: {e}")
+    else:
+        check(False, "K5: a slab of rows that the patch does not divide did not raise")
+    del bad
+
+    # 19. K5 backward: autograd through the slab kernels against autograd through the plain version, and against
+    # K1's backward kernel on the whole volume, bit for bit.
+    for case in k5_cases:
+        b, s, c, p, dt, solver, shifts, n, grad_steps = case
+        x, g, xs, gs = k5_inputs(b, s, c, p, dt, solver, n)
+        args = (u0, v0[p], 8, p, shifts, solver, NUM_ITERS, 1e-16, grad_steps)
+        leaves = [t.requires_grad_(True) for t in xs]
+        before = (k5.backward_launches, k5.tail_launches)
+        out = torch.cat(torch.autograd.grad(windowed_nmf_multi_spatial_local(leaves, *args), leaves, gs), 1)
+        moving = rows_moved(shifts, p)
+        made = (k5.backward_launches - before[0], k5.tail_launches - before[1])
+        check(made == (n * len(shifts), 2 * n * len(moving)), f"K5 bwd {k5_label(*case)}: launches {made}")
+        ref = torch.cat(torch.autograd.grad(windowed_nmf_multi_spatial_plain(leaves, *args), leaves, gs), 1)
+        whole = windowed_nmf_backward(x, g, *args)
+        torch.cuda.synchronize()
+        err, rel = compare(out, ref)
+        tol = K1_BWD_RTOL[dname(dt)]
+        label = k5_label(*case)
+        check(out.dtype == dt and bool(torch.isfinite(out).all()), f"K5 bwd {label}: wrong or non-finite dx")
+        check(rel <= tol, f"K5 bwd {label}: max_abs {err:.3e} max_rel {rel:.3e} above {tol:.1e}")
+        check(torch.equal(out, whole), f"K5 bwd {label}: differs from K1 bwd on the whole volume by {compare(out, whole)[0]:.3e}")
+        del out, ref, whole
+        ys = windowed_nmf_multi_spatial_local(leaves, *args)
+        ms = cuda_time_ms(lambda: torch.autograd.grad(ys, leaves, gs, retain_graph=True))
+        k1_ms = cuda_time_ms(lambda: windowed_nmf_backward(x, g, *args))
+
+        def plain_forward_backward():
+            torch.autograd.grad(windowed_nmf_multi_spatial_plain(leaves, *args), leaves, gs)
+
+        plain_ms = cuda_time_ms(plain_forward_backward, warmup=1, runs=3)
+        n_bytes, flops = k5_work(x, shifts, p, True, grad_steps or NUM_ITERS, solver == "mu")
+        bound = bound_ms(n_bytes, flops, dt)
+        passes = n * len(shifts)
+        print(f"[K5 bwd] {label}: max_abs={err:.3e} max_rel={rel:.3e} (tol {tol:.1e}), equal to K1 bwd on the whole volume bit for "
+              f"bit; ring {ms:.3f} ms = {ms / passes:.4f} ms per slab pass (K1 bwd {k1_ms:.3f} ms = {k1_ms / passes:.4f}) "
+              f"plain forward+backward {plain_ms:.3f} ms bound {bound[0]:.3f} ms ({bound[1]}; {bound[0] / passes:.4f} ms per slab pass)")
+        record("windowed_nmf_slab_bwd", err, label, ms, plain_ms, bound)
+        del x, g, xs, gs, leaves, ys, args
+        torch.cuda.empty_cache()
+
+    # 20., 21. the two multi-process slices, on this one card: gloo, device tensors staged through the host.
+    spatial_launches = spatial_slice(2)
+    torch.backends.cudnn.benchmark = True
+    for k, v in train_dp_slice(2, settings, n_steps).items():
+        train_launches[k] += v
+    gc.collect()
+    torch.cuda.empty_cache()
+
     sources = {
         "windowed_nmf": ("factorizer_tpu_torch/csrc/windowed_nmf.cu",
                          "factorizer_tpu/ops/pallas/windowed_nmf_kernel.py:379"),
@@ -1024,20 +1465,22 @@ def main() -> None:
         "depthwise_conv_dw": ("factorizer_tpu_torch/csrc/depthwise_conv_dw.cu", "factorizer_tpu/ops/pallas/depthwise_packed.py:147"),
         "nmf_reconstruct": ("factorizer_tpu_torch/csrc/nmf.cu", "factorizer_tpu/ops/pallas/nmf_kernel.py:142"),
         "nmf_reconstruct_bwd": ("factorizer_tpu_torch/csrc/nmf_bwd.cu", "factorizer_tpu/ops/pallas/nmf_kernel.py:142"),
+        "windowed_nmf_slab": ("factorizer_tpu_torch/csrc/windowed_nmf_slab.cu",
+                              "factorizer_tpu/ops/pallas/windowed_sharded.py:112"),
+        "windowed_nmf_slab_bwd": ("factorizer_tpu_torch/csrc/windowed_nmf_slab_bwd.cu",
+                                  "factorizer_tpu/ops/pallas/windowed_sharded.py:90"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():
         label, ms, plain_ms, b_ms, b_by, library_ms = results[name]["times"]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": serve_launches[name] + train_launches[name],
+                        "launches": serve_launches[name] + train_launches[name] + spatial_launches[name],
                         "launches_serving": serve_launches[name], "launches_training": train_launches[name],
+                        "launches_spatial": spatial_launches[name],
                         "max_abs_err": max(results[name]["errs"]),
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": library_ms, "timed_at": label})
-    print(smi)
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
+    last_lines(kernels)
 
 
 if __name__ == "__main__":

@@ -31,6 +31,7 @@ from .models import (
 )
 from .ops import Matricize, Reshape, SWMatricize
 from .ops.kernels import reference_kernels
+from .parallel import data_parallel, data_parallel_mesh, initialize_distributed, make_mesh, shard_batch
 from .train import create_train_state, dice_ce_loss, make_eval_step, make_train_step, sliding_window_inference
 from .utils import load_flax_variables, resolve_device
 from .zoo_scripts import (

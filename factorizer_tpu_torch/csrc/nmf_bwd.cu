@@ -28,6 +28,7 @@ namespace {
 // One (M, N) matrix of a contiguous batch under the names the shared sweep
 // uses: d = M rows of x (the length of u), P3 = N columns (the length of v).
 struct FlatMatrix {
+  static constexpr bool kHalo = false;
   int d, P3;
   int64_t base;
 
@@ -48,8 +49,9 @@ nmf_reconstruct_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, T* 
                            int mu, int num_iters, int grad_steps, float eps) {
   const FlatMatrix mat(M, N);
   extern __shared__ float smem[];
-  ftt::rank1_nmf_bwd_block<T, FlatMatrix, kThreads>(mat, x, g, nullptr, dx, u0, v0, mu, num_iters, grad_steps,
-                                                   eps, /*first=*/1, /*last=*/1, /*scale=*/1.f, smem);
+  ftt::rank1_nmf_bwd_block<T, FlatMatrix, kThreads>(mat, x, g, nullptr, nullptr, nullptr, dx, nullptr, u0, v0, mu,
+                                                   num_iters, grad_steps, eps, /*first=*/1, /*last=*/1, /*scale=*/1.f,
+                                                   smem);
 }
 
 template <typename T, int kThreads>

@@ -2,7 +2,10 @@
 // K1's backward (windowed_nmf_bwd.cu: the matrix is a window of a rolled
 // volume) and K4's rank-1 backward (nmf_bwd.cu: the matrix is one of a flat
 // batch).  The two differ only in where element e of the matrix lies in
-// device memory, which the `Addr` argument answers.
+// device memory, which the `Addr` argument answers.  K5's backward
+// (windowed_nmf_slab_bwd.cu) is K1's on a slab: a third addressing, under
+// which some elements are read from halo buffers and written to a send
+// buffer (`load_at`, `store_at` in windowed_nmf.cuh).
 //
 // With X the P3 x d matrix of the block (row q, column di), G the cotangent
 // at the same places, and the solve u in R^d, v in R^P3:
@@ -46,12 +49,14 @@ inline size_t rank1_bwd_smem_floats(int P3, int d, int T, int threads) {
 // `win` gives d, P3 and locate(e, q, di) -> offset for e in [0, P3 * d);
 // consecutive e should be consecutive addresses.  The block has kThreads
 // threads, kThreads >= d.  `smem` holds rank1_bwd_smem_floats(...) floats.
-// The result goes through store_pass (windowed_nmf.cuh).
+// The result goes through store_at (windowed_nmf.cuh); `x_halo`, `g_halo`
+// and `send` are read and written only under a slab addressing.
 template <typename T, typename Addr, int kThreads>
 __device__ __forceinline__ void rank1_nmf_bwd_block(
-    const Addr& win, const T* __restrict__ x, const T* __restrict__ g, float* __restrict__ acc,
-    T* __restrict__ out, const float* __restrict__ u0, const float* __restrict__ v0, int mu,
-    int num_iters, int grad_steps, float eps, int first, int last, float scale, float* smem) {
+    const Addr& win, const T* __restrict__ x, const T* __restrict__ g, const T* __restrict__ x_halo,
+    const T* __restrict__ g_halo, float* __restrict__ acc, T* __restrict__ out, float* __restrict__ send,
+    const float* __restrict__ u0, const float* __restrict__ v0, int mu, int num_iters, int grad_steps,
+    float eps, int first, int last, float scale, float* smem) {
   const int d = win.d, P3 = win.P3, nT = num_iters;
   const int ld = d + 1;
   float* X = smem;                  // [P3][ld]
@@ -74,8 +79,8 @@ __device__ __forceinline__ void rank1_nmf_bwd_block(
   for (int e = tid; e < n_elem; e += kThreads) {
     int q, di;
     const int64_t o = win.locate(e, q, di);
-    X[q * ld + di] = to_float(x[o]);
-    D[q * ld + di] = to_float(g[o]);
+    X[q * ld + di] = load_at<Addr>(x, x_halo, o);
+    D[q * ld + di] = load_at<Addr>(g, g_halo, o);
   }
   float bu_local = 0.f;
   for (int q = tid; q < P3; q += kThreads) {
@@ -204,7 +209,7 @@ __device__ __forceinline__ void rank1_nmf_bwd_block(
   for (int e = tid; e < n_elem; e += kThreads) {
     int q, di;
     const int64_t o = win.locate(e, q, di);
-    store_pass(acc, out, o, D[q * ld + di], first, last, scale);
+    store_at<Addr>(acc, out, send, o, D[q * ld + di], first, last, scale);
   }
 }
 

@@ -38,55 +38,9 @@ windowed_nmf_shift_kernel(const T* __restrict__ x, float* __restrict__ acc, T* _
                           int sh3, int mu, int num_iters, float eps, int first, int last,
                           float scale) {
   const ftt::Window<kD, kP> win(d_rt, p_rt, S1, S2, S3, C, sh1, sh2, sh3);
-  const int d = win.d, P3 = win.P3;
   extern __shared__ float smem[];
-  const int ld = d + 1;           // padded row: conflict-free column reads
-  float* X = smem;                // [P3][ld]
-  float* v = X + P3 * ld;         // [P3]
-  float* u = v + P3;              // [d]
-  float* part = u + d;            // [kThreads]
-  float* red = part + kThreads;   // [33]
-
-  const int tid = threadIdx.x;
-  const int n_elem = P3 * d;
-
-  for (int e = tid; e < n_elem; e += kThreads) {
-    X[(e / d) * ld + e % d] = ftt::to_float(x[win.offset(e)]);
-  }
-  float bu_local = 0.f;
-  for (int q = tid; q < P3; q += kThreads) {
-    v[q] = v0[q];
-    bu_local += v0[q] * v0[q];
-  }
-  if (tid < d) u[tid] = u0[tid];
-  float bu = ftt::block_sum(bu_local, red);  // v^T v; ends with a barrier
-
-  for (int it = 0; it < num_iters; ++it) {
-    // u <- HALS: relu((X v + eps) / (v^T v + eps));  MU: u (X v + eps) / (u v^T v + eps)
-    const float a = ftt::column_dot<kThreads>(X, v, part, P3, d, ld);
-    if (tid < d) {
-      const float uo = u[tid];
-      u[tid] = mu ? (uo * a + eps) / (uo * bu + eps) : fmaxf((a + eps) / (bu + eps), 0.f);
-    }
-    __syncthreads();
-    // v <- HALS: relu((X^T u + eps) / (u^T u + eps));  MU: v (X^T u + eps) / (v u^T u + eps)
-    float bv = 0.f;
-    for (int di = 0; di < d; ++di) bv += u[di] * u[di];
-    float vv_local = 0.f;
-    for (int q = tid; q < P3; q += kThreads) {
-      float av = 0.f;
-      for (int di = 0; di < d; ++di) av += X[q * ld + di] * u[di];
-      const float vo = v[q];
-      const float vn = mu ? (vo * av + eps) / (vo * bv + eps) : fmaxf((av + eps) / (bv + eps), 0.f);
-      v[q] = vn;
-      vv_local += vn * vn;
-    }
-    bu = ftt::block_sum(vv_local, red);  // next iteration's v^T v; barrier
-  }
-
-  for (int e = tid; e < n_elem; e += kThreads) {
-    ftt::store_pass(acc, out, win.offset(e), u[e % d] * v[e / d], first, last, scale);
-  }
+  ftt::rank1_nmf_fwd_block<T, ftt::Window<kD, kP>, kThreads>(win, x, nullptr, acc, out, nullptr, u0, v0, mu, num_iters,
+                                                             eps, first, last, scale, smem);
 }
 
 template <typename T>
@@ -94,7 +48,7 @@ cudaError_t launch(const void* x, void* acc, void* out, const float* u0, const f
                    int S1, int S2, int S3, int C, int d, int p, int sh1, int sh2, int sh3, int mu,
                    int num_iters, float eps, int first, int last, float scale, cudaStream_t stream) {
   const int P3 = p * p * p;
-  const size_t smem = sizeof(float) * (static_cast<size_t>(P3) * (d + 1) + P3 + d + kThreads + 33);
+  const size_t smem = sizeof(float) * ftt::rank1_fwd_smem_floats(P3, d, kThreads);
   // The bundle's head_dim 8 and patch 8 get a compile-time instance.
   auto kernel = (d == 8 && p == 8) ? windowed_nmf_shift_kernel<T, 8, 8> : windowed_nmf_shift_kernel<T, 0, 0>;
   if (smem > 48 * 1024) {

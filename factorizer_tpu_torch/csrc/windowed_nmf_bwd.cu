@@ -38,8 +38,8 @@ windowed_nmf_shift_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, 
                               int grad_steps, float eps, int first, int last, float scale) {
   const ftt::Window<kD, kP> win(d_rt, p_rt, S1, S2, S3, C, sh1, sh2, sh3);
   extern __shared__ float smem[];
-  ftt::rank1_nmf_bwd_block<T, ftt::Window<kD, kP>, kThreads>(win, x, g, acc, out, u0, v0, mu, num_iters,
-                                                             grad_steps, eps, first, last, scale, smem);
+  ftt::rank1_nmf_bwd_block<T, ftt::Window<kD, kP>, kThreads>(win, x, g, nullptr, nullptr, acc, out, nullptr, u0, v0,
+                                                             mu, num_iters, grad_steps, eps, first, last, scale, smem);
 }
 
 template <typename T>

@@ -1,0 +1,145 @@
+// K5, forward: one shift pass of the windowed rank-1 NMF on one slab of a
+// volume that is cut along its first spatial axis over a ring of devices.
+//
+// Replaces `windowed_nmf_multi_spatial` (factorizer_tpu/ops/pallas/
+// windowed_sharded.py:112), whose `_local_forward` (:66) pads each slab in
+// front with the left neighbour's last p rows (`_pad12_halo` :49, a
+// `ppermute`), wraps dims 2 and 3 by a padded copy, runs K1's Pallas pass
+// (`_shift_pass_fn`, windowed_nmf_kernel.py:502 -> `pallas_call` :521) on the
+// padded slab, rolls the result back along dim 2 and sends the first s1 rows
+// of it back to the left neighbour (`_roll_back_dim1` :57).  The transport
+// stays outside the kernel there and here (torch.distributed).
+//
+// A slab holds L = S1 / n rows, a multiple of the patch.  For the shift
+// (s1, s2, s3) the first window row of the slab covers the rows [-s1, p - s1):
+// its elements with a negative row lie in the left neighbour.  This kernel is
+// K1's (the same block, the same solve: `rank1_nmf_fwd_block`), and the one
+// thing it changes is where such an element is:
+//   * it is read from `halo` (B, s1, S2, S3, C), the left neighbour's last s1
+//     rows (only s1 < p rows are ever read, so s1 rows move, not p);
+//   * the pass's value for it is written to `send` (B, s1, S2, S3, C) in f32,
+//     not into the local output;
+//   * the slab's own last s1 rows are written by no block of this launch:
+//     they are the right neighbour's `send`, and `slab_tail_kernel` takes
+//     them through the same first / middle / last step (`store_pass`), so
+//     that every output element is visited exactly once per pass.
+// Dims 2 and 3 wrap in place, as in K1.  With s1 = 0 nothing is exchanged
+// and the launch equals K1's on the slab.
+//
+// What bounds it on the H100: memory, as K1: per pass the slab read once and
+// written once (plus the f32 scratch between passes); the halo and the send
+// buffer add s1 / L of that.  What the design does about it: what K1's does
+// (no roll, fold or padded copy exists; each element is read and written once
+// per pass); the routed rows are f32 so that the sum over passes equals K1's
+// on the whole volume bit for bit, in bf16 too.
+#include "windowed_nmf.cuh"
+
+namespace {
+
+constexpr int kThreads = ftt::kWindowThreads;
+
+template <typename T, int kD, int kP>
+__global__ void __launch_bounds__(kThreads)
+windowed_nmf_slab_shift_kernel(const T* __restrict__ x, const T* __restrict__ halo, float* __restrict__ acc,
+                               T* __restrict__ out, float* __restrict__ send, const float* __restrict__ u0,
+                               const float* __restrict__ v0, int L, int S2, int S3, int C, int d_rt, int p_rt,
+                               int sh1, int sh2, int sh3, int mu, int num_iters, float eps, int first, int last,
+                               float scale) {
+  using Slab = ftt::Window<kD, kP, true>;
+  const Slab win(d_rt, p_rt, L, S2, S3, C, sh1, sh2, sh3);
+  extern __shared__ float smem[];
+  ftt::rank1_nmf_fwd_block<T, Slab, kThreads>(win, x, halo, acc, out, send, u0, v0, mu, num_iters, eps, first, last,
+                                              scale, smem);
+}
+
+// The rows that arrived from the right neighbour: `recv` (B, s1, R) in f32,
+// R = S2 * S3 * C, is one pass's value for the slab's rows [L - s1, L).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+slab_tail_kernel(const float* __restrict__ recv, float* __restrict__ acc, T* __restrict__ out, int64_t n, int64_t L,
+                 int64_t R, int64_t sh1, int first, int last, float scale) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n; i += stride) {
+    const int64_t b = i / (sh1 * R), rem = i % (sh1 * R);
+    ftt::store_pass(acc, out, (b * L + L - sh1) * R + rem, recv[i], first, last, scale);
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* x, const void* halo, void* acc, void* out, void* send, const float* u0,
+                   const float* v0, int B, int L, int S2, int S3, int C, int d, int p, int sh1, int sh2, int sh3,
+                   int mu, int num_iters, float eps, int first, int last, float scale, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * ftt::rank1_fwd_smem_floats(p * p * p, d, kThreads);
+  // The bundle's head_dim 8 and patch 8 get a compile-time instance.
+  auto kernel = (d == 8 && p == 8) ? windowed_nmf_slab_shift_kernel<T, 8, 8> : windowed_nmf_slab_shift_kernel<T, 0, 0>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int64_t blocks = static_cast<int64_t>(B) * (L / p) * (S2 / p) * (S3 / p) * (C / d);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(halo), static_cast<float*>(acc), static_cast<T*>(out),
+      static_cast<float*>(send), u0, v0, L, S2, S3, C, d, p, sh1, sh2, sh3, mu, num_iters, eps, first, last, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_tail(const void* recv, void* acc, void* out, int64_t B, int64_t L, int64_t R, int64_t sh1,
+                        int first, int last, float scale, cudaStream_t stream) {
+  const int64_t n = B * sh1 * R;
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  slab_tail_kernel<T><<<static_cast<unsigned>(blocks < 65535 * 16 ? blocks : 65535 * 16), kThreads, 0, stream>>>(
+      static_cast<const float*>(recv), static_cast<float*>(acc), static_cast<T*>(out), n, L, R, sh1, first, last,
+      scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// One shift pass on one slab.  x, out: (B, L, S2, S3, C) contiguous, of
+// `dtype`; acc: the same shape in f32 (unused when first && last); halo:
+// (B, sh1, S2, S3, C) of `dtype`, send: the same shape in f32 (both unused
+// when sh1 == 0); u0: (d,) f32; v0: (p^3,) f32.  Shifts are in [0, p).
+// Writes the rows [0, L - sh1) of the pass and `send`.
+extern "C" int ftt_windowed_nmf_slab_shift(const void* x, const void* halo, void* acc, void* out, void* send,
+                                           const void* u0, const void* v0, int dtype, int B, int L, int S2, int S3,
+                                           int C, int d, int p, int sh1, int sh2, int sh3, int mu, int num_iters,
+                                           float eps, int first, int last, float scale, void* stream) {
+  if (d < 1 || d > kThreads || C % d || L % p || S2 % p || S3 % p || sh1 < 0 || sh1 >= p ||
+      (sh1 > 0 && (halo == nullptr || send == nullptr))) {
+    return cudaErrorInvalidValue;
+  }
+  auto s = static_cast<cudaStream_t>(stream);
+  auto fu0 = static_cast<const float*>(u0);
+  auto fv0 = static_cast<const float*>(v0);
+  cudaError_t err;
+  if (dtype == ftt::kFloat32) {
+    err = launch<float>(x, halo, acc, out, send, fu0, fv0, B, L, S2, S3, C, d, p, sh1, sh2, sh3, mu, num_iters, eps,
+                        first, last, scale, s);
+  } else if (dtype == ftt::kBFloat16) {
+    err = launch<__nv_bfloat16>(x, halo, acc, out, send, fu0, fv0, B, L, S2, S3, C, d, p, sh1, sh2, sh3, mu,
+                                num_iters, eps, first, last, scale, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// The slab's last sh1 rows of one pass, forward or backward: recv
+// (B, sh1, R) f32 with R = S2 * S3 * C; acc (B, L, R) f32 and out (B, L, R)
+// of `dtype` as in the pass itself, with the same first / last / scale.
+extern "C" int ftt_windowed_nmf_slab_tail(const void* recv, void* acc, void* out, int dtype, int B, int L,
+                                          long long R, int sh1, int first, int last, float scale, void* stream) {
+  if (B < 1 || sh1 < 1 || sh1 > L || R < 1) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == ftt::kFloat32) {
+    err = launch_tail<float>(recv, acc, out, B, L, R, sh1, first, last, scale, s);
+  } else if (dtype == ftt::kBFloat16) {
+    err = launch_tail<__nv_bfloat16>(recv, acc, out, B, L, R, sh1, first, last, scale, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}

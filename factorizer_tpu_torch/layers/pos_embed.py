@@ -29,5 +29,7 @@ class PositionalEmbedding(nn.Module):
         pos = torch.randn((1, channels, *spatial_size), generator=generator)
         self.pos = nn.Parameter(pos.to(device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.pos.movedim(1, -1).to(x.dtype)
+    def forward(self, x: torch.Tensor, rows: Optional[slice] = None) -> torch.Tensor:
+        """``x + pos``; ``rows`` selects the rows of the first spatial axis that ``x``, a slab of the volume, holds."""
+        pos = self.pos if rows is None else self.pos[:, :, rows]
+        return x + pos.movedim(1, -1).to(x.dtype)

@@ -18,6 +18,14 @@ Three kernels carry the blocks:
 * ``FactorizerBlock`` sends its tail ``x + mlp(norm2(x))`` through K2
   (``ops.kernels.prenorm_mlp``), reading the ``norm2`` and ``mlp`` parameters.
 
+With ``factorize_options={"spatial_mesh": mesh, "spatial_axis": name}`` a
+windowed mixer runs on a slab of the volume, cut along the first spatial axis
+over that axis of the process mesh, through K5
+(``ops.kernels.windowed_nmf_multi_spatial``: the slab kernels and a halo
+exchange); ``spatial_size`` stays the whole volume's.  Everything else in a
+block is per voxel and needs nothing; a stage's positional embedding is cut
+to the slab's rows.
+
 in_proj, out_proj, the stage adapter, the folds and the convolutions stay
 stock PyTorch.  Dropout is not ported: the serving path runs without it.
 """
@@ -32,7 +40,7 @@ from torch import nn
 from ..factorization.nmf import NMF
 from ..layers.basic import ACTIVATIONS, LayerNorm, Linear, MLP
 from ..layers.pos_embed import PositionalEmbedding
-from ..ops.kernels import prenorm_mlp, windowed_nmf
+from ..ops.kernels import prenorm_mlp, windowed_nmf, windowed_nmf_multi_spatial
 from ..ops.reshape import Matricize, SWMatricize
 from .unet import UNet
 
@@ -42,9 +50,19 @@ __all__ = ["FactMixer", "FactorizerBlock", "FactorizerStage", "Factorizer"]
 ReshapeSpec = tuple[type, dict]
 DEFAULT_RESHAPE: ReshapeSpec = (Matricize, {"num_heads": 1, "grid_size": 1})
 # What ``factorize_options`` may hold.  The JAX package's other keys steer its
-# TPU kernels and meshes (``use_pallas``, ``explain``, ``spatial_mesh``,
-# ``spatial_axis``); here ``reference_kernels()`` is the pure-torch mode.
-FACTORIZE_OPTIONS = ("use_windowed",)
+# TPU kernels (``use_pallas``, ``explain``); here ``reference_kernels()`` is
+# the pure-torch mode.
+FACTORIZE_OPTIONS = ("use_windowed", "spatial_mesh", "spatial_axis")
+
+
+def _spatial_option(factorize_options: Optional[dict]) -> Optional[tuple]:
+    """``(mesh, axis)`` when the options cut the volume's first spatial axis over a mesh axis, else None."""
+    mesh = (factorize_options or {}).get("spatial_mesh")
+    if mesh is None:
+        return None
+    axis = factorize_options.get("spatial_axis", "model")
+    mesh.axis_size(axis)  # raises on an axis the mesh lacks
+    return mesh, axis
 
 
 class FactMixer(nn.Module):
@@ -58,6 +76,10 @@ class FactMixer(nn.Module):
     that the two routes can be held against each other; on one card the flat
     route is the slower one and needs more memory (it copies the tensor for
     every shift), so no single-card deployment should set it.
+    ``factorize_options={"spatial_mesh": mesh, "spatial_axis": "model"}``:
+    ``forward`` takes this process's slab ``(B, S1 / n, S2, S3, C)`` of the
+    volume and mixes it through K5; only a mixer that K1 computes can, and
+    each slab must hold whole windows.
     """
 
     def __init__(
@@ -87,6 +109,21 @@ class FactMixer(nn.Module):
         self.out_proj = Linear(out_channels, out_channels, bias=True, **kw)
         opted_out = (factorize_options or {}).get("use_windowed") is False
         self.windowed = None if opted_out else self._windowed_config(len(spatial_size))
+        self.spatial = _spatial_option(factorize_options)
+        if self.spatial is not None:
+            if self.windowed is None:
+                raise ValueError(
+                    "factorize_options['spatial_mesh'] needs a mixer that the windowed kernel computes (3-D, a head_dim, "
+                    "cubic patches, rank-1 hals or mu, use_windowed not False): the flat route has no sharded form"
+                )
+            mesh, axis = self.spatial
+            n, patch = mesh.axis_size(axis), self.windowed[1]
+            if spatial_size[0] % n or (spatial_size[0] // n) % patch:
+                raise ValueError(
+                    f"spatial_mesh: {spatial_size[0]} rows over {n} processes of axis {axis!r} do not give slabs of a "
+                    f"whole number of patches of {patch}"
+                )
+            self.slab_rows = spatial_size[0] // n
 
     def _windowed_config(self, spatial_dims: int) -> Optional[tuple[int, int, tuple]]:
         """``(head_dim, patch, shifts)`` when K1 computes this mixer, else None."""
@@ -113,12 +150,16 @@ class FactMixer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.act(self.in_proj(x))  # elementwise, so it commutes with the fold
         if self.windowed is not None:
-            d, p, shifts = self.windowed
             fact = self.factorize
-            out = windowed_nmf(
-                out, fact.init.u0, fact.init.v0, d, p, shifts, fact.solver, fact.num_iters,
-                fact.eps, fact.num_grad_steps,
-            )
+            args = (out, fact.init.u0, fact.init.v0, *self.windowed, fact.solver, fact.num_iters, fact.eps,
+                    fact.num_grad_steps)
+            if self.spatial is None:
+                out = windowed_nmf(*args)
+            else:
+                if out.shape[1] != self.slab_rows:
+                    raise ValueError(f"spatial_mesh: expected a slab of {self.slab_rows} rows, got shape {tuple(out.shape)}")
+                mesh, axis = self.spatial
+                out = windowed_nmf_multi_spatial(*args, mesh=mesh, axis_name=axis)
         else:
             out = self.reshape.inverse_forward(self.factorize(self.reshape.forward(out)))
         return self.out_proj(out)
@@ -154,7 +195,11 @@ class FactorizerBlock(nn.Module):
 
 
 class FactorizerStage(nn.Module):
-    """One resolution stage: channel adapter, optional positional embedding, ``depth`` blocks."""
+    """One resolution stage: channel adapter, optional positional embedding, ``depth`` blocks.
+
+    Under ``factorize_options["spatial_mesh"]`` the stage runs on a slab and
+    adds the slab's rows of the embedding.
+    """
 
     def __init__(
         self,
@@ -176,6 +221,7 @@ class FactorizerStage(nn.Module):
             if pos_embed
             else None
         )
+        self.spatial = _spatial_option(block_kwargs.get("factorize_options"))
         self.blocks = nn.ModuleList(
             FactorizerBlock(out_channels, spatial_size, **block_kwargs, **kw) for _ in range(depth)
         )
@@ -184,7 +230,11 @@ class FactorizerStage(nn.Module):
         if self.adapter is not None:
             x = self.adapter(x)
         if self.pos_embed is not None:
-            x = self.pos_embed(x)
+            rows = None
+            if self.spatial is not None:  # x is this process's slab of the volume
+                start = self.spatial[0].axis_index(self.spatial[1]) * x.shape[1]
+                rows = slice(start, start + x.shape[1])
+            x = self.pos_embed(x, rows)
         for blk in self.blocks:
             x = blk(x)
         return x

@@ -9,6 +9,13 @@ from .depthwise_conv import depthwise_conv, depthwise_conv_dw, depthwise_conv_dw
 from .mlp_block import prenorm_mlp, prenorm_mlp_backward, prenorm_mlp_backward_plain, prenorm_mlp_plain
 from .nmf import nmf_reconstruct, nmf_reconstruct_backward, nmf_reconstruct_backward_plain, nmf_reconstruct_plain
 from .windowed_nmf import windowed_nmf, windowed_nmf_backward, windowed_nmf_backward_plain, windowed_nmf_plain
+from .windowed_sharded import (
+    windowed_nmf_multi_spatial,
+    windowed_nmf_multi_spatial_local,
+    windowed_nmf_multi_spatial_plain,
+    windowed_nmf_slab_backward_pass,
+    windowed_nmf_slab_pass,
+)
 
 __all__ = [
     "reference_kernels",
@@ -16,4 +23,6 @@ __all__ = [
     "nmf_reconstruct", "nmf_reconstruct_plain", "nmf_reconstruct_backward", "nmf_reconstruct_backward_plain",
     "prenorm_mlp", "prenorm_mlp_plain", "prenorm_mlp_backward", "prenorm_mlp_backward_plain",
     "windowed_nmf", "windowed_nmf_plain", "windowed_nmf_backward", "windowed_nmf_backward_plain",
+    "windowed_nmf_multi_spatial", "windowed_nmf_multi_spatial_local", "windowed_nmf_multi_spatial_plain",
+    "windowed_nmf_slab_pass", "windowed_nmf_slab_backward_pass",
 ]

@@ -63,6 +63,14 @@ _SIGNATURES = {
     "ftt_nmf_reconstruct": [_P] * 4 + [_I, _L] + [_I] * 5 + [_F, _P],
     # x, g, dx, u0, v0, dtype, n_mats, M, N, mu, num_iters, grad_steps, eps, stream
     "ftt_nmf_reconstruct_bwd": [_P] * 5 + [_I, _L] + [_I] * 5 + [_F, _P],
+    # x, halo, acc, out, send, u0, v0, dtype, B, L, S2, S3, C, d, p, sh1, sh2, sh3, mu, num_iters, eps, first,
+    # last, scale, stream
+    "ftt_windowed_nmf_slab_shift": [_P] * 7 + [_I] * 13 + [_F, _I, _I, _F, _P],
+    # x, g, x_halo, g_halo, acc, out, send, u0, v0, dtype, B, L, S2, S3, C, d, p, sh1, sh2, sh3, mu, num_iters,
+    # grad_steps, eps, first, last, scale, stream
+    "ftt_windowed_nmf_slab_shift_bwd": [_P] * 9 + [_I] * 14 + [_F, _I, _I, _F, _P],
+    # recv, acc, out, dtype, B, L, R, sh1, first, last, scale, stream
+    "ftt_windowed_nmf_slab_tail": [_P] * 3 + [_I, _I, _I, _L, _I, _I, _I, _F, _P],
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -185,9 +185,10 @@ def test_factmixer_opt_out_matches_jax_and_the_windowed_route():
 
 
 def test_factorize_options_takes_use_windowed_alone():
-    """The TPU-only keys of the JAX package are refused by name; ``use_windowed: True`` and None keep the default."""
+    """The TPU-only keys of the JAX package are refused by name; ``use_windowed: True`` and None keep the default.
+    (``spatial_mesh`` and ``spatial_axis`` are taken: ``tests/test_torch_windowed_sharded.py``.)"""
     sw = (ftt.SWMatricize, {"head_dim": 4, "patch_size": 4})
-    for key in ("use_pallas", "explain", "spatial_mesh", "spatial_axis", "split_shifts"):
+    for key in ("use_pallas", "explain", "split_shifts"):
         with pytest.raises(ValueError, match=key):
             ftt.FactMixer(8, 8, (8, 8, 8), reshape=sw, factorize_options={key: True})
     for options in (None, {}, {"use_windowed": True}, {"use_windowed": None}):

@@ -19,7 +19,8 @@ PACKAGE = Path(ftt.__file__).parent
 def test_import_leaves_jax_out():
     """In a fresh interpreter, importing the port imports neither jax nor the JAX package."""
     code = (
-        "import sys, factorizer_tpu_torch, factorizer_tpu_torch.ops.kernels; "
+        "import sys, factorizer_tpu_torch, factorizer_tpu_torch.ops.kernels, factorizer_tpu_torch.parallel.launch, "
+        "factorizer_tpu_torch.ops.kernels.windowed_sharded; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'factorizer_tpu')); "
         "assert not bad, bad"
     )
@@ -48,6 +49,9 @@ def test_cpu_calls_build_nothing():
         "nmf_reconstruct(x, torch.rand(8, 2), torch.rand(8, 2)); assert nmf_reconstruct.launches == 0\n"
         "depthwise_conv(x, torch.rand(1, 27, 8), (3, 3, 3)); depthwise_conv_dw(x, x, (3, 3, 3))\n"
         "windowed_nmf(x, torch.rand(4, 1), torch.rand(64, 1), 4, 4, (None, 2))\n"
+        "from factorizer_tpu_torch.ops.kernels import windowed_nmf_multi_spatial as k5, windowed_nmf_multi_spatial_local\n"
+        "windowed_nmf_multi_spatial_local([x[:, :4].contiguous(), x[:, 4:].contiguous()], torch.rand(4, 1), torch.rand(64, 1), 4, 4, (None, 2))\n"
+        "assert (k5.launches, k5.backward_launches, k5.tail_launches) == (0, 0, 0) and k5.bytes_sent > 0\n"
         "c = 32; y = torch.rand(5, c)\n"
         "prenorm_mlp(y, torch.ones(c), torch.zeros(c), torch.rand(4 * c, c), torch.zeros(4 * c),\n"
         "            torch.rand(c, 4 * c), torch.zeros(c))\n"
@@ -85,7 +89,8 @@ def test_sources_and_build_flags():
     """The kernels compile from the package's own csrc/ for sm_90a into one shared library, no torch headers, no fast math."""
     sources = sorted(p.name for p in build.CSRC_DIR.glob("*.cu"))
     assert sources == ["depthwise_conv.cu", "depthwise_conv_dw.cu", "mlp_block.cu", "mlp_block_bwd.cu",
-                       "nmf.cu", "nmf_bwd.cu", "windowed_nmf.cu", "windowed_nmf_bwd.cu"]
+                       "nmf.cu", "nmf_bwd.cu", "windowed_nmf.cu", "windowed_nmf_bwd.cu", "windowed_nmf_slab.cu",
+                       "windowed_nmf_slab_bwd.cu"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in build.ARCH_FLAGS
     assert "--use_fast_math" not in build.NVCC_FLAGS  # flush-to-zero would change K1's gradients at zero windows
     for path in build.CSRC_DIR.iterdir():
@@ -110,7 +115,7 @@ def test_entry_points_default_to_the_card():
 
 def test_cuda_tensors_never_take_the_plain_version():
     """No wrapper gives way to its plain version: the routing has no try, and the old refusals are gone."""
-    for name in ("windowed_nmf.py", "mlp_block.py", "depthwise_conv.py", "nmf.py"):
+    for name in ("windowed_nmf.py", "mlp_block.py", "depthwise_conv.py", "nmf.py", "windowed_sharded.py"):
         source = (PACKAGE / "ops" / "kernels" / name).read_text()
         assert "NotImplementedError" not in source, name
         assert not [n for n in ast.walk(ast.parse(source)) if isinstance(n, ast.Try)], name
@@ -130,6 +135,23 @@ def test_depthwise_kernels_stay_off_the_libraries():
     source = (PACKAGE / "ops" / "kernels" / "depthwise_conv.py").read_text()
     assert "torch.compile" not in source and "cudnn" not in source.lower()
     assert depthwise_conv.launches == 0 and depthwise_conv_dw.launches == 0
+
+
+def test_slab_kernels_stay_off_torch_arithmetic():
+    """On a CUDA tensor K5 reaches no concatenation, roll, fold or product of torch's: ``torch.cat`` appears in the
+    plain versions alone, the other names nowhere; and the port's packaging finds the new sub-package."""
+    tree = ast.parse((PACKAGE / "ops" / "kernels" / "windowed_sharded.py").read_text())
+    users = {
+        (fn.name, node.attr)
+        for fn in ast.walk(tree) if isinstance(fn, ast.FunctionDef)
+        for node in ast.walk(fn)
+        if isinstance(node, ast.Attribute) and node.attr in ("cat", "roll", "matmul", "einsum", "stack", "reshape", "permute")
+    }
+    assert users == {("_padded", "cat"), ("windowed_nmf_multi_spatial_plain", "cat"), ("_launch", "reshape")}
+    import setuptools
+
+    found = setuptools.find_packages(str(PACKAGE.parent), include=["factorizer_tpu*", "factorizer_tpu_torch*"])
+    assert "factorizer_tpu_torch.parallel" in found and "factorizer_tpu_torch.parallel" in (PACKAGE.parent / "pyproject.toml").read_text()
 
 
 @pytest.mark.parametrize("factory,kernel_size,in_out", [
