@@ -10,12 +10,16 @@ Phases, one or more result lines each:
   2. build: one nvcc per csrc/*.cu for sm_90a, started together, into factorizer_tpu_torch/build/.
   3. K1 (windowed NMF) against its plain PyTorch version at the five stage shapes
      of a batch-2 128^3 forward, f32 and bf16, plus MU, a single zero shift, and the
-     factorizer_isles22 shapes (8,64^3,32) and (8,8^3,256) with patches of 4^3.
-  4. K2 (fused pre-norm MLP) against its plain version at the five block-tail shapes.
+     factorizer_isles22 shapes (8,64^3,32) and (8,8^3,256) with patches of 4^3: the
+     whole forward, and each of its two kernels (the factors pass, the reconstruct
+     pass) against its own plain version on the same inputs.
+  4. K2 (fused pre-norm MLP) against its plain version at the five block-tail shapes,
+     f32 and bf16; twice on one input, bit for bit.
   5. the serving slice: the full-width factorizer_brats23 network (random weights
      from a seed) serves 2 synthetic BraTS-native (1, 4, 240, 240, 155) volumes
      through ensemble_predict, in f32 and in bf16; the launch counters show every
-     mixer and every block tail on a kernel; the first request's logits are
+     mixer (two K1 launches: factors, reconstruct) and every block tail on a kernel;
+     the first request's logits are
      compared with the same call on the plain versions.
   6. K1 backward against autograd through the plain version: the five stage shapes,
      f32 and bf16, plus MU, a single zero shift, num_grad_steps=2, an input
@@ -24,8 +28,8 @@ Phases, one or more result lines each:
      plain version at the five shapes, f32 and bf16.
   8. the training slice: brats23_network() -> create_train_state -> make_train_step
      takes 1 warm-up and 3 timed steps on a synthetic batch 2 x 128^3, in f32 and in
-     bf16; the launch counters show 36 K1 forward, 36 K1 backward, 9 K2 forward and
-     9 K2 backward launches per step; the first step's loss and gradients are
+     bf16; the launch counters show 9 K1 factors, 9 K1 reconstruct, 36 K1 backward, 9 K2
+     forward and 9 K2 backward launches per step; the first step's loss and gradients are
      compared with the same step on the plain versions.
   9. K3 (per-sample depthwise convolution) against its plain version, a grouped F.conv{2,3}d: the five
      stage shapes of a batch-2 128^3 Deconver forward (kernel 3^3), f32 and bf16, the FIVES shapes
@@ -185,28 +189,41 @@ FLAT_STAGES = [131072, 32768, 8192, 2048, 512]  # matrices of (8, 512) per stage
 NUM_ITERS = 5
 N_BLOCKS, N_SHIFTS = 9, 4  # blocks of the bundles' networks, shifts per mixer
 
-# Published peaks of one H100 SXM at 700 W: HBM bytes/s, f32 FLOP/s outside the
-# tensor cores, dense bf16 FLOP/s in them.  A bound takes the peak of the
-# activations' dtype.
-PEAK_BYTES, PEAK_FLOPS = 3.35e12, {"float32": 67e12, "bfloat16": 989e12}
+# Published peaks of one H100 SXM at 700 W: HBM bytes/s, and FLOP/s of the
+# units a kernel's operations run on: f32 outside the tensor cores, dense TF32
+# and bf16 in them.  A bound takes the peak of the units its kernel runs on.
+PEAK_BYTES, PEAK_FLOPS = 3.35e12, {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
 
 
-def bound_ms(n_bytes: float, flops: float, dtype) -> tuple[float, str]:
-    """The least time the card could take: each input read and output written once, or the operations at peak."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES, flops / PEAK_FLOPS[dname(dtype)]
+def bound_ms(n_bytes: float, flops: float, dtype, units: str | None = None) -> tuple[float, str]:
+    """The least time the card could take: each input read and output written once, or the operations at the
+    peak of ``units`` (default: the activations' dtype)."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, flops / PEAK_FLOPS[units or dname(dtype)]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def k1_work(x, n_shifts: int, backward: bool, grad_steps: int = NUM_ITERS, mu: bool = False) -> tuple[float, float]:
-    """(bytes, flops) of K1 on ``x``.  Per element and shift the solve does two mat-vecs (4 flops) per
-    iteration and the rank-1 product and the shift sum (2); the backward adds the seed's two mat-vecs (4)
-    and, per differentiated iteration, two mat-vecs and two rank-1 updates of dX (8; MU recomputes one
-    more mat-vec, 10).  Forward: x read, y written.  Backward: x and g read, dx written."""
+    """(bytes, flops) of K1 on ``x``, whose solve runs on the f32 CUDA cores whatever the dtype.  Per element
+    and shift the solve does two mat-vecs (4 flops) per iteration and the rank-1 product and the shift sum
+    (2); the backward adds the seed's two mat-vecs (4) and, per differentiated iteration, two mat-vecs and two
+    rank-1 updates of dX (8; MU recomputes one more mat-vec, 10).  Forward: x read once, y written once (the
+    kernels read x once per shift and write and read the f32 factors, (d + p^3) / (d p^3) of the volume per
+    shift, between their two passes; the bound counts neither).  Backward: x and g read, dx written."""
     n = x.numel()
     flops = 4 * NUM_ITERS + 2
     if backward:
         flops += 4 + (10 if mu else 8) * grad_steps
     return (3 if backward else 2) * n * x.element_size(), float(n_shifts * n * flops)
+
+
+def k1_pass_work(x, U, V, n_shifts: int, factors: bool) -> tuple[float, float]:
+    """(bytes, flops) of one of K1's forward passes.  Factors pass: x read, the factors written, the solve's
+    4 flops per element, shift and iteration.  Reconstruct pass: the factors read, y written, the product and
+    the shift sum (2 flops per element and shift)."""
+    n, f_bytes = x.numel(), 4 * (U.numel() + V.numel())
+    if factors:
+        return n * x.element_size() + f_bytes, float(n_shifts * n * 4 * NUM_ITERS)
+    return f_bytes + n * x.element_size(), float(n_shifts * n * 2)
 
 
 def k4_work(x, rank: int, backward: bool, grad_steps: int = NUM_ITERS, mu: bool = False) -> tuple[float, float]:
@@ -222,15 +239,22 @@ def k4_work(x, rank: int, backward: bool, grad_steps: int = NUM_ITERS, mu: bool 
     return (3 if backward else 2) * n * x.element_size(), float(n * flops)
 
 
-def k2_work(x, hidden: int, backward: bool) -> tuple[float, float]:
-    """(bytes, flops) of K2 on ``x (..., C)``: two products of 2 C H flops per token forward, five backward;
-    x read and y written (backward: x and g read, dx written), the f32 parameters read (and their
-    gradients written) once."""
+def k2_work(x, hidden: int, backward: bool) -> tuple[float, float, str]:
+    """(bytes, flops, units) of K2 on ``x (..., C)``: two products of 2 C H flops per token forward, five
+    backward; x read and y written (backward: x and g read, dx written), the f32 parameters read (and their
+    gradients written) once.  The forward runs on tensor cores: its operations at TF32's peak for f32
+    activations (the kernel's three-pass split is what its f32 accuracy costs, not work the function needs,
+    so it is not counted), at bf16's for bf16; the backward on the f32 CUDA cores."""
+    import torch
+
     c = x.shape[-1]
     tokens = x.numel() // c
     n_params = 3 * c + hidden + 2 * c * hidden
     n_bytes = (3 if backward else 2) * x.numel() * x.element_size() + (2 if backward else 1) * 4 * n_params
-    return n_bytes, float(tokens * (10 if backward else 4) * c * hidden)
+    flops = float(tokens * (10 if backward else 4) * c * hidden)
+    if backward:
+        return n_bytes, flops, "float32"
+    return n_bytes, flops, "tf32" if x.dtype == torch.float32 else "bfloat16"
 
 
 def k3_work(x, taps: int, dw: bool) -> tuple[float, float]:
@@ -248,10 +272,13 @@ def kernel_counters() -> dict:
     """Kernel name -> (the wrapper that counts its launches, the attribute that holds the count)."""
     from factorizer_tpu_torch.ops.kernels import (
         depthwise_conv, depthwise_conv_dw, nmf_reconstruct, nmf_reconstruct_backward, prenorm_mlp,
-        prenorm_mlp_backward, windowed_nmf, windowed_nmf_backward, windowed_nmf_multi_spatial,
+        prenorm_mlp_backward, windowed_nmf_backward, windowed_nmf_factors, windowed_nmf_multi_spatial,
+        windowed_nmf_reconstruct,
     )
 
-    return {"windowed_nmf": (windowed_nmf, "launches"), "windowed_nmf_bwd": (windowed_nmf_backward, "launches"),
+    return {"windowed_nmf_factors": (windowed_nmf_factors, "launches"),
+            "windowed_nmf_reconstruct": (windowed_nmf_reconstruct, "launches"),
+            "windowed_nmf_bwd": (windowed_nmf_backward, "launches"),
             "prenorm_mlp": (prenorm_mlp, "launches"), "prenorm_mlp_bwd": (prenorm_mlp_backward, "launches"),
             "depthwise_conv": (depthwise_conv, "launches"), "depthwise_conv_dw": (depthwise_conv_dw, "launches"),
             "nmf_reconstruct": (nmf_reconstruct, "launches"), "nmf_reconstruct_bwd": (nmf_reconstruct_backward, "launches"),
@@ -472,8 +499,8 @@ def train_dp_slice(world: int, settings: dict, n_steps: int) -> dict:
         ref_seconds.append(time.perf_counter() - t0)
         ref_losses.append(metrics["loss"].item())
         ref_norms.append(metrics["grad_norm"].item())
-    per_step = {"windowed_nmf": N_BLOCKS * N_SHIFTS, "windowed_nmf_bwd": N_BLOCKS * N_SHIFTS, "prenorm_mlp": N_BLOCKS,
-                "prenorm_mlp_bwd": N_BLOCKS}
+    per_step = {"windowed_nmf_factors": N_BLOCKS, "windowed_nmf_reconstruct": N_BLOCKS,
+                "windowed_nmf_bwd": N_BLOCKS * N_SHIFTS, "prenorm_mlp": N_BLOCKS, "prenorm_mlp_bwd": N_BLOCKS}
     launches = dict.fromkeys(kernel_counters(), 0)
     for rank, r in enumerate(reports):
         for counts in r["counts"]:
@@ -531,10 +558,12 @@ def main() -> None:
     from factorizer_tpu_torch.ops.kernels import (
         build, depthwise_conv, depthwise_conv_dw, depthwise_conv_dw_plain, depthwise_conv_plain,
         nmf_reconstruct, nmf_reconstruct_backward, nmf_reconstruct_backward_plain, nmf_reconstruct_plain, prenorm_mlp, prenorm_mlp_backward, prenorm_mlp_backward_plain, prenorm_mlp_plain,
-        reference_kernels, windowed_nmf, windowed_nmf_backward, windowed_nmf_backward_plain, windowed_nmf_multi_spatial,
-        windowed_nmf_multi_spatial_local, windowed_nmf_multi_spatial_plain, windowed_nmf_plain,
+        reference_kernels, windowed_nmf, windowed_nmf_backward, windowed_nmf_backward_plain, windowed_nmf_factors,
+        windowed_nmf_factors_plain, windowed_nmf_multi_spatial, windowed_nmf_multi_spatial_local,
+        windowed_nmf_multi_spatial_plain, windowed_nmf_plain, windowed_nmf_reconstruct, windowed_nmf_reconstruct_plain,
     )
     from factorizer_tpu_torch.models.factorizer import Factorizer
+    from factorizer_tpu_torch.ops.kernels.mlp_block import forward_shares
     from factorizer_tpu_torch.ops.reshape import SWMatricize
     from factorizer_tpu_torch.train.sliding_window import sliding_window_inference, sliding_window_positions
     from factorizer_tpu_torch.train.trainer import create_train_state, make_train_step
@@ -603,12 +632,15 @@ def main() -> None:
 
     def record(name: str, err: float, label: str, ms: float, plain_ms: float, bound: tuple[float, str],
                library_ms: float | None = None) -> None:
+        check(ms >= bound[0], f"{name} {label}: {ms:.4f} ms is below its bound {bound[0]:.4f} ms: the bound is wrong")
         results[name]["errs"].append(err)
         if results[name]["times"] is None:
             results[name]["times"] = (label, ms, plain_ms, *bound, library_ms)
 
     gen = torch.Generator(device=dev)
     four, zero_shift, isles_shifts = (None, 2, 4, 6), ((0, 0, 0),), (None, 1, 2, 3)
+    # More shifts than one K1 forward launch takes: each pass launches once per group of eight.
+    ten = (None, 1, 2, 3, 4, 5, 6, 7, (1, 2, 3), (3, 2, 1))
     # factorizer_isles22 at batch 8, roi 64^3: patches of 4^3, so K1's run-time-size instance; stages 0 and 3.
     isles_shapes = [(8, 64, 32), (8, 8, 256)]
 
@@ -617,25 +649,47 @@ def main() -> None:
     v0 = {8: torch.rand(512, 1, device=dev, generator=gen), 4: torch.rand(64, 1, device=dev, generator=gen)}
     cases = [(2, s, c, 8, dt, "hals", four) for s, c in STAGES for dt in (torch.float32, torch.bfloat16)]
     cases += [(2, 32, 128, 8, torch.float32, "mu", four), (2, 32, 128, 8, torch.float32, "hals", zero_shift)]
+    cases += [(2, 32, 128, 8, dt, "hals", ten) for dt in (torch.float32, torch.bfloat16)]
     cases += [(b, s, c, 4, dt, "hals", isles_shifts) for b, s, c in isles_shapes for dt in (torch.float32, torch.bfloat16)]
     with torch.inference_mode():
         for b, s, c, p, dt, solver, shifts in cases:
             x = torch.relu(torch.randn(b, s, s, s, c, device=dev, generator=gen.manual_seed(s + c))).to(dt)
             args = (x, u0, v0[p], 8, p, shifts, solver, NUM_ITERS)
             out, ref = windowed_nmf(*args), windowed_nmf_plain(*args)
+            # Each pass against its plain version on the same inputs: the factors pass on x, the reconstruct
+            # pass on the kernel's factors.
+            (U, V), (U_ref, V_ref) = windowed_nmf_factors(*args), windowed_nmf_factors_plain(*args)
+            rest = (x.shape, dt, 8, p, shifts)
+            y_b, y_b_ref = windowed_nmf_reconstruct(U, V, *rest), windowed_nmf_reconstruct_plain(U, V, *rest)
             torch.cuda.synchronize()
             err, rel = compare(out, ref)
+            err_u, rel_u = compare(U, U_ref)
+            err_v, rel_v = compare(V, V_ref)
+            err_b, rel_b = compare(y_b, y_b_ref)
             tol = KERNEL_RTOL[dname(dt)]
             label = f"({b},{s}^3,{c}){'' if p == 8 else f' p={p}'} {dname(dt)} {solver} shifts={len(shifts)}"
             check(out.dtype == dt and out.shape == x.shape, f"K1 {label}: wrong output")
             check(rel <= tol, f"K1 {label}: max_abs {err:.3e} max_rel {rel:.3e} above {tol:.1e}")
+            check(max(rel_u, rel_v) <= KERNEL_RTOL["float32"], f"K1 factors {label}: U max_rel {rel_u:.3e}, V {rel_v:.3e}")
+            check(rel_b <= tol, f"K1 reconstruct {label}: max_abs {err_b:.3e} max_rel {rel_b:.3e} above {tol:.1e}")
             ms = cuda_time_ms(lambda: windowed_nmf(*args))
+            ms_a = cuda_time_ms(lambda: windowed_nmf_factors(*args))
+            ms_b = cuda_time_ms(lambda: windowed_nmf_reconstruct(U, V, *rest))
             plain_ms = cuda_time_ms(lambda: windowed_nmf_plain(*args), warmup=1, runs=5)
-            bound = bound_ms(*k1_work(x, len(shifts), backward=False), dt)
+            plain_a = cuda_time_ms(lambda: windowed_nmf_factors_plain(*args), warmup=1, runs=5)
+            plain_b = cuda_time_ms(lambda: windowed_nmf_reconstruct_plain(U, V, *rest), warmup=1, runs=5)
+            bound = bound_ms(*k1_work(x, len(shifts), backward=False), dt, "float32")
+            bound_a = bound_ms(*k1_pass_work(x, U, V, len(shifts), factors=True), dt, "float32")
+            bound_b = bound_ms(*k1_pass_work(x, U, V, len(shifts), factors=False), dt, "float32")
+            check(ms >= bound[0], f"K1 {label}: {ms:.4f} ms is below its bound {bound[0]:.4f} ms")
             print(f"[K1] {label}: max_abs={err:.3e} max_rel={rel:.3e} (tol {tol:.1e}) "
-                  f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound {bound[0]:.3f} ms ({bound[1]})")
-            record("windowed_nmf", err, label, ms, plain_ms, bound)
-            del x, out, ref
+                  f"kernels {ms:.3f} ms plain {plain_ms:.3f} ms bound {bound[0]:.3f} ms ({bound[1]}); "
+                  f"factors pass U max_rel={rel_u:.2e} V max_rel={rel_v:.2e} {ms_a:.3f} ms plain {plain_a:.3f} bound "
+                  f"{bound_a[0]:.3f} ({bound_a[1]}); reconstruct pass max_rel={rel_b:.2e} {ms_b:.3f} ms plain {plain_b:.3f} "
+                  f"bound {bound_b[0]:.3f} ({bound_b[1]}); factors {4 * (U.numel() + V.numel()) / 1e6:.1f} MB")
+            record("windowed_nmf_factors", max(err_u, err_v), label, ms_a, plain_a, bound_a)
+            record("windowed_nmf_reconstruct", err_b, label, ms_b, plain_b, bound_b)
+            del x, out, ref, U, V, U_ref, V_ref, y_b, y_b_ref
 
     # 4. K2 against its plain version
     def mlp_params(c: int) -> tuple:
@@ -655,20 +709,23 @@ def main() -> None:
             for dt in (torch.float32, torch.bfloat16):
                 x = torch.randn(2, s, s, s, c, device=dev, generator=gen).to(dt)
                 args = (x, *params)
-                out, ref = prenorm_mlp(*args), prenorm_mlp_plain(*args)
+                out, again, ref = prenorm_mlp(*args), prenorm_mlp(*args), prenorm_mlp_plain(*args)
                 torch.cuda.synchronize()
                 err, rel = compare(out, ref)
                 tol = KERNEL_RTOL[dname(dt)]
                 label = f"(2,{s}^3,{c}) H={4 * c} {dname(dt)}"
                 check(out.dtype == dt and out.shape == x.shape, f"K2 {label}: wrong output")
                 check(rel <= tol, f"K2 {label}: max_abs {err:.3e} max_rel {rel:.3e} above {tol:.1e}")
+                check(torch.equal(out, again), f"K2 {label}: two calls on one input differ")
                 ms = cuda_time_ms(lambda: prenorm_mlp(*args))
                 plain_ms = cuda_time_ms(lambda: prenorm_mlp_plain(*args), warmup=1, runs=5)
-                bound = bound_ms(*k2_work(x, 4 * c, backward=False), dt)
-                print(f"[K2] {label}: max_abs={err:.3e} max_rel={rel:.3e} (tol {tol:.1e}) "
-                      f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound {bound[0]:.3f} ms ({bound[1]})")
+                n_bytes, flops, units = k2_work(x, 4 * c, backward=False)
+                bound = bound_ms(n_bytes, flops, dt, units)
+                print(f"[K2] {label}: max_abs={err:.3e} max_rel={rel:.3e} (tol {tol:.1e}), equal to itself bit for bit "
+                      f"on a second call; kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound {bound[0]:.3f} ms ({bound[1]}, "
+                      f"{units}); {forward_shares(x.numel() // c, c, 4 * c)} share(s) of the hidden width")
                 record("prenorm_mlp", err, label, ms, plain_ms, bound)
-                del x, out, ref
+                del x, out, again, ref
 
     # 5. the serving slice
     sw_batch, overlap, n_requests = 2, 0.5, 2
@@ -771,7 +828,8 @@ def main() -> None:
         for k, v in made.items():
             serve_launches[k] += v
 
-    serve_slice("slice", brats23_network, {"windowed_nmf": n_blocks * n_shifts, "prenorm_mlp": n_blocks})
+    k1_forward = {"windowed_nmf_factors": n_blocks, "windowed_nmf_reconstruct": n_blocks}
+    serve_slice("slice", brats23_network, {**k1_forward, "prenorm_mlp": n_blocks})
 
     # 6. K1 backward against autograd through the plain version
     # MU runs on a strictly positive input: where a whole row of a window is zero its factor decays to
@@ -807,7 +865,7 @@ def main() -> None:
         del out, ref
         ms = cuda_time_ms(lambda: windowed_nmf_backward(*args))
         plain_ms = cuda_time_ms(lambda: windowed_nmf_backward_plain(*args), warmup=1, runs=3)
-        bound = bound_ms(*k1_work(x, len(shifts), True, grad_steps or NUM_ITERS, solver == "mu"), dt)
+        bound = bound_ms(*k1_work(x, len(shifts), True, grad_steps or NUM_ITERS, solver == "mu"), dt, "float32")
         print(f"[K1 bwd] {label}: max_abs={err:.3e} max_rel={rel:.3e} (tol {tol:.1e}) "
               f"kernel {ms:.3f} ms plain forward+backward {plain_ms:.3f} ms bound {bound[0]:.3f} ms ({bound[1]})")
         record("windowed_nmf_bwd", err, label, ms, plain_ms, bound)
@@ -836,7 +894,8 @@ def main() -> None:
             del outs, refs
             ms = cuda_time_ms(lambda: prenorm_mlp_backward(*args))
             plain_ms = cuda_time_ms(lambda: prenorm_mlp_backward_plain(*args), warmup=1, runs=3)
-            bound = bound_ms(*k2_work(x, 4 * c, backward=True), dt)
+            n_bytes, flops, units = k2_work(x, 4 * c, backward=True)
+            bound = bound_ms(n_bytes, flops, dt, units)
             print(f"[K2 bwd] {label}: dx max_abs={dx_err:.3e} max_rel={rels['dx']:.3e} (tol {KERNEL_RTOL[dname(dt)]:.1e}) "
                   f"params max_rel " + " ".join(f"{n}={rels[n]:.1e}" for n in grad_names[1:]) + f" (tol {K2_PARAM_RTOL:.1e}) "
                   f"kernel {ms:.3f} ms plain forward+backward {plain_ms:.3f} ms bound {bound[0]:.3f} ms ({bound[1]})")
@@ -936,7 +995,7 @@ def main() -> None:
 
     train_slice(
         "train", brats23_network,
-        {"windowed_nmf": n_blocks * n_shifts, "windowed_nmf_bwd": n_blocks * n_shifts, "prenorm_mlp": n_blocks, "prenorm_mlp_bwd": n_blocks},
+        {**k1_forward, "windowed_nmf_bwd": n_blocks * n_shifts, "prenorm_mlp": n_blocks, "prenorm_mlp_bwd": n_blocks},
         {"stem.weight": "stem", "encoder.blocks.0.block.blocks.0.mlp.block.0.linear.weight": "enc0.fc1",
          "encoder.blocks.4.block.blocks.0.fact.out_proj.linear.weight": "bottleneck.out_proj"},
     )
@@ -1282,7 +1341,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     f32_only = ("float32",)
-    serve_slice("slice isles", factorizer_isles22_network, {"windowed_nmf": n_blocks * n_shifts, "prenorm_mlp": n_blocks},
+    serve_slice("slice isles", factorizer_isles22_network, {**k1_forward, "prenorm_mlp": n_blocks},
                 dtypes=f32_only, **isles)
     serve_slice("slice isles deconver", deconver_isles22_network, {"depthwise_conv": k3_per_forward}, dtypes=f32_only, **isles)
 
@@ -1313,7 +1372,7 @@ def main() -> None:
     print(f"[train isles] batch 8 x 64^3, label foreground share {isles_batch['label'].mean().item():.4f}")
     train_slice(
         "train isles", factorizer_isles22_network,
-        {"windowed_nmf": n_blocks * n_shifts, "windowed_nmf_bwd": n_blocks * n_shifts, "prenorm_mlp": n_blocks, "prenorm_mlp_bwd": n_blocks},
+        {**k1_forward, "windowed_nmf_bwd": n_blocks * n_shifts, "prenorm_mlp": n_blocks, "prenorm_mlp_bwd": n_blocks},
         factorizer_leaves, batch=isles_batch, dtypes=(torch.float32,),
     )
 
@@ -1384,7 +1443,7 @@ def main() -> None:
             k1_ms = cuda_time_ms(lambda: windowed_nmf(x, *args))
             plain_ms = cuda_time_ms(lambda: windowed_nmf_multi_spatial_plain(xs, *args), warmup=1, runs=5)
             n_bytes, flops = k5_work(x, shifts, p, backward=False)
-            bound = bound_ms(n_bytes, flops, dt)
+            bound = bound_ms(n_bytes, flops, dt, "float32")
             passes = n * len(shifts)
             per_shift = sent / n / max(len(moving), 1)
             print(f"[K5] {label}: max_abs={err:.3e} max_rel={rel:.3e} (tol {tol:.1e}), equal to K1 on the whole volume bit for bit; "
@@ -1437,7 +1496,7 @@ def main() -> None:
 
         plain_ms = cuda_time_ms(plain_forward_backward, warmup=1, runs=3)
         n_bytes, flops = k5_work(x, shifts, p, True, grad_steps or NUM_ITERS, solver == "mu")
-        bound = bound_ms(n_bytes, flops, dt)
+        bound = bound_ms(n_bytes, flops, dt, "float32")
         passes = n * len(shifts)
         print(f"[K5 bwd] {label}: max_abs={err:.3e} max_rel={rel:.3e} (tol {tol:.1e}), equal to K1 bwd on the whole volume bit for "
               f"bit; ring {ms:.3f} ms = {ms / passes:.4f} ms per slab pass (K1 bwd {k1_ms:.3f} ms = {k1_ms / passes:.4f}) "
@@ -1455,8 +1514,10 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     sources = {
-        "windowed_nmf": ("factorizer_tpu_torch/csrc/windowed_nmf.cu",
-                         "factorizer_tpu/ops/pallas/windowed_nmf_kernel.py:379"),
+        "windowed_nmf_factors": ("factorizer_tpu_torch/csrc/windowed_nmf.cu",
+                                 "factorizer_tpu/ops/pallas/windowed_nmf_kernel.py:379"),
+        "windowed_nmf_reconstruct": ("factorizer_tpu_torch/csrc/windowed_nmf.cu",
+                                     "factorizer_tpu/ops/pallas/windowed_nmf_kernel.py:379"),
         "windowed_nmf_bwd": ("factorizer_tpu_torch/csrc/windowed_nmf_bwd.cu",
                              "factorizer_tpu/ops/pallas/windowed_nmf_kernel.py:411"),
         "prenorm_mlp": ("factorizer_tpu_torch/csrc/mlp_block.cu", "factorizer_tpu/ops/pallas/mlp_block.py:183"),

@@ -5,81 +5,185 @@
 // (:493, launched by `_slab_fwd_fn` at :596) under `fused_prenorm_mlp` (:735).
 // The two TPU kernels compute the same function in two TPU layouts; this one
 // kernel serves every block tail of the model: C in {32, 64, 128, 256, 512},
-// any hidden width H that is a multiple of the chunk, f32 or bf16
-// activations, f32 parameters and f32 arithmetic throughout.  GELU is the
-// exact erf form (`erff`), as the unfused module computes it.
+// any H that 32 divides (the bundles' H = 4C, the module's default 2C), f32
+// or bf16 activations, f32 parameters, a two-pass f32 LayerNorm
+// and the exact erf GELU (`erff`), as the unfused module computes them.
 //
-// What bounds it on the H100: arithmetic.  Per token it does 4*C*H = 16*C^2
-// flops against 2*C activation elements of device-memory traffic (the hidden
-// activations never leave the block), e.g. 512 flops per byte at C = 32 in
-// f32.  On the CUDA cores (67 TFLOP/s f32 at 700 W) that is ~1 ms of compute
-// for the (2,128^3,32) stage versus ~0.2 ms of memory traffic.
+// What bounds it on the H100: the two products, 4 C H = 16 C^2 flops per
+// token against 2 C activation elements moved (the hidden activations never
+// leave the block).  On tensor cores that is below the memory time at every
+// width in bf16; in f32 the three-pass split triples the products.
 //
-// What the design does about it: a block takes TM tokens, normalises them
-// into shared memory (two-pass f32 statistics, one warp per token), then
-// walks the hidden width in chunks of HC: the chunk of W1 (torch layout
-// (H, C)) and of W2 ((C, H)) is staged in shared memory from L2, h = xn W1^T
-// + b1 is a register-tiled product, GELU goes to shared memory, and the
-// chunk's contribution to y is accumulated in registers.  The residual and
-// b2 are added in the epilogue.  Tile shapes are chosen per C so that each
-// thread keeps at most 64 accumulators and a block at most ~120 KB of shared
-// memory.  The products run as CUDA-core FMAs; tensor cores (wgmma) and TMA
-// staging are left for a later change.
+// What the design does about it:
+//   * Both products run on tensor cores (`mma.sync`).  bf16 activations: bf16
+//     operands (the normalised tokens, GELU's output and the weights rounded
+//     once, the weights into a bf16 copy ahead of the kernel) with f32
+//     accumulation, m16n8k16, the JAX kernel's own numerics.
+//     f32 activations: three-pass TF32, m16n8k8, each operand split into
+//     hi = tf32(v) and lo = tf32(v - hi) (cut, not rounded) and the product taken as
+//     lo*hi + hi*lo + hi*hi, which keeps ~22 bits where one TF32 pass keeps
+//     11.  LayerNorm statistics, bias, GELU and the residual are f32.
+//   * Weights are staged once per block.  At C <= 64 and H = 4C all of W1 and
+//     W2 fit in shared memory (f32: 32 / 128 KB; bf16 half that): a persistent grid of
+//     as many blocks as fit walks over tiles of 64 tokens, with the next
+//     tile's x in flight (`cp.async`) behind the current tile's products.
+//     Else (C >= 128, where tokens are few and weights large) a block owns one token
+//     tile and one share of the hidden width (`plan_shares` picks how many
+//     shares: as many as still fit one wave of blocks, so that the 8^3
+//     bottleneck's 1024 tokens fill the card and no more); it
+//     streams its share of the weights through shared memory in chunks
+//     (`cp.async`, the next chunk's loads behind this chunk's products) and
+//     writes a partial y to an f32 scratch, and a second kernel adds the
+//     shares in a fixed order, then the residual and b2.  A result is the
+//     same from run to run.
+//   * Per chunk of the hidden width: h = LN(x) W1^T + b1 on tensor cores, GELU
+//     into shared memory, and y += GELU(h) W2^T into registers.  Eight warps
+//     tile the token rows 16 at a time and split the columns.  Shared-memory
+//     rows are padded so that every fragment load is free of bank conflicts.
 #include <cstdint>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256, kWarps = kThreads / 32;
+
+template <typename T> struct Mma;
+
+// f32 activations: three-pass TF32, f32 accumulation.
+template <> struct Mma<float> {
+  using S = float;                 // shared-memory operand type
+  static constexpr int kK = 8;     // depth of one mma
+  static constexpr int kPad = 4;   // row padding, elements
+  struct A { uint32_t hi[4], lo[4]; };
+  struct B { uint32_t hi[2], lo[2]; };
+
+  // hi: v cut to TF32's 10 mantissa bits; lo: the exact rest, cut the same way (~2^-21 of v is lost).
+  static __device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+    hi = __float_as_uint(v) & 0xffffe000u;
+    lo = __float_as_uint(v - __uint_as_float(hi)) & 0xffffe000u;
+  }
+  // Rows [r0, r0 + 16) x depth [k0, k0 + 8) of a row-major tile.
+  static __device__ __forceinline__ A load_a(const S* a, int ld, int r0, int k0, int lane) {
+    const S* p = a + (r0 + (lane >> 2)) * ld + k0 + (lane & 3);
+    A f;
+    split(p[0], f.hi[0], f.lo[0]);
+    split(p[8 * ld], f.hi[1], f.lo[1]);
+    split(p[4], f.hi[2], f.lo[2]);
+    split(p[8 * ld + 4], f.hi[3], f.lo[3]);
+    return f;
+  }
+  // Columns [n0, n0 + 8) x depth [k0, k0 + 8) of a tile stored column by column (a row of `b` is a column).
+  static __device__ __forceinline__ B load_b(const S* b, int ld, int n0, int k0, int lane) {
+    const S* p = b + (n0 + (lane >> 2)) * ld + k0 + (lane & 3);
+    B f;
+    split(p[0], f.hi[0], f.lo[0]);
+    split(p[4], f.hi[1], f.lo[1]);
+    return f;
+  }
+  static __device__ __forceinline__ void mma1(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+  static __device__ __forceinline__ void mma(float (&c)[4], const A& a, const B& b) {
+    mma1(c, a.lo, b.hi);
+    mma1(c, a.hi, b.lo);
+    mma1(c, a.hi, b.hi);
+  }
+  // The three passes into separate sums (lo*hi, hi*lo, hi*hi), three chains where `mma` makes one.
+  static constexpr int kPasses = 3;
+  static __device__ __forceinline__ void mma_passes(float (&c)[kPasses][4], const A& a, const B& b) {
+    mma1(c[0], a.lo, b.hi);
+    mma1(c[1], a.hi, b.lo);
+    mma1(c[2], a.hi, b.hi);
+  }
+  static __device__ __forceinline__ void store2(S* p, float a, float b) { *reinterpret_cast<float2*>(p) = make_float2(a, b); }
+};
+
+// bf16 activations: bf16 operands, f32 accumulation.
+template <> struct Mma<__nv_bfloat16> {
+  using S = __nv_bfloat16;
+  static constexpr int kK = 16;
+  static constexpr int kPad = 8;
+  struct A { uint32_t r[4]; };
+  struct B { uint32_t r[2]; };
+
+  static __device__ __forceinline__ uint32_t pair(const S* p) { return *reinterpret_cast<const uint32_t*>(p); }
+  static __device__ __forceinline__ A load_a(const S* a, int ld, int r0, int k0, int lane) {
+    const S* p = a + (r0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
+    return A{{pair(p), pair(p + 8 * ld), pair(p + 8), pair(p + 8 * ld + 8)}};
+  }
+  static __device__ __forceinline__ B load_b(const S* b, int ld, int n0, int k0, int lane) {
+    const S* p = b + (n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
+    return B{{pair(p), pair(p + 8)}};
+  }
+  static __device__ __forceinline__ void mma(float (&c)[4], const A& a, const B& b) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "r"(b.r[0]), "r"(b.r[1]));
+  }
+  static constexpr int kPasses = 1;
+  static __device__ __forceinline__ void mma_passes(float (&c)[kPasses][4], const A& a, const B& b) { mma(c[0], a, b); }
+  static __device__ __forceinline__ void store2(S* p, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  }
+};
+
+// Tile shapes per width: TM tokens a tile, HC hidden columns a chunk;
+// kResident: all of W1 and W2 (H = 4C) stay in shared memory (C <= 64), else
+// a block streams its share of any H that HC divides.  Warps tile the rows 16
+// at a time (WM of them) and split the columns WN ways; a block has W_ warps.
+template <int C_, int TM_, int HC_, bool kResident_, int W_ = kWarps>
+struct Cfg {
+  static constexpr int C = C_, TM = TM_, HC = HC_, H = 4 * C_;
+  static constexpr bool kResident = kResident_;
+  static constexpr int kWarps = W_, kThreads = 32 * W_;
+  static constexpr int WM = TM / 16, WN = kWarps / WM;
+  static constexpr int NT1 = HC / (8 * WN), NT2 = C / (8 * WN);
+  static_assert(TM % 16 == 0 && kWarps % WM == 0 && NT1 >= 1 && NT2 >= 1 && HC % (8 * WN) == 0 &&
+                C % (8 * WN) == 0 && H % HC == 0 && C % 32 == 0, "bad tile");
+
+  template <typename T> struct Smem {
+    using S = typename Mma<T>::S;
+    static constexpr int P = Mma<T>::kPad;
+    static constexpr int LDX = C + P, LDG = HC + P, LDW1 = C + P, LDW2 = (kResident ? H : HC) + P;
+    static constexpr int W1_ROWS = kResident ? H : HC;
+    static constexpr size_t XN = 0;
+    static constexpr size_t G = XN + sizeof(S) * TM * LDX;
+    static constexpr size_t W1 = G + sizeof(S) * TM * LDG;
+    static constexpr size_t W2 = W1 + sizeof(S) * W1_ROWS * LDW1;
+    static constexpr size_t XR = (W2 + sizeof(S) * C * LDW2 + 15) / 16 * 16;  // raw x, two tiles (resident)
+    static constexpr size_t BYTES = XR + (kResident ? 2 * sizeof(T) * TM * C : 0);
+  };
+};
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-template <int C, int TM, int HC, int TY>
-struct Tile {
-  static constexpr int TX = kThreads / TY;
-  static constexpr int RM = TM / TY;    // token rows per thread
-  static constexpr int RN1 = HC / TX;   // hidden columns per thread
-  static constexpr int RN2 = C / TX;    // output channels per thread
-  static constexpr int LDX = TM + 1;    // odd strides: conflict-free shared-memory access
-  static constexpr int LDW1 = HC + 1;
-  static constexpr int LDW2 = C + 1;
-  static constexpr int LDG = TM + 1;
-  static constexpr size_t kSmemFloats =
-      static_cast<size_t>(C) * LDX + C * LDW1 + HC * LDW2 + HC * LDG + HC;
-  static_assert(TM % TY == 0 && HC % TX == 0 && C % TX == 0 && C % 32 == 0, "bad tile");
-};
+__device__ __forceinline__ float gelu(float h) { return 0.5f * h * (1.f + erff(h * 0.70710678118654752f)); }
 
-template <typename T, int C, int TM, int HC, int TY>
-__global__ void __launch_bounds__(kThreads)
-prenorm_mlp_kernel(const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ gamma,
-                   const float* __restrict__ beta, const float* __restrict__ w1,
-                   const float* __restrict__ b1, const float* __restrict__ w2,
-                   const float* __restrict__ b2, int64_t M, int H, float eps) {
-  using Tl = Tile<C, TM, HC, TY>;
-  constexpr int TX = Tl::TX, RM = Tl::RM, RN1 = Tl::RN1, RN2 = Tl::RN2;
-  extern __shared__ float smem[];
-  float* xn = smem;                    // [C][LDX]   normalised tokens, k-major
-  float* w1s = xn + C * Tl::LDX;       // [C][LDW1]  W1 chunk, k-major
-  float* w2s = w1s + C * Tl::LDW1;     // [HC][LDW2] W2 chunk, hidden-major
-  float* gs = w2s + HC * Tl::LDW2;     // [HC][LDG]  gelu(h) chunk
-  float* b1s = gs + HC * Tl::LDG;      // [HC]
-
-  const int tid = threadIdx.x, ty = tid / TX, tx = tid % TX;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * TM;
-
-  // LayerNorm over C, one warp per token: mean, then mean of centred squares.
-  for (int m = warp; m < TM; m += kThreads / 32) {
-    const int64_t row = m0 + m;
+// LayerNorm of the tile's TM tokens from `src` (rows of C values of T, the
+// tile's first row at src), one warp per token: mean, then the mean of
+// centred squares; rows at or past `valid` are zero.
+template <typename T, class Cf, typename S>
+__device__ __forceinline__ void layer_norm(const T* src, int valid, S* xn, const float* __restrict__ gamma,
+                                           const float* __restrict__ beta, float eps) {
+  constexpr int C = Cf::C, LDX = Cf::template Smem<T>::LDX;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int m = warp; m < Cf::TM; m += Cf::kWarps) {
     float vals[C / 32];
+    if (m >= valid) {
+#pragma unroll
+      for (int i = 0; i < C / 32; ++i) xn[m * LDX + lane + 32 * i] = ftt::from_float<S>(0.f);
+      continue;
+    }
     float s = 0.f;
 #pragma unroll
     for (int i = 0; i < C / 32; ++i) {
-      vals[i] = row < M ? ftt::to_float(x[row * C + lane + 32 * i]) : 0.f;
+      vals[i] = ftt::to_float(src[m * C + lane + 32 * i]);
       s += vals[i];
     }
     const float mean = warp_sum(s) / C;
@@ -90,125 +194,372 @@ prenorm_mlp_kernel(const T* __restrict__ x, T* __restrict__ y, const float* __re
 #pragma unroll
     for (int i = 0; i < C / 32; ++i) {
       const int c = lane + 32 * i;
-      xn[c * Tl::LDX + m] = (vals[i] - mean) * rstd * gamma[c] + beta[c];
-    }
-  }
-
-  float acc2[RM][RN2];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int r = 0; r < RN2; ++r) acc2[i][r] = 0.f;
-
-  for (int j0 = 0; j0 < H; j0 += HC) {
-    __syncthreads();  // the previous chunk is consumed; the normalised tokens are visible
-    for (int e = tid; e < HC * C; e += kThreads) {
-      const int j = e / C, k = e % C;
-      w1s[k * Tl::LDW1 + j] = w1[static_cast<int64_t>(j0 + j) * C + k];
-    }
-    for (int e = tid; e < HC * C; e += kThreads) {
-      const int n = e / HC, j = e % HC;
-      w2s[j * Tl::LDW2 + n] = w2[static_cast<int64_t>(n) * H + j0 + j];
-    }
-    if (tid < HC) b1s[tid] = b1[j0 + tid];
-    __syncthreads();
-
-    float acc1[RM][RN1];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int r = 0; r < RN1; ++r) acc1[i][r] = b1s[tx + TX * r];
-    for (int k = 0; k < C; ++k) {
-      float a[RM], bw[RN1];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) a[i] = xn[k * Tl::LDX + ty + TY * i];
-#pragma unroll
-      for (int r = 0; r < RN1; ++r) bw[r] = w1s[k * Tl::LDW1 + tx + TX * r];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int r = 0; r < RN1; ++r) acc1[i][r] = fmaf(a[i], bw[r], acc1[i][r]);
-    }
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int r = 0; r < RN1; ++r) {
-        const float h = acc1[i][r];
-        gs[(tx + TX * r) * Tl::LDG + ty + TY * i] = 0.5f * h * (1.f + erff(h * 0.70710678118654752f));
-      }
-    __syncthreads();
-
-    for (int j = 0; j < HC; ++j) {
-      float a[RM], bw[RN2];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) a[i] = gs[j * Tl::LDG + ty + TY * i];
-#pragma unroll
-      for (int r = 0; r < RN2; ++r) bw[r] = w2s[j * Tl::LDW2 + tx + TX * r];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int r = 0; r < RN2; ++r) acc2[i][r] = fmaf(a[i], bw[r], acc2[i][r]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int64_t row = m0 + ty + TY * i;
-    if (row >= M) continue;
-#pragma unroll
-    for (int r = 0; r < RN2; ++r) {
-      const int n = tx + TX * r;
-      y[row * C + n] = ftt::from_float<T>(ftt::to_float(x[row * C + n]) + acc2[i][r] + b2[n]);
+      xn[m * LDX + c] = ftt::from_float<S>((vals[i] - mean) * rstd * gamma[c] + beta[c]);
     }
   }
 }
 
-template <typename T, int C, int TM, int HC, int TY>
-cudaError_t launch(const void* x, void* y, const float* const* p, int64_t M, int H, float eps,
-                   cudaStream_t stream) {
-  if (H % HC) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * Tile<C, TM, HC, TY>::kSmemFloats;
-  auto kernel = prenorm_mlp_kernel<T, C, TM, HC, TY>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+// Rows [r0, r0 + rows) of the matrix w (leading dim ldw), columns
+// [c0, c0 + cols), into shared memory at dst (leading dim ldd), 16 bytes a
+// cp.async; the caller commits the group.
+template <int kT, typename S>
+__device__ __forceinline__ void stage(const S* __restrict__ w, int ldw, int r0, int rows, int c0, int cols, S* dst,
+                                      int ldd) {
+  constexpr int kPer = 16 / sizeof(S);
+  const int per_row = cols / kPer;
+  for (int i = threadIdx.x; i < rows * per_row; i += kT) {
+    const int r = i / per_row, c = kPer * (i % per_row);
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst + r * ldd + c));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(w + static_cast<int64_t>(r0 + r) * ldw + c0 + c));
+  }
+}
+
+__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;"); }
+template <int N> __device__ __forceinline__ void wait_groups() { asm volatile("cp.async.wait_group %0;" ::"n"(N)); }
+
+// The two products of one chunk of HC hidden columns for the tile in `xn`;
+// the caller puts a barrier between them and before the next chunk.
+// gemm1_gelu: h = xn W1c^T + b1c and GELU(h) into `gs`; w1c holds the
+// chunk's HC rows of W1 (rows of C).
+template <typename T, class Cf, typename S>
+__device__ __forceinline__ void gemm1_gelu(const S* xn, S* gs, const S* w1c, const float* __restrict__ b1c) {
+  using Op = Mma<T>;
+  using Sm = typename Cf::template Smem<T>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = 16 * (warp % Cf::WM), wn = warp / Cf::WM;
+  const int g = lane >> 2, t = lane & 3;
+  // The depth C is long and NT1 short: independent sums per pass and per
+  // half of the depth (kHalves) keep several mma chains in flight.
+  constexpr int kHalves = Cf::NT1 == 1 ? 2 : 1, kP = Op::kPasses;
+  float cp[kHalves][Cf::NT1][kP][4];
+#pragma unroll
+  for (int h = 0; h < kHalves; ++h)
+#pragma unroll
+    for (int n = 0; n < Cf::NT1; ++n)
+#pragma unroll
+      for (int q = 0; q < kP; ++q)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) cp[h][n][q][i] = 0.f;
+#pragma unroll 4
+  for (int k0 = 0; k0 < Cf::C; k0 += kHalves * Op::kK) {
+#pragma unroll
+    for (int h = 0; h < kHalves; ++h) {
+      const auto a = Op::load_a(xn, Sm::LDX, row0, k0 + h * Op::kK, lane);
+#pragma unroll
+      for (int n = 0; n < Cf::NT1; ++n) {
+        Op::mma_passes(cp[h][n], a, Op::load_b(w1c, Sm::LDW1, (wn * Cf::NT1 + n) * 8, k0 + h * Op::kK, lane));
+      }
+    }
+  }
+  float c1[Cf::NT1][4];
+#pragma unroll
+  for (int n = 0; n < Cf::NT1; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float v = 0.f;
+#pragma unroll
+      for (int h = 0; h < kHalves; ++h)
+#pragma unroll
+        for (int q = 0; q < kP; ++q) v += cp[h][n][q][i];
+      c1[n][i] = v;
+    }
+#pragma unroll
+  for (int n = 0; n < Cf::NT1; ++n) {
+    const int j = (wn * Cf::NT1 + n) * 8 + 2 * t;
+    const float bj0 = b1c[j], bj1 = b1c[j + 1];
+    Op::store2(gs + (row0 + g) * Sm::LDG + j, gelu(c1[n][0] + bj0), gelu(c1[n][1] + bj1));
+    Op::store2(gs + (row0 + g + 8) * Sm::LDG + j, gelu(c1[n][2] + bj0), gelu(c1[n][3] + bj1));
+  }
+}
+
+// gemm2: acc += GELU(h) W2c^T; w2c holds C rows whose columns
+// [k_off, k_off + HC) are the chunk's columns of W2.
+template <typename T, class Cf, typename S>
+__device__ __forceinline__ void gemm2(const S* gs, const S* w2c, int k_off, float (&acc)[Cf::NT2][4]) {
+  using Op = Mma<T>;
+  using Sm = typename Cf::template Smem<T>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = 16 * (warp % Cf::WM), wn = warp / Cf::WM;
+#pragma unroll 4
+  for (int k0 = 0; k0 < Cf::HC; k0 += Op::kK) {
+    const auto a = Op::load_a(gs, Sm::LDG, row0, k0, lane);
+#pragma unroll
+    for (int n = 0; n < Cf::NT2; ++n) {
+      Op::mma(acc[n], a, Op::load_b(w2c, Sm::LDW2, (wn * Cf::NT2 + n) * 8, k_off + k0, lane));
+    }
+  }
+}
+
+// The tile's output rows: y = x + (acc + b2) with x from `res` (the tile's
+// first row, rows of C), or, with shares of the hidden width, acc into the
+// share's partial sums.
+template <typename T, class Cf>
+__device__ __forceinline__ void epilogue(const float (&acc)[Cf::NT2][4], const T* res, T* __restrict__ y,
+                                         float* __restrict__ partial, const float* __restrict__ b2, int64_t m0,
+                                         int valid) {
+  constexpr int C = Cf::C;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = 16 * (warp % Cf::WM), wn = warp / Cf::WM;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < Cf::NT2; ++n) {
+    const int c = (wn * Cf::NT2 + n) * 8 + 2 * t;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = row0 + g + 8 * half;
+      if (r >= valid) continue;
+      const float a0 = acc[n][2 * half], a1 = acc[n][2 * half + 1];
+      if (partial != nullptr) {
+        *reinterpret_cast<float2*>(partial + (m0 + r) * C + c) = make_float2(a0, a1);
+      } else {
+        Mma<T>::store2(y + (m0 + r) * C + c, ftt::to_float(res[r * C + c]) + (a0 + b2[c]),
+                   ftt::to_float(res[r * C + c + 1]) + (a1 + b2[c + 1]));
+      }
+    }
+  }
+}
+
+// The tile's raw x into shared memory, 16 bytes a copy; rows past M read nothing and are left as they are.
+template <typename T, class Cf>
+__device__ __forceinline__ void prefetch_tile(const T* __restrict__ x, int64_t m0, int64_t M, T* dst) {
+  constexpr int kChunks = Cf::TM * Cf::C * sizeof(T) / 16, kPerRow = Cf::C * sizeof(T) / 16;
+  for (int i = threadIdx.x; i < kChunks; i += Cf::kThreads) {
+    const int64_t row = m0 + i / kPerRow;
+    const char* src = reinterpret_cast<const char*>(x + m0 * Cf::C) + 16 * static_cast<int64_t>(i);
+    const unsigned dst_addr = static_cast<unsigned>(__cvta_generic_to_shared(reinterpret_cast<char*>(dst) + 16 * i));
+    const int bytes = row < M ? 16 : 0;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst_addr), "l"(row < M ? src : reinterpret_cast<const char*>(x)), "r"(bytes));
+  }
+  commit();
+}
+
+// w1, w2: the weights in the operand type (f32, or the bf16 copy the entry point makes).
+template <typename T, class Cf>
+__global__ void __launch_bounds__(Cf::kThreads)
+prenorm_mlp_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, float* __restrict__ partial,
+                       const float* __restrict__ gamma, const float* __restrict__ beta,
+                       const typename Mma<T>::S* __restrict__ w1, const float* __restrict__ b1,
+                       const typename Mma<T>::S* __restrict__ w2, const float* __restrict__ b2, int64_t M, int H_rt,
+                       float eps, int splits) {
+  using Sm = typename Cf::template Smem<T>;
+  using S = typename Sm::S;
+  constexpr int C = Cf::C, TM = Cf::TM, HC = Cf::HC;
+  extern __shared__ __align__(16) unsigned char smem[];
+  S* xn = reinterpret_cast<S*>(smem + Sm::XN);
+  S* gs = reinterpret_cast<S*>(smem + Sm::G);
+  S* w1s = reinterpret_cast<S*>(smem + Sm::W1);
+  S* w2s = reinterpret_cast<S*>(smem + Sm::W2);
+  const int64_t tiles = (M + TM - 1) / TM;
+  float acc[Cf::NT2][4];
+
+  if constexpr (Cf::kResident) {
+    constexpr int H = Cf::H;
+    T* xr = reinterpret_cast<T*>(smem + Sm::XR);  // two tiles of raw x
+    int64_t tile = blockIdx.x;
+    stage<Cf::kThreads>(w1, C, 0, H, 0, C, w1s, Sm::LDW1);
+    stage<Cf::kThreads>(w2, H, 0, C, 0, H, w2s, Sm::LDW2);
+    commit();
+    if (tile < tiles) prefetch_tile<T, Cf>(x, tile * TM, M, xr);
+    for (int it = 0; tile < tiles; tile += gridDim.x, ++it) {
+      T* cur = xr + (it & 1) * TM * C;
+      __syncthreads();  // the other buffer's last reader (the previous epilogue) is done
+      const int64_t next = tile + gridDim.x;
+      if (next < tiles) {
+        prefetch_tile<T, Cf>(x, next * TM, M, xr + ((it + 1) & 1) * TM * C);
+        wait_groups<1>();
+      } else {
+        wait_groups<0>();
+      }
+      __syncthreads();  // this tile's x (and, the first time, the weights) are visible
+      const int64_t m0 = tile * TM;
+      const int valid = static_cast<int>(M - m0 < TM ? M - m0 : TM);
+      layer_norm<T, Cf>(cur, valid, xn, gamma, beta, eps);
+#pragma unroll
+      for (int n = 0; n < Cf::NT2; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+      for (int j0 = 0; j0 < H; j0 += HC) {
+        __syncthreads();  // xn written; the previous chunk's second product has read gs
+        gemm1_gelu<T, Cf>(xn, gs, w1s + j0 * Sm::LDW1, b1 + j0);
+        __syncthreads();
+        gemm2<T, Cf>(gs, w2s, j0, acc);
+      }
+      epilogue<T, Cf>(acc, cur, y, nullptr, b2, m0, valid);
+    }
+  } else {
+    // One tile, one share of the hidden width, its weights streamed in
+    // chunks: the next chunk's W1 loads behind this chunk's second product,
+    // its W2 behind the next chunk's first.
+    const int64_t tile = blockIdx.x / splits;
+    const int H = H_rt, share = blockIdx.x % splits, hs = H / splits, j_begin = share * hs, j_end = j_begin + hs;
+    const int64_t m0 = tile * TM;
+    const int valid = static_cast<int>(M - m0 < TM ? M - m0 : TM);
+    stage<Cf::kThreads>(w1, C, j_begin, HC, 0, C, w1s, Sm::LDW1);
+    commit();
+    stage<Cf::kThreads>(w2, H, 0, C, j_begin, HC, w2s, Sm::LDW2);
+    commit();
+    layer_norm<T, Cf>(x + m0 * C, valid, xn, gamma, beta, eps);
+#pragma unroll
+    for (int n = 0; n < Cf::NT2; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+    for (int j0 = j_begin; j0 < j_end; j0 += HC) {
+      wait_groups<1>();  // this chunk's W1 (its W2 may still be in flight)
+      __syncthreads();   // W1 and xn visible; the previous second product is done with gs
+      gemm1_gelu<T, Cf>(xn, gs, w1s, b1 + j0);
+      __syncthreads();   // gs visible; W1's buffer free
+      if (j0 + HC < j_end) stage<Cf::kThreads>(w1, C, j0 + HC, HC, 0, C, w1s, Sm::LDW1);
+      commit();
+      wait_groups<1>();  // this chunk's W2
+      __syncthreads();
+      gemm2<T, Cf>(gs, w2s, 0, acc);
+      __syncthreads();   // W2's buffer and gs free
+      if (j0 + HC < j_end) stage<Cf::kThreads>(w2, H, 0, C, j0 + HC, HC, w2s, Sm::LDW2);
+      commit();
+    }
+    wait_groups<0>();
+    epilogue<T, Cf>(acc, x + m0 * C, y, splits > 1 ? partial + static_cast<int64_t>(share) * M * C : nullptr, b2, m0,
+                    valid);
+  }
+}
+
+// The weights' bf16 copy for bf16 activations.
+__global__ void __launch_bounds__(kThreads) to_bf16_kernel(const float* __restrict__ a, __nv_bfloat16* __restrict__ out,
+                                                           int64_t n) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i < n) out[i] = __float2bfloat16_rn(a[i]);
+}
+
+// y = x + (sum of the shares' partial sums, in share order, + b2), four channels a thread.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+sum_shares_kernel(const float* __restrict__ partial, const T* __restrict__ x, const float* __restrict__ b2,
+                  T* __restrict__ y, int64_t n4, int C, int splits) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n4) return;
+  const int64_t n = 4 * n4;
+  float4 s = reinterpret_cast<const float4*>(partial)[i];
+  for (int k = 1; k < splits; ++k) {
+    const float4 p = reinterpret_cast<const float4*>(partial + k * n)[i];
+    s.x += p.x; s.y += p.y; s.z += p.z; s.w += p.w;
+  }
+  const int c = static_cast<int>((4 * i) % C);
+  const float4 b = *reinterpret_cast<const float4*>(b2 + c);
+  Mma<T>::store2(y + 4 * i, ftt::to_float(x[4 * i]) + (s.x + b.x), ftt::to_float(x[4 * i + 1]) + (s.y + b.y));
+  Mma<T>::store2(y + 4 * i + 2, ftt::to_float(x[4 * i + 2]) + (s.z + b.z), ftt::to_float(x[4 * i + 3]) + (s.w + b.w));
+}
+
+// Shares of the hidden width for M tokens on the current device.  One where
+// the weights stay resident; else the shares double, while each keeps whole
+// chunks, as long as the blocks still fit the card's multiprocessors in one
+// wave (on the H100, shares past one wave cost more than the card they fill).
+template <class Cf>
+cudaError_t plan_shares(int64_t M, int H, int* shares) {
+  *shares = 1;
+  if (Cf::kResident) return H == Cf::H ? cudaSuccess : cudaErrorInvalidValue;
+  if (H % Cf::HC) return cudaErrorInvalidValue;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  const int64_t blocks = (M + TM - 1) / TM;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), p[0], p[1], p[2], p[3], p[4], p[5], M, H, eps);
+  const int64_t tiles = (M + Cf::TM - 1) / Cf::TM;
+  while (2 * tiles * *shares <= sms && H % (2 * *shares * Cf::HC) == 0) *shares *= 2;
+  return cudaSuccess;
+}
+
+template <typename T, class Cf>
+cudaError_t launch(const void* x_, void* y_, const float* const* p, float* partial, const typename Mma<T>::S* w1,
+                   const typename Mma<T>::S* w2, int64_t M, int H, float eps, cudaStream_t stream) {
+  using Sm = typename Cf::template Smem<T>;
+  int splits = 1;
+  cudaError_t err = plan_shares<Cf>(M, H, &splits);
+  if (err != cudaSuccess) return err;
+  if (splits > 1 && partial == nullptr) return cudaErrorInvalidValue;
+  auto kernel = prenorm_mlp_fwd_kernel<T, Cf>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(Sm::BYTES));
+  if (err != cudaSuccess) return err;
+  const int64_t tiles = (M + Cf::TM - 1) / Cf::TM;
+  int64_t blocks = tiles * splits;
+  if (Cf::kResident) {  // persistent: as many blocks as the card holds at once
+    int device = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, Cf::kThreads, Sm::BYTES);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    blocks = tiles < static_cast<int64_t>(sms) * per_sm ? tiles : static_cast<int64_t>(sms) * per_sm;
+  }
+  const T* x = static_cast<const T*>(x_);
+  T* y = static_cast<T*>(y_);
+  kernel<<<static_cast<unsigned>(blocks), Cf::kThreads, Sm::BYTES, stream>>>(x, y, partial, p[0], p[1], w1, p[3], w2,
+                                                                         p[5], M, H, eps, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const int64_t n4 = M * Cf::C / 4;
+  sum_shares_kernel<T><<<static_cast<unsigned>((n4 + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+      partial, x, p[5], y, n4, Cf::C, splits);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* x, void* y, const float* const* p, int64_t M, int C, int H,
-                     float eps, cudaStream_t s) {
-  switch (C) {  // <T, C, tokens per block, hidden chunk, thread rows>
-    case 32: return launch<T, 32, 128, 32, 32>(x, y, p, M, H, eps, s);
-    case 64: return launch<T, 64, 64, 64, 16>(x, y, p, M, H, eps, s);
-    case 128: return launch<T, 128, 64, 64, 16>(x, y, p, M, H, eps, s);
-    case 256: return launch<T, 256, 32, 32, 16>(x, y, p, M, H, eps, s);
-    case 512: return launch<T, 512, 16, 16, 16>(x, y, p, M, H, eps, s);
+// f(Cf{}) with the configuration for width C and hidden width H:
+// Cfg<C, tokens a tile, hidden chunk, weights resident[, warps]>.  C = 64
+// takes 16 warps (~5 % faster than 8 on the H100), the others 8.
+template <typename F>
+cudaError_t with_cfg(int C, int H, F&& f) {
+  const bool resident = H == 4 * C;
+  switch (C) {
+    case 32: return resident ? f(Cfg<32, 64, 64, true>{}) : f(Cfg<32, 64, 32, false>{});
+    case 64: return resident ? f(Cfg<64, 64, 64, true, 16>{}) : f(Cfg<64, 64, 32, false>{});
+    case 128: return f(Cfg<128, 64, 32, false>{});
+    case 256: return f(Cfg<256, 64, 32, false>{});
+    case 512: return f(Cfg<512, 32, 32, false>{});
     default: return cudaErrorInvalidValue;
   }
 }
 
+template <typename T>
+cudaError_t dispatch(const void* x, void* y, const float* const* p, float* partial, const typename Mma<T>::S* w1,
+                     const typename Mma<T>::S* w2, int64_t M, int C, int H, float eps, cudaStream_t s) {
+  return with_cfg(C, H, [&](auto cfg) { return launch<T, decltype(cfg)>(x, y, p, partial, w1, w2, M, H, eps, s); });
+}
+
 }  // namespace
 
-// x, y: (M, C) contiguous, of `dtype`; gamma, beta, b2: (C,); w1: (H, C);
-// b1: (H,); w2: (C, H); all parameters f32.  Returns cudaGetLastError().
-extern "C" int ftt_prenorm_mlp(const void* x, void* y, const void* gamma, const void* beta,
-                               const void* w1, const void* b1, const void* w2, const void* b2,
-                               int dtype, long long M, int C, int H, float eps, void* stream) {
+// The shares of the hidden width that ftt_prenorm_mlp splits M tokens into
+// on the current device (plan_shares), into *shares.  Returns a CUDA status.
+extern "C" int ftt_prenorm_mlp_shares(long long M, int C, int H, int* shares) {
+  if (M <= 0 || H <= 0 || H % 32) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(with_cfg(C, H, [&](auto cfg) { return plan_shares<decltype(cfg)>(M, H, shares); }));
+}
+
+// x, y: (M, C) contiguous, of `dtype`, 16-byte aligned; gamma, beta, b2:
+// (C,); w1: (H, C); b1: (H,); w2: (C, H); all parameters f32 and 16-byte
+// aligned; H a multiple of 32.  partial: (shares, M, C) f32 scratch when
+// ftt_prenorm_mlp_shares gives more than one share, else unused; wconv:
+// 2 H C bf16 of scratch for the weights' bf16 copy when dtype is bf16, else
+// unused.  Returns cudaGetLastError().
+extern "C" int ftt_prenorm_mlp(const void* x, void* y, const void* gamma, const void* beta, const void* w1,
+                               const void* b1, const void* w2, const void* b2, void* partial, void* wconv, int dtype,
+                               long long M, int C, int H, float eps, void* stream) {
   const float* params[6] = {static_cast<const float*>(gamma), static_cast<const float*>(beta),
                             static_cast<const float*>(w1),    static_cast<const float*>(b1),
                             static_cast<const float*>(w2),    static_cast<const float*>(b2)};
   auto s = static_cast<cudaStream_t>(stream);
+  auto part = static_cast<float*>(partial);
   cudaError_t err;
-  if (M <= 0 || H <= 0) {
+  if (M <= 0 || H <= 0 || H % 32) {
     err = cudaErrorInvalidValue;
   } else if (dtype == ftt::kFloat32) {
-    err = dispatch<float>(x, y, params, M, C, H, eps, s);
+    err = dispatch<float>(x, y, params, part, params[2], params[4], M, C, H, eps, s);
   } else if (dtype == ftt::kBFloat16) {
-    err = dispatch<__nv_bfloat16>(x, y, params, M, C, H, eps, s);
+    if (wconv == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    auto w1h = static_cast<__nv_bfloat16*>(wconv);
+    auto w2h = w1h + static_cast<int64_t>(H) * C;
+    const int64_t n = static_cast<int64_t>(H) * C;
+    const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+    to_bf16_kernel<<<grid, kThreads, 0, s>>>(params[2], w1h, n);
+    to_bf16_kernel<<<grid, kThreads, 0, s>>>(params[4], w2h, n);
+    err = dispatch<__nv_bfloat16>(x, y, params, part, w1h, w2h, M, C, H, eps, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -13,8 +13,9 @@
 // A slab holds L = S1 / n rows, a multiple of the patch.  For the shift
 // (s1, s2, s3) the first window row of the slab covers the rows [-s1, p - s1):
 // its elements with a negative row lie in the left neighbour.  This kernel is
-// K1's (the same block, the same solve: `rank1_nmf_fwd_block`), and the one
-// thing it changes is where such an element is:
+// K1's (the same solve: `rank1_group_solve`, or `rank1_smem_solve` at sizes
+// other than the bundles'), and the one thing it changes is where such an
+// element is:
 //   * it is read from `halo` (B, s1, S2, S3, C), the left neighbour's last s1
 //     rows (only s1 < p rows are ever read, so s1 rows move, not p);
 //   * the pass's value for it is written to `send` (B, s1, S2, S3, C) in f32,
@@ -28,28 +29,69 @@
 //
 // What bounds it on the H100: memory, as K1: per pass the slab read once and
 // written once (plus the f32 scratch between passes); the halo and the send
-// buffer add s1 / L of that.  What the design does about it: what K1's does
-// (no roll, fold or padded copy exists; each element is read and written once
-// per pass); the routed rows are f32 so that the sum over passes equals K1's
-// on the whole volume bit for bit, in bf16 too.
+// buffer add s1 / L of that.  What the design does about it: K1's reads (no
+// roll, fold or padded copy exists; a row's channels in 16-byte accesses) and
+// K1's solve; the sum over passes stays one launch per shift into an f32
+// scratch, unlike K1's factors-then-reconstruct passes.  The routed rows are
+// f32, each product is rounded by __fmul_rn before the pass sum takes it (so
+// no FMA contracts the two) and store_pass8 rounds each sum explicitly, as
+// K1's reconstruct pass does, so the sum over passes equals K1's on the whole
+// volume bit for bit, in bf16 too.
 #include "windowed_nmf.cuh"
 
 namespace {
 
 constexpr int kThreads = ftt::kWindowThreads;
 
+// At the compile-time sizes: K1's register-resident solve, one thread group
+// per matrix (Group<kD, kP>), then every element of u v^T through store_at.
 template <typename T, int kD, int kP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(ftt::Group<kD, kP>::kBlock)
 windowed_nmf_slab_shift_kernel(const T* __restrict__ x, const T* __restrict__ halo, float* __restrict__ acc,
                                T* __restrict__ out, float* __restrict__ send, const float* __restrict__ u0,
-                               const float* __restrict__ v0, int L, int S2, int S3, int C, int d_rt, int p_rt,
-                               int sh1, int sh2, int sh3, int mu, int num_iters, float eps, int first, int last,
-                               float scale) {
+                               const float* __restrict__ v0, int L, int S2, int S3, int C, int sh1, int sh2, int sh3,
+                               int64_t n_mats, int mu, int num_iters, float eps, int first, int last, float scale) {
+  using G = ftt::Group<kD, kP>;
   using Slab = ftt::Window<kD, kP, true>;
-  const Slab win(d_rt, p_rt, L, S2, S3, C, sh1, sh2, sh3);
+  __shared__ float red[G::kGroups][2 * G::kWarps * 9];
+  const int group = threadIdx.x / G::kThreads, lane_g = threadIdx.x % G::kThreads;
+  const int64_t m = static_cast<int64_t>(blockIdx.x) * G::kGroups + group;
+  if (m >= n_mats) return;  // a whole group leaves together
+  const Slab win(kD, kP, L, S2, S3, C, sh1, sh2, sh3, m);
+  float u[kD], v[G::kRows], X[G::kRows][kD];
+  ftt::rank1_group_solve<T, Slab, kD, kP>(win, x, halo, u0, v0, mu, num_iters, eps, red[group], lane_g, u, v, X);
+#pragma unroll
+  for (int k = 0; k < G::kRows; ++k) {  // a row's 8 channels in 16-byte accesses
+    const int64_t o = win.row_offset(lane_g + G::kThreads * k);
+    float y[kD];
+#pragma unroll
+    for (int di = 0; di < kD; ++di) y[di] = __fmul_rn(u[di], v[k]);
+    if (o < 0) {
+      ftt::store8(send + (-1 - o), y);
+    } else {
+      ftt::store_pass8(acc, out, o, y, first, last, scale);
+    }
+  }
+}
+
+// At any other size: K1's shared-memory solve by a 256-thread block.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+windowed_nmf_slab_shift_smem_kernel(const T* __restrict__ x, const T* __restrict__ halo, float* __restrict__ acc,
+                                    T* __restrict__ out, float* __restrict__ send, const float* __restrict__ u0,
+                                    const float* __restrict__ v0, int L, int S2, int S3, int C, int d, int p, int sh1,
+                                    int sh2, int sh3, int mu, int num_iters, float eps, int first, int last,
+                                    float scale) {
+  using Slab = ftt::Window<0, 0, true>;
+  const Slab win(d, p, L, S2, S3, C, sh1, sh2, sh3);
   extern __shared__ float smem[];
-  ftt::rank1_nmf_fwd_block<T, Slab, kThreads>(win, x, halo, acc, out, send, u0, v0, mu, num_iters, eps, first, last,
-                                              scale, smem);
+  ftt::rank1_smem_solve<T, Slab, kThreads>(win, x, halo, u0, v0, mu, num_iters, eps, smem);
+  const int P3 = win.P3;
+  const float* us = ftt::fwd_smem_u(smem, P3, d);
+  const float* vs = ftt::fwd_smem_v(smem, P3, d);
+  for (int e = threadIdx.x; e < P3 * d; e += kThreads) {
+    ftt::store_at<Slab>(acc, out, send, win.offset(e), __fmul_rn(us[e % d], vs[e / d]), first, last, scale);
+  }
 }
 
 // The rows that arrived from the right neighbour: `recv` (B, s1, R) in f32,
@@ -65,22 +107,48 @@ slab_tail_kernel(const float* __restrict__ recv, float* __restrict__ acc, T* __r
   }
 }
 
+template <typename T, int kD, int kP>
+cudaError_t launch_group(const T* x, const T* halo, float* acc, T* out, float* send, const float* u0, const float* v0,
+                         int B, int L, int S2, int S3, int C, int sh1, int sh2, int sh3, int mu, int num_iters,
+                         float eps, int first, int last, float scale, cudaStream_t stream) {
+  using G = ftt::Group<kD, kP>;
+  const int64_t n_mats = static_cast<int64_t>(B) * (L / kP) * (S2 / kP) * (S3 / kP) * (C / kD);
+  windowed_nmf_slab_shift_kernel<T, kD, kP><<<static_cast<unsigned>((n_mats + G::kGroups - 1) / G::kGroups), G::kBlock,
+                                              0, stream>>>(x, halo, acc, out, send, u0, v0, L, S2, S3, C, sh1, sh2,
+                                                           sh3, n_mats, mu, num_iters, eps, first, last, scale);
+  return cudaGetLastError();
+}
+
 template <typename T>
-cudaError_t launch(const void* x, const void* halo, void* acc, void* out, void* send, const float* u0,
+cudaError_t launch(const void* x_, const void* halo_, void* acc_, void* out_, void* send_, const float* u0,
                    const float* v0, int B, int L, int S2, int S3, int C, int d, int p, int sh1, int sh2, int sh3,
                    int mu, int num_iters, float eps, int first, int last, float scale, cudaStream_t stream) {
+  auto x = static_cast<const T*>(x_);
+  auto halo = static_cast<const T*>(halo_);
+  auto acc = static_cast<float*>(acc_);
+  auto out = static_cast<T*>(out_);
+  auto send = static_cast<float*>(send_);
+  // The bundles' sizes take K1's register-resident solve.
+  if (d == 8 && p == 8) {
+    return launch_group<T, 8, 8>(x, halo, acc, out, send, u0, v0, B, L, S2, S3, C, sh1, sh2, sh3, mu, num_iters, eps,
+                                 first, last, scale, stream);
+  }
+  if (d == 8 && p == 4) {
+    return launch_group<T, 8, 4>(x, halo, acc, out, send, u0, v0, B, L, S2, S3, C, sh1, sh2, sh3, mu, num_iters, eps,
+                                 first, last, scale, stream);
+  }
   const size_t smem = sizeof(float) * ftt::rank1_fwd_smem_floats(p * p * p, d, kThreads);
-  // The bundle's head_dim 8 and patch 8 get a compile-time instance.
-  auto kernel = (d == 8 && p == 8) ? windowed_nmf_slab_shift_kernel<T, 8, 8> : windowed_nmf_slab_shift_kernel<T, 0, 0>;
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  auto kernel = windowed_nmf_slab_shift_smem_kernel<T>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const int64_t blocks = static_cast<int64_t>(B) * (L / p) * (S2 / p) * (S3 / p) * (C / d);
-  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(halo), static_cast<float*>(acc), static_cast<T*>(out),
-      static_cast<float*>(send), u0, v0, L, S2, S3, C, d, p, sh1, sh2, sh3, mu, num_iters, eps, first, last, scale);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(x, halo, acc, out, send, u0, v0, L, S2, S3, C, d,
+                                                                   p, sh1, sh2, sh3, mu, num_iters, eps, first, last,
+                                                                   scale);
   return cudaGetLastError();
 }
 

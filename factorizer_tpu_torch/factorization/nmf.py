@@ -49,7 +49,8 @@ class MatrixFactorization(nn.Module):
         size: ``(M, N)`` of the factorized matrices.
         rank: factorization rank; None takes the auto-rank rule at compression 10.
         init_method: ``"uniform"`` or ``"normal"`` (a ``RandomInit``).
-        solver: ``"hals"`` or ``"mu"``; its divides carry ``eps = 1e-16``.
+        solver: ``"cd"`` (coordinate descent without a projection, the JAX package's default),
+            ``"hals"`` (with a relu projection) or ``"mu"``; its divides carry ``eps = 1e-16``.
         num_iters: number of BCD iterations.
         num_grad_steps: trailing iterations that are differentiable (None = all).
     """
@@ -59,7 +60,7 @@ class MatrixFactorization(nn.Module):
         size: Sequence[int],
         rank: Optional[int] = None,
         init_method: str = "normal",
-        solver: str = "hals",
+        solver: str = "cd",
         num_iters: int = 5,
         num_grad_steps: Optional[int] = None,
         device: Optional[torch.device] = None,

@@ -1,7 +1,8 @@
-"""Block-coordinate-descent solvers for ``X ≈ U Vᵀ``: the ``hals`` and ``mu`` entries.
+"""Block-coordinate-descent solvers for ``X ≈ U Vᵀ``: the ``cd``, ``hals`` and ``mu`` entries.
 
-PyTorch counterpart of ``CoordinateDescent`` (with the relu projection, as the
-``"hals"`` registry entry builds it) and ``MultiplicativeUpdate`` from
+PyTorch counterpart of ``CoordinateDescent`` (without a projection as the
+``"cd"`` registry entry builds it, with the relu projection as ``"hals"``
+builds it) and ``MultiplicativeUpdate`` from
 ``factorizer_tpu/factorization/solvers.py``.  One call is one BCD iteration:
 U first, then V.  Denominators carry ``eps = 1e-16``, which underflows in
 bf16, so callers run the solve in at least float32.
@@ -76,6 +77,7 @@ class MultiplicativeUpdate(BCDSolver):
 
 
 SOLVER_DISPATCH_MAP: dict[str, tuple[type, dict]] = {
+    "cd": (CoordinateDescent, {}),
     "hals": (CoordinateDescent, {"project": torch.relu}),
     "mu": (MultiplicativeUpdate, {}),
 }

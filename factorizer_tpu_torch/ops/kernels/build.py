@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -35,7 +36,8 @@ from typing import Iterator
 
 import torch
 
-__all__ = ["nvcc_path", "build", "build_info", "library", "check", "dtype_code", "stream_of", "reference_kernels", "launches_kernel"]
+__all__ = ["nvcc_path", "build", "build_info", "library", "check", "check_aligned", "dtype_code", "stream_of",
+           "reference_kernels", "launches_kernel"]
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -45,11 +47,16 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
-    # x, acc, out, u0, v0, dtype, B, S1, S2, S3, C, d, p, sh1, sh2, sh3, mu,
-    # num_iters, eps, first, last, scale, stream
-    "ftt_windowed_nmf_shift": [_P, _P, _P, _P, _P] + [_I] * 13 + [_F, _I, _I, _F, _P],
-    # x, y, gamma, beta, w1, b1, w2, b2, dtype, M, C, H, eps, stream
-    "ftt_prenorm_mlp": [_P] * 8 + [_I, _L, _I, _I, _F, _P],
+    # x, U, V, u0, v0, dtype, B, S1, S2, S3, C, d, p, n_shifts, shifts, mu, num_iters, eps, stream
+    "ftt_windowed_nmf_factors": [_P] * 5 + [_I] * 9 + [_P, _I, _I, _F, _P],
+    # U, V, acc, out, dtype, B, S1, S2, S3, C, d, p, n_shifts, shifts, stream
+    "ftt_windowed_nmf_reconstruct": [_P] * 4 + [_I] * 9 + [_P, _P],
+    # x, U, V, acc, out, u0, v0, dtype, B, S1, S2, S3, C, d, p, n_shifts, shifts, mu, num_iters, eps, stream
+    "ftt_windowed_nmf_forward": [_P] * 7 + [_I] * 9 + [_P, _I, _I, _F, _P],
+    # M, C, H, shares (out)
+    "ftt_prenorm_mlp_shares": [_L, _I, _I, ctypes.POINTER(ctypes.c_int)],
+    # x, y, gamma, beta, w1, b1, w2, b2, partial, wconv, dtype, M, C, H, eps, stream
+    "ftt_prenorm_mlp": [_P] * 10 + [_I, _L, _I, _I, _F, _P],
     # x, g, acc, out, u0, v0, dtype, B, S1, S2, S3, C, d, p, sh1, sh2, sh3, mu,
     # num_iters, grad_steps, eps, first, last, scale, stream
     "ftt_windowed_nmf_shift_bwd": [_P] * 6 + [_I] * 14 + [_F, _I, _I, _F, _P],
@@ -151,6 +158,13 @@ def check(status: int, name: str) -> None:
     if status != 0:
         msg = library().ftt_error_string(status).decode()
         raise RuntimeError(f"{name}: CUDA error {status} ({msg})")
+
+
+def check_aligned(name: str, t: torch.Tensor) -> None:
+    """Raise unless ``t``'s data starts on a 16-byte boundary, as the kernels' 16-byte accesses need.  Fresh
+    tensors do; a view into another tensor may not."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary (pass a fresh contiguous copy)")
 
 
 def dtype_code(dtype: torch.dtype) -> int:

@@ -18,12 +18,15 @@ by name.  Everything computes in float32 with float32 parameters and casts to
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
 from . import build
 
-__all__ = ["prenorm_mlp", "prenorm_mlp_plain", "prenorm_mlp_backward", "prenorm_mlp_backward_plain", "KERNEL_WIDTHS"]
+__all__ = ["prenorm_mlp", "prenorm_mlp_plain", "prenorm_mlp_backward", "prenorm_mlp_backward_plain", "forward_shares",
+           "KERNEL_WIDTHS"]
 
 # Channel widths the kernel is instantiated for (one tile shape each).
 KERNEL_WIDTHS = (32, 64, 128, 256, 512)
@@ -68,14 +71,31 @@ def _check(x, params: dict) -> tuple[int, int]:
     return c, hidden
 
 
+def forward_shares(tokens: int, c: int, hidden: int) -> int:
+    """Shares of the hidden width that the forward kernel splits ``tokens`` tokens into on the current card: the
+    kernel's own plan (``plan_shares`` in ``csrc/mlp_block.cu``).  Above 1, the shares' partial sums take
+    ``(shares, tokens, C)`` f32 of scratch."""
+    shares = ctypes.c_int(0)
+    build.check(build.library().ftt_prenorm_mlp_shares(tokens, c, hidden, ctypes.byref(shares)), "prenorm_mlp_shares")
+    return shares.value
+
+
 def _launch_forward(x, params: dict, eps: float) -> torch.Tensor:
     c, hidden = _check(x, params)
+    for name, t in (("x", x), *params.items()):
+        build.check_aligned(name, t)
     dtype = build.dtype_code(x.dtype)
     lib = build.library()
+    tokens = x.numel() // c
+    shares = forward_shares(tokens, c, hidden)
+    partial = torch.empty(shares, tokens, c, dtype=torch.float32, device=x.device) if shares > 1 else None
+    # bf16 activations: the kernel's operands are the weights' bf16 copy, made in this scratch.
+    wconv = torch.empty(2 * hidden * c, dtype=torch.bfloat16, device=x.device) if x.dtype == torch.bfloat16 else None
     y = torch.empty_like(x)
     status = lib.ftt_prenorm_mlp(
         x.data_ptr(), y.data_ptr(), *(p.data_ptr() for p in params.values()),
-        dtype, x.numel() // c, c, hidden, eps, build.stream_of(x),
+        None if partial is None else partial.data_ptr(), None if wconv is None else wconv.data_ptr(), dtype, tokens,
+        c, hidden, eps, build.stream_of(x),
     )
     build.check(status, "prenorm_mlp")
     prenorm_mlp.launches += 1
@@ -136,6 +156,9 @@ def prenorm_mlp(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5) -> torch.Tens
     """``x + fc2(gelu(fc1(LN(x))))`` over the trailing axis of ``x (..., C)``; K2 on the card, plain on the CPU."""
     if not build.launches_kernel(x):
         return prenorm_mlp_plain(x, gamma, beta, w1, b1, w2, b2, eps)
+    leaves = (x, gamma, beta, w1, b1, w2, b2)
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in leaves)):  # no graph to record
+        return _launch_forward(x, dict(zip(PARAM_NAMES, leaves[1:])), eps)
     return _PrenormMLP.apply(x, gamma, beta, w1, b1, w2, b2, eps)
 
 

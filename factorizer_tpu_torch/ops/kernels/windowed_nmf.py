@@ -7,28 +7,44 @@ Counterpart of ``windowed_nmf_multi`` in
 into ``d x p^3`` matrices and the solve runs ``num_iters`` rank-1 HALS or MU
 updates from the shared tables ``u0 (d, 1)`` and ``v0 (p^3, 1)``.
 
-:func:`windowed_nmf` launches the forward kernel once per shift for a CUDA
-tensor and is differentiable in ``x``: its backward launches the backward
-kernel once per shift (:func:`windowed_nmf_backward`), which reruns the solve
-inside each block and walks back through the last ``num_grad_steps``
-iterations, so only ``x`` is saved between the two.  ``u0`` and ``v0`` get no
-gradient.  A CPU tensor takes :func:`windowed_nmf_plain`, which autograd
-differentiates; :func:`windowed_nmf_backward_plain` is that gradient by name.
-The solve runs in float32 for every input dtype.
+:func:`windowed_nmf` runs the forward in two passes for a CUDA tensor:
+:func:`windowed_nmf_factors` (one launch over all shifts) solves every matrix
+and keeps only its factors, ``U (n, B, G, C/d, d)`` and ``V (n, B, G, C/d, p^3)``
+in f32 (``G`` windows); :func:`windowed_nmf_reconstruct` (one launch) writes
+each output element once as the mean over shifts of the factors' product.
+The plain counterparts :func:`windowed_nmf_factors_plain` and
+:func:`windowed_nmf_reconstruct_plain` compose to :func:`windowed_nmf_plain`.
+:func:`windowed_nmf` is differentiable in ``x``: its backward launches the
+backward kernel once per shift (:func:`windowed_nmf_backward`), which reruns
+the solve inside each block and walks back through the last
+``num_grad_steps`` iterations, so only ``x`` is saved between the two.
+``u0`` and ``v0`` get no gradient.  A CPU tensor takes the plain versions,
+which autograd differentiates; :func:`windowed_nmf_backward_plain` is that
+gradient by name.  The solve runs in float32 for every input dtype.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import math
 from typing import Optional, Sequence
 
 import torch
 
 from . import build
 
-__all__ = ["windowed_nmf", "windowed_nmf_plain", "windowed_nmf_backward", "windowed_nmf_backward_plain", "EPS"]
+__all__ = [
+    "windowed_nmf", "windowed_nmf_plain", "windowed_nmf_backward", "windowed_nmf_backward_plain",
+    "windowed_nmf_factors", "windowed_nmf_factors_plain", "windowed_nmf_reconstruct", "windowed_nmf_reconstruct_plain",
+    "factor_shapes", "EPS",
+]
 
 EPS = 1e-16
 SOLVERS = ("hals", "mu")
+# Most shifts one forward launch takes (``kMaxShifts`` in csrc/windowed_nmf.cuh): a call with more launches each
+# pass once per group of them, and the reconstruct pass carries its sum between groups in an f32 volume.
+MAX_SHIFTS = 8
 
 
 def _norm_shift(shift, patch: int) -> tuple[int, int, int]:
@@ -107,6 +123,149 @@ def windowed_nmf_plain(
     return (acc / len(shifts)).to(x.dtype)
 
 
+def factor_shapes(shape: Sequence[int], head_dim: int, patch: int, n_shifts: int) -> tuple[tuple, tuple]:
+    """Shapes of the factors buffer of a volume ``shape``: ``U (n, B, G, C/d, d)`` and ``V (n, B, G, C/d, p^3)``,
+    ``G`` the windows in (g1, g2, g3) order."""
+    B, s1, s2, s3, c = shape
+    lead = (n_shifts, B, (s1 // patch) * (s2 // patch) * (s3 // patch), c // head_dim)
+    return (*lead, head_dim), (*lead, patch**3)
+
+
+def windowed_nmf_factors_plain(
+    x: torch.Tensor,
+    u0: torch.Tensor,
+    v0: torch.Tensor,
+    head_dim: int,
+    patch: int,
+    shifts: Sequence = (None,),
+    solver: str = "hals",
+    num_iters: int = 5,
+    eps: float = EPS,
+    num_grad_steps: Optional[int] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pass A, plain: per shift, roll, fold and solve; the factors in :func:`factor_shapes`' layout, in
+    float32 (float64 for a float64 input)."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    B, c = x.shape[0], x.shape[-1]
+    h = c // head_dim
+    us, vs = [], []
+    for shift in shifts:
+        sh = _norm_shift(shift, patch)
+        xs = torch.roll(xf, sh, (1, 2, 3)) if any(sh) else xf
+        u, v = _rank1_solve(_fold(xs, head_dim, patch), u0, v0, solver, num_iters, eps, num_grad_steps)
+        us.append(u.reshape(B, h, -1, head_dim).transpose(1, 2))  # (B*h, G, d, 1) -> (B, G, h, d)
+        vs.append(v.reshape(B, h, -1, patch**3).transpose(1, 2))
+    return torch.stack(us), torch.stack(vs)
+
+
+def windowed_nmf_reconstruct_plain(
+    U: torch.Tensor, V: torch.Tensor, shape: Sequence[int], dtype: torch.dtype, head_dim: int, patch: int,
+    shifts: Sequence = (None,),
+) -> torch.Tensor:
+    """Pass B, plain: per shift, ``u v^T`` unfolded and un-rolled; the mean over shifts, cast to ``dtype``."""
+    B, c = shape[0], shape[-1]
+    h = c // head_dim
+    acc = None
+    for i, shift in enumerate(shifts):
+        sh = _norm_shift(shift, patch)
+        u = U[i].transpose(1, 2).reshape(B * h, -1, head_dim, 1)
+        v = V[i].transpose(1, 2).reshape(B * h, -1, patch**3, 1)
+        ys = _unfold(u @ v.transpose(-1, -2), shape, head_dim, patch)
+        if any(sh):
+            ys = torch.roll(ys, tuple(-s for s in sh), (1, 2, 3))
+        acc = ys if acc is None else acc + ys
+    return (acc / len(shifts)).to(dtype)
+
+
+def _shift_table(shifts, patch: int):
+    """The normalised shifts as the C entry points take them: ``n x 3`` ints in host memory.  A model calls
+    with the same few shift lists over and over, so the table is kept per list of normalised shifts."""
+    return _table(tuple(_norm_shift(shift, patch) for shift in shifts), patch)
+
+
+@functools.lru_cache(maxsize=64)
+def _table(shifts: tuple, patch: int):
+    if not shifts:
+        raise ValueError("the forward kernel takes at least one shift")
+    flat = [s for shift in shifts for s in _norm_shift(shift, patch)]
+    return (ctypes.c_int * len(flat))(*flat)
+
+
+def _f32_table(t: torch.Tensor) -> torch.Tensor:
+    """``u0`` / ``v0`` as the flat f32 table the kernels read (the tensor itself when it already is one)."""
+    return t if t.dtype == torch.float32 and t.is_contiguous() else t.detach().float().contiguous()
+
+
+def _sum_scratch(shape, n_shifts: int, device) -> Optional[torch.Tensor]:
+    """The reconstruct pass's f32 running sum between groups of shifts, where there is more than one group."""
+    return torch.empty(tuple(shape), dtype=torch.float32, device=device) if n_shifts > MAX_SHIFTS else None
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def windowed_nmf_factors(
+    x: torch.Tensor,
+    u0: torch.Tensor,
+    v0: torch.Tensor,
+    head_dim: int,
+    patch: int,
+    shifts: Sequence = (None,),
+    solver: str = "hals",
+    num_iters: int = 5,
+    eps: float = EPS,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pass A: the factors of every shift's matrices, ``(U, V)`` in f32; one kernel launch on the card, plain
+    on the CPU.  No gradient flows through the kernel's factors (:func:`windowed_nmf` differentiates)."""
+    if not build.launches_kernel(x):
+        return windowed_nmf_factors_plain(x, u0, v0, head_dim, patch, shifts, solver, num_iters, eps)
+    _check(x, u0, v0, head_dim, patch, solver)
+    build.check_aligned("x", x)
+    table = _shift_table(shifts, patch)
+    u_shape, v_shape = factor_shapes(x.shape, head_dim, patch, len(shifts))
+    U = torch.empty(u_shape, dtype=torch.float32, device=x.device)
+    V = torch.empty(v_shape, dtype=torch.float32, device=x.device)
+    status = build.library().ftt_windowed_nmf_factors(
+        x.data_ptr(), U.data_ptr(), V.data_ptr(), _f32_table(u0).data_ptr(), _f32_table(v0).data_ptr(),
+        build.dtype_code(x.dtype), *x.shape,
+        head_dim, patch, len(shifts), table, int(solver == "mu"), num_iters, eps, build.stream_of(x),
+    )
+    build.check(status, "windowed_nmf_factors")
+    windowed_nmf_factors.launches += 1
+    return U, V
+
+
+windowed_nmf_factors.launches = 0
+
+
+def windowed_nmf_reconstruct(
+    U: torch.Tensor, V: torch.Tensor, shape: Sequence[int], dtype: torch.dtype, head_dim: int, patch: int,
+    shifts: Sequence = (None,),
+) -> torch.Tensor:
+    """Pass B: the mean over shifts of the factors' product, a ``shape`` volume of ``dtype``; one kernel launch
+    on the card, plain on the CPU."""
+    if not build.launches_kernel(U):
+        return windowed_nmf_reconstruct_plain(U, V, shape, dtype, head_dim, patch, shifts)
+    u_shape, v_shape = factor_shapes(shape, head_dim, patch, len(shifts))
+    for name, t, want in (("U", U, u_shape), ("V", V, v_shape)):
+        if tuple(t.shape) != want or t.dtype != torch.float32 or not t.is_contiguous() or t.device != U.device:
+            raise ValueError(f"{name} must be a contiguous float32 tensor of shape {want} on {U.device}")
+    out = torch.empty(tuple(shape), dtype=dtype, device=U.device)
+    acc = _sum_scratch(shape, len(shifts), U.device)
+    build.check_aligned("U", U)
+    status = build.library().ftt_windowed_nmf_reconstruct(
+        U.data_ptr(), V.data_ptr(), _ptr(acc), out.data_ptr(),
+        build.dtype_code(dtype), *shape, head_dim, patch, len(shifts), _shift_table(shifts, patch), build.stream_of(U),
+    )
+    build.check(status, "windowed_nmf_reconstruct")
+    windowed_nmf_reconstruct.launches += 1
+    return out
+
+
+windowed_nmf_reconstruct.launches = 0
+
+
 def windowed_nmf_backward_plain(
     x: torch.Tensor,
     g: torch.Tensor,
@@ -148,7 +307,8 @@ def _check(x, u0, v0, head_dim: int, patch: int, solver: str) -> None:
 
 
 def _launch(entry: str, counter, x, g, u0, v0, head_dim, patch, shifts, solver, num_iters, eps, extra=()):
-    """One launch of ``entry`` per shift; the passes sum into an f32 scratch, the last scales and casts."""
+    """One launch of the backward ``entry`` per shift; the passes sum into an f32 scratch, the last scales and
+    casts."""
     _check(x, u0, v0, head_dim, patch, solver)
     dtype = build.dtype_code(x.dtype)
     fn = getattr(build.library(), entry)
@@ -203,6 +363,27 @@ def windowed_nmf_backward(
 windowed_nmf_backward.launches = 0
 
 
+def _forward(x, u0, v0, head_dim, patch, shifts, solver, num_iters, eps) -> torch.Tensor:
+    """Both forward passes in one call into the library: one launch each, counted on each pass's wrapper."""
+    _check(x, u0, v0, head_dim, patch, solver)
+    build.check_aligned("x", x)
+    u_shape, v_shape = factor_shapes(x.shape, head_dim, patch, len(shifts))
+    n_u = math.prod(u_shape)
+    factors = torch.empty(n_u + math.prod(v_shape), dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    acc = _sum_scratch(x.shape, len(shifts), x.device)
+    status = build.library().ftt_windowed_nmf_forward(
+        x.data_ptr(), factors.data_ptr(), factors.data_ptr() + 4 * n_u, _ptr(acc), out.data_ptr(),
+        _f32_table(u0).data_ptr(), _f32_table(v0).data_ptr(),
+        build.dtype_code(x.dtype), *x.shape, head_dim, patch, len(shifts), _shift_table(shifts, patch),
+        int(solver == "mu"), num_iters, eps, build.stream_of(x),
+    )
+    build.check(status, "windowed_nmf_forward")
+    windowed_nmf_factors.launches += 1
+    windowed_nmf_reconstruct.launches += 1
+    return out
+
+
 class _WindowedNMF(torch.autograd.Function):
     """The kernels under autograd: forward saves ``x`` alone; ``u0`` and ``v0`` get no gradient."""
 
@@ -210,8 +391,7 @@ class _WindowedNMF(torch.autograd.Function):
     def forward(ctx, x, u0, v0, head_dim, patch, shifts, solver, num_iters, eps, num_grad_steps):
         ctx.save_for_backward(x, u0, v0)
         ctx.config = (head_dim, patch, shifts, solver, num_iters, eps, num_grad_steps)
-        return _launch("ftt_windowed_nmf_shift", windowed_nmf, x, None, u0, v0, head_dim, patch,
-                       shifts, solver, num_iters, eps)
+        return _forward(x, u0, v0, head_dim, patch, shifts, solver, num_iters, eps)
 
     @staticmethod
     def backward(ctx, g):
@@ -232,7 +412,7 @@ def windowed_nmf(
     eps: float = EPS,
     num_grad_steps: Optional[int] = None,
 ) -> torch.Tensor:
-    """Shifted-window NMF mixing of ``x (B, S1, S2, S3, C)``; K1 on the card, plain on the CPU.
+    """Shifted-window NMF mixing of ``x (B, S1, S2, S3, C)``; K1's two forward passes on the card, plain on the CPU.
 
     ``shifts`` holds ``None``, ints or 3-tuples.  Returns a tensor of ``x``'s
     shape and dtype, differentiable in ``x``.  ``num_grad_steps`` matters only
@@ -242,7 +422,6 @@ def windowed_nmf(
         raise ValueError(f"solver must be one of {SOLVERS}, got {solver!r}")
     if not build.launches_kernel(x):
         return windowed_nmf_plain(x, u0, v0, head_dim, patch, shifts, solver, num_iters, eps, num_grad_steps)
+    if not (torch.is_grad_enabled() and x.requires_grad):  # no graph to record: the launches alone
+        return _forward(x, u0, v0, head_dim, patch, tuple(shifts), solver, num_iters, eps)
     return _WindowedNMF.apply(x, u0, v0, head_dim, patch, tuple(shifts), solver, num_iters, eps, num_grad_steps)
-
-
-windowed_nmf.launches = 0

@@ -22,12 +22,15 @@ import torch.nn.functional as F
 __all__ = ["compute_importance_map", "sliding_window_positions", "sliding_window_inference"]
 
 
-def compute_importance_map(roi_size: Sequence[int]) -> np.ndarray:
-    """Per-window blending weights: a gaussian centred in the window, sigma = roi / 8, float32."""
+def compute_importance_map(roi_size: Sequence[int], mode: str = "gaussian", sigma_scale: float = 0.125) -> np.ndarray:
+    """Per-window blending weights, float32: ones for ``mode="constant"``, else a gaussian centred in
+    the window with sigma = roi * ``sigma_scale``."""
+    if mode == "constant":
+        return np.ones(tuple(roi_size), dtype=np.float32)
     grids = []
     for s in roi_size:
         center = (s - 1) / 2.0
-        sigma = max(s * 0.125, 1e-3)
+        sigma = max(s * sigma_scale, 1e-3)
         x = np.arange(s, dtype=np.float64)
         grids.append(np.exp(-0.5 * ((x - center) / sigma) ** 2))
     out = np.asarray(grids[0])
@@ -59,11 +62,14 @@ def sliding_window_inference(
     predictor: Callable[[torch.Tensor], torch.Tensor],
     sw_batch_size: int = 4,
     overlap: float = 0.5,
+    mode: str = "gaussian",
+    pad_value: float = 0.0,
 ) -> torch.Tensor:
-    """Run ``predictor`` over overlapping windows of ``inputs (B, C, *S)``; gaussian blending.
+    """Run ``predictor`` over overlapping windows of ``inputs (B, C, *S)``, blended by
+    :func:`compute_importance_map` in ``mode`` (``"gaussian"`` or ``"constant"``).
 
     ``predictor`` maps ``(n, C, *roi)`` to ``(n, C_out, *roi)``.  A volume
-    smaller than the roi is zero-padded up to it.  The last
+    smaller than the roi is padded up to it with ``pad_value``.  The last
     group is filled up by repeating its final window, whose extra predictions
     are dropped, so every call sees ``sw_batch_size`` windows.  Returns the
     blended float32 ``(B, C_out, *S)``.
@@ -73,10 +79,10 @@ def sliding_window_inference(
     pad = []
     for r, s in zip(reversed(roi), reversed(spatial)):  # F.pad lists the last axis first
         pad += [0, max(r - s, 0)]
-    padded = F.pad(inputs, pad)
+    padded = F.pad(inputs, pad, value=pad_value)
     pspatial = padded.shape[2:]
 
-    importance = torch.from_numpy(compute_importance_map(roi)).to(inputs.device)
+    importance = torch.from_numpy(compute_importance_map(roi, mode)).to(inputs.device)
     jobs = [(b, *pos) for b in range(batch) for pos in sliding_window_positions(pspatial, roi, overlap)]
     out_sum = weight_sum = None
     for g0 in range(0, len(jobs), sw_batch_size):

@@ -140,14 +140,17 @@ def make_train_step(model: nn.Module, loss_fn: Optional[Callable] = None, accum_
 def make_eval_step(model: nn.Module, mesh: Optional[Mesh] = None, data_axis: str = "data"):
     """Build ``images -> logits`` in inference mode (no dropout, no graph).
 
-    With ``mesh`` every process passes the whole batch, runs its shard over
-    ``data_axis`` and gets the whole batch's logits back.
+    With ``mesh`` every process passes the whole batch and gets the whole
+    batch's logits back: where the batch splits evenly over ``data_axis``,
+    each process runs its shard and the shards' logits are gathered; where it
+    does not (or the mesh lacks the axis), every process runs the whole batch
+    itself, so any batch size is taken, as the single-process step takes it.
     """
 
     @torch.no_grad()
     def step(images: torch.Tensor):
         model.eval()
-        if mesh is None:
+        if mesh is None or data_axis not in mesh.shape or images.shape[0] % mesh.axis_size(data_axis):
             return model(images)
         return all_gather_cat(model(shard_batch(images, mesh, data_axis)), mesh, data_axis)
 

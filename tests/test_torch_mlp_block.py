@@ -179,3 +179,4 @@ def test_wrapper_gradient_on_cpu_is_plain():
     for name, leaf, w in zip(GRAD_NAMES, leaves, want):
         np.testing.assert_array_equal(leaf.grad.numpy(), w.numpy(), err_msg=name)
     assert prenorm_mlp_backward.launches == before
+

@@ -45,6 +45,7 @@ def test_cpu_calls_build_nothing():
     code = (
         "import torch\n"
         "from factorizer_tpu_torch.ops.kernels import build, depthwise_conv, depthwise_conv_dw, nmf_reconstruct, prenorm_mlp, windowed_nmf\n"
+        "from factorizer_tpu_torch.ops.kernels import windowed_nmf_factors, windowed_nmf_reconstruct\n"
         "x = torch.rand(1, 8, 8, 8, 8)\n"
         "nmf_reconstruct(x, torch.rand(8, 2), torch.rand(8, 2)); assert nmf_reconstruct.launches == 0\n"
         "depthwise_conv(x, torch.rand(1, 27, 8), (3, 3, 3)); depthwise_conv_dw(x, x, (3, 3, 3))\n"
@@ -56,7 +57,7 @@ def test_cpu_calls_build_nothing():
         "prenorm_mlp(y, torch.ones(c), torch.zeros(c), torch.rand(4 * c, c), torch.zeros(4 * c),\n"
         "            torch.rand(c, 4 * c), torch.zeros(c))\n"
         "assert build._state['lib'] is None\n"
-        "assert windowed_nmf.launches == 0 and prenorm_mlp.launches == 0\n"
+        "assert windowed_nmf_factors.launches == windowed_nmf_reconstruct.launches == prenorm_mlp.launches == 0\n"
         "assert depthwise_conv.launches == 0 and depthwise_conv_dw.launches == 0\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, cwd=PACKAGE.parent, timeout=120)

@@ -1,9 +1,9 @@
-"""Device time of one train step of one of the PyTorch port's bundle networks, by kernel.
+"""Device time of one train step, or of one served volume, of one of the PyTorch port's bundle networks, by kernel.
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 tools/profile_torch_train_step.py [--model factorizer|factorizer_flat|deconver] [--dtype float32|bfloat16]
-                                              [--steps 3] [--top 25] [--cudnn-benchmark]
+                                              [--steps 3] [--top 25] [--cudnn-benchmark] [--serve]
 
 Builds ``brats23_network()`` (``--model factorizer``, the default), the same
 network on the flat-NMF route (``--model factorizer_flat``:
@@ -14,7 +14,10 @@ synthetic batch 2 x 128^3, then traces ``--steps`` steps with
 step, grouped under a few headings (the port's eight kernels, the norms,
 cuDNN, GEMMs, the optimiser, elementwise and the rest), the wall time per
 step under the profiler and the share of it that the device was busy, and
-the convolution calls by input shape.
+the convolution calls by input shape.  With ``--serve`` the unit is a served
+volume instead: ``ensemble_predict`` of one model on a BraTS-native
+``(1, 4, 240, 240, 155)`` volume at roi 128^3, sw_batch 2, overlap 0.5 (18
+windows, 9 forwards), one warm-up request, then ``--steps`` traced requests.
 """
 
 from __future__ import annotations
@@ -29,12 +32,13 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 GROUPS = (  # first match wins
+    ("K1 bwd (windowed_nmf_bwd.cu)", ("windowed_nmf_shift_bwd",)),
+    # windowed_nmf_shift: K1 fwd's kernel where it launched once per shift, so that an older tree classifies alike
+    ("K1 fwd (windowed_nmf.cu)", ("windowed_nmf_factors", "windowed_nmf_reconstruct", "windowed_nmf_shift")),
     ("K4 bwd (nmf_bwd.cu)", ("nmf_reconstruct_bwd",)),
     ("K4 fwd (nmf.cu)", ("nmf_reconstruct",)),
-    ("K1 bwd (windowed_nmf_bwd.cu)", ("windowed_nmf_shift_bwd",)),
-    ("K1 fwd (windowed_nmf.cu)", ("windowed_nmf_shift",)),
     ("K2 bwd (mlp_block_bwd.cu)", ("prenorm_mlp_bwd", "sum_partials")),
-    ("K2 fwd (mlp_block.cu)", ("prenorm_mlp",)),
+    ("K2 fwd (mlp_block.cu)", ("prenorm_mlp", "sum_shares", "to_bf16")),
     ("K3 dw (depthwise_conv_dw.cu)", ("depthwise_conv_dw", "sum_dw_partials")),
     ("K3 fwd and dx (depthwise_conv.cu)", ("depthwise_conv",)),
     ("LayerNorm fwd+bwd", ("layer_norm", "LayerNorm", "GammaBeta")),
@@ -42,7 +46,7 @@ GROUPS = (  # first match wins
     ("GEMMs (cuBLAS)", ("cublas", "gemv", "splitK", "cutlass")),
     ("cuDNN convolutions and their layout transposes", ("cudnn", "conv", "nchwToNhwc", "nhwcToNchw", "xmma", "wgrad", "dgrad")),
     ("optimiser (fused AdamW)", ("adam",)),
-    ("roll (the flat route's shifts)", ("roll",)),
+    ("roll (the flat route's shifts)", ("roll_cuda",)),
     ("concat / copies (the flat route's folds and unfolds among them)", ("CatArray", "copy", "Memcpy", "Memset")),
     ("reductions (loss, norms, bias grads)", ("reduce",)),
     ("elementwise", ("elementwise", "vectorized")),
@@ -57,6 +61,7 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--cudnn-benchmark", action="store_true", help="let cuDNN time its algorithms per shape")
+    ap.add_argument("--serve", action="store_true", help="profile served volumes (ensemble_predict) instead of train steps")
     args = ap.parse_args()
 
     import torch
@@ -66,7 +71,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("profile_torch_train_step: no CUDA device")
     from factorizer_tpu_torch.train.trainer import create_train_state, make_train_step
-    from factorizer_tpu_torch.zoo_scripts import brats23_network, deconver_brats23_network
+    from factorizer_tpu_torch.zoo_scripts import brats23_network, deconver_brats23_network, ensemble_predict
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -77,20 +82,32 @@ def main() -> None:
     dtype = None if args.dtype == "float32" else torch.bfloat16
     network = {"factorizer": brats23_network, "factorizer_flat": brats23_network, "deconver": deconver_brats23_network}[args.model]
     options = {"factorize_options": {"use_windowed": False}} if args.model == "factorizer_flat" else {}
-    state = create_train_state(network(dtype=dtype, generator=torch.Generator().manual_seed(0), **options), lr=1e-4, weight_decay=1e-5)
-    step = make_train_step(state.model)
+    model = network(dtype=dtype, generator=torch.Generator().manual_seed(0), **options)
     gen = torch.Generator(device="cuda").manual_seed(7)
-    field = F.interpolate(torch.randn(2, 3, 8, 8, 8, device="cuda", generator=gen), size=(128,) * 3, mode="trilinear")
-    batch = {"image": torch.randn(2, 4, 128, 128, 128, device="cuda", generator=gen), "label": (field > 0.3).float()}
-    for _ in range(2):
-        step(state, batch)
+    if args.serve:
+        model.eval()
+        volume = torch.randn(1, 4, 240, 240, 155, device="cuda", generator=gen)
+
+        def run() -> None:
+            ensemble_predict([model], volume, (128, 128, 128), 2, 0.5)
+    else:
+        state = create_train_state(model, lr=1e-4, weight_decay=1e-5)
+        step = make_train_step(state.model)
+        field = F.interpolate(torch.randn(2, 3, 8, 8, 8, device="cuda", generator=gen), size=(128,) * 3, mode="trilinear")
+        batch = {"image": torch.randn(2, 4, 128, 128, 128, device="cuda", generator=gen), "label": (field > 0.3).float()}
+
+        def run() -> None:
+            step(state, batch)
+    unit = "volume" if args.serve else "step"
+    for _ in range(1 if args.serve else 2):
+        run()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            step(state, batch)
+            run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / args.steps
 
@@ -111,8 +128,8 @@ def main() -> None:
         group = next((g for g, keys in GROUPS if any(k in name for k in keys)), "other")
         by_group[group] += ms
     total = sum(by_kernel.values())
-    print(f"[profile] {args.model} {args.dtype}: {wall_ms:.1f} ms wall per step under the profiler, {total:.1f} ms of device time "
-          f"per step ({100 * total / wall_ms:.1f} % busy), {args.steps} steps, "
+    print(f"[profile] {args.model} {args.dtype}: {wall_ms:.1f} ms wall per {unit} under the profiler, {total:.1f} ms of device "
+          f"time per {unit} ({100 * total / wall_ms:.1f} % busy), {args.steps} {unit}s, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for group, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
         print(f"[profile] {ms:8.2f} ms  {100 * ms / total:5.1f} %  {group}")
