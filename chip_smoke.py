@@ -25,12 +25,18 @@ Phases, one or more result lines each:
      f32 and bf16, plus MU, a single zero shift, num_grad_steps=2, an input
      with whole windows set to zero, and the two factorizer_isles22 shapes.
   7. K2 backward (dx and the six parameter gradients) against autograd through the
-     plain version at the five shapes, f32 and bf16.
+     plain version at the five shapes, f32 and bf16; twice on one input, bit for bit.
   8. the training slice: brats23_network() -> create_train_state -> make_train_step
      takes 1 warm-up and 3 timed steps on a synthetic batch 2 x 128^3, in f32 and in
      bf16; the launch counters show 9 K1 factors, 9 K1 reconstruct, 36 K1 backward, 9 K2
      forward and 9 K2 backward launches per step; the first step's loss and gradients are
-     compared with the same step on the plain versions.
+     compared with the same step on the plain versions.  Then the same step with the
+     bundle's remat: true (brats23_network(remat=True)), f32: 18 K1 factors, 18 K1
+     reconstruct and 18 K2 forward launches per step (each stage's forward runs again in
+     the backward), 36 K1 backward and 9 K2 backward; its first step's loss, gradient norm
+     and every gradient equal bit for bit to those of the step without remat from the same
+     seed (the recompute repeats the same launches on the same inputs); s/step and peak
+     memory beside the step without it.
   9. K3 (per-sample depthwise convolution) against its plain version, a grouped F.conv{2,3}d: the five
      stage shapes of a batch-2 128^3 Deconver forward (kernel 3^3), f32 and bf16, the FIVES shapes
      (16,512^2,32) and (16,128^2,128) with kernel 7^2, the non-cubic kernels (1,3,5) and (3,1,9), C = 48 and an input
@@ -83,6 +89,8 @@ non-zero and no result line is printed.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import gc
 import json
 import math
@@ -242,9 +250,11 @@ def k4_work(x, rank: int, backward: bool, grad_steps: int = NUM_ITERS, mu: bool 
 def k2_work(x, hidden: int, backward: bool) -> tuple[float, float, str]:
     """(bytes, flops, units) of K2 on ``x (..., C)``: two products of 2 C H flops per token forward, five
     backward; x read and y written (backward: x and g read, dx written), the f32 parameters read (and their
-    gradients written) once.  The forward runs on tensor cores: its operations at TF32's peak for f32
-    activations (the kernel's three-pass split is what its f32 accuracy costs, not work the function needs,
-    so it is not counted), at bf16's for bf16; the backward on the f32 CUDA cores."""
+    gradients written) once.  The operations are counted at the tensor cores' peak for the activations' type,
+    TF32's for f32 and bf16's for bf16, in both directions: the function's products take bf16 operands for
+    bf16 activations, as the JAX kernels' do.  The kernels' three-pass TF32 split (which the backward also
+    takes for bf16, to hold its parameter gradients' band) is their own cost, not work the function needs, so
+    it is not counted."""
     import torch
 
     c = x.shape[-1]
@@ -252,8 +262,6 @@ def k2_work(x, hidden: int, backward: bool) -> tuple[float, float, str]:
     n_params = 3 * c + hidden + 2 * c * hidden
     n_bytes = (3 if backward else 2) * x.numel() * x.element_size() + (2 if backward else 1) * 4 * n_params
     flops = float(tokens * (10 if backward else 4) * c * hidden)
-    if backward:
-        return n_bytes, flops, "float32"
     return n_bytes, flops, "tf32" if x.dtype == torch.float32 else "bfloat16"
 
 
@@ -880,9 +888,10 @@ def main() -> None:
             x = torch.randn(2, s, s, s, c, device=dev, generator=gen).to(dt)
             g = torch.randn(x.shape, device=dev, generator=gen).to(dt)
             args = (x, g, *params)
-            outs, refs = prenorm_mlp_backward(*args), prenorm_mlp_backward_plain(*args)
+            outs, again, refs = prenorm_mlp_backward(*args), prenorm_mlp_backward(*args), prenorm_mlp_backward_plain(*args)
             torch.cuda.synchronize()
             label = f"(2,{s}^3,{c}) H={4 * c} {dname(dt)}"
+            check(all(torch.equal(a, b) for a, b in zip(outs, again)), f"K2 bwd {label}: two calls on one input differ")
             rels = {}
             for name, out, ref in zip(grad_names, outs, refs):
                 err, rels[name] = compare(out, ref)
@@ -891,14 +900,15 @@ def main() -> None:
                 check(rels[name] <= tol, f"K2 bwd {label}: {name} max_abs {err:.3e} max_rel {rels[name]:.3e} above {tol:.1e}")
                 if name == "dx":
                     dx_err = err
-            del outs, refs
+            del outs, again, refs
             ms = cuda_time_ms(lambda: prenorm_mlp_backward(*args))
             plain_ms = cuda_time_ms(lambda: prenorm_mlp_backward_plain(*args), warmup=1, runs=3)
             n_bytes, flops, units = k2_work(x, 4 * c, backward=True)
             bound = bound_ms(n_bytes, flops, dt, units)
             print(f"[K2 bwd] {label}: dx max_abs={dx_err:.3e} max_rel={rels['dx']:.3e} (tol {KERNEL_RTOL[dname(dt)]:.1e}) "
                   f"params max_rel " + " ".join(f"{n}={rels[n]:.1e}" for n in grad_names[1:]) + f" (tol {K2_PARAM_RTOL:.1e}) "
-                  f"kernel {ms:.3f} ms plain forward+backward {plain_ms:.3f} ms bound {bound[0]:.3f} ms ({bound[1]})")
+                  f"kernel {ms:.3f} ms plain forward+backward {plain_ms:.3f} ms bound {bound[0]:.3f} ms ({bound[1]}, {units}); "
+                  "equal to itself bit for bit on a second call")
             record("prenorm_mlp_bwd", dx_err, label, ms, plain_ms, bound)
             del x, g, args
             torch.cuda.empty_cache()
@@ -919,28 +929,33 @@ def main() -> None:
     n_steps = 4
 
     def train_slice(tag: str, network, launches_per_step: dict, leaves: dict, batch=batch,
-                    dtypes=(torch.float32, torch.bfloat16), recomputes_per_step: int = 0) -> None:
+                    dtypes=(torch.float32, torch.bfloat16), recomputes_per_step: int = 0, same_step_as=None) -> dict:
         """1 warm-up and 3 timed steps on ``batch``, per dtype: launches per step (and K4's rank > 1 backward
         recomputes, which are no launches), a falling loss, and the first step's loss and gradients (the norm and
-        the ``leaves``) against the same step on the plain versions."""
+        the ``leaves``) against the same step on the plain versions within ``TRAIN_RTOL``; or, where
+        ``same_step_as`` builds a network that takes the same step by another way on the same kernels, the loss,
+        the norm and every gradient equal bit for bit to that network's step from the same seed.
+        Returns per dtype name (s/step, peak GiB)."""
         per_step = {name: launches_per_step.get(name, 0) for name in wrappers}
+        out = {}
         for dt in dtypes:
             name = dname(dt)
 
-            def new_state():
+            def new_state(factory=network):
                 # No device argument: the entry points' default, the card, is what runs.
-                model = network(dtype=None if dt == torch.float32 else dt, generator=torch.Generator().manual_seed(0))
-                check(next(model.parameters()).is_cuda, f"{network.__name__}() did not build on the card")
+                model = factory(dtype=None if dt == torch.float32 else dt, generator=torch.Generator().manual_seed(0))
+                check(next(model.parameters()).is_cuda, f"{tag}: the network did not build on the card")
                 return create_train_state(model, **settings)
 
-            # The first step on the plain versions, from the same weights.
-            state = new_state()
+            # The first step on the plain versions (or on same_step_as), from the same weights.
+            state = new_state(network if same_step_as is None else same_step_as)
             torch.cuda.reset_peak_memory_stats(dev)
-            with reference_kernels():
+            with contextlib.nullcontext() if same_step_as is not None else reference_kernels():
                 _, metrics = make_train_step(state.model)(state, batch)
             torch.cuda.synchronize()
             ref_loss, ref_norm = metrics["loss"].item(), metrics["grad_norm"].item()
-            ref_grads = {k: p.grad.clone() for k, p in state.model.named_parameters() if k in leaves}
+            ref_grads = {k: p.grad.clone() for k, p in state.model.named_parameters()
+                         if k in leaves or same_step_as is not None}
             ref_mem = torch.cuda.max_memory_allocated(dev)
             del state, metrics
             gc.collect()
@@ -968,7 +983,19 @@ def main() -> None:
                 grads = dict(state.model.named_parameters())
                 bad = [k for k, p in grads.items() if p.grad is None or not bool(torch.isfinite(p.grad).all())]
                 check(not bad, f"{tag} {name} step {i + 1}: no finite gradient for {bad[:5]}")
-                if i == 0:
+                if i == 0 and same_step_as is not None:
+                    norm = metrics["grad_norm"].item()
+                    unequal = [k for k, ref in ref_grads.items() if not torch.equal(grads[k].grad, ref)]
+                    worst = max((float((grads[k].grad - ref_grads[k]).abs().max()) for k in unequal), default=0.0)
+                    print(f"[{tag}] {name} step 1 vs the step of {same_step_as.__name__}: loss {losses[0]!r} / {ref_loss!r}, "
+                          f"grad norm {norm!r} / {ref_norm!r}, {len(ref_grads) - len(unequal)} of {len(ref_grads)} "
+                          f"gradients equal bit for bit (largest difference {worst:.3e}); reference step peak memory "
+                          f"{ref_mem / 2**30:.2f} GiB")
+                    check(losses[0] == ref_loss and norm == ref_norm and not unequal and grads.keys() == ref_grads.keys(),
+                          f"{tag} {name}: the step differs from the step of {same_step_as.__name__}: loss {losses[0]!r} / "
+                          f"{ref_loss!r}, grad norm {norm!r} / {ref_norm!r}, unequal gradients {unequal[:5]}")
+                    ref_grads.clear()  # not held through the timed steps, whose peak memory is read
+                elif i == 0:
                     tol = TRAIN_RTOL[name]
                     loss_rel = abs(losses[0] - ref_loss) / abs(ref_loss)
                     norm_rel = abs(metrics["grad_norm"].item() - ref_norm) / ref_norm
@@ -976,7 +1003,7 @@ def main() -> None:
                     print(f"[{tag}] {name} step 1 vs plain versions: loss {losses[0]:.6f} / {ref_loss:.6f} (rel {loss_rel:.2e}, "
                           f"tol {tol['loss']:.0e}), grad norm rel {norm_rel:.2e}, leaves max_rel "
                           + " ".join(f"{k}={v:.2e}" for k, v in leaf_rel.items()) + f" (tol {tol['grad']:.0e}); "
-                          f"plain-version step peak memory {ref_mem / 2**30:.2f} GiB")
+                          f"reference step peak memory {ref_mem / 2**30:.2f} GiB")
                     check(loss_rel <= tol["loss"], f"{tag} {name}: loss differs from the plain versions by {loss_rel:.2e}")
                     check(norm_rel <= tol["grad"] and max(leaf_rel.values()) <= tol["grad"],
                           f"{tag} {name}: gradients differ from the plain versions: norm {norm_rel:.2e}, leaves {leaf_rel}")
@@ -988,17 +1015,31 @@ def main() -> None:
                   f"{seconds[0]:.2f} s warm-up step), peak memory {mem / 2**30:.2f} GiB, loss {' -> '.join(f'{v:.6f}' for v in losses)}, "
                   f"launches per step { {k: v for k, v in per_step.items() if v} }"
                   + (f", K4 backward recomputes in torch operations per step {recomputes_per_step}" if recomputes_per_step else ""))
+            out[name] = (statistics.mean(timed), mem / 2**30)
             del state, step, metrics, grads, ref_grads
             gc.collect()
             torch.cuda.empty_cache()
         check(all(train_launches[k] > 0 for k, v in per_step.items() if v), f"{tag}: a kernel of the training path never launched: {train_launches}")
+        return out
 
-    train_slice(
+    brats_leaves = {"stem.weight": "stem", "encoder.blocks.0.block.blocks.0.mlp.block.0.linear.weight": "enc0.fc1",
+                    "encoder.blocks.4.block.blocks.0.fact.out_proj.linear.weight": "bottleneck.out_proj"}
+    plain_step = train_slice(
         "train", brats23_network,
         {**k1_forward, "windowed_nmf_bwd": n_blocks * n_shifts, "prenorm_mlp": n_blocks, "prenorm_mlp_bwd": n_blocks},
-        {"stem.weight": "stem", "encoder.blocks.0.block.blocks.0.mlp.block.0.linear.weight": "enc0.fc1",
-         "encoder.blocks.4.block.blocks.0.fact.out_proj.linear.weight": "bottleneck.out_proj"},
+        brats_leaves,
     )
+    # The bundle's remat: true.  Each stage block runs under torch.utils.checkpoint, so its forward runs again in
+    # the backward: twice the K1 and K2 forward launches, the backward launches unchanged.
+    remat_step = train_slice(
+        "train remat", functools.partial(brats23_network, remat=True),
+        {"windowed_nmf_factors": 2 * n_blocks, "windowed_nmf_reconstruct": 2 * n_blocks,
+         "windowed_nmf_bwd": n_blocks * n_shifts, "prenorm_mlp": 2 * n_blocks, "prenorm_mlp_bwd": n_blocks},
+        brats_leaves, dtypes=(torch.float32,), same_step_as=brats23_network,
+    )
+    (s_plain, mem_plain), (s_remat, mem_remat) = plain_step["float32"], remat_step["float32"]
+    print(f"[train remat] float32: {s_remat:.4f} s/step and {mem_remat:.2f} GiB peak beside {s_plain:.4f} s/step and "
+          f"{mem_plain:.2f} GiB without remat ({s_remat / s_plain:.3f}x the time, {mem_remat / mem_plain:.3f}x the memory)")
 
     # 9. K3 against its plain version, and beside it the one library call that computes the same function:
     # F.conv{2,3}d with groups = B * C on tensors already laid out as (1, B*C, *S), so that the call is timed

@@ -1,4 +1,4 @@
-// The reverse sweep of a rank-1 NMF solve on one block's matrix, shared by
+// The reverse sweep of a rank-1 NMF solve on one matrix, shared by
 // K1's backward (windowed_nmf_bwd.cu: the matrix is a window of a rolled
 // volume) and K4's rank-1 backward (nmf_bwd.cu: the matrix is one of a flat
 // batch).  The two differ only in where element e of the matrix lies in
@@ -35,6 +35,235 @@
 #include "windowed_nmf.cuh"
 
 namespace ftt {
+
+// Shared-memory floats of one thread group of the register-resident backward
+// (rank1_group_bwd): the iterates v_t (P3 each) and u_t, a_u and b_u per
+// iteration, and group_sum9's buffer.
+__host__ __device__ inline size_t rank1_group_bwd_smem_floats(int P3, int d, int T, int warps) {
+  return static_cast<size_t>(T + 1) * (P3 + d) + static_cast<size_t>(T) * (d + 1) + 2 * 9 * static_cast<size_t>(warps);
+}
+
+// The register-resident form of rank1_nmf_bwd_block for the bundles' sizes
+// (Group<kD, kP>: head_dim 8, patch 8 or 4), the forward's layout: a thread
+// group holds one matrix, kRows rows of kD channels a thread, X and G / dX
+// in registers, rows moved in 16-byte accesses.  The same sweep as below,
+// with every sum over rows a group_sum9 (eight column sums and one scalar,
+// one barrier): per forward iteration X v and v.v, for the seed G^T v_T, per
+// reverse step X^T abar_v and the V update's bbar.  The iterates v_t (own rows
+// only) and the replicated u_t, a_u, b_u are kept in `sm`
+// (rank1_group_bwd_smem_floats floats for this group); lane 0 of the group
+// writes the replicated ones, which are read only after the seed's barrier.
+// HALS's row-wise quotients share their denominator and take one reciprocal
+// of it, as the forward kernel's solve does.  The eight updates of u, forward
+// and backward, go one to a lane of each eight and are gathered by shuffles,
+// where every thread would otherwise divide eight times.
+template <typename T, typename Addr, int kD, int kP>
+__device__ __forceinline__ void rank1_group_bwd(
+    const Addr& win, const T* __restrict__ x, const T* __restrict__ g, const T* __restrict__ x_halo,
+    const T* __restrict__ g_halo, float* __restrict__ acc, T* __restrict__ out, float* __restrict__ send,
+    const float* __restrict__ u0, const float* __restrict__ v0, int mu, int num_iters, int grad_steps, float eps,
+    int first, int last, float scale, float* sm, int lane_g) {
+  using G = Group<kD, kP>;
+  constexpr int R = G::kRows, P3 = G::kP3;
+  const int nT = num_iters;
+  float* V = sm;                   // [nT + 1][P3]
+  float* U = V + (nT + 1) * P3;    // [nT + 1][kD]
+  float* AU = U + (nT + 1) * kD;   // [nT][kD]   a_u of iteration t at AU[(t - 1) * kD]
+  float* BU = AU + nT * kD;        // [nT]       b_u of iteration t at BU[t - 1]
+  float* red = BU + nT;            // [2][kWarps][9]
+  int phase = 0;
+  // The d = 8 updates of u (forward and backward) are split over each eight
+  // lanes, lane dl taking column dl, and gathered back by shuffles.
+  const int lane = threadIdx.x & 31, dl = lane & 7, base = lane & ~7;
+  auto pick = [dl](const auto& a) {  // a[dl], for an array of at least kD floats
+    float r = a[0];
+#pragma unroll
+    for (int di = 1; di < kD; ++di) r = dl == di ? a[di] : r;
+    return r;
+  };
+  auto gather = [base](float mine, float (&a)[kD]) {
+#pragma unroll
+    for (int di = 0; di < kD; ++di) a[di] = __shfl_sync(0xffffffffu, mine, base | di);
+  };
+
+  float X[R][kD], D[R][kD], v[R], u[kD];  // D holds G, then dX
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int q = lane_g + G::kThreads * k;
+    const int64_t o = win.row_offset(q);
+    if (Addr::kHalo && o < 0) {
+      load8(x_halo + (-1 - o), X[k]);
+      load8(g_halo + (-1 - o), D[k]);
+    } else {
+      load8(x + o, X[k]);
+      load8(g + o, D[k]);
+    }
+    v[k] = v0[q];
+    V[q] = v[k];
+  }
+#pragma unroll
+  for (int di = 0; di < kD; ++di) u[di] = u0[di];
+  if (lane_g == 0) {
+#pragma unroll
+    for (int di = 0; di < kD; ++di) U[di] = u[di];
+  }
+
+  // The solve, with every iterate kept.
+  for (int t = 1; t <= nT; ++t) {
+    float s[9];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+#pragma unroll
+      for (int di = 0; di < kD; ++di) s[di] = fmaf(X[k][di], v[k], s[di]);
+      s[8] = fmaf(v[k], v[k], s[8]);
+    }
+    group_sum9<G::kWarps>(s, red, phase);
+    phase ^= 1;
+    const float bu = s[8];
+    {
+      const float uo = pick(u), a = pick(s);
+      gather(mu ? fmaf(uo, a, eps) / fmaf(uo, bu, eps) : fmaxf((a + eps) / (bu + eps), 0.f), u);
+    }
+    float bv = 0.f;
+#pragma unroll
+    for (int di = 0; di < kD; ++di) bv = fmaf(u[di], u[di], bv);
+    const float rv = 1.f / (bv + eps);
+    if (lane_g == 0) {
+#pragma unroll
+      for (int di = 0; di < kD; ++di) {
+        AU[(t - 1) * kD + di] = s[di];
+        U[t * kD + di] = u[di];
+      }
+      BU[t - 1] = bu;
+    }
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      float av = 0.f;
+#pragma unroll
+      for (int di = 0; di < kD; ++di) av = fmaf(X[k][di], u[di], av);
+      const float vo = v[k];
+      v[k] = mu ? fmaf(vo, av, eps) / fmaf(vo, bv, eps) : fmaxf((av + eps) * rv, 0.f);
+      V[t * P3 + lane_g + G::kThreads * k] = v[k];
+    }
+  }
+
+  // Seed: Y = v_T u_T^T, so ubar = G^T v_T and vbar[q] = G[q] . u_T.
+  float ubar, vbar[R];  // ubar of column dl
+  {
+    float s[9];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      float sv = 0.f;
+#pragma unroll
+      for (int di = 0; di < kD; ++di) {
+        s[di] = fmaf(D[k][di], v[k], s[di]);
+        sv = fmaf(D[k][di], u[di], sv);
+        D[k][di] = 0.f;  // G is consumed: D becomes dX
+      }
+      vbar[k] = sv;
+    }
+    group_sum9<G::kWarps>(s, red, phase);  // its barrier also publishes U, AU and BU
+    phase ^= 1;
+    ubar = pick(s);
+  }
+
+  for (int t = nT; t > nT - grad_steps; --t) {
+    float ut[kD];
+    float bv = 0.f;
+#pragma unroll
+    for (int di = 0; di < kD; ++di) {
+      ut[di] = U[t * kD + di];
+      bv = fmaf(ut[di], ut[di], bv);
+    }
+    const float rv = 1.f / (bv + eps);
+    // V update backwards, row by row; then X^T abar_v and the b-bar term in one group sum.
+    float s[9], av[R];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int q = lane_g + G::kThreads * k;
+      const float vt = V[t * P3 + q], vp = V[(t - 1) * P3 + q], vb = vbar[k];
+      float abar, vprev;
+      if (mu) {
+        float a_v = 0.f;
+#pragma unroll
+        for (int di = 0; di < kD; ++di) a_v = fmaf(X[k][di], ut[di], a_v);
+        const float den = fmaf(vp, bv, eps);
+        const float nbar = vb / den;
+        const float dbar = -vb * vt / den;
+        abar = nbar * vp;
+        s[8] = fmaf(dbar, vp, s[8]);
+        vprev = fmaf(nbar, a_v, dbar * bv);
+      } else {
+        abar = (vt > 0.f ? vb : 0.f) * rv;
+        s[8] = fmaf(-abar, vt, s[8]);
+        vprev = 0.f;
+      }
+      av[k] = abar;
+      vbar[k] = vprev;
+#pragma unroll
+      for (int di = 0; di < kD; ++di) {
+        D[k][di] = fmaf(abar, ut[di], D[k][di]);
+        s[di] = fmaf(X[k][di], abar, s[di]);
+      }
+    }
+    group_sum9<G::kWarps>(s, red, phase);
+    phase ^= 1;
+    const float bbar_v = s[8];
+
+    // U update backwards, column dl on each lane; then abar_u gathered and the b-bar terms summed.
+    const float b_u = BU[t - 1];
+    float au[kD], bbar_u;
+    {
+      const float ut_l = U[t * kD + dl], up_l = U[(t - 1) * kD + dl];
+      const float ub = fmaf(2.f * bbar_v, ut_l, ubar + pick(s));
+      float au_l;
+      if (mu) {
+        const float den = fmaf(up_l, b_u, eps);
+        const float nbar = ub / den;
+        const float dbar = -ub * ut_l / den;
+        au_l = nbar * up_l;
+        bbar_u = dbar * up_l;
+        ubar = fmaf(nbar, AU[(t - 1) * kD + dl], dbar * b_u);
+      } else {
+        au_l = (ut_l > 0.f ? ub : 0.f) / (b_u + eps);
+        bbar_u = -au_l * ut_l;
+        ubar = 0.f;
+      }
+      gather(au_l, au);
+      bbar_u += __shfl_xor_sync(0xffffffffu, bbar_u, 1);
+      bbar_u += __shfl_xor_sync(0xffffffffu, bbar_u, 2);
+      bbar_u += __shfl_xor_sync(0xffffffffu, bbar_u, 4);
+    }
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const float vp = V[(t - 1) * P3 + lane_g + G::kThreads * k];
+      float xa_v = 0.f;
+#pragma unroll
+      for (int di = 0; di < kD; ++di) {
+        xa_v = fmaf(X[k][di], au[di], xa_v);
+        D[k][di] = fmaf(vp, au[di], D[k][di]);
+      }
+      vbar[k] += fmaf(2.f * bbar_u, vp, xa_v);
+    }
+  }
+
+  // dX rows into the sum over shift passes (a slab's halo rows into `send`, in f32).
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int64_t o = win.row_offset(lane_g + G::kThreads * k);
+    if (Addr::kHalo && o < 0) {
+      store8(send + (-1 - o), D[k]);
+    } else {
+      store_pass8(acc, out, o, D[k], first, last, scale);
+    }
+  }
+}
 
 // Shared-memory floats of one block of `threads` threads.
 inline size_t rank1_bwd_smem_floats(int P3, int d, int T, int threads) {

@@ -19,14 +19,17 @@
 // What bounds it on the H100: f32 arithmetic, narrowly, as K1's backward (66
 // flops per element and shift against 12 bytes in f32); the halos and the
 // send buffer add s1 / L of the bytes.  The design is K1's: nothing but x is
-// kept between forward and backward, the routed rows are f32.
+// kept between forward and backward, the routed rows are f32, and (d, p) =
+// (8, 8) and (8, 4) run K1's register-resident group (`rank1_group_bwd`)
+// under the slab addressing, so the slabs give K1's bits.
 #include "rank1_nmf_bwd.cuh"
 
 namespace {
 
 constexpr int kThreads = ftt::kWindowThreads;
 
-template <typename T, int kD, int kP>
+// Any other size: one block per matrix, in shared memory.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 windowed_nmf_slab_shift_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, const T* __restrict__ x_halo,
                                    const T* __restrict__ g_halo, float* __restrict__ acc, T* __restrict__ out,
@@ -34,11 +37,51 @@ windowed_nmf_slab_shift_bwd_kernel(const T* __restrict__ x, const T* __restrict_
                                    const float* __restrict__ v0, int L, int S2, int S3, int C, int d_rt, int p_rt,
                                    int sh1, int sh2, int sh3, int mu, int num_iters, int grad_steps, float eps,
                                    int first, int last, float scale) {
-  using Slab = ftt::Window<kD, kP, true>;
+  using Slab = ftt::Window<0, 0, true>;
   const Slab win(d_rt, p_rt, L, S2, S3, C, sh1, sh2, sh3);
   extern __shared__ float smem[];
   ftt::rank1_nmf_bwd_block<T, Slab, kThreads>(win, x, g, x_halo, g_halo, acc, out, send, u0, v0, mu, num_iters,
                                               grad_steps, eps, first, last, scale, smem);
+}
+
+template <typename T, int kD, int kP>
+__global__ void __launch_bounds__(ftt::Group<kD, kP>::kBlock)
+windowed_nmf_slab_shift_bwd_group_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                                         const T* __restrict__ x_halo, const T* __restrict__ g_halo,
+                                         float* __restrict__ acc, T* __restrict__ out, float* __restrict__ send,
+                                         const float* __restrict__ u0, const float* __restrict__ v0, int L, int S2,
+                                         int S3, int C, int sh1, int sh2, int sh3, int mu, int num_iters,
+                                         int grad_steps, float eps, int first, int last, float scale, int64_t n_mats) {
+  using G = ftt::Group<kD, kP>;
+  using Slab = ftt::Window<kD, kP, true>;
+  extern __shared__ float smem[];
+  const int group = threadIdx.x / G::kThreads, lane_g = threadIdx.x % G::kThreads;
+  const int64_t m = static_cast<int64_t>(blockIdx.x) * G::kGroups + group;
+  if (m >= n_mats) return;  // a whole group leaves together
+  const Slab win(kD, kP, L, S2, S3, C, sh1, sh2, sh3, m);
+  float* sm = smem + group * ftt::rank1_group_bwd_smem_floats(G::kP3, kD, num_iters, G::kWarps);
+  ftt::rank1_group_bwd<T, Slab, kD, kP>(win, x, g, x_halo, g_halo, acc, out, send, u0, v0, mu, num_iters,
+                                        grad_steps, eps, first, last, scale, sm, lane_g);
+}
+
+template <typename T, int kD, int kP>
+cudaError_t launch_group(const void* x, const void* g, const void* x_halo, const void* g_halo, void* acc, void* out,
+                         void* send, const float* u0, const float* v0, int64_t n_mats, int L, int S2, int S3, int C,
+                         int sh1, int sh2, int sh3, int mu, int num_iters, int grad_steps, float eps, int first,
+                         int last, float scale, cudaStream_t stream) {
+  using G = ftt::Group<kD, kP>;
+  const size_t smem = sizeof(float) * G::kGroups * ftt::rank1_group_bwd_smem_floats(G::kP3, kD, num_iters, G::kWarps);
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  auto kernel = windowed_nmf_slab_shift_bwd_group_kernel<T, kD, kP>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<static_cast<unsigned>((n_mats + G::kGroups - 1) / G::kGroups), G::kBlock, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(x_halo),
+      static_cast<const T*>(g_halo), static_cast<float*>(acc), static_cast<T*>(out), static_cast<float*>(send), u0,
+      v0, L, S2, S3, C, sh1, sh2, sh3, mu, num_iters, grad_steps, eps, first, last, scale, n_mats);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -46,17 +89,23 @@ cudaError_t launch(const void* x, const void* g, const void* x_halo, const void*
                    void* send, const float* u0, const float* v0, int B, int L, int S2, int S3, int C, int d, int p,
                    int sh1, int sh2, int sh3, int mu, int num_iters, int grad_steps, float eps, int first, int last,
                    float scale, cudaStream_t stream) {
+  const int64_t blocks = static_cast<int64_t>(B) * (L / p) * (S2 / p) * (S3 / p) * (C / d);
+  if (d == 8 && p == 8) {
+    return launch_group<T, 8, 8>(x, g, x_halo, g_halo, acc, out, send, u0, v0, blocks, L, S2, S3, C, sh1, sh2, sh3,
+                                 mu, num_iters, grad_steps, eps, first, last, scale, stream);
+  }
+  if (d == 8 && p == 4) {
+    return launch_group<T, 8, 4>(x, g, x_halo, g_halo, acc, out, send, u0, v0, blocks, L, S2, S3, C, sh1, sh2, sh3,
+                                 mu, num_iters, grad_steps, eps, first, last, scale, stream);
+  }
   const size_t smem = sizeof(float) * ftt::rank1_bwd_smem_floats(p * p * p, d, num_iters, kThreads);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  // The bundle's head_dim 8 and patch 8 get a compile-time instance.
-  auto kernel = (d == 8 && p == 8) ? windowed_nmf_slab_shift_bwd_kernel<T, 8, 8>
-                                   : windowed_nmf_slab_shift_bwd_kernel<T, 0, 0>;
+  auto kernel = windowed_nmf_slab_shift_bwd_kernel<T>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const int64_t blocks = static_cast<int64_t>(B) * (L / p) * (S2 / p) * (S3 / p) * (C / d);
   kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(x_halo),
       static_cast<const T*>(g_halo), static_cast<float*>(acc), static_cast<T*>(out), static_cast<float*>(send), u0,

@@ -15,7 +15,7 @@ in ``±1/sqrt(fan_in)`` for kernels and biases) and moved to ``device``.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -24,7 +24,7 @@ from torch import nn
 from ..utils.helpers import to_ntuple
 
 __all__ = ["Identity", "Linear", "LayerNorm", "GroupNorm", "InstanceNorm", "MLP", "Conv", "ConvTranspose",
-           "ACTIVATIONS", "resolve_activation"]
+           "ACTIVATIONS", "resolve_activation", "build_norm"]
 
 ACTIVATIONS = {"relu": torch.relu, "identity": lambda x: x}  # the names the ported bundles use
 
@@ -166,6 +166,16 @@ class InstanceNorm(nn.Module):
         else:
             dt = self.dtype if self.dtype is not None else x.dtype
         return _group_norm(x, self.dim, self.norm.weight, self.norm.bias, self.eps, dt)
+
+
+# A norm spec: a class taking ``(channels, dtype=, device=)``, or ``(class, keyword arguments)``.
+NormSpec = Any
+
+
+def build_norm(spec: NormSpec, channels: int, dtype: Optional[torch.dtype], device) -> nn.Module:
+    """A norm from its spec, as the bundles' ``norm`` key gives it."""
+    cls, kwargs = spec if isinstance(spec, tuple) else (spec, {})
+    return cls(channels, **{"dtype": dtype, "device": device, **kwargs})
 
 
 class MLP(nn.Module):

@@ -13,9 +13,10 @@ volumes and 2-D images.  Submodules carry the reference torch model's names
   (``ops.kernels.prenorm_mlp``) when ``norm`` is :class:`LayerNorm`; with any
   other norm (the bundles use :class:`InstanceNorm`) the tail is stock PyTorch.
 
-Dropout, deep supervision, rematerialisation and the ``stem`` / ``downsample`` /
-``upsample`` / ``head`` overrides of the JAX model are not ported; no bundle
-sets them.
+``remat=True`` recomputes each stage's activations in the backward
+(:class:`~factorizer_tpu_torch.models.unet.UNet`).  Dropout, deep supervision
+and the ``stem`` / ``downsample`` / ``upsample`` / ``head`` overrides of the
+JAX model are not ported; no bundle sets them.
 """
 
 from __future__ import annotations
@@ -26,20 +27,11 @@ import torch
 from torch import nn
 
 from ..factorization.deconv import Deconv
-from ..layers.basic import Conv, LayerNorm, Linear, MLP, resolve_activation
+from ..layers.basic import Conv, LayerNorm, Linear, MLP, NormSpec, build_norm, resolve_activation
 from ..ops.kernels import prenorm_mlp
 from .unet import UNet
 
 __all__ = ["DeconvMixer", "DeconverBlock", "DeconverStage", "Stem", "Deconver"]
-
-# A norm: a class taking ``(channels, dtype=, device=)``, or ``(class, keyword arguments)``.
-NormSpec = Any
-
-
-def _build_norm(spec: NormSpec, channels: int, dtype, device) -> nn.Module:
-    cls, kwargs = spec if isinstance(spec, tuple) else (spec, {})
-    return cls(channels, **{"dtype": dtype, "device": device, **kwargs})
-
 
 class DeconvMixer(nn.Module):
     """Token mixing: project -> act -> deconvolve -> project.  ``deconv_kwargs`` go to :class:`Deconv`."""
@@ -79,9 +71,9 @@ class DeconverBlock(nn.Module):
         **mixer_kwargs: Any,
     ) -> None:
         super().__init__()
-        self.norm1 = _build_norm(norm, channels, dtype, device)
+        self.norm1 = build_norm(norm, channels, dtype, device)
         self.dcm = DeconvMixer(channels, channels, dtype=dtype, device=device, generator=generator, **mixer_kwargs)
-        self.norm2 = _build_norm(norm, channels, dtype, device)
+        self.norm2 = build_norm(norm, channels, dtype, device)
         self.mlp = MLP(channels, ratio=mlp_ratio, dtype=dtype, device=device, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -134,7 +126,7 @@ class Stem(nn.Module):
         patch = tuple(patch_size)
         self.conv = Conv(in_channels, out_channels, kernel_size=patch, stride=patch, device=device,
                          generator=generator, spatial_dims=len(patch))
-        self.norm = _build_norm(norm, out_channels, None, device)
+        self.norm = build_norm(norm, out_channels, None, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm(self.conv(x))
@@ -168,6 +160,7 @@ class Deconver(UNet):
         eps: float = 1e-16,
         num_iters: int = 2,
         num_grad_iters: Optional[int] = None,
+        remat: bool = False,
         dtype: Optional[torch.dtype] = None,
         device=None,
         generator: Optional[torch.Generator] = None,
@@ -186,5 +179,5 @@ class Deconver(UNet):
 
         super().__init__(
             in_channels, out_channels, None, encoder_depth, encoder_width, strides, decoder_depth, stage,
-            dtype=dtype, device=device, generator=generator, spatial_dims=spatial_dims,
+            dtype=dtype, device=device, generator=generator, spatial_dims=spatial_dims, remat=remat,
         )

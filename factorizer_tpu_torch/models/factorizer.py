@@ -16,7 +16,14 @@ Three kernels carry the blocks:
   (the default global ``Matricize``).  The two routes compute the same
   function.
 * ``FactorizerBlock`` sends its tail ``x + mlp(norm2(x))`` through K2
-  (``ops.kernels.prenorm_mlp``), reading the ``norm2`` and ``mlp`` parameters.
+  (``ops.kernels.prenorm_mlp``), reading the ``norm2`` and ``mlp`` parameters,
+  when ``norm`` is :class:`LayerNorm` (the default and the bundles' choice);
+  under any other norm (e.g. :class:`InstanceNorm`) the tail is stock PyTorch,
+  as ``DeconverBlock`` decides.
+
+The bundles' ``network_def`` keys ``norm``, ``factorize`` and ``remat`` are
+taken as the JAX model takes them.  ``factorize`` is :class:`NMF`, the one
+factorizer the bundles pass; the JAX package's others are not ported.
 
 With ``factorize_options={"spatial_mesh": mesh, "spatial_axis": name}`` a
 windowed mixer runs on a slab of the volume, cut along the first spatial axis
@@ -38,7 +45,7 @@ import torch
 from torch import nn
 
 from ..factorization.nmf import NMF
-from ..layers.basic import ACTIVATIONS, LayerNorm, Linear, MLP
+from ..layers.basic import ACTIVATIONS, LayerNorm, Linear, MLP, NormSpec, build_norm
 from ..layers.pos_embed import PositionalEmbedding
 from ..ops.kernels import prenorm_mlp, windowed_nmf, windowed_nmf_multi_spatial
 from ..ops.reshape import Matricize, SWMatricize
@@ -68,7 +75,8 @@ def _spatial_option(factorize_options: Optional[dict]) -> Optional[tuple]:
 class FactMixer(nn.Module):
     """Token mixing: project -> act -> fold -> factorize -> unfold -> project.
 
-    ``factorize_kwargs`` go to :class:`NMF` (``rank``, ``num_iters``,
+    ``factorize`` is the factorizer class (:class:`NMF`, the only one
+    ported); ``factorize_kwargs`` go to it (``rank``, ``num_iters``,
     ``num_grad_steps``, ``init_method``, ``solver``).
     ``factorize_options={"use_windowed": False}`` takes a mixer that K1 would
     compute to the flat route instead (fold -> NMF -> unfold, K4).  It is the
@@ -91,11 +99,15 @@ class FactMixer(nn.Module):
         act: str = "relu",
         factorize_kwargs: Optional[dict[str, Any]] = None,
         factorize_options: Optional[dict[str, Any]] = None,
+        factorize: Any = NMF,
         dtype: Optional[torch.dtype] = None,
         device=None,
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
+        if factorize is not NMF:
+            name = getattr(factorize, "__name__", repr(factorize))
+            raise NotImplementedError(f"factorize={name} is not ported: the Factorizer takes NMF")
         unknown = sorted(set(factorize_options or {}) - set(FACTORIZE_OPTIONS))
         if unknown:
             raise ValueError(f"factorize_options takes {FACTORIZE_OPTIONS}, got {unknown}")
@@ -104,8 +116,8 @@ class FactMixer(nn.Module):
         cls, reshape_kwargs = reshape
         self.reshape = cls((None, *spatial_size, out_channels), **reshape_kwargs)
         self.act = ACTIVATIONS[act]
-        self.factorize = NMF(tuple(self.reshape.output_size[2:]), device=device, generator=generator,
-                             **(factorize_kwargs or {}))
+        self.factorize = factorize(tuple(self.reshape.output_size[2:]), device=device, generator=generator,
+                                   **(factorize_kwargs or {}))
         self.out_proj = Linear(out_channels, out_channels, bias=True, **kw)
         opted_out = (factorize_options or {}).get("use_windowed") is False
         self.windowed = None if opted_out else self._windowed_config(len(spatial_size))
@@ -166,7 +178,7 @@ class FactMixer(nn.Module):
 
 
 class FactorizerBlock(nn.Module):
-    """Pre-norm residual block: ``x + fact(norm1(x))``, then ``x + mlp(norm2(x))`` (K2)."""
+    """Pre-norm residual block: ``x + fact(norm1(x))``, then ``x + mlp(norm2(x))`` (K2 under LayerNorm)."""
 
     def __init__(
         self,
@@ -177,21 +189,25 @@ class FactorizerBlock(nn.Module):
         act: str = "relu",
         factorize_kwargs: Optional[dict[str, Any]] = None,
         factorize_options: Optional[dict[str, Any]] = None,
+        norm: NormSpec = LayerNorm,
+        factorize: Any = NMF,
         dtype: Optional[torch.dtype] = None,
         device=None,
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
-        self.norm1 = LayerNorm(channels, dtype=dtype, device=device)
+        self.norm1 = build_norm(norm, channels, dtype, device)
         self.fact = FactMixer(channels, channels, spatial_size, reshape, act, factorize_kwargs, factorize_options,
-                              dtype=dtype, device=device, generator=generator)
-        self.norm2 = LayerNorm(channels, dtype=dtype, device=device)
+                              factorize, dtype=dtype, device=device, generator=generator)
+        self.norm2 = build_norm(norm, channels, dtype, device)
         self.mlp = MLP(channels, ratio=mlp_ratio, dtype=dtype, device=device, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.fact(self.norm1(x))
-        ln, fc1, fc2 = self.norm2.norm, self.mlp.fc1.linear, self.mlp.fc2.linear
-        return prenorm_mlp(x, ln.weight, ln.bias, fc1.weight, fc1.bias, fc2.weight, fc2.bias, self.norm2.eps)
+        if isinstance(self.norm2, LayerNorm):
+            ln, fc1, fc2 = self.norm2.norm, self.mlp.fc1.linear, self.mlp.fc2.linear
+            return prenorm_mlp(x, ln.weight, ln.bias, fc1.weight, fc1.bias, fc2.weight, fc2.bias, self.norm2.eps)
+        return x + self.mlp(self.norm2(x))
 
 
 class FactorizerStage(nn.Module):
@@ -246,6 +262,9 @@ class Factorizer(UNet):
     Factorization options left at None take :class:`NMF`'s defaults, as in the
     JAX model.  ``spatial_size`` of length 2 builds the 2-D model, whose mixers
     take the flat route; ``factorize_options`` goes to every :class:`FactMixer`.
+    ``norm``, ``factorize`` and ``remat`` are the bundles' keys of the same
+    names: the blocks' norm, the factorizer (:class:`NMF`) and
+    rematerialisation of each stage in the backward (:class:`UNet`).
     """
 
     def __init__(
@@ -266,6 +285,9 @@ class Factorizer(UNet):
         init_method: Optional[str] = None,
         solver: Optional[str] = None,
         factorize_options: Optional[dict[str, Any]] = None,
+        norm: NormSpec = LayerNorm,
+        factorize: Any = NMF,
+        remat: bool = False,
         dtype: Optional[torch.dtype] = None,
         device=None,
         generator: Optional[torch.Generator] = None,
@@ -279,11 +301,11 @@ class Factorizer(UNet):
             return FactorizerStage(
                 cin, cout, size, depth, pos_embed=i == bottleneck, mlp_ratio=mlp_ratio,
                 reshape=reshape, act=act, factorize_kwargs=factorize_kwargs, factorize_options=factorize_options,
-                dtype=dtype, device=device, generator=generator,
+                norm=norm, factorize=factorize, dtype=dtype, device=device, generator=generator,
             )
 
         super().__init__(
             in_channels, out_channels, spatial_size, encoder_depth, encoder_width, strides,
             decoder_depth, stage, dtype=dtype, device=device, generator=generator,
-            spatial_dims=len(spatial_size),
+            spatial_dims=len(spatial_size), remat=remat,
         )

@@ -10,8 +10,11 @@ head is channels-last ``(B, *S, C)``.
 Volumes (``spatial_dims=3``) and images (``spatial_dims=2``).  The stem is a k3 convolution (padding 1, no bias), a stride-s stage
 downsamples with a k2 stride-2 convolution, the decoder upsamples with a k2
 stride-2 transposed convolution and concatenates ``[skip, up]`` on the channel
-axis, and the head is a k1 convolution.  Deep supervision and
-rematerialisation are not ported yet.
+axis, and the head is a k1 convolution.  ``remat=True`` runs each stage's
+block under ``torch.utils.checkpoint`` while autograd records a graph, as the
+JAX model wraps it in ``nn.remat``: the block's activations are recomputed in
+the backward, so the kernels' forwards launch twice per step.  Deep
+supervision is not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..layers.basic import Conv, ConvTranspose, Identity
 
@@ -32,24 +36,33 @@ __all__ = ["UNet", "StageFactory"]
 StageFactory = Callable[[int, int, int, int, Optional[tuple]], nn.Module]
 
 
+def _run_block(block: nn.Module, remat: bool, x: torch.Tensor) -> torch.Tensor:
+    """``block(x)``; under ``remat``, while autograd records a graph, checkpointed (recomputed in the backward)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(block, x, use_reentrant=False)
+    return block(x)
+
+
 class _EncoderStage(nn.Module):
-    def __init__(self, downsample: nn.Module, block: nn.Module) -> None:
+    def __init__(self, downsample: nn.Module, block: nn.Module, remat: bool) -> None:
         super().__init__()
         self.downsample = downsample
         self.block = block
+        self.remat = remat
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.block(self.downsample(x))
+        return _run_block(self.block, self.remat, self.downsample(x))
 
 
 class _DecoderStage(nn.Module):
-    def __init__(self, upsample: nn.Module, block: nn.Module) -> None:
+    def __init__(self, upsample: nn.Module, block: nn.Module, remat: bool) -> None:
         super().__init__()
         self.upsample = upsample
         self.block = block
+        self.remat = remat
 
     def forward(self, skip: torch.Tensor, deep: torch.Tensor) -> torch.Tensor:
-        return self.block(torch.cat([skip, self.upsample(deep)], dim=-1))
+        return _run_block(self.block, self.remat, torch.cat([skip, self.upsample(deep)], dim=-1))
 
 
 class _Blocks(nn.Module):
@@ -70,6 +83,7 @@ class UNet(nn.Module):
         dtype: compute dtype of the stem, resampling convs and stages
             (the head computes in float32, as the JAX model's does).
         spatial_dims: 3 or 2, the rank of the convolutions.
+        remat: recompute each stage block's activations in the backward (JAX ``remat``).
     """
 
     def __init__(
@@ -86,6 +100,7 @@ class UNet(nn.Module):
         device=None,
         generator: Optional[torch.Generator] = None,
         spatial_dims: int = 3,
+        remat: bool = False,
     ) -> None:
         super().__init__()
         if spatial_size is not None and len(spatial_size) != spatial_dims:
@@ -105,7 +120,7 @@ class UNet(nn.Module):
             else:
                 down = Conv(widths[i], widths[i + 1], kernel_size=2, stride=stride, **conv_kw)
             stage = block(i, widths[i + 1], widths[i + 1], encoder_depth[i], size)
-            encoder.append(_EncoderStage(down, stage))
+            encoder.append(_EncoderStage(down, stage, remat))
         self.encoder = _Blocks(encoder)
 
         dec_widths = list(encoder_width[::-1])
@@ -115,7 +130,7 @@ class UNet(nn.Module):
             size = None if size is None else tuple(s * stride for s in size)
             up = ConvTranspose(dec_widths[i], dec_widths[i + 1], kernel_size=2, stride=stride, **conv_kw)
             stage = block(len(encoder_depth) + i, 2 * dec_widths[i + 1], dec_widths[i + 1], decoder_depth[i], size)
-            decoder.append(_DecoderStage(up, stage))
+            decoder.append(_DecoderStage(up, stage, remat))
         self.decoder = _Blocks(decoder)
 
         self.head = Conv(encoder_width[0], out_channels, kernel_size=1, device=device, generator=generator,

@@ -60,8 +60,10 @@ _SIGNATURES = {
     # x, g, acc, out, u0, v0, dtype, B, S1, S2, S3, C, d, p, sh1, sh2, sh3, mu,
     # num_iters, grad_steps, eps, first, last, scale, stream
     "ftt_windowed_nmf_shift_bwd": [_P] * 6 + [_I] * 14 + [_F, _I, _I, _F, _P],
-    # x, g, dx, gamma, beta, w1, b1, w2, b2, partials, grads, dtype, M, C, H, eps, blocks, stream
-    "ftt_prenorm_mlp_bwd": [_P] * 11 + [_I, _L, _I, _I, _F, _I, _P],
+    # M, C, H, dtype, floats (out)
+    "ftt_prenorm_mlp_bwd_scratch": [_L, _I, _I, _I, ctypes.POINTER(ctypes.c_longlong)],
+    # x, g, dx, gamma, beta, w1, b1, w2, b2, scratch, floats, grads, dtype, M, C, H, eps, stream
+    "ftt_prenorm_mlp_bwd": [_P] * 10 + [_L, _P, _I, _L, _I, _I, _F, _P],
     # x, w, y, dtype, B, S1, S2, S3, C, k1, k2, k3, stream
     "ftt_depthwise_conv": [_P] * 3 + [_I] * 9 + [_P],
     # x, g, partials, dw, dtype, B, S1, S2, S3, C, k1, k2, k3, blocks, stream

@@ -9,7 +9,7 @@ the torch ``nn.Linear`` layouts: ``w1 (H, C)``, ``w2 (C, H)``.
 differentiable in ``x`` and the six parameters: its backward
 (:func:`prenorm_mlp_backward`) recomputes the hidden activations per token
 tile from the saved ``x`` and sums the parameter gradients in a fixed order
-(per-block partial sums, then one pass over the blocks), so a gradient is the
+(per-group partial sums, then one pass over the groups), so a gradient is the
 same from run to run.  A CPU tensor takes :func:`prenorm_mlp_plain`, which
 autograd differentiates; :func:`prenorm_mlp_backward_plain` is that gradient
 by name.  Everything computes in float32 with float32 parameters and casts to
@@ -30,10 +30,6 @@ __all__ = ["prenorm_mlp", "prenorm_mlp_plain", "prenorm_mlp_backward", "prenorm_
 
 # Channel widths the kernel is instantiated for (one tile shape each).
 KERNEL_WIDTHS = (32, 64, 128, 256, 512)
-# Tokens per block of the backward kernel, per width (``csrc/mlp_block_bwd.cu``).
-_BWD_TILE_TOKENS = {32: 128, 64: 64, 128: 64, 256: 32, 512: 16}
-# Cap on the backward's per-block partial parameter gradients, which bounds its grid at wide C.
-_BWD_SCRATCH_BYTES = 2**30
 PARAM_NAMES = ("gamma", "beta", "w1", "b1", "w2", "b2")
 
 
@@ -80,6 +76,16 @@ def forward_shares(tokens: int, c: int, hidden: int) -> int:
     return shares.value
 
 
+def _backward_scratch(tokens: int, c: int, hidden: int, dtype: torch.dtype) -> int:
+    """Floats of f32 scratch the backward kernel needs for ``tokens`` tokens on the current card, by its own plan
+    (``make_plan`` in ``csrc/mlp_block_bwd.cu``): the partial parameter gradients of its groups of token tiles and,
+    where it splits the hidden width into shares, the shares' partial ``dxn``."""
+    floats = ctypes.c_longlong(0)
+    status = build.library().ftt_prenorm_mlp_bwd_scratch(tokens, c, hidden, build.dtype_code(dtype), ctypes.byref(floats))
+    build.check(status, "prenorm_mlp_bwd_scratch")
+    return floats.value
+
+
 def _launch_forward(x, params: dict, eps: float) -> torch.Tensor:
     c, hidden = _check(x, params)
     for name, t in (("x", x), *params.items()):
@@ -114,20 +120,17 @@ def prenorm_mlp_backward(x, g, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5) -
     c, hidden = _check(x, params)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device or not g.is_contiguous():
         raise ValueError("g must be a contiguous tensor of x's shape, dtype and device")
-    dtype = build.dtype_code(x.dtype)
-    lib = build.library()
+    for name, t in (("x", x), ("g", g), ("w1", params["w1"]), ("w2", params["w2"])):
+        build.check_aligned(name, t)
     tokens = x.numel() // c
-    # One set of partial parameter gradients per block: gamma, beta, w1, b1, w2, b2, flat.
+    scratch = torch.empty(_backward_scratch(tokens, c, hidden, x.dtype), dtype=torch.float32, device=x.device)
     sizes = [p.numel() for p in params.values()]
-    tiles = -(-tokens // _BWD_TILE_TOKENS[c])
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    blocks = max(1, min(tiles, 2 * sms, _BWD_SCRATCH_BYTES // (4 * sum(sizes))))
-    partials = torch.empty(blocks, sum(sizes), dtype=torch.float32, device=x.device)
     grads = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
-    status = lib.ftt_prenorm_mlp_bwd(
+    status = build.library().ftt_prenorm_mlp_bwd(
         x.data_ptr(), g.data_ptr(), dx.data_ptr(), *(p.data_ptr() for p in params.values()),
-        partials.data_ptr(), grads.data_ptr(), dtype, tokens, c, hidden, eps, blocks, build.stream_of(x),
+        scratch.data_ptr(), scratch.numel(), grads.data_ptr(), build.dtype_code(x.dtype), tokens, c, hidden, eps,
+        build.stream_of(x),
     )
     build.check(status, "prenorm_mlp_bwd")
     prenorm_mlp_backward.launches += 1
@@ -148,7 +151,8 @@ class _PrenormMLP(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        grads = prenorm_mlp_backward(ctx.saved_tensors[0], g.contiguous(), *ctx.saved_tensors[1:], ctx.eps)
+        x, *params = ctx.saved_tensors  # read once: a checkpointed graph unpacks each saved tensor once
+        grads = prenorm_mlp_backward(x, g.contiguous(), *params, ctx.eps)
         return (*(gr if need else None for gr, need in zip(grads, ctx.needs_input_grad)), None)
 
 

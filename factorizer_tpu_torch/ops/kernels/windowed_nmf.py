@@ -318,10 +318,11 @@ def _launch(entry: str, counter, x, g, u0, v0, head_dim, patch, shifts, solver, 
     out = torch.empty_like(x)
     n = len(shifts)
     acc = torch.empty(x.shape, dtype=torch.float32, device=x.device) if n > 1 else None
-    operands = (x.data_ptr(),) if g is None else (x.data_ptr(), g.data_ptr())
+    for name, t in (("x", x), ("g", g)):
+        build.check_aligned(name, t)  # the compile-time sizes move rows in 16-byte accesses
     for i, shift in enumerate(shifts):
         status = fn(
-            *operands, None if acc is None else acc.data_ptr(), out.data_ptr(),
+            x.data_ptr(), g.data_ptr(), None if acc is None else acc.data_ptr(), out.data_ptr(),
             u0f.data_ptr(), v0f.data_ptr(), dtype, *x.shape, head_dim, patch,
             *_norm_shift(shift, patch), int(solver == "mu"), num_iters, *extra, eps,
             int(i == 0), int(i == n - 1), 1.0 / n, stream,

@@ -142,7 +142,7 @@ def _launch(entry: str, count: str, tensors, halos, total: SlabSum, u0, v0, head
     """One launch of a slab kernel: the rows ``[0, L - s1)`` into ``total``; returns the f32 send buffer (None at s1 = 0)."""
     x, s1 = tensors[0], shift[0]
     _check_slab(x, tensors[1:], halos, u0, v0, head_dim, patch, s1, solver)
-    for name, t in (("a slab", x), *((("a halo", h) for h in halos) if s1 else ())):
+    for name, t in (*(("a slab", t) for t in tensors), *((("a halo", h) for h in halos) if s1 else ())):
         build.check_aligned(name, t)
     send = torch.empty((x.shape[0], s1, *x.shape[2:]), dtype=torch.float32, device=x.device) if s1 else None
     u0f = u0.detach().reshape(-1).float().contiguous()

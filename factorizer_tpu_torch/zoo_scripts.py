@@ -27,8 +27,8 @@ __all__ = ["brats23_network", "brats23_optimizer_settings", "factorizer_isles22_
            "deconver_isles22_network", "deconver_fives_network", "ensemble_predict"]
 
 
-def _factorizer_bundle(in_channels, out_channels, roi, patch_size, shifts, rank, factorize_options, dtype, device,
-                       generator) -> Factorizer:
+def _factorizer_bundle(in_channels, out_channels, roi, patch_size, shifts, rank, factorize_options, remat, dtype,
+                       device, generator) -> Factorizer:
     """What the two Factorizer bundles share: five stages of one block each, head_dim 8, five HALS iterations."""
     return Factorizer(
         in_channels=in_channels,
@@ -47,6 +47,7 @@ def _factorizer_bundle(in_channels, out_channels, roi, patch_size, shifts, rank,
         init_method="uniform",
         solver="hals",
         factorize_options=factorize_options,
+        remat=remat,
         dtype=dtype,
         device=resolve_device(device),
         generator=generator,
@@ -59,17 +60,20 @@ def brats23_network(
     generator: Optional[torch.Generator] = None,
     rank: int = 1,
     factorize_options: Optional[dict] = None,
+    remat: bool = False,
 ) -> Factorizer:
     """The bundle's ``network_def`` (zoo/factorizer_brats23/configs/train.yaml:24-48).
 
     ``dtype=torch.bfloat16`` is the bundle's ``amp: true``; None (f32) is
     what it ships.  Weights are random, drawn from ``generator``.  The network
     is built on the card unless ``device`` names another one (``"cpu"``).
-    ``rank`` and ``factorize_options`` are the bundle's overrides: the default
-    runs the windowed route (K1), ``rank`` above 1 or
-    ``{"use_windowed": False}`` the flat route (K4).
+    ``rank``, ``factorize_options`` and ``remat`` are the bundle's overrides: the
+    default runs the windowed route (K1), ``rank`` above 1 or
+    ``{"use_windowed": False}`` the flat route (K4); ``remat=True`` recomputes
+    each stage in the backward (the bundle's ``remat: true``).
     """
-    return _factorizer_bundle(4, 3, (128, 128, 128), 8, [None, 2, 4, 6], rank, factorize_options, dtype, device, generator)
+    return _factorizer_bundle(4, 3, (128, 128, 128), 8, [None, 2, 4, 6], rank, factorize_options, remat, dtype, device,
+                              generator)
 
 
 def factorizer_isles22_network(
@@ -78,16 +82,18 @@ def factorizer_isles22_network(
     generator: Optional[torch.Generator] = None,
     rank: int = 1,
     factorize_options: Optional[dict] = None,
+    remat: bool = False,
 ) -> Factorizer:
     """The ``factorizer_isles22`` bundle's ``network_def`` (zoo/factorizer_isles22/configs/train.yaml:24-48):
     DWI and ADC in, one lesion mask out, roi 64^3, batch 8, patches of 4^3 at shifts 0, 1, 2, 3.
 
     Arguments as in :func:`brats23_network`.
     """
-    return _factorizer_bundle(2, 1, (64, 64, 64), 4, [None, 1, 2, 3], rank, factorize_options, dtype, device, generator)
+    return _factorizer_bundle(2, 1, (64, 64, 64), 4, [None, 1, 2, 3], rank, factorize_options, remat, dtype, device,
+                              generator)
 
 
-def _deconver_bundle(in_channels, out_channels, kernel_size, dtype, device, generator) -> Deconver:
+def _deconver_bundle(in_channels, out_channels, kernel_size, remat, dtype, device, generator) -> Deconver:
     """What the two Deconver bundles share: five stages of one depthwise block each, ``InstanceNorm``, one update."""
     return Deconver(
         in_channels=in_channels,
@@ -105,6 +111,7 @@ def _deconver_bundle(in_channels, out_channels, kernel_size, dtype, device, gene
         num_iters=1,
         num_grad_iters=None,
         mlp_ratio=4,
+        remat=remat,
         dtype=dtype,
         device=resolve_device(device),
         generator=generator,
@@ -115,34 +122,37 @@ def deconver_brats23_network(
     dtype: Optional[torch.dtype] = None,
     device=None,
     generator: Optional[torch.Generator] = None,
+    remat: bool = False,
 ) -> Deconver:
     """The ``deconver_brats23`` bundle's ``network_def`` (zoo/deconver_brats23/configs/train.yaml:24-42):
     4 modalities in, 3 regions out, 3-D, kernel 3x3x3, roi 128^3, batch 2.
 
-    ``dtype``, ``device`` and ``generator`` as in :func:`brats23_network`: the
-    card unless ``device`` names another one.
+    ``dtype``, ``device``, ``generator`` and ``remat`` as in
+    :func:`brats23_network`: the card unless ``device`` names another one.
     """
-    return _deconver_bundle(4, 3, (3, 3, 3), dtype, device, generator)
+    return _deconver_bundle(4, 3, (3, 3, 3), remat, dtype, device, generator)
 
 
 def deconver_isles22_network(
     dtype: Optional[torch.dtype] = None,
     device=None,
     generator: Optional[torch.Generator] = None,
+    remat: bool = False,
 ) -> Deconver:
     """The ``deconver_isles22`` bundle's ``network_def`` (zoo/deconver_isles22/configs/train.yaml:24-42):
     2 modalities in, one lesion mask out, 3-D, kernel 3x3x3, roi 64^3, batch 8."""
-    return _deconver_bundle(2, 1, (3, 3, 3), dtype, device, generator)
+    return _deconver_bundle(2, 1, (3, 3, 3), remat, dtype, device, generator)
 
 
 def deconver_fives_network(
     dtype: Optional[torch.dtype] = None,
     device=None,
     generator: Optional[torch.Generator] = None,
+    remat: bool = False,
 ) -> Deconver:
     """The ``deconver_fives`` bundle's ``network_def`` (zoo/deconver_fives/configs/train.yaml:24-42):
     RGB in, one vessel mask out, 2-D, kernel 7x7, roi 512^2, batch 16."""
-    return _deconver_bundle(3, 1, (7, 7), dtype, device, generator)
+    return _deconver_bundle(3, 1, (7, 7), remat, dtype, device, generator)
 
 
 def brats23_optimizer_settings(steps_per_epoch: int) -> dict:

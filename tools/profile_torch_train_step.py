@@ -3,7 +3,7 @@
 Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 tools/profile_torch_train_step.py [--model factorizer|factorizer_flat|deconver] [--dtype float32|bfloat16]
-                                              [--steps 3] [--top 25] [--cudnn-benchmark] [--serve]
+                                              [--steps 3] [--top 25] [--cudnn-benchmark] [--serve] [--remat]
 
 Builds ``brats23_network()`` (``--model factorizer``, the default), the same
 network on the flat-NMF route (``--model factorizer_flat``:
@@ -18,6 +18,8 @@ the convolution calls by input shape.  With ``--serve`` the unit is a served
 volume instead: ``ensemble_predict`` of one model on a BraTS-native
 ``(1, 4, 240, 240, 155)`` volume at roi 128^3, sw_batch 2, overlap 0.5 (18
 windows, 9 forwards), one warm-up request, then ``--steps`` traced requests.
+``--remat`` builds the network with the bundles' ``remat: true`` (each stage
+recomputed in the backward).
 """
 
 from __future__ import annotations
@@ -62,6 +64,7 @@ def main() -> None:
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--cudnn-benchmark", action="store_true", help="let cuDNN time its algorithms per shape")
     ap.add_argument("--serve", action="store_true", help="profile served volumes (ensemble_predict) instead of train steps")
+    ap.add_argument("--remat", action="store_true", help="build the network with remat=True")
     args = ap.parse_args()
 
     import torch
@@ -82,6 +85,8 @@ def main() -> None:
     dtype = None if args.dtype == "float32" else torch.bfloat16
     network = {"factorizer": brats23_network, "factorizer_flat": brats23_network, "deconver": deconver_brats23_network}[args.model]
     options = {"factorize_options": {"use_windowed": False}} if args.model == "factorizer_flat" else {}
+    if args.remat:
+        options["remat"] = True
     model = network(dtype=dtype, generator=torch.Generator().manual_seed(0), **options)
     gen = torch.Generator(device="cuda").manual_seed(7)
     if args.serve:
