@@ -39,11 +39,20 @@ Phases, one or more result lines each:
      memory beside the step without it.
   9. K3 (per-sample depthwise convolution) against its plain version, a grouped F.conv{2,3}d: the five
      stage shapes of a batch-2 128^3 Deconver forward (kernel 3^3), f32 and bf16, the FIVES shapes
-     (16,512^2,32) and (16,128^2,128) with kernel 7^2, the non-cubic kernels (1,3,5) and (3,1,9), C = 48 and an input
-     with a quarter all zero; beside the kernel's time the one library call that computes the same function.
+     (16,512^2,32) and (16,128^2,128) with kernel 7^2, the non-cubic kernels (1,3,5) and (3,1,9), C = 48, an input
+     with a quarter all zero, the deconver_isles22 train shape (8,64^3,32), tiles that (2,5x7x9,12) does not
+     divide, and the run kernels' shapes: C = 30 f32, C = 20 bf16 and the (3,5,5) weight gradient, each also
+     through the per-output kernel; every case asserts the route that conv_plan gives it in both directions, every
+     route is reached, and each tiled plan's constants and shared memory agree with csrc/depthwise_conv.cuh
+     (ftt_depthwise_conv_tile_query); beside the kernel's time the one
+     library call that computes the same function, kernel / library, both also as device time from a CUDA graph of 20
+     calls (without the host's launch cost, which dominates at the deep stages), and the launch plan (conv_plan: the
+     route, the tile, channels, planes a block, threads, blocks, waves on the card, shared memory); then one line
+     naming the cases where the kernel is slower than its library call, per call or on the device (K3 and K3 dw).
  10. K3 dw (the weight gradient) against autograd through the plain version at the same shapes, twice
-     on one input bit for bit, and dx and dw through the autograd function; then the Deconv layer,
-     forward and backward, on an input with a quarter all zero, kernels against plain versions.
+     on one input bit for bit, and dx and dw through the autograd function (the first case also the summing
+     pass's share of the time, from torch.profiler); then the Deconv layer, forward and backward, on an input
+     with a quarter all zero, kernels against plain versions.
  11. the Deconver serving slice: deconver_brats23_network() serves 2 synthetic BraTS-native volumes, f32
      and bf16: 27 K3 launches per forward, none of K1 and K2 (the bundle's InstanceNorm tails are stock torch).
  12. the FIVES forward: deconver_fives_network() on (16, 3, 512, 512) f32, 27 K3 launches, logits against
@@ -90,6 +99,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import functools
 import gc
 import json
@@ -125,6 +135,59 @@ def cuda_time_ms(fn, warmup: int = 3, runs: int = 15) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_time_ms(fn, calls: int = 20, replays: int = 7) -> float:
+    """Median device time of one ``fn()`` from replays of a CUDA graph of ``calls`` calls: the host's launch cost,
+    which CUDA events around one call also count, drops out."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
+
+
+def dw_sum_share(fn) -> str:
+    """K3 dw's device time by kernel over 5 calls of ``fn`` (torch.profiler): the tiled walk and the pass that adds
+    the partial sets."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+    walk = adds = 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
+        if "sum_dw_partials" in ev.key:
+            adds += us
+        elif "depthwise_conv_dw" in ev.key:
+            walk += us
+    if walk + adds == 0:
+        return "the summing pass: not measured (the profiler saw no device time)"
+    return f"the summing pass {adds / 5e3:.4f} ms of {(walk + adds) / 5e3:.4f} ms (torch.profiler, 5 calls)"
 
 
 def kernel_label(mangled: str) -> str:
@@ -571,6 +634,9 @@ def main() -> None:
         windowed_nmf_multi_spatial_plain, windowed_nmf_plain, windowed_nmf_reconstruct, windowed_nmf_reconstruct_plain,
     )
     from factorizer_tpu_torch.models.factorizer import Factorizer
+    from factorizer_tpu_torch.ops.kernels.depthwise_conv import (
+        ROUTES, TILE, _launch_dw, _launch_forward, conv_plan, tile_min_blocks,
+    )
     from factorizer_tpu_torch.ops.kernels.mlp_block import forward_shares
     from factorizer_tpu_torch.ops.reshape import SWMatricize
     from factorizer_tpu_torch.train.sliding_window import sliding_window_inference, sliding_window_positions
@@ -1047,15 +1113,43 @@ def main() -> None:
     # two serving phases below, as in the Factorizer's; the first case times the library call under both modes.
     torch.backends.cudnn.benchmark = False
     k3 = (3, 3, 3)
-    k3_cases = [((2, s, s, s, c), k3, dt, False) for s, c in STAGES for dt in (torch.float32, torch.bfloat16)]
+    # (x shape, kernel size, dtype, a quarter zero, the routes that conv_plan must give forward and dw)
+    k3_cases = [((2, s, s, s, c), k3, dt, False, ("tile", "tile")) for s, c in STAGES for dt in (torch.float32, torch.bfloat16)]
     k3_cases += [
-        ((16, 512, 512, 32), (7, 7), torch.float32, False),    # FIVES stage 0
-        ((16, 128, 128, 128), (7, 7), torch.float32, False),   # FIVES stage 2
-        ((2, 32, 32, 32, 128), (1, 3, 5), torch.float32, False),
-        ((2, 32, 32, 32, 128), (3, 1, 9), torch.float32, False),  # k3 above 7: the one-output-per-thread kernels
-        ((2, 64, 64, 64, 48), k3, torch.float32, False),       # a width the TPU's packed kernel refuses
-        ((2, 64, 64, 64, 64), k3, torch.float32, True),        # a quarter of the volume all zero
+        ((16, 512, 512, 32), (7, 7), torch.float32, False, ("tile", "tile")),    # FIVES stage 0
+        ((16, 128, 128, 128), (7, 7), torch.float32, False, ("tile", "tile")),   # FIVES stage 2
+        ((2, 32, 32, 32, 128), (1, 3, 5), torch.float32, False, ("tile", "tile")),
+        ((2, 32, 32, 32, 128), (3, 1, 9), torch.float32, False, ("any", "any")),  # k3 above 7: the per-output kernels
+        ((2, 64, 64, 64, 48), k3, torch.float32, False, ("tile", "tile")),       # a width the TPU's packed kernel refuses
+        ((2, 64, 64, 64, 64), k3, torch.float32, True, ("tile", "tile")),        # a quarter of the volume all zero
+        ((8, 64, 64, 64, 32), k3, torch.float32, False, ("tile", "tile")),       # deconver_isles22's train batch, stage 0
+        ((2, 5, 7, 9, 12), k3, torch.float32, False, ("tile", "tile")),          # tiles that the volume does not divide
+        # The run kernels: widths that no 16-byte vector divides, and a weight gradient of more accumulators than
+        # the tiled kernel holds; each also timed through the per-output kernel, the route it would take otherwise.
+        ((2, 32, 32, 32, 30), k3, torch.float32, False, ("run", "run")),
+        ((2, 32, 32, 32, 20), k3, torch.bfloat16, False, ("run", "run")),
+        ((2, 32, 32, 32, 32), (3, 5, 5), torch.float32, False, ("tile", "run")),
     ]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    slower_than_library = []  # (line tag, label, per call or device, kernel / library)
+    routes_seen = {False: set(), True: set()}
+
+    def k3_plan(shape, ks, dt, routes, dw: bool, label: str):
+        """The case's plan, checked: the route the case names, and for a tiled plan the mirror of
+        csrc/depthwise_conv.cuh against the library (its constants, the plan's shared memory, tile_plan_ok)."""
+        plan = conv_plan(shape, ks, dt, sms, dw=dw)
+        tag = "K3 dw" if dw else "K3"
+        check(plan.route == routes[dw], f"{tag} {label}: conv_plan chose the {plan.route} route, not {routes[dw]}")
+        routes_seen[dw].add(plan.route)
+        if plan.route == "tile":
+            k1, k2, k3_ = plan.ks
+            query = (ctypes.c_int * 7)()
+            build.library().ftt_depthwise_conv_tile_query(*plan.shape[1:], k1, k2, k3_, dt.itemsize, int(dw), plan.t2,
+                                                           plan.t3, plan.cb, plan.planes, query)
+            mirror = (*TILE, tile_min_blocks(k2, k3_, dw), plan.smem)
+            check(tuple(query) == mirror, f"{tag} {label}: the plan's constants and shared memory {mirror} differ "
+                                          f"from the header's {tuple(query)}")
+        return plan
 
     def k3_inputs(shape, ks, dt, zero_quarter):
         x = torch.randn(shape, device=dev, generator=gen.manual_seed(sum(shape))).to(dt)
@@ -1079,14 +1173,28 @@ def main() -> None:
     def library_weight(w, ks):
         return w.transpose(1, 2).reshape(-1, 1, *ks).contiguous()
 
+    def against_any(plan, shape, ks, dt, dw: bool, launch, ref, tol: float, label: str, ms: float) -> str:
+        """For a run-route case: the per-output kernel (the route the shape would take without the run kernels)
+        on the same inputs, held against the plain version and timed beside the run kernel."""
+        if plan.route != "run":
+            return ""
+        tag, other = ("K3 dw" if dw else "K3"), conv_plan(shape, ks, dt, sms, dw=dw, route="any")
+        out = launch(other)
+        torch.cuda.synchronize()
+        _, rel = compare(out, ref)
+        check(rel <= tol, f"{tag} {label}: the per-output kernel's max_rel {rel:.3e} above {tol:.1e}")
+        any_ms = cuda_time_ms(lambda: launch(other))
+        return f"; per-output kernel {any_ms:.3f} ms (max_rel={rel:.3e}; run / per-output {ms / any_ms:.2f})"
+
     with torch.inference_mode():
-        for i, (shape, ks, dt, zero_quarter) in enumerate(k3_cases):
+        for i, (shape, ks, dt, zero_quarter, routes) in enumerate(k3_cases):
             x, _, w = k3_inputs(shape, ks, dt, zero_quarter)
+            label = k3_label(shape, ks, dt, zero_quarter)
+            plan = k3_plan(shape, ks, dt, routes, False, label)
             out, ref = depthwise_conv(x, w, ks), depthwise_conv_plain(x, w, ks)
             torch.cuda.synchronize()
             err, rel = compare(out, ref)
             tol = KERNEL_RTOL[dname(dt)]
-            label = k3_label(shape, ks, dt, zero_quarter)
             check(out.dtype == dt and out.shape == x.shape, f"K3 {label}: wrong output")
             check(rel <= tol, f"K3 {label}: max_abs {err:.3e} max_rel {rel:.3e} above {tol:.1e}")
             ms = cuda_time_ms(lambda: depthwise_conv(x, w, ks))
@@ -1095,8 +1203,16 @@ def main() -> None:
             xc, wc, pad, groups = channels_first(x), library_weight(w, ks), tuple(k // 2 for k in ks), shape[0] * shape[-1]
             library_ms = cuda_time_ms(lambda: conv(xc, wc, None, 1, pad, 1, groups), warmup=1, runs=5)
             bound = bound_ms(*k3_work(x, math.prod(ks), dw=False), dt)
+            dev_ms = graph_time_ms(lambda: depthwise_conv(x, w, ks))
+            dev_library_ms = graph_time_ms(lambda: conv(xc, wc, None, 1, pad, 1, groups))
+            slower_than_library += [("K3", label, "per call", ms / library_ms)] if ms > library_ms else []
+            slower_than_library += [("K3", label, "device", dev_ms / dev_library_ms)] if dev_ms > dev_library_ms else []
             line = (f"[K3] {label}: max_abs={err:.3e} max_rel={rel:.3e} (tol {tol:.1e}) kernel {ms:.3f} ms "
-                    f"plain {plain_ms:.3f} ms library {library_ms:.3f} ms bound {bound[0]:.3f} ms ({bound[1]})")
+                    f"plain {plain_ms:.3f} ms library {library_ms:.3f} ms (kernel / library {ms / library_ms:.2f}); "
+                    f"device (CUDA graph) kernel {dev_ms:.4f} ms library {dev_library_ms:.4f} ms "
+                    f"({dev_ms / dev_library_ms:.2f}); bound {bound[0]:.3f} ms ({bound[1]}); "
+                    f"plan: {plan.describe()}")
+            line += against_any(plan, shape, ks, dt, False, lambda p: _launch_forward(x, w, ks, p), ref, tol, label, ms)
             if i == 0:
                 torch.backends.cudnn.benchmark = True
                 tuned_ms = cuda_time_ms(lambda: conv(xc, wc, None, 1, pad, 1, groups), warmup=2, runs=5)
@@ -1109,12 +1225,13 @@ def main() -> None:
 
     # 10. K3 dw against autograd through the plain version; the library call is the grouped convolution's
     # weight gradient alone (aten::convolution_backward with only that output asked for).
-    for i, (shape, ks, dt, zero_quarter) in enumerate(k3_cases):
+    for i, (shape, ks, dt, zero_quarter, routes) in enumerate(k3_cases):
         x, g, w = k3_inputs(shape, ks, dt, zero_quarter)
+        label = k3_label(shape, ks, dt, zero_quarter)
+        plan = k3_plan(shape, ks, dt, routes, True, label)
         out, again, ref = depthwise_conv_dw(x, g, ks), depthwise_conv_dw(x, g, ks), depthwise_conv_dw_plain(x, g, ks)
         torch.cuda.synchronize()
         err, rel = compare(out, ref)
-        label = k3_label(shape, ks, dt, zero_quarter)
         check(out.dtype == torch.float32 and out.shape == w.shape, f"K3 dw {label}: wrong output")
         check(rel <= K3_DW_RTOL, f"K3 dw {label}: max_abs {err:.3e} max_rel {rel:.3e} above {K3_DW_RTOL:.1e}")
         check(torch.equal(out, again), f"K3 dw {label}: two runs on one input differ")
@@ -1129,7 +1246,7 @@ def main() -> None:
         (_, dx_rel), (_, dw_rel) = compare(dx, dx_ref), compare(dw, dw_ref)
         check(dx.dtype == dt and dx_rel <= KERNEL_RTOL[dname(dt)] and dw_rel <= K3_DW_RTOL,
               f"K3 dw {label}: autograd dx max_rel {dx_rel:.3e}, dw max_rel {dw_rel:.3e}")
-        del out, again, ref, xg, wg, dx, dw, dx_ref, dw_ref
+        del out, again, xg, wg, dx, dw, dx_ref, dw_ref
         ms = cuda_time_ms(lambda: depthwise_conv_dw(x, g, ks))
         plain_ms = cuda_time_ms(lambda: depthwise_conv_dw_plain(x, g, ks), warmup=1, runs=3)
         nd, groups = len(ks), shape[0] * shape[-1]
@@ -1143,18 +1260,29 @@ def main() -> None:
         check(lib_err <= K3_DW_RTOL, f"K3 dw {label}: the library call computes another function ({lib_err:.3e})")
         library_ms = cuda_time_ms(library_dw, warmup=1, runs=3)
         bound = bound_ms(*k3_work(x, math.prod(ks), dw=True), dt)
+        dev_ms, dev_library_ms = graph_time_ms(lambda: depthwise_conv_dw(x, g, ks)), graph_time_ms(library_dw)
+        slower_than_library += [("K3 dw", label, "per call", ms / library_ms)] if ms > library_ms else []
+        slower_than_library += [("K3 dw", label, "device", dev_ms / dev_library_ms)] if dev_ms > dev_library_ms else []
         line = (f"[K3 dw] {label}: max_abs={err:.3e} max_rel={rel:.3e} (tol {K3_DW_RTOL:.1e}) bit-identical twice; autograd "
                 f"dx max_rel={dx_rel:.3e} dw max_rel={dw_rel:.3e}; kernel {ms:.3f} ms plain forward+backward {plain_ms:.3f} ms "
-                f"library {library_ms:.3f} ms bound {bound[0]:.3f} ms ({bound[1]})")
+                f"library {library_ms:.3f} ms (kernel / library {ms / library_ms:.2f}); device (CUDA graph) kernel "
+                f"{dev_ms:.4f} ms library {dev_library_ms:.4f} ms ({dev_ms / dev_library_ms:.2f}); bound {bound[0]:.3f} ms "
+                f"({bound[1]}); plan: {plan.describe()}")
+        line += against_any(plan, shape, ks, dt, True, lambda p: _launch_dw(x, g, ks, p), ref, K3_DW_RTOL, label, ms)
         if i == 0:
             torch.backends.cudnn.benchmark = True
             tuned_ms = cuda_time_ms(library_dw, warmup=2, runs=3)
             torch.backends.cudnn.benchmark = False
-            line += f" library with cudnn.benchmark {tuned_ms:.3f} ms"
+            line += f" library with cudnn.benchmark {tuned_ms:.3f} ms; {dw_sum_share(lambda: depthwise_conv_dw(x, g, ks))}"
         print(line)
         record("depthwise_conv_dw", err, label, ms, plain_ms, bound, library_ms)
-        del x, g, w, xc, gc_, wc
+        del x, g, w, xc, gc_, wc, ref
         torch.cuda.empty_cache()
+
+    check(routes_seen == {False: set(ROUTES), True: set(ROUTES)},
+          f"K3: the cases do not reach every route in both directions: {routes_seen}")
+    print("[K3] kernel slower than its library call at: "
+          + ("; ".join(f"{tag} {label}, {how} ({r:.2f}x)" for tag, label, how, r in slower_than_library) or "no case"))
 
     # The Deconv layer on an input with a quarter all zero (BraTS background after the ReLU): numerator and
     # denominator of the update are both eps there.  Source and gradients, kernels against plain versions.

@@ -64,10 +64,12 @@ _SIGNATURES = {
     "ftt_prenorm_mlp_bwd_scratch": [_L, _I, _I, _I, ctypes.POINTER(ctypes.c_longlong)],
     # x, g, dx, gamma, beta, w1, b1, w2, b2, scratch, floats, grads, dtype, M, C, H, eps, stream
     "ftt_prenorm_mlp_bwd": [_P] * 10 + [_L, _P, _I, _L, _I, _I, _F, _P],
-    # x, w, y, dtype, B, S1, S2, S3, C, k1, k2, k3, stream
-    "ftt_depthwise_conv": [_P] * 3 + [_I] * 9 + [_P],
-    # x, g, partials, dw, dtype, B, S1, S2, S3, C, k1, k2, k3, blocks, stream
-    "ftt_depthwise_conv_dw": [_P] * 4 + [_I] * 10 + [_P],
+    # x, w, y, dtype, B, S1, S2, S3, C, k1, k2, k3, route, t2, t3, cb, planes, stream
+    "ftt_depthwise_conv": [_P] * 3 + [_I] * 14 + [_P],
+    # x, g, partials, dw, dtype, B, S1, S2, S3, C, k1, k2, k3, route, t2, t3, cb, planes, blocks, stream
+    "ftt_depthwise_conv_dw": [_P] * 4 + [_I] * 15 + [_P],
+    # S1, S2, S3, C, k1, k2, k3, elt, dw, t2, t3, cb, planes, out (7 ints)
+    "ftt_depthwise_conv_tile_query": [_I] * 13 + [ctypes.POINTER(ctypes.c_int)],
     # x, y, u0, v0, dtype, n_mats, M, N, rank, mu, num_iters, eps, stream
     "ftt_nmf_reconstruct": [_P] * 4 + [_I, _L] + [_I] * 5 + [_F, _P],
     # x, g, dx, u0, v0, dtype, n_mats, M, N, mu, num_iters, grad_steps, eps, stream

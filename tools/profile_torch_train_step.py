@@ -41,7 +41,8 @@ GROUPS = (  # first match wins
     ("K4 fwd (nmf.cu)", ("nmf_reconstruct",)),
     ("K2 bwd (mlp_block_bwd.cu)", ("prenorm_mlp_bwd", "sum_partials")),
     ("K2 fwd (mlp_block.cu)", ("prenorm_mlp", "sum_shares", "to_bf16")),
-    ("K3 dw (depthwise_conv_dw.cu)", ("depthwise_conv_dw", "sum_dw_partials")),
+    ("K3 dw, summing pass (depthwise_conv_dw.cu)", ("sum_dw_partials",)),
+    ("K3 dw (depthwise_conv_dw.cu)", ("depthwise_conv_dw",)),
     ("K3 fwd and dx (depthwise_conv.cu)", ("depthwise_conv",)),
     ("LayerNorm fwd+bwd", ("layer_norm", "LayerNorm", "GammaBeta")),
     ("InstanceNorm statistics (var_mean)", ("WelfordOps", "welford", "var_mean")),
