@@ -60,19 +60,27 @@ Phases, one or more result lines each:
  13. the Deconver training slice: 1 warm-up and 3 timed steps, f32 and bf16: 54 forward-kernel launches
      (27 forward, 27 dx) and 27 dw launches per step; the first step against the plain versions.
  14. K4 (NMF of a flat batch of small matrices, rank 1 to 4) against its plain version: the five folded stage
-     shapes of the flat factorizer_brats23 forward at batch 2, (n, 8, 512) with n = 131072 ... 512, f32 and bf16;
-     the 2-D shapes (524288, 8, 64) and (32768, 8, 64); MU; ranks 2, 3, 4; (1000, 5, 37) at rank 3; an input
-     with a quarter of its matrices all zero.
+     shapes of the flat factorizer_brats23 forward at batch 2, (n, 8, 512) with n = 131072 ... 512, and the 2-D
+     shapes (524288, 8, 64) and (32768, 8, 64), f32 and bf16; MU; ranks 2, 3, 4; (1000, 5, 37) at rank 3;
+     (2048, 8, 4096); an input with a quarter of its matrices all zero.  Every case asserts the route that
+     nmf_plan gives it (the register kernels at (8, 512) and (8, 64), else the shared-memory kernel) and that
+     the library's ftt_nmf_plan_query agrees with the Python mirror, runs twice bit for bit, and is timed per
+     call and as device time from a CUDA graph of 20 calls, beside the plan; a register case also runs through
+     the shared-memory kernel, against the plain version and timed beside.  Then K4 on the folded windows of a
+     (2, 32^3, 32) volume against K1's single-shift windowed_nmf, bit for bit.
  15. K4 backward at rank 1 against autograd through the plain version at the same shapes, with MU,
-     num_grad_steps=2 and the zero matrices; rank 2 through the autograd function, whose backward is a
-     recompute in torch operations (counted, not a kernel launch).
+     num_grad_steps=2 and the zero matrices, with the same checks (the register cases also through the
+     shared-memory kernel); rank 2 through the autograd function, whose backward is a recompute in torch
+     operations (counted, not a kernel launch).
  16. the flat-route serving slices: brats23_network(factorize_options={"use_windowed": False}) serves a
-     2 BraTS-native volumes in f32 and bf16 (9 K4 launches per forward, none of K1; logits against the plain
-     versions and against the windowed route from the same seed); a 2-D Swin-Factorizer at the FIVES data
+     2 BraTS-native volumes in f32 and bf16 (9 K4 launches per forward, all on the register route, none of
+     K1; logits against the plain versions and against the windowed route from the same seed); a 2-D
+     Swin-Factorizer at the FIVES data
      shape, one forward of (16, 3, 512, 512); brats23_network(rank=2), one forward of a window pair;
      factorizer_isles22_network() and deconver_isles22_network() each serve 2 (1, 2, 112, 112, 73) volumes.
  17. the flat-route training slices: the flat factorizer_brats23 step at batch 2 x 128^3, f32 and bf16 (9 K4
-     forward and 9 K4 backward launches per step beside K2's), and the factorizer_isles22 step at batch
+     forward and 9 K4 backward launches per step beside K2's, all on the register route), the 2-D step, the
+     rank-2 step (9 K4 backward recomputes in torch operations) and the factorizer_isles22 step at batch
      8 x 64^3, f32; each first step against the plain versions.
  18. K5 (K1 on a volume cut into slabs along S1: the slab kernels and a halo exchange) in one process, all
      slabs of a ring held as a list: (2,128^3,32) f32 and bf16 as 4 slabs of 32 rows and as 2 of 64, the stage
@@ -353,6 +361,12 @@ def kernel_counters() -> dict:
             "prenorm_mlp": (prenorm_mlp, "launches"), "prenorm_mlp_bwd": (prenorm_mlp_backward, "launches"),
             "depthwise_conv": (depthwise_conv, "launches"), "depthwise_conv_dw": (depthwise_conv_dw, "launches"),
             "nmf_reconstruct": (nmf_reconstruct, "launches"), "nmf_reconstruct_bwd": (nmf_reconstruct_backward, "launches"),
+            # K4's kernels by route: the register instances at (8, 512) and (8, 64), the shared-memory kernels at any
+            # other size
+            "nmf_reconstruct_registers": (nmf_reconstruct, "registers_launches"),
+            "nmf_reconstruct_shared": (nmf_reconstruct, "shared_launches"),
+            "nmf_reconstruct_bwd_registers": (nmf_reconstruct_backward, "registers_launches"),
+            "nmf_reconstruct_bwd_shared": (nmf_reconstruct_backward, "shared_launches"),
             "windowed_nmf_slab": (windowed_nmf_multi_spatial, "launches"),
             "windowed_nmf_slab_bwd": (windowed_nmf_multi_spatial, "backward_launches")}
 
@@ -638,6 +652,10 @@ def main() -> None:
         ROUTES, TILE, _launch_dw, _launch_forward, conv_plan, tile_min_blocks,
     )
     from factorizer_tpu_torch.ops.kernels.mlp_block import forward_shares
+    from factorizer_tpu_torch.ops.kernels.nmf import ROUTES as NMF_ROUTES
+    from factorizer_tpu_torch.ops.kernels.nmf import _launch_backward as k4_launch_backward
+    from factorizer_tpu_torch.ops.kernels.nmf import _launch_forward as k4_launch_forward
+    from factorizer_tpu_torch.ops.kernels.nmf import nmf_plan
     from factorizer_tpu_torch.ops.reshape import SWMatricize
     from factorizer_tpu_torch.train.sliding_window import sliding_window_inference, sliding_window_positions
     from factorizer_tpu_torch.train.trainer import create_train_state, make_train_step
@@ -1331,22 +1349,31 @@ def main() -> None:
     )
 
     # 14. K4 against its plain version.  No single library call computes it: the plain version is a chain of
-    # batched products and elementwise passes.
+    # batched products and elementwise passes.  Every case asserts the route that nmf_plan gives it (and that the
+    # library's ftt_nmf_plan_query agrees with the Python mirror), runs twice bit for bit, and is timed per call and
+    # on the device (a CUDA graph of 20 calls); a case on the register route also runs through the shared-memory
+    # kernel, against the plain version and timed beside.
     torch.backends.cudnn.benchmark = False
-    k4_cases = [((n, 8, 512), 1, "hals", dt, False) for n in FLAT_STAGES for dt in (torch.float32, torch.bfloat16)]
+    f32, bf16 = torch.float32, torch.bfloat16
+    k4_cases = [((n, 8, 512), 1, "hals", dt, False) for n in FLAT_STAGES for dt in (f32, bf16)]
+    # the 2-D model's stages 0 and 2: 2 shifts x 16 x 4 heads x 64^2 windows, and 2 x 16 x 16 heads x 16^2
+    k4_cases += [(shape, 1, "hals", dt, False) for shape in ((524288, 8, 64), (32768, 8, 64)) for dt in (f32, bf16)]
     k4_cases += [
-        ((524288, 8, 64), 1, "hals", torch.float32, False),   # the 2-D model's stage 0: 2 shifts x 16 x 4 heads x 64^2 windows
-        ((32768, 8, 64), 1, "hals", torch.float32, False),    # its stage 2
-        ((32768, 8, 512), 1, "mu", torch.float32, False),
-        ((32768, 8, 512), 2, "hals", torch.float32, False),
-        ((32768, 8, 512), 3, "hals", torch.float32, False),
-        ((32768, 8, 512), 4, "hals", torch.float32, False),
-        ((32768, 8, 512), 2, "mu", torch.float32, False),
-        ((131072, 8, 512), 2, "hals", torch.float32, False),  # stage 0 of brats23_network(rank=2)
-        ((1000, 5, 37), 3, "hals", torch.float32, False),     # no size a multiple of anything
-        ((2048, 8, 4096), 1, "hals", torch.float32, False),   # patches of 16^3: fits the forward kernel alone
-        ((32768, 8, 512), 1, "hals", torch.float32, True),    # a quarter of the matrices all zero
+        ((32768, 8, 512), 1, "mu", f32, False),
+        ((32768, 8, 512), 2, "hals", f32, False),
+        ((32768, 8, 512), 3, "hals", f32, False),
+        ((32768, 8, 512), 4, "hals", f32, False),
+        ((32768, 8, 512), 2, "mu", f32, False),
+        ((32768, 8, 512), 4, "mu", f32, False),
+        ((32768, 8, 64), 3, "hals", bf16, False),
+        ((131072, 8, 512), 2, "hals", f32, False),  # stage 0 of brats23_network(rank=2)
+        ((1000, 5, 37), 3, "hals", f32, False),     # no size a multiple of anything: the shared-memory kernel
+        ((2048, 8, 4096), 1, "hals", f32, False),   # patches of 16^3: fits the forward kernel alone
+        ((32768, 8, 512), 1, "hals", f32, True),    # a quarter of the matrices all zero
     ]
+    register_sizes = ((8, 512), (8, 64))  # the sizes the register kernels are compiled for
+    nmf_query = (ctypes.c_longlong * 8)()
+    k4_routes_seen = {False: set(), True: set()}
 
     def k4_inputs(shape, rank, dt, zero_quarter, positive=False):
         if positive:
@@ -1362,60 +1389,124 @@ def main() -> None:
     def k4_label(shape, rank, solver, dt, zero_quarter) -> str:
         return f"({','.join(map(str, shape))}) rank {rank} {solver} {dname(dt)}" + (" zero quarter" if zero_quarter else "")
 
+    def k4_plan(shape, rank, solver, dt, backward: bool, label: str, route=None):
+        """The case's plan, checked: the register route at the sizes the register kernels are compiled for, else
+        the shared-memory route (or the route asked for), and the library's plan equal to the Python mirror's."""
+        plan = nmf_plan(solver, rank, shape[1:], dt, NUM_ITERS, shape[0], backward, route=route)
+        expect = route or ("registers" if tuple(shape[1:]) in register_sizes else "shared")
+        tag = "K4 bwd" if backward else "K4"
+        check(plan is not None and plan.route == expect, f"{tag} {label}: nmf_plan gave {plan}, not the {expect} route")
+        build.library().ftt_nmf_plan_query(rank, *shape[1:], dt.itemsize, NUM_ITERS, shape[0], int(backward),
+                                           NMF_ROUTES.index(route) if route else -1, nmf_query)
+        check(tuple(nmf_query) == plan.query(), f"{tag} {label}: the plan {plan.query()} differs from the library's "
+                                                f"{tuple(nmf_query)} (csrc/nmf_plan.cuh)")
+        k4_routes_seen[backward].add(plan.route)
+        return plan
+
+    def k4_shared(name, launch, ref, tol, label, bound, plain_ms, dev_ms) -> str:
+        """A register-route case through the shared-memory kernel: against the plain version, timed per call and
+        on the device beside."""
+        out = launch()
+        torch.cuda.synchronize()
+        err, rel = compare(out, ref)
+        check(rel <= tol, f"{name} {label}: the shared-memory kernel's max_rel {rel:.3e} above {tol:.1e}")
+        ms, o_dev = cuda_time_ms(launch), graph_time_ms(launch)
+        record(f"{name}_shared", err, label, ms, plain_ms, bound)
+        return (f"; shared kernel {ms:.3f} ms device {o_dev:.4f} ms (max_rel={rel:.2e}; registers / shared on the "
+                f"device {dev_ms / o_dev:.2f})")
+
     with torch.inference_mode():
         for shape, rank, solver, dt, zero_quarter in k4_cases:
             x, _, tu, tv = k4_inputs(shape, rank, dt, zero_quarter)
+            label = k4_label(shape, rank, solver, dt, zero_quarter)
+            plan = k4_plan(shape, rank, solver, dt, False, label)
             args = (x, tu, tv, solver, NUM_ITERS)
-            out, ref = nmf_reconstruct(*args), nmf_reconstruct_plain(*args)
+            out, again, ref = nmf_reconstruct(*args), nmf_reconstruct(*args), nmf_reconstruct_plain(*args)
             torch.cuda.synchronize()
             err, rel = compare(out, ref)
-            tol = KERNEL_RTOL[dname(dt)] if rank == 1 else K4_RANK_RTOL
-            label = k4_label(shape, rank, solver, dt, zero_quarter)
+            # bf16 rounds the output once, which outweighs the f32 band of the ranks above 1
+            tol = max(KERNEL_RTOL[dname(dt)], K4_RANK_RTOL if rank > 1 else 0.0)
             check(out.dtype == dt and out.shape == x.shape, f"K4 {label}: wrong output")
             check(bool(torch.isfinite(out).all()), f"K4 {label}: non-finite output")
             check(rel <= tol, f"K4 {label}: max_abs {err:.3e} max_rel {rel:.3e} above {tol:.1e}")
-            ms = cuda_time_ms(lambda: nmf_reconstruct(*args))
+            check(torch.equal(out, again), f"K4 {label}: two runs on one input differ")
+            ms, dev_ms = cuda_time_ms(lambda: nmf_reconstruct(*args)), graph_time_ms(lambda: nmf_reconstruct(*args))
             plain_ms = cuda_time_ms(lambda: nmf_reconstruct_plain(*args), warmup=1, runs=5)
             n_bytes, flops = k4_work(x, rank, backward=False)
             bound = bound_ms(n_bytes, flops, dt)
-            print(f"[K4] {label}: max_abs={err:.3e} max_rel={rel:.3e} (tol {tol:.1e}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
-                  f"library none bound {bound[0]:.3f} ms ({bound[1]}; {n_bytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP)")
-            record("nmf_reconstruct", err, label, ms, plain_ms, bound)
-            del x, out, ref, args
+            line = (f"[K4] {label}: max_abs={err:.3e} max_rel={rel:.3e} (tol {tol:.1e}) bit-identical twice; kernel {ms:.3f} ms "
+                    f"device {dev_ms:.4f} ms plain {plain_ms:.3f} ms library none bound {bound[0]:.3f} ms ({bound[1]}; "
+                    f"{n_bytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP); plan: {plan.describe()}")
+            record(f"nmf_reconstruct_{plan.route}", err, label, ms, plain_ms, bound)
+            if plan.route == "registers":
+                k4_plan(shape, rank, solver, dt, False, label, route="shared")
+                line += k4_shared("nmf_reconstruct", lambda: k4_launch_forward(x, tu, tv, solver, NUM_ITERS, 1e-16, "shared"),
+                                  ref, tol, label, bound, plain_ms, dev_ms)
+            print(line)
+            del x, out, again, ref, args
             torch.cuda.empty_cache()
 
+        # K4 on the folded windows of a volume against K1 at one zero shift: both run K1's rank-1 solve
+        # (rank1_group_iterate) on the same values in the same order and round the product alike, so the outputs
+        # are equal bit for bit.
+        x = torch.relu(torch.randn(2, 32, 32, 32, 32, device=dev, generator=gen.manual_seed(41)))
+        tu, tv = torch.rand(8, 1, device=dev, generator=gen), torch.rand(512, 1, device=dev, generator=gen)
+        y_k1 = windowed_nmf(x, tu, tv, 8, 8, zero_shift, "hals", NUM_ITERS)
+        # (b, window, head) matrices of (channel, position in the window), positions a1-major as K1 numbers them
+        folded = x.view(2, 4, 8, 4, 8, 4, 8, 4, 8).permute(0, 1, 3, 5, 7, 8, 2, 4, 6).reshape(-1, 8, 512).contiguous()
+        y_k4 = nmf_reconstruct(folded, tu, tv, "hals", NUM_ITERS)
+        y_k4 = y_k4.view(2, 4, 4, 4, 4, 8, 8, 8, 8).permute(0, 1, 6, 2, 7, 3, 8, 4, 5).reshape(x.shape)
+        torch.cuda.synchronize()
+        check(torch.equal(y_k4, y_k1), f"K4 on fold(x) differs from K1 at one zero shift: max_rel {compare(y_k4, y_k1)[1]:.3e}")
+        print("[K4] (2,32^3,32) f32 folded into (2048,8,512): K4 equals K1's single-shift windowed_nmf bit for bit")
+        del x, y_k1, y_k4, folded
+
     # 15. K4 backward, rank 1, against autograd through the plain version.  MU runs on a strictly positive
-    # input, as K1's backward does (its gradient at all-zero rows keeps no digit in f32 on either side).
-    k4_bwd_cases = [((n, 8, 512), "hals", dt, None, False) for n in FLAT_STAGES for dt in (torch.float32, torch.bfloat16)]
+    # input, as K1's backward does (its gradient at all-zero rows keeps no digit in f32 on either side).  The same
+    # checks as phase 14: the plan, two runs bit for bit, device time, the register cases also through the
+    # shared-memory kernel.
+    k4_bwd_cases = [((n, 8, 512), "hals", dt, None, False) for n in FLAT_STAGES for dt in (f32, bf16)]
+    k4_bwd_cases += [(shape, "hals", dt, None, False) for shape in ((524288, 8, 64), (32768, 8, 64)) for dt in (f32, bf16)]
     k4_bwd_cases += [
-        ((524288, 8, 64), "hals", torch.float32, None, False),
-        ((32768, 8, 64), "hals", torch.float32, None, False),
-        ((32768, 8, 512), "mu", torch.float32, None, False),
-        ((32768, 8, 512), "hals", torch.float32, 2, False),
-        ((1000, 5, 37), "hals", torch.float32, None, False),
-        ((32768, 8, 512), "hals", torch.float32, None, True),
+        ((32768, 8, 512), "mu", f32, None, False),
+        ((32768, 8, 512), "hals", f32, 2, False),
+        ((1000, 5, 37), "hals", f32, None, False),
+        ((32768, 8, 512), "hals", f32, None, True),
     ]
     for shape, solver, dt, grad_steps, zero_quarter in k4_bwd_cases:
         x, g, tu, tv = k4_inputs(shape, 1, dt, zero_quarter, positive=solver == "mu")
+        label = (k4_label(shape, 1, solver, dt, zero_quarter) + (f" num_grad_steps={grad_steps}" if grad_steps is not None else "")
+                 + (" positive x" if solver == "mu" else ""))
+        plan = k4_plan(shape, 1, solver, dt, True, label)
         args = (x, g, tu, tv, solver, NUM_ITERS, 1e-16, grad_steps)
-        out, ref = nmf_reconstruct_backward(*args), nmf_reconstruct_backward_plain(*args)
+        out, again = nmf_reconstruct_backward(*args), nmf_reconstruct_backward(*args)
+        ref = nmf_reconstruct_backward_plain(*args)
         torch.cuda.synchronize()
         err, rel = compare(out, ref)
         tol = K1_BWD_RTOL[dname(dt)]
-        label = (k4_label(shape, 1, solver, dt, zero_quarter) + (f" num_grad_steps={grad_steps}" if grad_steps is not None else "")
-                 + (" positive x" if solver == "mu" else ""))
         check(out.dtype == dt and out.shape == x.shape, f"K4 bwd {label}: wrong output")
         check(bool(torch.isfinite(out).all()), f"K4 bwd {label}: non-finite dx")
         check(rel <= tol, f"K4 bwd {label}: max_abs {err:.3e} max_rel {rel:.3e} above {tol:.1e}")
-        del out, ref
+        check(torch.equal(out, again), f"K4 bwd {label}: two runs on one input differ")
+        del again
         ms = cuda_time_ms(lambda: nmf_reconstruct_backward(*args))
+        dev_ms = graph_time_ms(lambda: nmf_reconstruct_backward(*args))
         plain_ms = cuda_time_ms(lambda: nmf_reconstruct_backward_plain(*args), warmup=1, runs=3)
         bound = bound_ms(*k4_work(x, 1, True, grad_steps or NUM_ITERS, solver == "mu"), dt)
-        print(f"[K4 bwd] {label}: max_abs={err:.3e} max_rel={rel:.3e} (tol {tol:.1e}) "
-              f"kernel {ms:.3f} ms plain forward+backward {plain_ms:.3f} ms library none bound {bound[0]:.3f} ms ({bound[1]})")
-        record("nmf_reconstruct_bwd", err, label, ms, plain_ms, bound)
-        del x, g, args
+        line = (f"[K4 bwd] {label}: max_abs={err:.3e} max_rel={rel:.3e} (tol {tol:.1e}) bit-identical twice; "
+                f"kernel {ms:.3f} ms device {dev_ms:.4f} ms plain forward+backward {plain_ms:.3f} ms library none "
+                f"bound {bound[0]:.3f} ms ({bound[1]}); plan: {plan.describe()}")
+        record(f"nmf_reconstruct_bwd_{plan.route}", err, label, ms, plain_ms, bound)
+        if plan.route == "registers":
+            k4_plan(shape, 1, solver, dt, True, label, route="shared")
+            line += k4_shared("nmf_reconstruct_bwd",
+                              lambda: k4_launch_backward(x, g, tu, tv, solver, NUM_ITERS, grad_steps or NUM_ITERS, 1e-16, "shared"),
+                              ref, tol, label, bound, plain_ms, dev_ms)
+        print(line)
+        del x, g, args, out, ref
         torch.cuda.empty_cache()
+    check(k4_routes_seen == {False: set(NMF_ROUTES), True: set(NMF_ROUTES)},
+          f"K4: the cases do not reach every route: {k4_routes_seen}")
 
     # Through the autograd function: rank 1 launches the backward kernel, rank 2 reruns the solve in torch
     # operations and differentiates that (counted in .recomputes, never in .launches); num_grad_steps=0 is zero.
@@ -1468,7 +1559,7 @@ def main() -> None:
     (dx,) = torch.autograd.grad(big(xg), xg, torch.ones_like(xb))
     torch.cuda.synchronize()
     made = {k: v - before[k] for k, v in read_counts().items() if v != before[k]}
-    check(made == {"nmf_reconstruct": 1}, f"K4: the (8,4096) checks launched {made}")
+    check(made == {"nmf_reconstruct": 1, "nmf_reconstruct_shared": 1}, f"K4: the (8,4096) checks launched {made}")
     err, rel = compare(big(xg).detach(), served)
     check(rel <= KERNEL_RTOL["float32"] and bool(torch.isfinite(dx).all()), f"K4: the decompose chain at (8,4096) differs from the kernel by {rel:.3e}")
     print(f"[K4] (64,8,4096) rank 1: served through the kernel; with a gradient recorded the module takes its decompose chain "
@@ -1480,7 +1571,7 @@ def main() -> None:
     def brats23_flat_network(**kw):
         return brats23_network(factorize_options={"use_windowed": False}, **kw)
 
-    k4_forward = {"nmf_reconstruct": n_blocks, "prenorm_mlp": n_blocks}
+    k4_forward = {"nmf_reconstruct": n_blocks, "nmf_reconstruct_registers": n_blocks, "prenorm_mlp": n_blocks}
     serve_slice("slice flat", brats23_flat_network, k4_forward, same_function_as=brats23_network)
 
     # A 2-D Swin-Factorizer at the FIVES data shape (RGB in, one mask out, 512^2, batch 16) and the 3-D bundles'
@@ -1518,23 +1609,20 @@ def main() -> None:
     torch.backends.cudnn.benchmark = True
     factorizer_leaves = {"stem.weight": "stem", "encoder.blocks.0.block.blocks.0.mlp.block.0.linear.weight": "enc0.fc1",
                          "encoder.blocks.4.block.blocks.0.fact.out_proj.linear.weight": "bottleneck.out_proj"}
-    train_slice(
-        "train flat", brats23_flat_network,
-        {"nmf_reconstruct": n_blocks, "nmf_reconstruct_bwd": n_blocks, "prenorm_mlp": n_blocks, "prenorm_mlp_bwd": n_blocks},
-        factorizer_leaves,
-    )
+    k4_step = {**k4_forward, "nmf_reconstruct_bwd": n_blocks, "nmf_reconstruct_bwd_registers": n_blocks,
+               "prenorm_mlp_bwd": n_blocks}
+    train_slice("train flat", brats23_flat_network, k4_step, factorizer_leaves)
     # A 2-D step: every mixer's matrices are 8 x 64, which the backward kernel takes in its 64-thread instance.
     images = torch.randn(16, 3, 512, 512, device=dev, generator=gen.manual_seed(33))
     field = F.interpolate(torch.randn(16, 1, 8, 8, device=dev, generator=gen), size=(512, 512), mode="bilinear", align_corners=False)
     train_slice(
-        "train 2d", swin2d_network,
-        {"nmf_reconstruct": n_blocks, "nmf_reconstruct_bwd": n_blocks, "prenorm_mlp": n_blocks, "prenorm_mlp_bwd": n_blocks},
-        factorizer_leaves, batch={"image": images, "label": (field > 0.3).float()}, dtypes=(torch.float32,),
+        "train 2d", swin2d_network, k4_step, factorizer_leaves, batch={"image": images, "label": (field > 0.3).float()},
+        dtypes=(torch.float32,),
     )
     del images, field
     # A rank-2 step: K4 forward, and its backward as the recompute in torch operations, counted but no launch.
     train_slice(
-        "train rank2", brats23_rank2_network, {"nmf_reconstruct": n_blocks, "prenorm_mlp": n_blocks, "prenorm_mlp_bwd": n_blocks},
+        "train rank2", brats23_rank2_network, {**k4_forward, "prenorm_mlp_bwd": n_blocks},
         factorizer_leaves, dtypes=(torch.float32,), recomputes_per_step=n_blocks,
     )
     isles_batch = synthetic_batch(8, 2, 1, 64, seed=9)
@@ -1693,8 +1781,10 @@ def main() -> None:
         "prenorm_mlp_bwd": ("factorizer_tpu_torch/csrc/mlp_block_bwd.cu", "factorizer_tpu/ops/pallas/mlp_block.py:197"),
         "depthwise_conv": ("factorizer_tpu_torch/csrc/depthwise_conv.cu", "factorizer_tpu/ops/pallas/depthwise_packed.py:131"),
         "depthwise_conv_dw": ("factorizer_tpu_torch/csrc/depthwise_conv_dw.cu", "factorizer_tpu/ops/pallas/depthwise_packed.py:147"),
-        "nmf_reconstruct": ("factorizer_tpu_torch/csrc/nmf.cu", "factorizer_tpu/ops/pallas/nmf_kernel.py:142"),
-        "nmf_reconstruct_bwd": ("factorizer_tpu_torch/csrc/nmf_bwd.cu", "factorizer_tpu/ops/pallas/nmf_kernel.py:142"),
+        "nmf_reconstruct_registers": ("factorizer_tpu_torch/csrc/nmf.cu", "factorizer_tpu/ops/pallas/nmf_kernel.py:142"),
+        "nmf_reconstruct_shared": ("factorizer_tpu_torch/csrc/nmf.cu", "factorizer_tpu/ops/pallas/nmf_kernel.py:142"),
+        "nmf_reconstruct_bwd_registers": ("factorizer_tpu_torch/csrc/nmf_bwd.cu", "factorizer_tpu/ops/pallas/nmf_kernel.py:142"),
+        "nmf_reconstruct_bwd_shared": ("factorizer_tpu_torch/csrc/nmf_bwd.cu", "factorizer_tpu/ops/pallas/nmf_kernel.py:142"),
         "windowed_nmf_slab": ("factorizer_tpu_torch/csrc/windowed_nmf_slab.cu",
                               "factorizer_tpu/ops/pallas/windowed_sharded.py:112"),
         "windowed_nmf_slab_bwd": ("factorizer_tpu_torch/csrc/windowed_nmf_slab_bwd.cu",

@@ -14,94 +14,109 @@
 // flops per element at five differentiated iterations against 12 bytes in
 // f32 (x and g read, dx written).
 //
-// What the design does about it: what K1's backward does, without the window
-// arithmetic: a block's matrix is one contiguous run of M * N elements, so x
-// and g are read and dx is written fully coalesced, and the transposed
-// staging in shared memory ([N][M + 1]) keeps both the loads' stores and the
-// row-wise sweeps free of bank conflicts.  Small matrices (N and M up to 64)
-// take blocks of 64 threads, so that a 8 x 64 matrix does not idle three
-// quarters of a 256-thread block.
-#include "rank1_nmf_bwd.cuh"
+// What the design does about it (the launch plan is nmf_plan.cuh): what K1's
+// backward does, on a matrix of the flat batch instead of a window.  At the
+// bundles' sizes, M = 8 and N = 512 or 64, the register-resident reverse
+// sweep (rank1_group_bwd, rank1_nmf_bwd.cuh) under the flat addressing
+// (FlatMatrix, windowed_nmf.cuh): a thread group holds the matrix, its x and
+// g / dx columns in registers (4 warps a matrix at N = 512, one at N = 64,
+// four matrices to a 128-thread block), every sum over columns a shuffle
+// reduce-scatter with one barrier, only the iterates in shared memory; a
+// warp reads and writes each row of the matrix as 32 consecutive elements.
+// Any other size takes a block a matrix in shared memory
+// (rank1_nmf_bwd_block): the matrix is one contiguous run of M * N elements,
+// read and written coalesced, and the transposed staging ([N][M + 1]) keeps
+// both the loads' stores and the row-wise sweeps free of bank conflicts;
+// small matrices (N and M up to 64) take blocks of 64 threads.
+#include "nmf_plan.cuh"
 
 namespace {
 
-// One (M, N) matrix of a contiguous batch under the names the shared sweep
-// uses: d = M rows of x (the length of u), P3 = N columns (the length of v).
-struct FlatMatrix {
-  static constexpr bool kHalo = false;
-  int d, P3;
-  int64_t base;
-
-  __device__ FlatMatrix(int M, int N) : d(M), P3(N), base(static_cast<int64_t>(blockIdx.x) * M * N) {}
-
-  // Element e of the row-major (M, N) matrix is (q = column n, di = row m).
-  __device__ int64_t locate(int e, int& q, int& di) const {
-    di = e / P3;
-    q = e % P3;
-    return base + e;
-  }
-};
-
+// Any other size: one block per matrix, in shared memory.
 template <typename T, int kThreads>
 __global__ void __launch_bounds__(kThreads)
 nmf_reconstruct_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restrict__ dx,
                            const float* __restrict__ u0, const float* __restrict__ v0, int M, int N,
                            int mu, int num_iters, int grad_steps, float eps) {
-  const FlatMatrix mat(M, N);
+  const ftt::FlatMatrix mat(M, N, blockIdx.x);
   extern __shared__ float smem[];
-  ftt::rank1_nmf_bwd_block<T, FlatMatrix, kThreads>(mat, x, g, nullptr, nullptr, nullptr, dx, nullptr, u0, v0, mu,
-                                                   num_iters, grad_steps, eps, /*first=*/1, /*last=*/1, /*scale=*/1.f,
-                                                   smem);
+  ftt::rank1_nmf_bwd_block<T, ftt::FlatMatrix, kThreads>(mat, x, g, nullptr, nullptr, nullptr, dx, nullptr, u0, v0,
+                                                         mu, num_iters, grad_steps, eps, /*first=*/1, /*last=*/1,
+                                                         /*scale=*/1.f, smem);
 }
 
-template <typename T, int kThreads>
-cudaError_t launch(const void* x, const void* g, void* dx, const float* u0, const float* v0, int64_t n_mats,
-                   int M, int N, int mu, int num_iters, int grad_steps, float eps, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ftt::rank1_bwd_smem_floats(N, M, num_iters, kThreads);
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  auto kernel = nmf_reconstruct_bwd_kernel<T, kThreads>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<static_cast<unsigned>(n_mats), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), static_cast<T*>(dx), u0, v0, M, N, mu, num_iters,
-      grad_steps, eps);
-  return cudaGetLastError();
+// M = 8, N = kP^3: a thread group per matrix (Group<8, kP>), kGroups to a block.
+template <typename T, int kP>
+__global__ void __launch_bounds__(ftt::kNmfGroupBlock, ftt::nmf_group_min_blocks(1, true, kP * kP * kP))
+nmf_reconstruct_bwd_group_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restrict__ dx,
+                                 const float* __restrict__ u0, const float* __restrict__ v0, int64_t n_mats, int mu,
+                                 int num_iters, int grad_steps, float eps) {
+  using G = ftt::Group<8, kP>;
+  extern __shared__ float smem[];
+  const int group = threadIdx.x / G::kThreads, lane_g = threadIdx.x % G::kThreads;
+  const int64_t m = static_cast<int64_t>(blockIdx.x) * G::kGroups + group;
+  if (m >= n_mats) return;  // a whole group leaves together
+  const ftt::FlatMatrix mat(8, G::kP3, m);
+  float* sm = smem + group * ftt::rank1_group_bwd_smem_floats(G::kP3, 8, num_iters, G::kWarps);
+  ftt::rank1_group_bwd<T, ftt::FlatMatrix, 8, kP>(mat, x, g, nullptr, nullptr, nullptr, dx, nullptr, u0, v0, mu,
+                                                  num_iters, grad_steps, eps, /*first=*/1, /*last=*/1, /*scale=*/1.f,
+                                                  sm, lane_g);
 }
 
 template <typename T>
-cudaError_t launch_size(const void* x, const void* g, void* dx, const float* u0, const float* v0, int64_t n_mats,
-                        int M, int N, int mu, int num_iters, int grad_steps, float eps, cudaStream_t stream) {
-  if (M <= 64 && N <= 64) {
-    return launch<T, 64>(x, g, dx, u0, v0, n_mats, M, N, mu, num_iters, grad_steps, eps, stream);
+cudaError_t launch_plan(const ftt::NmfPlan& plan, const void* x, const void* g, void* dx, const float* u0,
+                        const float* v0, long long n_mats, int M, int N, int mu, int num_iters, int grad_steps,
+                        float eps, cudaStream_t stream) {
+  const T* tx = static_cast<const T*>(x);
+  const T* tg = static_cast<const T*>(g);
+  T* tdx = static_cast<T*>(dx);
+  const unsigned blocks = static_cast<unsigned>(plan.blocks);
+  cudaError_t err;
+  if (plan.route == ftt::kNmfRegisters) {
+    if (N == 512) {
+      if ((err = ftt::allow_nmf_smem<nmf_reconstruct_bwd_group_kernel<T, 8>>(plan.smem)) != cudaSuccess) return err;
+      nmf_reconstruct_bwd_group_kernel<T, 8><<<blocks, plan.threads, plan.smem, stream>>>(
+          tx, tg, tdx, u0, v0, n_mats, mu, num_iters, grad_steps, eps);
+    } else {
+      if ((err = ftt::allow_nmf_smem<nmf_reconstruct_bwd_group_kernel<T, 4>>(plan.smem)) != cudaSuccess) return err;
+      nmf_reconstruct_bwd_group_kernel<T, 4><<<blocks, plan.threads, plan.smem, stream>>>(
+          tx, tg, tdx, u0, v0, n_mats, mu, num_iters, grad_steps, eps);
+    }
+  } else if (plan.threads == 64) {
+    if ((err = ftt::allow_nmf_smem<nmf_reconstruct_bwd_kernel<T, 64>>(plan.smem)) != cudaSuccess) return err;
+    nmf_reconstruct_bwd_kernel<T, 64><<<blocks, 64, plan.smem, stream>>>(tx, tg, tdx, u0, v0, M, N, mu, num_iters,
+                                                                          grad_steps, eps);
+  } else {
+    if ((err = ftt::allow_nmf_smem<nmf_reconstruct_bwd_kernel<T, 256>>(plan.smem)) != cudaSuccess) return err;
+    nmf_reconstruct_bwd_kernel<T, 256><<<blocks, 256, plan.smem, stream>>>(tx, tg, tdx, u0, v0, M, N, mu, num_iters,
+                                                                            grad_steps, eps);
   }
-  return launch<T, 256>(x, g, dx, u0, v0, n_mats, M, N, mu, num_iters, grad_steps, eps, stream);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // x, g, dx: (n_mats, M, N) contiguous, of `dtype`; u0: (M,) f32; v0: (N,) f32;
-// M in [1, 256]; grad_steps in [1, num_iters] is the number of trailing
-// iterations differentiated.  Returns cudaGetLastError().
+// grad_steps in [1, num_iters] is the number of trailing iterations
+// differentiated.  The call runs as nmf_plan (nmf_plan.cuh) says, `route`
+// passed to it as `want` (-1: the plan's choice); a call it refuses returns
+// cudaErrorInvalidValue.  Returns cudaGetLastError().
 extern "C" int ftt_nmf_reconstruct_bwd(const void* x, const void* g, void* dx, const void* u0, const void* v0,
                                        int dtype, long long n_mats, int M, int N, int mu, int num_iters,
-                                       int grad_steps, float eps, void* stream) {
-  if (n_mats < 1 || n_mats > 2147483647LL || M < 1 || M > 256 || N < 1 || num_iters < 1 || grad_steps < 1 ||
+                                       int grad_steps, float eps, int route, void* stream) {
+  if ((dtype != ftt::kFloat32 && dtype != ftt::kBFloat16) || n_mats > 2147483647LL || grad_steps < 1 ||
       grad_steps > num_iters) {
     return cudaErrorInvalidValue;
   }
+  const ftt::NmfPlan plan =
+      ftt::nmf_plan(1, M, N, dtype == ftt::kFloat32 ? 4 : 2, num_iters, n_mats, /*backward=*/true, route);
+  if (plan.route == ftt::kNmfNone) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto fu0 = static_cast<const float*>(u0);
   auto fv0 = static_cast<const float*>(v0);
-  cudaError_t err;
-  if (dtype == ftt::kFloat32) {
-    err = launch_size<float>(x, g, dx, fu0, fv0, n_mats, M, N, mu, num_iters, grad_steps, eps, s);
-  } else if (dtype == ftt::kBFloat16) {
-    err = launch_size<__nv_bfloat16>(x, g, dx, fu0, fv0, n_mats, M, N, mu, num_iters, grad_steps, eps, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
+  const cudaError_t err =
+      dtype == ftt::kFloat32
+          ? launch_plan<float>(plan, x, g, dx, fu0, fv0, n_mats, M, N, mu, num_iters, grad_steps, eps, s)
+          : launch_plan<__nv_bfloat16>(plan, x, g, dx, fu0, fv0, n_mats, M, N, mu, num_iters, grad_steps, eps, s);
   return static_cast<int>(err);
 }

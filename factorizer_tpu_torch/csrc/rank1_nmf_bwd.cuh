@@ -1,8 +1,8 @@
 // The reverse sweep of a rank-1 NMF solve on one matrix, shared by
 // K1's backward (windowed_nmf_bwd.cu: the matrix is a window of a rolled
 // volume) and K4's rank-1 backward (nmf_bwd.cu: the matrix is one of a flat
-// batch).  The two differ only in where element e of the matrix lies in
-// device memory, which the `Addr` argument answers.  K5's backward
+// batch, `FlatMatrix`).  The two differ only in where element e of the
+// matrix lies in device memory, which the `Addr` argument answers.  K5's backward
 // (windowed_nmf_slab_bwd.cu) is K1's on a slab: a third addressing, under
 // which some elements are read from halo buffers and written to a send
 // buffer (`load_at`, `store_at` in windowed_nmf.cuh).
@@ -46,7 +46,8 @@ __host__ __device__ inline size_t rank1_group_bwd_smem_floats(int P3, int d, int
 // The register-resident form of rank1_nmf_bwd_block for the bundles' sizes
 // (Group<kD, kP>: head_dim 8, patch 8 or 4), the forward's layout: a thread
 // group holds one matrix, kRows rows of kD channels a thread, X and G / dX
-// in registers, rows moved in 16-byte accesses.  The same sweep as below,
+// in registers, rows moved in 16-byte accesses (a flat matrix's, K4's, one
+// scalar a channel, N apart).  The same sweep as below,
 // with every sum over rows a group_sum9 (eight column sums and one scalar,
 // one barrier): per forward iteration X v and v.v, for the seed G^T v_T, per
 // reverse step X^T abar_v and the V update's bbar.  The iterates v_t (own rows
@@ -91,7 +92,10 @@ __device__ __forceinline__ void rank1_group_bwd(
   for (int k = 0; k < R; ++k) {
     const int q = lane_g + G::kThreads * k;
     const int64_t o = win.row_offset(q);
-    if (Addr::kHalo && o < 0) {
+    if constexpr (Addr::kStrided) {
+      load8_strided(x + o, win.stride, X[k]);
+      load8_strided(g + o, win.stride, D[k]);
+    } else if (Addr::kHalo && o < 0) {
       load8(x_halo + (-1 - o), X[k]);
       load8(g_halo + (-1 - o), D[k]);
     } else {
@@ -253,11 +257,14 @@ __device__ __forceinline__ void rank1_group_bwd(
     }
   }
 
-  // dX rows into the sum over shift passes (a slab's halo rows into `send`, in f32).
+  // dX rows into the sum over shift passes (a slab's halo rows into `send`, in f32).  A flat matrix is a
+  // pass of its own (first = last, scale 1), whose rows go straight to `out`.
 #pragma unroll
   for (int k = 0; k < R; ++k) {
     const int64_t o = win.row_offset(lane_g + G::kThreads * k);
-    if (Addr::kHalo && o < 0) {
+    if constexpr (Addr::kStrided) {
+      store8_strided(out + o, win.stride, D[k]);
+    } else if (Addr::kHalo && o < 0) {
       store8(send + (-1 - o), D[k]);
     } else {
       store_pass8(acc, out, o, D[k], first, last, scale);

@@ -35,6 +35,7 @@ struct Shifts {
 template <int kD, int kP, bool kSlab = false>
 struct Window {
   static constexpr bool kHalo = kSlab;
+  static constexpr bool kStrided = false;  // a row's channels are consecutive
   int d, p, P3, S1, S2, S3, C, c0, o1, o2, o3, h1;
   int64_t b;
 
@@ -84,6 +85,28 @@ struct Window {
 
   // Channel di of the row at `o` (a halo place counts down).
   __device__ static int64_t channel_at(int64_t o, int di) { return o < 0 ? o - di : o + di; }
+};
+
+// One (M, N) matrix of a contiguous flat batch (K4) under the names the
+// solves use: row q of the solve is column n = q of the matrix, channel di is
+// its row m = di, so a row's d = M channels lie N apart (kStrided; the group
+// solve reads them one scalar a channel, a warp's lanes on consecutive
+// columns).  Element e of the row-major matrix is (q = e % N, di = e / N).
+struct FlatMatrix {
+  static constexpr bool kHalo = false;
+  static constexpr bool kStrided = true;
+  int d, P3, stride;
+  int64_t base;
+
+  __device__ FlatMatrix(int M, int N, int64_t m) : d(M), P3(N), stride(N), base(m * M * N) {}
+
+  __device__ int64_t row_offset(int q) const { return base + q; }
+
+  __device__ int64_t locate(int e, int& q, int& di) const {
+    di = e / P3;
+    q = e % P3;
+    return base + e;
+  }
 };
 
 // One shift pass's value `y` for the element at `o`: the first pass starts
@@ -159,6 +182,18 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&r)[8]) {
     w[i] = *reinterpret_cast<const uint32_t*>(&h);
   }
   *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Eight values `stride` elements apart, as f32 (a flat matrix's column).
+template <typename T>
+__device__ __forceinline__ void load8_strided(const T* p, int stride, float (&r)[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r[i] = to_float(p[i * stride]);
+}
+template <typename T>
+__device__ __forceinline__ void store8_strided(T* p, int stride, const float (&r)[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) p[i * stride] = from_float<T>(r[i]);
 }
 
 // store_pass for the 8 channels of a row at `o`, in 16-byte accesses: the
@@ -259,14 +294,97 @@ __device__ __forceinline__ void group_sum9(float (&v)[9], float* red, int phase)
   }
 }
 
+// The reduce-scatter steps of group_sum: on entry a[0, 2n) hold a lane's
+// partial sums, n = kPad * kOff / 32; the lanes whose bit kOff is set keep
+// the upper half, the others the lower, each adding its partner's half.  On
+// return lane l holds the warp's sums of entries l * kPad / 32 + j in a[j].
+template <int kPad, int kOff>
+__device__ __forceinline__ void reduce_scatter(float (&a)[kPad], int lane) {
+  constexpr int n = kPad * kOff / 32;
+  const bool hi = lane & kOff;
+#pragma unroll
+  for (int j = 0; j < n; ++j) {
+    const float send = hi ? a[j] : a[j + n], keep = hi ? a[j + n] : a[j];
+    a[j] = keep + __shfl_xor_sync(0xffffffffu, send, kOff);
+  }
+  if constexpr (kOff > 1) reduce_scatter<kPad, kOff / 2>(a, lane);
+}
+
+// Floats a warp writes in one group_sum of n sums: n rounded up to a 16-byte
+// vector (the buffer holds [2][kWarps][stride] floats a group).
+__host__ __device__ constexpr int group_sum_stride(int n) { return (n + 3) / 4 * 4; }
+
+// group_sum9 for any kN sums (K4's rank-R solve: 8 R column sums and the
+// R (R + 1) / 2 entries of a Gram matrix): a reduce-scatter over the kN sums
+// padded to a multiple of 32, one barrier a call, the warps' sums read back
+// as 16-byte vectors and added in warp order.  `red` holds
+// 2 * kWarps * group_sum_stride(kN) floats, 16-byte aligned.
+template <int kWarps, int kN>
+__device__ __forceinline__ void group_sum(float (&v)[kN], float* red, int phase) {
+  constexpr int kPad = (kN + 31) / 32 * 32, kPer = kPad / 32, kStride = group_sum_stride(kN);
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) % kWarps;
+  float a[kPad];
+#pragma unroll
+  for (int i = 0; i < kPad; ++i) a[i] = i < kN ? v[i] : 0.f;
+  reduce_scatter<kPad, 16>(a, lane);
+  float* mine = red + (phase * kWarps + warp) * kStride;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    if (j + kPer * lane < kN) mine[j + kPer * lane] = a[j];
+  }
+  if (kWarps == 1) {
+    __syncwarp();
+  } else {
+    __syncthreads();  // a block of one group
+  }
+  const float* all = red + phase * kWarps * kStride;
+#pragma unroll
+  for (int i = 0; i < kStride; i += 4) {
+    float4 t = *reinterpret_cast<const float4*>(all + i);
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) {
+      const float4 o = *reinterpret_cast<const float4*>(all + w * kStride + i);
+      t.x += o.x;
+      t.y += o.y;
+      t.z += o.z;
+      t.w += o.w;
+    }
+    const float f[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (i + j < kN) v[i + j] = f[j];
+    }
+  }
+}
+
+// The rows q = lane_g + kThreads * k of a group's matrix into registers: a
+// row's kD channels in 16-byte accesses, or, for a flat matrix, one scalar a
+// channel, `stride` apart (a warp reads consecutive columns of each row).
+template <typename T, typename Addr, int kD, int kP>
+__device__ __forceinline__ void group_load_rows(const Addr& win, const T* __restrict__ x, const T* __restrict__ halo,
+                                                int lane_g, float (&X)[Group<kD, kP>::kRows][kD]) {
+  using G = Group<kD, kP>;
+#pragma unroll
+  for (int k = 0; k < G::kRows; ++k) {
+    const int64_t o = win.row_offset(lane_g + G::kThreads * k);
+    if constexpr (Addr::kStrided) {
+      load8_strided(x + o, win.stride, X[k]);
+    } else if (Addr::kHalo && o < 0) {
+      load8(halo + (-1 - o), X[k]);
+    } else {
+      load8(x + o, X[k]);
+    }
+  }
+}
+
 // The forward solve of one matrix, held in registers by a thread group
-// (Group<kD, kP>): stage the matrix with 16-byte loads of a row's kD
-// channels, run `num_iters` rank-1 HALS or MU updates from u0 and v0.  Every
-// thread ends with all of u and the rows X[k], v[k] of its own rows
-// q = lane + kThreads * k.  X v reduces across the group (group_sum9, one
-// barrier an iteration); X^T u needs no reduction.  Every product and sum
-// is an explicit fmaf / add, so the solve gives the same bits wherever it
-// is inlined (K1's factors pass, K5's slab pass).
+// (Group<kD, kP>): stage the matrix (group_load_rows), run `num_iters` rank-1
+// HALS or MU updates from u0 and v0.  Every thread ends with all of u and the
+// rows X[k], v[k] of its own rows q = lane + kThreads * k.  X v reduces across
+// the group (group_sum9, one barrier an iteration); X^T u needs no reduction.
+// Every product and sum is an explicit fmaf / add, so the solve gives the
+// same bits wherever it is inlined (K1's factors pass, K5's slab pass, K4's
+// rank-1 forward).
 template <typename T, typename Addr, int kD, int kP>
 __device__ __forceinline__ void rank1_group_solve(const Addr& win, const T* __restrict__ x,
                                                   const T* __restrict__ halo, const float* __restrict__ u0,
@@ -275,17 +393,9 @@ __device__ __forceinline__ void rank1_group_solve(const Addr& win, const T* __re
                                                   float (&v)[Group<kD, kP>::kRows],
                                                   float (&X)[Group<kD, kP>::kRows][kD]) {
   using G = Group<kD, kP>;
+  group_load_rows<T, Addr, kD, kP>(win, x, halo, lane_g, X);
 #pragma unroll
-  for (int k = 0; k < G::kRows; ++k) {
-    const int q = lane_g + G::kThreads * k;
-    const int64_t o = win.row_offset(q);
-    if (Addr::kHalo && o < 0) {
-      load8(halo + (-1 - o), X[k]);
-    } else {
-      load8(x + o, X[k]);
-    }
-    v[k] = v0[q];
-  }
+  for (int k = 0; k < G::kRows; ++k) v[k] = v0[lane_g + G::kThreads * k];
 #pragma unroll
   for (int di = 0; di < kD; ++di) u[di] = u0[di];
 

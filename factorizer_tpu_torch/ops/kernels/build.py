@@ -70,10 +70,12 @@ _SIGNATURES = {
     "ftt_depthwise_conv_dw": [_P] * 4 + [_I] * 15 + [_P],
     # S1, S2, S3, C, k1, k2, k3, elt, dw, t2, t3, cb, planes, out (7 ints)
     "ftt_depthwise_conv_tile_query": [_I] * 13 + [ctypes.POINTER(ctypes.c_int)],
-    # x, y, u0, v0, dtype, n_mats, M, N, rank, mu, num_iters, eps, stream
-    "ftt_nmf_reconstruct": [_P] * 4 + [_I, _L] + [_I] * 5 + [_F, _P],
-    # x, g, dx, u0, v0, dtype, n_mats, M, N, mu, num_iters, grad_steps, eps, stream
-    "ftt_nmf_reconstruct_bwd": [_P] * 5 + [_I, _L] + [_I] * 5 + [_F, _P],
+    # x, y, u0, v0, dtype, n_mats, M, N, rank, mu, num_iters, eps, route, stream
+    "ftt_nmf_reconstruct": [_P] * 4 + [_I, _L] + [_I] * 5 + [_F, _I, _P],
+    # x, g, dx, u0, v0, dtype, n_mats, M, N, mu, num_iters, grad_steps, eps, route, stream
+    "ftt_nmf_reconstruct_bwd": [_P] * 5 + [_I, _L] + [_I] * 5 + [_F, _I, _P],
+    # rank, M, N, elt, num_iters, n_mats, backward, route, out (8 long longs)
+    "ftt_nmf_plan_query": [_I] * 5 + [_L, _I, _I, ctypes.POINTER(ctypes.c_longlong)],
     # x, halo, acc, out, send, u0, v0, dtype, B, L, S2, S3, C, d, p, sh1, sh2, sh3, mu, num_iters, eps, first,
     # last, scale, stream
     "ftt_windowed_nmf_slab_shift": [_P] * 7 + [_I] * 13 + [_F, _I, _I, _F, _P],

@@ -76,6 +76,23 @@ def test_plain_bf16_matches_jax_kernel():
     _within(y_t.float().numpy(), np.asarray(y_j.astype(jnp.float32)), 2.0**-8)
 
 
+@pytest.mark.parametrize("shape,rank,dtype", [((4, 8, 512), 1, np.float32), ((4, 8, 512), 3, np.float32),
+                                               ((4, 8, 64), 1, "bfloat16")])
+def test_plain_matches_jax_kernel_at_the_register_sizes(shape, rank, dtype):
+    """The sizes the card's register kernels take, (8, 512) and (8, 64): f32 within BAND, bf16 within one bf16
+    rounding (2^-8 of the largest entry), against the interpret-mode Pallas kernel."""
+    x, u0, v0 = _inputs(shape, rank=rank, seed=50 + rank)
+    if dtype == "bfloat16":
+        y_j = jax_nmf_reconstruct(jnp.asarray(x, jnp.bfloat16), jnp.asarray(u0), jnp.asarray(v0), "hals", 5)
+        y_t = nmf_reconstruct_plain(torch.from_numpy(x).bfloat16(), torch.from_numpy(u0), torch.from_numpy(v0), "hals", 5)
+        assert y_t.dtype == torch.bfloat16
+        _within(y_t.float().numpy(), np.asarray(y_j.astype(jnp.float32)), 2.0**-8)
+    else:
+        y_j = np.asarray(jax_nmf_reconstruct(jnp.asarray(x), jnp.asarray(u0), jnp.asarray(v0), "hals", 5))
+        y_t = nmf_reconstruct_plain(torch.from_numpy(x), torch.from_numpy(u0), torch.from_numpy(v0), "hals", 5)
+        _within(y_t.numpy(), y_j, BAND[rank])
+
+
 def _jax_module(x, u0, v0, solver, num_grad_steps=None):
     """The JAX ``NMF`` module on its CPU route, the ``decompose`` chain, and its variables: the f64 oracle.
     (``xla_nmf_reconstruct`` and the kernel's backward recompute accumulate their products in f32 whatever
@@ -135,6 +152,19 @@ def test_plain_gradient_matches_jax(rank, num_grad_steps):
         assert not dx_t.any() and not dx_j.any()
     else:
         _within(dx_t, dx_j, 10 * BAND[rank])
+
+
+def test_plain_mu_gradient_at_the_register_size():
+    """MU's dx at (4, 8, 512), the register backward's size, against ``jax.vjp`` of ``nmf_reconstruct``, f32, on a
+    strictly positive input (as the card's checks take MU): ten times the forward's band."""
+    x, u0, v0 = _inputs((4, 8, 512), seed=60)
+    x += 0.05
+    g = np.random.default_rng(8).standard_normal(x.shape).astype(np.float32)
+    dx_j = _jax_dx(x, u0, v0, g, "mu", None)
+    dx_t = nmf_reconstruct_backward_plain(
+        torch.from_numpy(x), torch.from_numpy(g), torch.from_numpy(u0), torch.from_numpy(v0), "mu", 5, 1e-16, None
+    ).numpy()
+    _within(dx_t, dx_j, 10 * BAND[1])
 
 
 @pytest.mark.parametrize("rank,solver,num_grad_steps", [(1, "hals", None), (2, "hals", 2), (2, "mu", None)])
