@@ -98,6 +98,17 @@ Phases, one or more result lines each:
      make_train_step(model, mesh=data_parallel_mesh()) on brats23_network() at global batch 2, f32; loss,
      gradient norm and every parameter against the one-process steps on the whole batch.
      Two processes share one card in 20 and 21: their times show that the path runs, not how it scales.
+ 22. the training workflow: 5 synthetic BraTS-native cases (4 x (240, 240, 155) float32 and a label {0, 1, 2, 3})
+     written as NIfTI files (.nii.gz where that takes under ~10 s, else .nii; timed apart), a datalist of 4 training
+     cases (batch 2) and 1 validation case, the bundle's transforms (brats23_transforms) in DataLoaders of
+     min(8, cpu_count) threads, and SegmentationTrainer on brats23_network() (full width, float32, the bundle's lr,
+     weight decay and warm-up): 3 epochs with a validation at the third and a checkpoint after each, then a second
+     trainer on the directory resumes at epoch 3 (state_dict and AdamW state equal bit for bit) and ends at step 8.
+     Checked: 9/9/36/9/9 launches per step, the validation volume's launches equal a [slice] volume's, the loop's
+     first loss against make_train_step on the same batch from the same weights (bit for bit, else 1e-6), a finite
+     mean Dice in [0, 1].  Printed: s/epoch against steps x s/step (CUDA events), the loader's wait per step, the
+     validation's s/volume, checkpoint seconds (blocking, background) and restore seconds, peak memory.  The launch
+     counters are set to 0 before and after it, so the kernels line leaves it out.
 Then a check that no process started here is still alive, the card's line, a JSON line with every kernel, and as the last line
 {"ok": true, "device": {...}}.  Any failed check raises, so the exit code is
 non-zero and no result line is printed.
@@ -620,6 +631,252 @@ def train_dp_slice(world: int, settings: dict, n_steps: int) -> dict:
           "train dp: the processes hold different parameters")
     check(r["losses"][-1] < r["losses"][0], f"train dp: loss did not fall: {r['losses']}")
     return launches
+
+
+WORKFLOW_SHAPE = (240, 240, 155)  # a BraTS-native volume at 1 mm
+WORKFLOW_AFFINE = ((-1.0, 0.0, 0.0, 0.0), (0.0, -1.0, 0.0, 239.0), (0.0, 0.0, 1.0, 0.0), (0.0, 0.0, 0.0, 1.0))  # BraTS's LPS
+
+
+def brats_native_case(rng, shape=WORKFLOW_SHAPE) -> tuple:
+    """Four float32 modalities and a uint8 label {0, 1, 2, 3} of a synthetic BraTS-native case: a head ellipsoid
+    over 85 % of each axis on a zero background (so the foreground crop keeps the 3 x 3 x 2 windows of a native
+    volume at roi 128^3), nested tumour regions (edema 2 around necrosis 1 around enhancing tumour 3), intensities of
+    a few hundred with 10 % noise and brighter tumour."""
+    import numpy as np
+
+    x, y, z = np.meshgrid(*[np.linspace(-1, 1, s, dtype=np.float32) for s in shape], indexing="ij", sparse=True)
+    head = x * x + y * y + z * z < 0.85**2
+    cx, cy, cz = rng.uniform(-0.3, 0.3, size=3).astype(np.float32)
+    r2 = (x - cx) ** 2 + (y - cy) ** 2 + (z - cz) ** 2
+    label = np.zeros(shape, np.uint8)
+    label[(r2 < 0.35**2) & head] = 2
+    label[r2 < 0.22**2] = 1
+    label[r2 < 0.12**2] = 3
+    images = []
+    for m in range(4):
+        img = rng.standard_normal(shape, dtype=np.float32)
+        img *= 0.1 * (300 + 100 * m)
+        img += 300 + 100 * m
+        img += 150 * label
+        img[~head] = 0
+        images.append(img)
+    return images, label
+
+
+def workflow_slice(counters: dict, n_cases: int = 5, seed: int = 123, shape=WORKFLOW_SHAPE, roi=(128, 128, 128)) -> None:
+    """Phase 22: the training workflow from NIfTI files.  ``n_cases`` synthetic BraTS-native cases are written to a
+    temporary directory, a datalist sends all but the first to training (batch 2) and the first to validation, the
+    bundle's transforms (``brats23_transforms``) feed ``DataLoader``s of ``min(8, cpu_count)`` worker threads, and
+    ``SegmentationTrainer`` trains ``brats23_network()`` (full width, float32) for 3 epochs with a validation at the
+    third and a checkpoint each epoch; a second trainer on the same directory resumes at epoch 3 and ends at step 8.
+    The launch counters are set to 0 before and after, so the kernels line's counts leave this phase out."""
+    import os
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from factorizer_tpu_torch.data import DataLoader, Dataset, load_decathlon_datalist, save_nifti
+    from factorizer_tpu_torch.data.native import native_available
+    from factorizer_tpu_torch.data.transforms import Compose
+    from factorizer_tpu_torch.train.loop import SegmentationTrainer
+    from factorizer_tpu_torch.train.sliding_window import sliding_window_positions
+    from factorizer_tpu_torch.train.trainer import create_train_state, make_train_step
+    from factorizer_tpu_torch.zoo_scripts import brats23_network, brats23_transforms
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    reset_counters(counters)
+    torch.cuda.reset_peak_memory_stats(dev)
+    settings = dict(lr=1e-4, weight_decay=1e-5, warmup_epochs=5)  # the bundle's (train.yaml:10-14)
+    per_step = {"windowed_nmf_factors": N_BLOCKS, "windowed_nmf_reconstruct": N_BLOCKS,
+                "windowed_nmf_bwd": N_BLOCKS * N_SHIFTS, "prenorm_mlp": N_BLOCKS, "prenorm_mlp_bwd": N_BLOCKS}
+    per_step = {k: per_step.get(k, 0) for k in counters}
+    workers = min(8, os.cpu_count() or 1)
+    with tempfile.TemporaryDirectory(prefix="workflow_") as tmp:
+        root = Path(tmp)
+        # The cases: .nii.gz where writing all of them takes under ~10 s (projected from the first), else .nii.
+        def write_case(i: int, suffix: str, pool) -> tuple[float, float, dict]:
+            t0 = time.perf_counter()
+            images, label = brats_native_case(np.random.default_rng(seed + i), shape)
+            t1 = time.perf_counter()
+            (root / f"case{i}").mkdir(exist_ok=True)
+            names = [f"case{i}/{m}{suffix}" for m in ("t1n", "t1c", "t2w", "t2f")]
+            arrays = dict(zip(names, images), **{f"case{i}/seg{suffix}": label})
+            for job in [pool.submit(save_nifti, root / n, a, np.asarray(WORKFLOW_AFFINE)) for n, a in arrays.items()]:
+                job.result()
+            item = {"id": f"case{i}", "image": names, "label": f"case{i}/seg{suffix}", "fold": 0 if i == 0 else 1}
+            return t1 - t0, time.perf_counter() - t1, item
+
+        suffix = ".nii.gz"
+        with ThreadPoolExecutor(workers) as pool:  # zlib and the file writes release the GIL
+            made = [write_case(0, suffix, pool)]
+            if made[0][1] * n_cases > 10.0:
+                print(f"[workflow] .nii.gz: the first case took {made[0][1]:.2f} s to write, {made[0][1] * n_cases:.1f} s "
+                      "projected for all: writing .nii instead")
+                for p in (root / "case0").iterdir():
+                    p.unlink()
+                suffix = ".nii"
+                made = [write_case(0, suffix, pool)]
+            made += [write_case(i, suffix, pool) for i in range(1, n_cases)]
+        gen_s, write_s = sum(m[0] for m in made), sum(m[1] for m in made)
+        items = [m[2] for m in made]
+        size_mb = sum(p.stat().st_size for p in root.rglob(f"*{suffix}")) / 1e6
+        (root / "datalist.json").write_text(json.dumps({"training": items}))
+        print(f"[workflow] data: {n_cases} synthetic BraTS-native cases, 4 x {shape} float32 + a uint8 label each, "
+              f"{suffix} ({size_mb:.1f} MB), made in {gen_s:.2f} s and written in {write_s:.2f} s (timed apart from the epochs); "
+              f"native NIfTI decoder: {native_available()}; cpu count {os.cpu_count()}, loader workers {workers} (threads)")
+
+        train_items = load_decathlon_datalist(root / "datalist.json", "training", fold=0, base_dir=root)
+        val_items = load_decathlon_datalist(root / "datalist.json", "validation", fold=0, base_dir=root)
+        deterministic, augment = brats23_transforms(roi)
+        augment.set_random_state(seed)
+        train_loader = DataLoader(Dataset(train_items, Compose(deterministic.transforms + augment.transforms)),
+                                  batch_size=2, shuffle=True, num_workers=workers, drop_last=True, seed=seed)
+        val_loader = DataLoader(Dataset(val_items, deterministic), batch_size=1, num_workers=workers)
+        ckpt_dir = str(root / "ckpt")
+
+        def counted(trainer, record: list) -> None:
+            """Check each step's launches, and keep the first step's batch and loss."""
+            step = trainer.train_step
+
+            def counted_step(state, batch):
+                before = read_counters(counters)
+                state, metrics = step(state, batch)
+                made = {k: v - before[k] for k, v in read_counters(counters).items()}
+                check(made == per_step, f"workflow step {state.step}: launches {made}, expected {per_step}")
+                if not record:
+                    record.append(({k: v.clone() for k, v in batch.items()}, metrics["loss"].clone()))
+                return state, metrics
+
+            trainer.train_step = counted_step
+
+        validation = {}
+
+        def timed_validation(trainer) -> None:
+            """Launches of the validation, and the sliding window's own seconds and volume shape."""
+            validate, inferer = trainer.validate, trainer._inferer
+
+            def timed_inferer(images, predictor, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = inferer(images, predictor, **kw)
+                torch.cuda.synchronize()
+                validation.setdefault("infer_s", []).append(time.perf_counter() - t0)
+                validation["shape"] = tuple(images.shape)
+                return out
+
+            def counted_validate():
+                before = read_counters(counters)
+                out = validate()
+                validation["launches"] = {k: v - before[k] for k, v in read_counters(counters).items()}
+                return out
+
+            trainer._inferer, trainer.validate = timed_inferer, counted_validate
+
+        model = brats23_network(generator=torch.Generator().manual_seed(0))
+        initial = {k: v.clone() for k, v in model.state_dict().items()}
+        trainer = SegmentationTrainer(model, train_loader, val_loader, max_epochs=3, val_interval=3, roi_size=roi,
+                                      sw_batch_size=2, overlap=0.5, ckpt_dir=ckpt_dir, seed=seed, **settings)
+        first: list = []
+        counted(trainer, first)
+        timed_validation(trainer)
+        t0 = time.perf_counter()
+        state = trainer.run()
+        run_s = time.perf_counter() - t0
+        check(state.step == 6 and [r["epoch"] for r in trainer.history] == [0, 1, 2],
+              f"workflow: {state.step} steps, epochs {[r['epoch'] for r in trainer.history]}")
+        check(trainer.ckpt.latest_step() == 3, f"workflow: latest checkpoint {trainer.ckpt.latest_step()}")
+        losses = [r["loss"] for r in trainer.history]
+        dice = trainer.history[-1]["mean_dice"]
+        check(all(map(math.isfinite, losses)) and math.isfinite(dice) and 0.0 <= dice <= 1.0,
+              f"workflow: losses {losses}, mean dice {dice}")
+
+        # The validation volume: its windows, launches and seconds.
+        n_windows = len(sliding_window_positions(validation["shape"][2:], roi, 0.5))
+        forwards = -(-n_windows // 2)
+        expected_val = {k: forwards * v for k, v in {"windowed_nmf_factors": N_BLOCKS, "windowed_nmf_reconstruct": N_BLOCKS,
+                                                     "prenorm_mlp": N_BLOCKS}.items()}
+        expected_val = {k: expected_val.get(k, 0) for k in counters}
+        slice_volume = -(-len(sliding_window_positions(shape, roi, 0.5)) // 2) * N_BLOCKS
+        check(validation["launches"] == expected_val, f"workflow validation: launches {validation['launches']}, expected {expected_val}")
+        check(expected_val["windowed_nmf_factors"] == slice_volume,
+              f"workflow validation: {expected_val['windowed_nmf_factors']} K1 launches, a [slice] volume has {slice_volume}")
+
+        # The loop's first step against make_train_step on the same batch from a copy of the same initial weights.
+        batch, loop_loss = first[0]
+        ref_model = brats23_network(generator=torch.Generator().manual_seed(0))
+        ref_model.load_state_dict(initial)
+        ref_state = create_train_state(ref_model, lr=settings["lr"], weight_decay=settings["weight_decay"])
+        _, ref_metrics = make_train_step(ref_model)(ref_state, batch)
+        ref_loss, got_loss = ref_metrics["loss"].item(), loop_loss.item()
+        loss_rel = abs(got_loss - ref_loss) / abs(ref_loss)
+        same_bits = got_loss == ref_loss
+        check(same_bits or loss_rel <= 1e-6, f"workflow: the loop's first loss {got_loss!r} differs from make_train_step's {ref_loss!r}")
+        check(batch["label"].dtype == torch.uint8 and batch["image"].dtype == torch.float32,
+              f"workflow: the batch reached the card as {batch['image'].dtype} / {batch['label'].dtype}")
+        del ref_model, ref_state, ref_metrics, batch, first
+
+        saved_model = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+        saved_opt = [(k, v.clone()) for s in trainer.state.optimizer.state_dict()["state"].values() for k, v in s.items()]
+        timings, history, ckpt_timings = trainer.timings, trainer.history, trainer.ckpt.timings
+        del trainer, state, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # The resume: another model from another seed, the same directory, one more epoch.
+        resumed = SegmentationTrainer(brats23_network(generator=torch.Generator().manual_seed(1)), train_loader, val_loader,
+                                      max_epochs=4, val_interval=3, roi_size=roi, sw_batch_size=2, overlap=0.5,
+                                      ckpt_dir=ckpt_dir, seed=seed, **settings)
+        t0 = time.perf_counter()
+        resumed.initialize()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(resumed.state.step == 6, f"workflow resume: restored step {resumed.state.step}, expected 6")
+        unequal = [k for k, v in resumed.model.state_dict().items() if not torch.equal(v, saved_model[k])]
+        restored_opt = [(k, v) for s in resumed.state.optimizer.state_dict()["state"].values() for k, v in s.items()]
+        opt_equal = len(restored_opt) == len(saved_opt) and all(
+            k == k2 and torch.equal(v.to(v2.device), v2) for (k, v), (k2, v2) in zip(restored_opt, saved_opt))
+        check(not unequal and opt_equal, f"workflow resume: restored state differs: {unequal[:5]}, optimizer equal {opt_equal}")
+        check(resumed.best_metric == dice, f"workflow resume: best mean dice {resumed.best_metric}, saved {dice}")
+        counted(resumed, [])
+        resumed.run()
+        check(resumed.state.step == 8 and [r["epoch"] for r in resumed.history] == [3],
+              f"workflow resume: ended at step {resumed.state.step}, epochs {[r['epoch'] for r in resumed.history]}")
+        timings, history = timings + resumed.timings, history + resumed.history
+        ckpt_timings = ckpt_timings + resumed.ckpt.timings
+        peak = torch.cuda.max_memory_allocated(dev)
+        del resumed, saved_model, saved_opt, restored_opt
+        train_loader.close()
+        val_loader.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for t, h in zip(timings, history):
+        steps = t["steps"]
+        ckpt = next(c for c in ckpt_timings if c["step"] == t["epoch"] + 1)
+        line = (f"[workflow] epoch {t['epoch'] + 1}: {h['time_s']:.3f} s (loss {h['loss']:.6f}), {steps} steps x "
+                f"{t['step_device_s'] / steps:.4f} s/step on the card (CUDA events) = {t['step_device_s']:.3f} s; loader wait "
+                f"{t['loader_wait_s']:.3f} s = {t['loader_wait_s'] / steps:.3f} s per step; checkpoint {ckpt['blocking_s']:.3f} s "
+                f"blocking + {ckpt['background_s']:.3f} s in the background")
+        if "val_s" in t:
+            line += f"; validation {t['val_s']:.3f} s"
+        print(line + (" (the first epoch: cuDNN's algorithm search and the first loads)" if t["epoch"] == 0 else ""))
+    later = [h["time_s"] for t, h in zip(timings, history) if t["epoch"] > 0]
+    later_steps = sum(t["step_device_s"] for t in timings if t["epoch"] > 0) / len(later)
+    print(f"[workflow] s/epoch after the first {statistics.mean(later):.3f} against steps x s/step {later_steps:.3f} "
+          f"(loader wait {statistics.mean(t['loader_wait_s'] for t in timings if t['epoch'] > 0):.3f} s an epoch); "
+          f"3-epoch run {run_s:.1f} s")
+    print(f"[workflow] validation: volume {validation['shape']} after the deterministic transforms, {n_windows} windows, "
+          f"{validation['infer_s'][0]:.3f} s/volume in the sliding window, mean Dice {dice:.4f}, launches "
+          f"{ {k: v for k, v in expected_val.items() if v} } (a [slice] volume's: {slice_volume} each)")
+    print(f"[workflow] first step: the loop's loss {got_loss!r}, make_train_step's on the same batch from the same weights "
+          f"{ref_loss!r}: " + ("equal bit for bit" if same_bits else f"rel {loss_rel:.2e} (tol 1e-6; cuDNN chose another algorithm)"))
+    print(f"[workflow] resume: restored step 6 in {restore_s:.3f} s, epoch 4 from epoch 3, state_dict and AdamW state equal bit "
+          f"for bit, best mean Dice recovered, ended at step 8; launches per step { {k: v for k, v in per_step.items() if v} }; "
+          f"peak memory {peak / 2**30:.2f} GiB")
+    reset_counters(counters)
 
 
 def main() -> None:
@@ -1769,6 +2026,9 @@ def main() -> None:
         train_launches[k] += v
     gc.collect()
     torch.cuda.empty_cache()
+
+    # 22. the training workflow from NIfTI files; its launches are checked there and left out of the kernels line.
+    workflow_slice(wrappers)
 
     sources = {
         "windowed_nmf_factors": ("factorizer_tpu_torch/csrc/windowed_nmf.cu",

@@ -1,0 +1,437 @@
+"""High-level training and evaluation loops.
+
+PyTorch counterpart of ``factorizer_tpu/train/loop.py``: the replacement for
+ignite's ``SupervisedTrainer`` / ``SupervisedEvaluator`` / ``EnsembleEvaluator``
+and their handlers (reference: model_zoo/factorizer_brats23/configs/train.yaml:302-384,
+inference.yaml:107-161).  An epoch loop over the train step, sliding-window
+validation with Dice and HD95 every ``val_interval`` epochs, checkpoints with
+resume, console and TensorBoard logging, and the mean of k fold checkpoints at
+inference.
+
+The loaders hand over numpy batches; the trainer moves each to the card
+itself, from pinned host memory on a copy stream of its own, so that the copy
+of one batch overlaps the step before it.  Labels travel as the loader's
+integers (uint8) and images in the model's compute dtype; the losses stay on
+the card and are read once an epoch.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import time
+from pathlib import Path
+from typing import Any, Callable, Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..utils.helpers import resolve_device
+from .checkpoint import CheckpointManager
+from .metrics import MeanDice, MeanHausdorffDistance, dice_metric, voxel_spacing_from_meta
+from .sliding_window import SlidingWindowInfererAdapt
+from .trainer import TrainState, create_train_state, make_train_step
+
+logger = logging.getLogger("factorizer_tpu_torch")
+
+__all__ = ["SegmentationTrainer", "Evaluator", "EnsembleEvaluator"]
+
+
+def _model_input_dtype(model: nn.Module) -> Optional[torch.dtype]:
+    """The dtype a float32 image travels to the card in: the stem's compute dtype under amp, else None.
+
+    The stem's first operation casts its input to that dtype, so casting on
+    the host first gives the same bits and moves half the bytes in bf16.
+    """
+    dtype = getattr(getattr(model, "stem", None), "dtype", None)
+    return dtype if isinstance(dtype, torch.dtype) else None
+
+
+def _upload(array, device: torch.device, dtype: Optional[torch.dtype] = None,
+            stream: Optional[torch.cuda.Stream] = None) -> torch.Tensor:
+    """A numpy array (or tensor) on ``device``, cast to ``dtype`` on the host first.
+
+    To the card the copy is made from pinned memory without blocking, on
+    ``stream`` when one is given; the caller makes its stream wait for it.
+    """
+    t = torch.as_tensor(array)
+    if dtype is not None and t.dtype != dtype:
+        t = t.to(dtype)
+    if t.device == device:
+        return t
+    if device.type != "cuda" or t.device.type != "cpu":
+        return t.to(device)
+    with torch.cuda.stream(stream) if stream is not None else torch.cuda.device(device):
+        return t.pin_memory().to(device, non_blocking=True)
+
+
+def _first(out):
+    """The full-resolution logits of a deep-supervision pyramid, or the logits."""
+    return out[0] if isinstance(out, (list, tuple)) else out
+
+
+def _tensorboard_writer(log_dir: Path):
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        return None
+    return SummaryWriter(str(log_dir))
+
+
+class SegmentationTrainer:
+    """Supervised segmentation training with periodic validation.
+
+    Args:
+        model: the network, a module (moved to ``device``) with ``forward(x)``.
+        train_loader / val_loader: iterables of ``{"image", "label"}`` numpy
+            batches, channels first.
+        max_epochs, val_interval: the loop's schedule (reference defaults 300 / 20).
+        lr, weight_decay, warmup_epochs: AdamW with a warm-up-cosine schedule
+            over ``warmup_epochs`` and ``max_epochs`` epochs of steps.
+        roi_size, sw_batch_size, overlap: the validation's sliding window.
+        ckpt_dir: checkpoint directory; a run resumes from its latest checkpoint.
+        log_dir: where ``history.jsonl`` and, if ``torch.utils.tensorboard``
+            imports, the TensorBoard events go.
+        ckpt_best: keep the ``max_to_keep`` checkpoints with the highest
+            validation mean Dice instead of the latest (saves then happen only
+            on validated epochs); a resume restarts from the best kept step.
+        loss_fn: optional override of the DiceCE default.
+        seed: seeds torch's generators (dropout) when :meth:`run` starts,
+            folded with the step it starts from, so a resumed run draws on
+            instead of replaying its first epochs.
+        accum_steps: micro-batches a step (see ``make_train_step``).
+        device: where the model trains; None is the card (raises without one),
+            ``"cpu"`` runs on the CPU.
+
+    ``mesh``, ``model_axis``, ``shard_spatial`` and ``tp_min_weight_size`` are
+    the JAX trainer's sharded training: a ``mesh`` is not taken here yet, and
+    the other three (weight tensor parallelism) have no counterpart.  Left at
+    their defaults they are accepted; set, they raise ``NotImplementedError``.
+    """
+
+    def __init__(
+        self,
+        model: nn.Module,
+        train_loader,
+        val_loader=None,
+        max_epochs: int = 300,
+        val_interval: int = 20,
+        lr: float = 1e-3,
+        weight_decay: float = 1e-2,
+        warmup_epochs: int = 5,
+        roi_size: Sequence[int] = (128, 128, 128),
+        sw_batch_size: int = 2,
+        overlap: float = 0.5,
+        ckpt_dir: Optional[str] = None,
+        log_dir: Optional[str] = None,
+        loss_fn: Optional[Callable] = None,
+        mesh=None,
+        seed: int = 123,
+        compute_hd95: bool = False,
+        max_to_keep: int = 1,
+        ckpt_best: bool = False,
+        accum_steps: int = 1,
+        model_axis: Optional[str] = None,
+        shard_spatial: bool = False,
+        tp_min_weight_size: int = 2**14,
+        device=None,
+    ) -> None:
+        unsupported = {"mesh": mesh is not None, "model_axis": model_axis is not None,
+                       "shard_spatial": bool(shard_spatial), "tp_min_weight_size": tp_min_weight_size != 2**14}
+        for name, is_set in unsupported.items():
+            if is_set:
+                raise NotImplementedError(f"SegmentationTrainer: {name} is not supported by the port")
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.train_loader = train_loader
+        self.val_loader = val_loader
+        self.max_epochs = max_epochs
+        self.val_interval = val_interval
+        self.roi_size = tuple(roi_size)
+        self.sw_batch_size = sw_batch_size
+        self.overlap = overlap
+        self.seed = seed
+        self.compute_hd95 = compute_hd95
+        self._input_dtype = _model_input_dtype(self.model)
+        # Validation inferer with out-of-memory degradation (reference train.yaml:206-212
+        # uses SlidingWindowInfererAdapt); its rung holds across validations.
+        self._inferer = SlidingWindowInfererAdapt(self.roi_size, sw_batch_size=sw_batch_size, overlap=overlap)
+
+        steps_per_epoch = max(len(train_loader), 1)
+        self._optimizer_settings = dict(
+            lr=lr, weight_decay=weight_decay,
+            warmup_steps=warmup_epochs * steps_per_epoch, total_steps=max_epochs * steps_per_epoch,
+        )
+        self.train_step = make_train_step(self.model, loss_fn=loss_fn, accum_steps=accum_steps)
+        self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+
+        self._ckpt_best = bool(ckpt_best and val_loader is not None)
+        self.ckpt = (
+            CheckpointManager(ckpt_dir, max_to_keep=max_to_keep,
+                              best_metric_key="mean_dice" if self._ckpt_best else None)
+            if ckpt_dir else None
+        )
+        self.log_dir = Path(log_dir) if log_dir else None
+        self._tb = None
+        if self.log_dir:
+            self.log_dir.mkdir(parents=True, exist_ok=True)
+            self._tb = _tensorboard_writer(self.log_dir)
+
+        self.state: Optional[TrainState] = None
+        self.history: list[dict] = []
+        # Per epoch: seconds waiting on the loader, the steps' device seconds
+        # (CUDA events; None on the CPU), validation and checkpoint seconds.
+        self.timings: list[dict] = []
+        self.best_metric = -float("inf")
+
+    # -- lifecycle
+
+    def initialize(self) -> TrainState:
+        """Build the train state (AdamW, schedule) and resume from the latest checkpoint, if there is one."""
+        self.state = create_train_state(self.model, device=self.device, **self._optimizer_settings)
+        logger.info("model parameters: %.2fM", sum(p.numel() for p in self.model.parameters()) / 1e6)
+        if self.ckpt is not None and self.ckpt.latest_step() is not None:
+            self.ckpt.restore(template=self.state)
+            # The best-validation watermark, so that the first validation after
+            # the resume does not count as a new best.
+            saved_best = self.ckpt.best_saved_metric("mean_dice")
+            if saved_best is not None:
+                self.best_metric = saved_best
+            logger.info("resumed from checkpoint step %s (best mean_dice %s)", self.state.step, saved_best)
+        return self.state
+
+    def _device_batch(self, batch: dict) -> dict:
+        """A numpy batch on the device: images in the model's input dtype, integer labels as they are.
+
+        One-hot labels travel as the loader's uint8 (the loss casts them on the
+        device, exactly), a quarter of the bytes of float32.
+        """
+        label = np.asarray(batch["label"])
+        if not np.issubdtype(label.dtype, np.integer):
+            label = np.asarray(label, np.float32)
+        out = {"image": _upload(batch["image"], self.device, self._input_dtype, self._copy_stream),
+               "label": _upload(label, self.device, None, self._copy_stream)}
+        if self._copy_stream is not None:
+            main = torch.cuda.current_stream(self.device)
+            main.wait_stream(self._copy_stream)
+            for t in out.values():
+                t.record_stream(main)  # the copy stream may not reuse the memory before the step is done with it
+        return out
+
+    def _log(self, tag: str, value: float, step: int) -> None:
+        if self._tb is not None:
+            self._tb.add_scalar(tag, value, step)
+
+    def _predict(self, windows: torch.Tensor) -> torch.Tensor:
+        return _first(self.model(windows))
+
+    # -- validation
+
+    @torch.inference_mode()
+    def validate(self) -> dict:
+        assert self.state is not None
+        self.model.eval()
+        dice = MeanDice()
+        hd = MeanHausdorffDistance() if self.compute_hd95 else None
+        logged_images = False
+        for batch in self.val_loader:
+            images = _upload(batch["image"], self.device, self._input_dtype)
+            labels = np.asarray(batch["label"])
+            logits = self._inferer(images, self._predict)
+            # sigmoid(x) > 0.5 is x > 0: threshold on the card, fetch uint8.
+            preds = (logits > 0).to(torch.uint8).cpu().numpy()
+            dice.update(preds, labels)
+            if hd is not None:
+                metas = batch.get("image_meta")
+                hd.update(preds, labels, spacing=voxel_spacing_from_meta(metas[0]) if metas else None)
+            if not logged_images and self._tb is not None:
+                # TensorBoardImageHandler analogue (reference train.yaml:296-300).
+                from .observability import log_validation_images
+
+                log_validation_images(self._tb, images.float().cpu().numpy(), labels, preds, step=self.state.step)
+                logged_images = True
+        out = {"mean_dice": dice.compute()}
+        for c, v in enumerate(dice.compute_per_channel()):
+            out[f"dice_ch{c}"] = float(v)
+        if hd is not None:
+            out["hd95"] = hd.compute()
+        return out
+
+    # -- main loop
+
+    def run(self) -> TrainState:
+        if self.state is None:
+            self.initialize()
+        state = self.state
+        steps_per_epoch = max(len(self.train_loader), 1)
+        start_epoch = state.step // steps_per_epoch  # resume at the epoch the restored step implies
+        torch.manual_seed(self.seed + 1 + state.step)
+        on_card = self.device.type == "cuda"
+        if on_card:
+            # cuDNN times its algorithms per shape, as suits a run of fixed shapes: without it
+            # the stem's float32 weight gradient takes a 92 ms kernel.
+            torch.backends.cudnn.benchmark = True
+        for epoch in range(start_epoch, self.max_epochs):
+            if hasattr(self.train_loader, "set_epoch"):
+                self.train_loader.set_epoch(epoch)
+            t0 = time.time()
+            losses, events = [], []
+            loader_wait = 0.0
+            batches = iter(self.train_loader)
+            while True:
+                t_wait = time.perf_counter()
+                batch = next(batches, None)
+                loader_wait += time.perf_counter() - t_wait
+                if batch is None:
+                    break
+                batch = self._device_batch(batch)
+                if on_card:
+                    events.append((torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)))
+                    events[-1][0].record()
+                state, metrics = self.train_step(state, batch)
+                if on_card:
+                    events[-1][1].record()
+                losses.append(metrics["loss"])
+            self.state = state
+            epoch_loss = float(torch.stack(losses).mean()) if losses else float("nan")
+            dt = time.time() - t0
+            timing = {"epoch": epoch, "steps": len(losses), "loader_wait_s": loader_wait,
+                      "step_device_s": sum(a.elapsed_time(b) for a, b in events) / 1e3 if on_card else None}
+            logger.info("epoch %d/%d loss=%.4f (%.1fs)", epoch + 1, self.max_epochs, epoch_loss, dt)
+            self._log("train/loss", epoch_loss, epoch)
+
+            record = {"epoch": epoch, "loss": epoch_loss, "time_s": dt}
+
+            val_metrics = None
+            if self.val_loader is not None and self.val_interval and (epoch + 1) % self.val_interval == 0:
+                t_val = time.perf_counter()
+                val_metrics = self.validate()
+                timing["val_s"] = time.perf_counter() - t_val
+                record.update(val_metrics)
+                logger.info("validation @ epoch %d: %s", epoch + 1, val_metrics)
+                for k, v in val_metrics.items():
+                    self._log(f"val/{k}", v, epoch)
+                if val_metrics["mean_dice"] > self.best_metric:
+                    self.best_metric = val_metrics["mean_dice"]
+
+            if self.ckpt is not None:
+                # The write overlaps the next epoch; the tensors are on the host before save() returns.
+                metrics = {"mean_dice": float(val_metrics["mean_dice"])} if val_metrics is not None else None
+                if not self._ckpt_best or val_metrics is not None:
+                    # Best-by-metric retention saves only validated epochs; latest
+                    # retention saves every epoch and still records the metric, so
+                    # that best_metric survives a resume.
+                    self.ckpt.save(epoch + 1, state, metrics=metrics, block=False)
+                    timing["ckpt_blocking_s"] = self.ckpt.timings[-1]["blocking_s"]
+
+            self.history.append(record)
+            self.timings.append(timing)
+            if self.log_dir:
+                with (self.log_dir / "history.jsonl").open("a") as f:
+                    f.write(json.dumps(record) + "\n")
+
+        if self.ckpt is not None:
+            self.ckpt.wait()  # the last epoch's save is on disk before this returns
+        if self._tb is not None:
+            self._tb.flush()
+        return state
+
+
+class Evaluator:
+    """Sliding-window evaluation of one model over a loader.
+
+    ``variables`` are the weights to evaluate: a ``state_dict``, a checkpoint
+    as :func:`~.checkpoint.load_checkpoints` returns it (its ``"model"``), or
+    None for the model's own.  They are applied with ``torch.func.functional_call``,
+    as the JAX evaluator applies its variables, so ``model`` itself is not
+    changed and several evaluators can share one.
+    """
+
+    def __init__(
+        self,
+        model: nn.Module,
+        variables: Optional[dict] = None,
+        roi_size: Sequence[int] = (128, 128, 128),
+        sw_batch_size: int = 2,
+        overlap: float = 0.5,
+        compute_hd95: bool = True,
+        postprocess: Optional[Callable] = None,
+        device=None,
+    ) -> None:
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        if variables is not None and "model" in variables and "optimizer" in variables:
+            variables = variables["model"]
+        self.variables = None if variables is None else {k: v.to(self.device) for k, v in variables.items()}
+        self.roi_size = tuple(roi_size)
+        self.sw_batch_size = sw_batch_size
+        self.overlap = overlap
+        self.compute_hd95 = compute_hd95
+        self.postprocess = postprocess
+        self._input_dtype = _model_input_dtype(self.model)
+        self._inferer = SlidingWindowInfererAdapt(self.roi_size, sw_batch_size=sw_batch_size, overlap=overlap)
+
+    def _apply(self, windows: torch.Tensor) -> torch.Tensor:
+        if self.variables is None:
+            return _first(self.model(windows))
+        return _first(torch.func.functional_call(self.model, self.variables, (windows,)))
+
+    @torch.inference_mode()
+    def predict(self, images) -> torch.Tensor:
+        """Blended float32 logits ``(B, C_out, *S)`` on the device."""
+        self.model.eval()
+        return self._inferer(_upload(images, self.device, self._input_dtype), self._apply)
+
+    def predict_mask(self, images) -> np.ndarray:
+        """Sliding-window inference thresholded on the device (logits > 0), fetched as uint8."""
+        return (self.predict(images) > 0).to(torch.uint8).cpu().numpy()
+
+    def run(self, loader, save_case_metrics: Optional[str] = None) -> dict:
+        dice = MeanDice()
+        hd = MeanHausdorffDistance() if self.compute_hd95 else None
+        cases = []
+        for batch in loader:
+            preds = self.predict_mask(batch["image"])
+            labels = np.asarray(batch["label"])
+            dice.update(preds, labels)
+            if hd is not None:
+                metas = batch.get("image_meta")
+                hd.update(preds, labels, spacing=voxel_spacing_from_meta(metas[0]) if metas else None)
+            case_dice = np.nanmean(np.asarray(dice_metric(preds, labels)))
+            cases.append({"id": batch.get("id", [None])[0], "dice": float(case_dice)})
+        out = {"mean_dice": dice.compute()}
+        if hd is not None:
+            out["hd95"] = hd.compute()
+        if save_case_metrics:
+            Path(save_case_metrics).parent.mkdir(parents=True, exist_ok=True)
+            with open(save_case_metrics, "w") as f:
+                json.dump(cases, f, indent=2)
+        return out
+
+
+class EnsembleEvaluator:
+    """Mean ensemble of k fold checkpoints (reference: inference.yaml:107-152)."""
+
+    def __init__(
+        self,
+        model: nn.Module,
+        variables_list: Sequence[Any],
+        roi_size: Sequence[int] = (128, 128, 128),
+        sw_batch_size: int = 2,
+        overlap: float = 0.5,
+        device=None,
+    ) -> None:
+        self.evaluators = [
+            Evaluator(model, v, roi_size, sw_batch_size, overlap, compute_hd95=False, device=device)
+            for v in variables_list
+        ]
+
+    @torch.inference_mode()
+    def predict(self, images) -> np.ndarray:
+        """The mean over the fold models of their sigmoid probabilities, on the host."""
+        probs = None
+        for ev in self.evaluators:
+            p = torch.sigmoid(ev.predict(images))
+            probs = p if probs is None else probs + p
+        return (probs / len(self.evaluators)).cpu().numpy()

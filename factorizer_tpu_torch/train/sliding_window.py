@@ -6,20 +6,27 @@ and ``sliding_window_inference`` in ``factorizer_tpu/train/sliding_window.py``
 a gaussian importance map).  The window starts are computed on the host; a
 host loop over groups of ``sw_batch_size`` windows gathers each group from
 the padded volume, predicts, and blend-accumulates into float32 sums on the
-volume's device.
+volume's device, or with ``stitch_on_host`` into numpy sums on the host.
+
+:class:`SlidingWindowInfererAdapt` is the counterpart of the JAX package's
+class of that name (MONAI's ``SlidingWindowInfererAdapt``, the bundles'
+validation inferer): on the card's out-of-memory error it steps down from
+device sums to host sums, then halves ``sw_batch_size`` down to 1.  Every rung
+runs the predictor on the volume's device; only the blending moves.
 """
 
 from __future__ import annotations
 
 import itertools
 import math
-from typing import Callable, Sequence
+import warnings
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["compute_importance_map", "sliding_window_positions", "sliding_window_inference"]
+__all__ = ["compute_importance_map", "sliding_window_positions", "sliding_window_inference", "SlidingWindowInfererAdapt"]
 
 
 def compute_importance_map(roi_size: Sequence[int], mode: str = "gaussian", sigma_scale: float = 0.125) -> np.ndarray:
@@ -59,20 +66,29 @@ def sliding_window_positions(
 def sliding_window_inference(
     inputs: torch.Tensor,
     roi_size: Sequence[int],
-    predictor: Callable[[torch.Tensor], torch.Tensor],
+    predictor: Callable[..., torch.Tensor],
     sw_batch_size: int = 4,
     overlap: float = 0.5,
     mode: str = "gaussian",
     pad_value: float = 0.0,
+    predictor_args: Sequence[Any] = (),
+    stitch_on_host: bool = False,
 ) -> torch.Tensor:
     """Run ``predictor`` over overlapping windows of ``inputs (B, C, *S)``, blended by
     :func:`compute_importance_map` in ``mode`` (``"gaussian"`` or ``"constant"``).
 
-    ``predictor`` maps ``(n, C, *roi)`` to ``(n, C_out, *roi)``.  A volume
-    smaller than the roi is padded up to it with ``pad_value``.  The last
-    group is filled up by repeating its final window, whose extra predictions
-    are dropped, so every call sees ``sw_batch_size`` windows.  Returns the
-    blended float32 ``(B, C_out, *S)``.
+    ``predictor(windows, *predictor_args)`` maps ``(n, C, *roi)`` to
+    ``(n, C_out, *roi)``.  A volume smaller than the roi is padded up to it
+    with ``pad_value``.  The last group is filled up by repeating its final
+    window, whose extra predictions are dropped, so every call sees
+    ``sw_batch_size`` windows.  Returns the blended float32 ``(B, C_out, *S)``
+    on the device of ``inputs``.
+
+    ``stitch_on_host`` keeps the two blending sums in host memory: each
+    group's predictions are copied to the host and added there, so the device
+    holds the padded input and one group's windows instead of two more
+    float32 volumes.  Either way the sums take the same float32 operations in
+    the same order.
     """
     batch, _, *spatial = inputs.shape
     roi = tuple(roi_size)
@@ -82,7 +98,8 @@ def sliding_window_inference(
     padded = F.pad(inputs, pad, value=pad_value)
     pspatial = padded.shape[2:]
 
-    importance = torch.from_numpy(compute_importance_map(roi, mode)).to(inputs.device)
+    importance_np = compute_importance_map(roi, mode)
+    importance = importance_np if stitch_on_host else torch.from_numpy(importance_np).to(inputs.device)
     jobs = [(b, *pos) for b in range(batch) for pos in sliding_window_positions(pspatial, roi, overlap)]
     out_sum = weight_sum = None
     for g0 in range(0, len(jobs), sw_batch_size):
@@ -92,13 +109,67 @@ def sliding_window_inference(
         windows = torch.stack(
             [padded[(b, slice(None), *(slice(s, s + r) for s, r in zip(start, roi)))] for b, *start in group]
         )
-        preds = predictor(windows)
+        preds = predictor(windows, *predictor_args).float()
+        if stitch_on_host:
+            preds = preds.cpu().numpy()
         if out_sum is None:
-            out_sum = torch.zeros((batch, preds.shape[1], *pspatial), dtype=torch.float32, device=inputs.device)
-            weight_sum = torch.zeros((batch, 1, *pspatial), dtype=torch.float32, device=inputs.device)
+            shape = (batch, preds.shape[1], *pspatial), (batch, 1, *pspatial)
+            if stitch_on_host:
+                out_sum, weight_sum = (np.zeros(sh, np.float32) for sh in shape)
+            else:
+                out_sum, weight_sum = (torch.zeros(sh, dtype=torch.float32, device=inputs.device) for sh in shape)
         for j, (b, *start) in enumerate(group[:n_valid]):
             win = tuple(slice(s, s + r) for s, r in zip(start, roi))
-            out_sum[(b, slice(None), *win)] += preds[j].float() * importance
+            out_sum[(b, slice(None), *win)] += preds[j] * importance
             weight_sum[(b, slice(None), *win)] += importance
-    result = out_sum / weight_sum.clamp_min(1e-8)
+    if stitch_on_host:
+        result = torch.from_numpy(out_sum / np.maximum(weight_sum, np.float32(1e-8))).to(inputs.device)
+    else:
+        result = out_sum / weight_sum.clamp_min(1e-8)
     return result[(slice(None), slice(None), *(slice(0, s) for s in spatial))]
+
+
+class SlidingWindowInfererAdapt:
+    """Sliding-window inference that steps down on the card's out-of-memory error.
+
+    The rungs, tried in turn from where the last call ended:
+
+    1. blending sums on the volume's device (:func:`sliding_window_inference`);
+    2. blending sums on the host (``stitch_on_host``): one window group on the device;
+    3. host sums with ``sw_batch_size`` halved, again on each error, down to 1.
+
+    The rung reached is kept for later calls, so a long evaluation pays for
+    the failed attempts once.  Only ``torch.cuda.OutOfMemoryError`` moves it
+    down, with a warning; any other error, and the error at the last rung,
+    propagate.  The predictor runs on the volume's device at every rung.
+    """
+
+    def __init__(self, roi_size: Sequence[int], sw_batch_size: int = 4, overlap: float = 0.5,
+                 mode: str = "gaussian") -> None:
+        self.roi_size = tuple(roi_size)
+        self.sw_batch_size = sw_batch_size
+        self.overlap = overlap
+        self.mode = mode
+        self._stitch_on_host = False
+        self._sw_batch = sw_batch_size
+
+    def __call__(self, inputs: torch.Tensor, predictor: Callable[..., torch.Tensor],
+                 predictor_args: Sequence[Any] = (), **kw) -> torch.Tensor:
+        while True:
+            try:
+                return sliding_window_inference(
+                    inputs, self.roi_size, predictor, sw_batch_size=self._sw_batch, overlap=self.overlap,
+                    mode=self.mode, predictor_args=predictor_args, stitch_on_host=self._stitch_on_host, **kw,
+                )
+            except torch.cuda.OutOfMemoryError:
+                if self._stitch_on_host and self._sw_batch == 1:
+                    raise
+            # Out of the handler, so the failed attempt's tensors are free before the retry.
+            if inputs.is_cuda:
+                torch.cuda.empty_cache()
+            if not self._stitch_on_host:
+                self._stitch_on_host = True
+                warnings.warn("sliding-window inference ran out of device memory; retrying with host-stitched blending")
+            else:
+                self._sw_batch = max(1, self._sw_batch // 2)
+                warnings.warn(f"sliding-window inference ran out of device memory; retrying with sw_batch_size={self._sw_batch}")

@@ -6,8 +6,9 @@ The two Factorizer factories pass ``rank`` and ``factorize_options`` through, as
 
 PyTorch counterpart of the model half of ``ensemble_inference`` in
 ``factorizer_tpu/zoo_scripts.py``: sliding-window logits per fold model, the
-mean of their sigmoids, and a threshold at 0.5.  NIfTI IO, the preprocessing
-transforms and the ``SegmentationTrainer`` workflow are not ported yet.
+mean of their sigmoids, and a threshold at 0.5.  ``brats23_transforms`` builds
+the ``factorizer_brats23`` bundle's preprocessing from ``data.transforms`` (the
+bundle config parser is not ported yet).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from .data import transforms as T
 from .layers.basic import InstanceNorm
 from .models.deconver import Deconver
 from .models.factorizer import Factorizer
@@ -23,7 +25,7 @@ from .ops.reshape import SWMatricize
 from .train.sliding_window import sliding_window_inference
 from .utils.helpers import resolve_device
 
-__all__ = ["brats23_network", "brats23_optimizer_settings", "factorizer_isles22_network", "deconver_brats23_network",
+__all__ = ["brats23_network", "brats23_optimizer_settings", "brats23_transforms", "factorizer_isles22_network", "deconver_brats23_network",
            "deconver_isles22_network", "deconver_fives_network", "ensemble_predict"]
 
 
@@ -164,6 +166,42 @@ def brats23_optimizer_settings(steps_per_epoch: int) -> dict:
     """
     steps = max(steps_per_epoch, 1)
     return {"lr": 1e-4, "weight_decay": 1e-5, "warmup_steps": 5 * steps, "total_steps": 500 * steps}
+
+
+def brats23_transforms(roi_size: Sequence[int] = (128, 128, 128),
+                       pix_size: Sequence[float] = (1.0, 1.0, 1.0)) -> tuple[T.Compose, T.Compose]:
+    """The bundle's ``deterministic_transforms`` and ``random_transforms`` (train.yaml:49-108), as two
+    :class:`~.data.transforms.Compose`: training applies both in turn, validation the first.
+
+    Load the four modalities and the label, one-hot the BraTS regions, crop to
+    the foreground, orient to RAS, normalise the nonzero voxels per channel,
+    resample to ``pix_size`` and pad up to ``roi_size``; then a random
+    ``roi_size`` crop, affine, noise, smoothing, intensity scale and shift,
+    and flips on each axis.  The random tail draws from fresh entropy until
+    ``set_random_state`` seeds it.
+    """
+    keys = ["image", "label"]
+    deterministic = T.Compose([
+        T.LoadImaged(keys, ensure_channel_first=True),
+        T.BraTSOneHotEncoderd("label"),
+        T.CropForegroundd(keys, source_key="image", margin=10),
+        T.Orientationd(keys, axcodes="RAS"),
+        T.NormalizeIntensityd("image", nonzero=True, channel_wise=True),
+        T.Spacingd(keys, pixdim=list(pix_size), mode=["bilinear", "nearest"]),
+        T.EnsureTyped(keys, dtype=["float32", "uint8"]),
+        T.SpatialPadd(keys, spatial_size=list(roi_size)),
+    ])
+    augment = T.Compose([
+        T.RandSpatialCropd(keys, roi_size=list(roi_size)),
+        T.RandAffined(keys, prob=0.2, rotate_range=[0.26, 0.26, 0.26], scale_range=[0.2, 0.2, 0.2],
+                      mode=["bilinear", "nearest"], padding_mode="border"),
+        T.RandGaussianNoised("image", prob=0.2, mean=0.0, std=0.1),
+        T.RandGaussianSmoothd("image", prob=0.2, sigma_x=[0.5, 1.0], sigma_y=[0.5, 1.0], sigma_z=[0.5, 1.0]),
+        T.RandScaleIntensityd("image", prob=0.2, factors=0.3),
+        T.RandShiftIntensityd("image", prob=0.2, offsets=0.1),
+        *(T.RandFlipd(keys, prob=0.5, spatial_axis=axis) for axis in range(3)),
+    ])
+    return deterministic, augment
 
 
 @torch.inference_mode()

@@ -68,3 +68,96 @@ def test_ensemble_predict_matches_jax_composition():
     np.testing.assert_allclose(probs.numpy(), np.asarray(p_j), rtol=1e-6, atol=1e-6)
     assert mask.dtype == torch.uint8
     np.testing.assert_array_equal(mask.numpy(), (probs.numpy() > 0.5).astype(np.uint8))
+
+
+@pytest.mark.parametrize("shape,sw_batch", [((1, 2, 20, 18, 12), 3), ((2, 2, 6, 18, 12), 4)])
+def test_stitch_on_host_equals_device_sums(shape, sw_batch):
+    """Blending into host sums gives the device sums bit for bit (the same float32 operations in the same order);
+    ``predictor_args`` reach the predictor on both paths."""
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(shape).astype(np.float32))
+    scale = torch.tensor(1.5)
+
+    def predict(windows, s):
+        return _predict_torch(windows) * s
+
+    fused = sw_torch.sliding_window_inference(x, (8, 8, 8), predict, sw_batch_size=sw_batch, predictor_args=(scale,))
+    host = sw_torch.sliding_window_inference(x, (8, 8, 8), predict, sw_batch_size=sw_batch, predictor_args=(scale,),
+                                             stitch_on_host=True)
+    assert host.device == x.device and host.dtype == torch.float32
+    assert torch.equal(host, fused)
+    torch.testing.assert_close(fused, 1.5 * sw_torch.sliding_window_inference(x, (8, 8, 8), _predict_torch,
+                                                                              sw_batch_size=sw_batch), rtol=1e-6, atol=1e-6)
+
+
+def _out_of_memory_above(n):
+    """A predictor that raises the card's out-of-memory error for groups of more than ``n`` windows, and records
+    the group sizes it ran."""
+    calls = []
+
+    def predict(windows):
+        calls.append(windows.shape[0])
+        if windows.shape[0] > n:
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory. Tried to allocate 2.00 GiB")
+        return _predict_torch(windows)
+
+    return predict, calls
+
+
+def test_adapt_ladder_steps_down_on_out_of_memory():
+    """Fused -> host-stitched -> sw_batch halved: 4 windows fail twice (two warnings), then 2 run; the rung holds for
+    the next call (no warning), and the result is that rung's direct call."""
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((1, 2, 20, 18, 12)).astype(np.float32))
+    inferer = sw_torch.SlidingWindowInfererAdapt((8, 8, 8), sw_batch_size=4)
+    predict, calls = _out_of_memory_above(2)
+    with pytest.warns(UserWarning) as record:
+        out = inferer(x, predict)
+    assert [str(w.message) for w in record] == [
+        "sliding-window inference ran out of device memory; retrying with host-stitched blending",
+        "sliding-window inference ran out of device memory; retrying with sw_batch_size=2",
+    ]
+    assert calls[:2] == [4, 4] and set(calls[2:]) == {2}
+    assert inferer._stitch_on_host and inferer._sw_batch == 2
+    want = sw_torch.sliding_window_inference(x, (8, 8, 8), _predict_torch, sw_batch_size=2, stitch_on_host=True)
+    assert torch.equal(out, want)
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert torch.equal(inferer(x, predict), want)
+
+
+def test_adapt_ladder_matches_jax_rungs():
+    """The JAX inferer, failing on the same group sizes, ends on the same rung with the same blended output (1e-6)."""
+    x = np.random.default_rng(5).standard_normal((1, 2, 20, 18, 12)).astype(np.float32)
+
+    def predict_jax(windows):
+        if windows.shape[0] > 1:
+            raise RuntimeError("RESOURCE_EXHAUSTED: out of memory")
+        return _predict_jax(windows)
+
+    inferer_j = sw_jax.SlidingWindowInfererAdapt((8, 8, 8), sw_batch_size=4)
+    inferer_t = sw_torch.SlidingWindowInfererAdapt((8, 8, 8), sw_batch_size=4)
+    with pytest.warns(UserWarning):
+        y_j = inferer_j(jnp.asarray(x), predict_jax)
+    with pytest.warns(UserWarning):
+        y_t = inferer_t(torch.from_numpy(x), _out_of_memory_above(1)[0])
+    assert (inferer_t._stitch_on_host, inferer_t._sw_batch) == (inferer_j._stitch_on_host, inferer_j._sw_batch) == (True, 1)
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), rtol=1e-6, atol=1e-6)
+
+
+def test_adapt_ladder_reraises_other_errors_and_the_last_rung():
+    """Only the out-of-memory error moves the rung: any other error propagates at once, and out of memory at
+    sw_batch_size 1 on host sums propagates too."""
+    x = torch.zeros(1, 2, 8, 8, 8)
+    inferer = sw_torch.SlidingWindowInfererAdapt((8, 8, 8), sw_batch_size=2)
+
+    def broken(windows):
+        raise RuntimeError("CUDA error: an illegal memory access was encountered")
+
+    with pytest.raises(RuntimeError, match="illegal memory access"):
+        inferer(x, broken)
+    assert not inferer._stitch_on_host and inferer._sw_batch == 2
+    always, calls = _out_of_memory_above(0)
+    with pytest.warns(UserWarning), pytest.raises(torch.cuda.OutOfMemoryError):
+        inferer(x, always)
+    assert calls == [2, 2, 1] and inferer._stitch_on_host and inferer._sw_batch == 1
