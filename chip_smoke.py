@@ -109,6 +109,16 @@ Phases, one or more result lines each:
      mean Dice in [0, 1].  Printed: s/epoch against steps x s/step (CUDA events), the loader's wait per step, the
      validation's s/volume, checkpoint seconds (blocking, background) and restore seconds, peak memory.  The launch
      counters are set to 0 before and after it, so the kernels line leaves it out.
+ 23. the bundles' YAML programs, unedited, through the port's config parser and CLI: 5 synthetic BraTS-native cases
+     (4 train, 1 validation; 2 in the test section); factorizer_brats23's train.yaml for 2 epochs and evaluate.yaml as
+     `python -m factorizer_tpu_torch.bundle run` subprocesses (exit 0, step_2.pt, finite losses, Dice in [0, 1]; the
+     metrics files, a native-shape prediction, and Dice equal to Evaluator's in this process on the same weights),
+     then inference.yaml and inference_aot.yaml in this process over 2 folds: the CUDA graph's files equal the eager
+     run's voxel for voxel, eager launches and graph replays asserted, s/volume file to file; deconver_brats23's
+     train.yaml for 1 epoch, then the same two inference programs, equal.  Left out of the kernels line too.
+The float16 instance of every kernel is checked beside f32 and bf16 at one stage shape each (K1, K1 bwd with and
+without all-zero windows, K2, K2 bwd, K3, K3 dw, K4, K4 bwd, K5), with one float16 forward of brats23_network
+(`[slice f16]`); MatrixFactorization serves a float16 tensor through K4, and a float64 one raises.
 Then a check that no process started here is still alive, the card's line, a JSON line with every kernel, and as the last line
 {"ok": true, "device": {...}}.  Any failed check raises, so the exit code is
 non-zero and no result line is printed.
@@ -217,7 +227,7 @@ def kernel_label(mangled: str) -> str:
     name, targs = found.groups()
     if not targs:
         return name
-    dtype = "bf16" if "bfloat16" in targs else "f32"
+    dtype = "bf16" if "bfloat16" in targs else "f16" if "__half" in targs else "f32"
     return f"{name}<{','.join([dtype, *re.findall(r'Li(\d+)', targs)])}>"
 
 
@@ -233,14 +243,14 @@ def compare(out, ref) -> tuple[float, float]:
 
 # Relative tolerances (max |kernel - plain| / max |plain|).  f32: the kernels
 # sum in another order than the plain versions' library calls (the NMF solve
-# repeats 5 times, the MLP sums over C and 4C terms).  bf16: both compute in
-# f32 and round the output once, so they differ by at most one bf16 ulp
-# (2^-7 of the largest value) where the roundings fall apart.
-KERNEL_RTOL = {"float32": 1e-4, "bfloat16": 2.0**-7}
+# repeats 5 times, the MLP sums over C and 4C terms).  bf16 and f16: both
+# compute in f32 and round the output once, so they differ by at most one ulp
+# (2^-7 of the largest value in bf16, 2^-10 in f16) where the roundings fall apart.
+KERNEL_RTOL = {"float32": 1e-4, "bfloat16": 2.0**-7, "float16": 2.0**-10}
 # K1 backward: the reverse sweep repeats the forward's sums and divides by
 # the same small denominators, so f32 gets ten times the forward's band; bf16
-# rounds dx once, as the forward rounds y.
-K1_BWD_RTOL = {"float32": 1e-3, "bfloat16": 2.0**-7}
+# and f16 round dx once, as the forward rounds y.
+K1_BWD_RTOL = {"float32": 1e-3, "bfloat16": 2.0**-7, "float16": 2.0**-10}
 # K2 backward parameter gradients, relative to the gradient's largest entry:
 # each entry sums one f32 term per token (4.2 M at stage 0) in the kernel's
 # fixed tile order and in the library's own order; either order's rounding
@@ -249,8 +259,9 @@ K1_BWD_RTOL = {"float32": 1e-3, "bfloat16": 2.0**-7}
 # Both dtypes sum in f32 from the same inputs.
 K2_PARAM_RTOL = 1e-3
 # Whole-network logits, kernels against plain versions: the per-layer
-# differences above pass through 9 blocks and 9 convolutions.
-SLICE_RTOL = {"float32": 1e-3, "bfloat16": 5e-2}
+# differences above pass through 9 blocks and 9 convolutions.  f16 rounds each
+# layer at an eighth of bf16's ulp; its band is under half of bf16's.
+SLICE_RTOL = {"float32": 1e-3, "bfloat16": 5e-2, "float16": 2e-2}
 # One train step, kernels against plain versions: the loss, the global
 # gradient norm and three gradient leaves (relative to each leaf's largest
 # entry).  The forward differences above pass back through every layer; in
@@ -280,9 +291,9 @@ NUM_ITERS = 5
 N_BLOCKS, N_SHIFTS = 9, 4  # blocks of the bundles' networks, shifts per mixer
 
 # Published peaks of one H100 SXM at 700 W: HBM bytes/s, and FLOP/s of the
-# units a kernel's operations run on: f32 outside the tensor cores, dense TF32
-# and bf16 in them.  A bound takes the peak of the units its kernel runs on.
-PEAK_BYTES, PEAK_FLOPS = 3.35e12, {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
+# units a kernel's operations run on: f32 outside the tensor cores, dense TF32,
+# bf16 and f16 in them.  A bound takes the peak of the units its kernel runs on.
+PEAK_BYTES, PEAK_FLOPS = 3.35e12, {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12, "float16": 989e12}
 
 
 def bound_ms(n_bytes: float, flops: float, dtype, units: str | None = None) -> tuple[float, str]:
@@ -333,9 +344,9 @@ def k2_work(x, hidden: int, backward: bool) -> tuple[float, float, str]:
     """(bytes, flops, units) of K2 on ``x (..., C)``: two products of 2 C H flops per token forward, five
     backward; x read and y written (backward: x and g read, dx written), the f32 parameters read (and their
     gradients written) once.  The operations are counted at the tensor cores' peak for the activations' type,
-    TF32's for f32 and bf16's for bf16, in both directions: the function's products take bf16 operands for
-    bf16 activations, as the JAX kernels' do.  The kernels' three-pass TF32 split (which the backward also
-    takes for bf16, to hold its parameter gradients' band) is their own cost, not work the function needs, so
+    TF32's for f32 and bf16's (f16's) for bf16 (f16), in both directions: the function's products take
+    16-bit operands for 16-bit activations, as the JAX kernels' do.  The kernels' three-pass TF32 split
+    (which the backward also takes for bf16 and f16, to hold its parameter gradients' band) is their own cost, not work the function needs, so
     it is not counted."""
     import torch
 
@@ -344,7 +355,7 @@ def k2_work(x, hidden: int, backward: bool) -> tuple[float, float, str]:
     n_params = 3 * c + hidden + 2 * c * hidden
     n_bytes = (3 if backward else 2) * x.numel() * x.element_size() + (2 if backward else 1) * 4 * n_params
     flops = float(tokens * (10 if backward else 4) * c * hidden)
-    return n_bytes, flops, "tf32" if x.dtype == torch.float32 else "bfloat16"
+    return n_bytes, flops, "tf32" if x.dtype == torch.float32 else dname(x.dtype)
 
 
 def k3_work(x, taps: int, dw: bool) -> tuple[float, float]:
@@ -663,6 +674,50 @@ def brats_native_case(rng, shape=WORKFLOW_SHAPE) -> tuple:
     return images, label
 
 
+def write_native_cases(root, n_cases: int, seed: int, shape, workers: int, tag: str) -> tuple:
+    """``n_cases`` synthetic BraTS-native cases (``brats_native_case``, seeds ``seed + i``) written under ``root`` and a
+    Decathlon datalist ``root/datalist.json`` whose fold 0 is the first case (validation) and fold 1 the rest.  The
+    files are .nii.gz where writing all of them takes under ~10 s (projected from the first), else .nii.  Returns
+    ``(items, suffix, seconds making the arrays, seconds writing them, MB written)``."""
+    import json
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    import numpy as np
+
+    from factorizer_tpu_torch.data import save_nifti
+
+    root = Path(root)
+
+    def write_case(i: int, suffix: str, pool) -> tuple[float, float, dict]:
+        t0 = time.perf_counter()
+        images, label = brats_native_case(np.random.default_rng(seed + i), shape)
+        t1 = time.perf_counter()
+        (root / f"case{i}").mkdir(exist_ok=True)
+        names = [f"case{i}/{m}{suffix}" for m in ("t1n", "t1c", "t2w", "t2f")]
+        arrays = dict(zip(names, images), **{f"case{i}/seg{suffix}": label})
+        for job in [pool.submit(save_nifti, root / n, a, np.asarray(WORKFLOW_AFFINE)) for n, a in arrays.items()]:
+            job.result()
+        item = {"id": f"case{i}", "image": names, "label": f"case{i}/seg{suffix}", "fold": 0 if i == 0 else 1}
+        return t1 - t0, time.perf_counter() - t1, item
+
+    suffix = ".nii.gz"
+    with ThreadPoolExecutor(workers) as pool:  # zlib and the file writes release the GIL
+        made = [write_case(0, suffix, pool)]
+        if made[0][1] * n_cases > 10.0:
+            print(f"[{tag}] .nii.gz: the first case took {made[0][1]:.2f} s to write, {made[0][1] * n_cases:.1f} s "
+                  "projected for all: writing .nii instead")
+            for p in (root / "case0").iterdir():
+                p.unlink()
+            suffix = ".nii"
+            made = [write_case(0, suffix, pool)]
+        made += [write_case(i, suffix, pool) for i in range(1, n_cases)]
+    items = [m[2] for m in made]
+    size_mb = sum(p.stat().st_size for p in root.rglob(f"*{suffix}")) / 1e6
+    (root / "datalist.json").write_text(json.dumps({"training": items}))
+    return items, suffix, sum(m[0] for m in made), sum(m[1] for m in made), size_mb
+
+
 def workflow_slice(counters: dict, n_cases: int = 5, seed: int = 123, shape=WORKFLOW_SHAPE, roi=(128, 128, 128)) -> None:
     """Phase 22: the training workflow from NIfTI files.  ``n_cases`` synthetic BraTS-native cases are written to a
     temporary directory, a datalist sends all but the first to training (batch 2) and the first to validation, the
@@ -672,13 +727,11 @@ def workflow_slice(counters: dict, n_cases: int = 5, seed: int = 123, shape=WORK
     The launch counters are set to 0 before and after, so the kernels line's counts leave this phase out."""
     import os
     import tempfile
-    from concurrent.futures import ThreadPoolExecutor
     from pathlib import Path
 
-    import numpy as np
     import torch
 
-    from factorizer_tpu_torch.data import DataLoader, Dataset, load_decathlon_datalist, save_nifti
+    from factorizer_tpu_torch.data import DataLoader, Dataset, load_decathlon_datalist
     from factorizer_tpu_torch.data.native import native_available
     from factorizer_tpu_torch.data.transforms import Compose
     from factorizer_tpu_torch.train.loop import SegmentationTrainer
@@ -696,34 +749,7 @@ def workflow_slice(counters: dict, n_cases: int = 5, seed: int = 123, shape=WORK
     workers = min(8, os.cpu_count() or 1)
     with tempfile.TemporaryDirectory(prefix="workflow_") as tmp:
         root = Path(tmp)
-        # The cases: .nii.gz where writing all of them takes under ~10 s (projected from the first), else .nii.
-        def write_case(i: int, suffix: str, pool) -> tuple[float, float, dict]:
-            t0 = time.perf_counter()
-            images, label = brats_native_case(np.random.default_rng(seed + i), shape)
-            t1 = time.perf_counter()
-            (root / f"case{i}").mkdir(exist_ok=True)
-            names = [f"case{i}/{m}{suffix}" for m in ("t1n", "t1c", "t2w", "t2f")]
-            arrays = dict(zip(names, images), **{f"case{i}/seg{suffix}": label})
-            for job in [pool.submit(save_nifti, root / n, a, np.asarray(WORKFLOW_AFFINE)) for n, a in arrays.items()]:
-                job.result()
-            item = {"id": f"case{i}", "image": names, "label": f"case{i}/seg{suffix}", "fold": 0 if i == 0 else 1}
-            return t1 - t0, time.perf_counter() - t1, item
-
-        suffix = ".nii.gz"
-        with ThreadPoolExecutor(workers) as pool:  # zlib and the file writes release the GIL
-            made = [write_case(0, suffix, pool)]
-            if made[0][1] * n_cases > 10.0:
-                print(f"[workflow] .nii.gz: the first case took {made[0][1]:.2f} s to write, {made[0][1] * n_cases:.1f} s "
-                      "projected for all: writing .nii instead")
-                for p in (root / "case0").iterdir():
-                    p.unlink()
-                suffix = ".nii"
-                made = [write_case(0, suffix, pool)]
-            made += [write_case(i, suffix, pool) for i in range(1, n_cases)]
-        gen_s, write_s = sum(m[0] for m in made), sum(m[1] for m in made)
-        items = [m[2] for m in made]
-        size_mb = sum(p.stat().st_size for p in root.rglob(f"*{suffix}")) / 1e6
-        (root / "datalist.json").write_text(json.dumps({"training": items}))
+        _, suffix, gen_s, write_s, size_mb = write_native_cases(root, n_cases, seed, shape, workers, "workflow")
         print(f"[workflow] data: {n_cases} synthetic BraTS-native cases, 4 x {shape} float32 + a uint8 label each, "
               f"{suffix} ({size_mb:.1f} MB), made in {gen_s:.2f} s and written in {write_s:.2f} s (timed apart from the epochs); "
               f"native NIfTI decoder: {native_available()}; cpu count {os.cpu_count()}, loader workers {workers} (threads)")
@@ -879,6 +905,267 @@ def workflow_slice(counters: dict, n_cases: int = 5, seed: int = 123, shape=WORK
     reset_counters(counters)
 
 
+# What a fresh interpreter spends before a bundle program's first step, in steps (`[bundle]`).
+STARTUP_PROBE = """
+import json, time
+t = [time.perf_counter()]
+import torch
+t.append(time.perf_counter())
+import factorizer_tpu_torch.config.bundle, factorizer_tpu_torch.zoo_scripts
+t.append(time.perf_counter())
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+t.append(time.perf_counter())
+from factorizer_tpu_torch.ops.kernels import build
+build.library()
+t.append(time.perf_counter())
+try:
+    import torch.utils.tensorboard
+    tensorboard = True
+except ImportError:
+    tensorboard = False
+t.append(time.perf_counter())
+print(json.dumps({"steps": [b - a for a, b in zip(t, t[1:])], "tensorboard": tensorboard}))
+"""
+
+
+def bundle_slice(counters: dict, seed: int = 123, shape=WORKFLOW_SHAPE, roi=(128, 128, 128)) -> None:
+    """Phase 23: the bundles' YAML programs, unedited, through the port's config parser and CLI.  5 synthetic
+    BraTS-native cases (4 training, 1 validation; the first 2 also the inference datalist's ``test`` section) are
+    written to a temporary directory.  ``factorizer_brats23``: ``train.yaml`` for 2 epochs with a validation as a
+    ``python -m factorizer_tpu_torch.bundle run`` subprocess, ``evaluate.yaml`` over its checkpoint as another, its
+    Dice against ``Evaluator`` in this process on the same weights; then ``inference.yaml`` and ``inference_aot.yaml``
+    in this process (``config.bundle.run``), over 2 folds (the trained checkpoint and one of other weights): the two
+    runs' NIfTI files equal voxel for voxel, eager launches per forward and CUDA-graph replays asserted.
+    ``deconver_brats23``: ``train.yaml`` for 1 epoch without validation, then ``inference.yaml`` and
+    ``inference_aot.yaml``, their files equal.  The launch counters are set to 0 before and after, so the kernels
+    line's counts leave this phase out."""
+    import logging
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from factorizer_tpu_torch import zoo_scripts
+    from factorizer_tpu_torch.config import run as bundle_run
+    from factorizer_tpu_torch.data import DataLoader, Dataset, load_decathlon_datalist, load_nifti
+    from factorizer_tpu_torch.parallel import child_processes
+    from factorizer_tpu_torch.train.checkpoint import save_checkpoint
+    from factorizer_tpu_torch.train.loop import Evaluator
+    from factorizer_tpu_torch.train.metrics import dice_metric
+    from factorizer_tpu_torch.train.sliding_window import sliding_window_positions
+
+    repo = Path(__file__).resolve().parent
+    workers = min(8, os.cpu_count() or 1)
+    forwards = -(-len(sliding_window_positions(shape, roi, 0.5)) // 2)  # window pairs of a native volume
+    k1k2 = {"windowed_nmf_factors": N_BLOCKS, "windowed_nmf_reconstruct": N_BLOCKS, "prenorm_mlp": N_BLOCKS}
+    k3 = {"depthwise_conv": 3 * N_BLOCKS}
+    reset_counters(counters)
+    # cuDNN's heuristics, not its timing runs, choose the convolutions here: one choice per shape in every run.
+    torch.backends.cudnn.benchmark = False
+
+    def cli(configs: list, overrides: dict, tag: str) -> tuple[float, str]:
+        """``python -m factorizer_tpu_torch.bundle run`` with ``configs`` and ``--key value`` overrides, from the
+        repository root; its exit code checked.  Returns its seconds and its standard output."""
+        cmd = [sys.executable, "-m", "factorizer_tpu_torch.bundle", "run"]
+        for c in configs:
+            cmd += ["--config_file", str(c)]
+        for k, v in overrides.items():
+            cmd += [f"--{k}", json.dumps(v) if not isinstance(v, str) else v]
+        t0 = time.perf_counter()
+        done = subprocess.run(cmd, cwd=repo, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        check(done.returncode == 0, f"bundle {tag}: exit code {done.returncode}\n{done.stdout[-3000:]}\n{done.stderr[-3000:]}")
+        return seconds, done.stdout
+
+    saved_at: list = []
+
+    class SavedTimes(logging.Handler):
+        def emit(self, record):
+            if record.getMessage().startswith("saved "):
+                saved_at.append(time.perf_counter())
+
+    def infer(bundle: str, overrides: dict, aot: bool, per_forward: dict, n_volumes: int, n_folds: int) -> tuple:
+        """``inference.yaml`` (with ``inference_aot.yaml`` when ``aot``) in this process: the saved files, launches,
+        graph replays, seconds per volume file to file and the sliding window's seconds per volume."""
+        configs = repo / "zoo" / bundle / "configs"
+        files = [configs / "train.yaml", configs / "inference.yaml"] + ([configs / "inference_aot.yaml"] if aot else [])
+        zoo_scripts.ensemble_inference.graph_captures = zoo_scripts.ensemble_inference.graph_replays = 0
+        predict_s, sliding = [], zoo_scripts.sliding_window_inference
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = sliding(*a, **kw)
+            torch.cuda.synchronize()
+            predict_s.append(time.perf_counter() - t0)
+            return out
+
+        handler, logger = SavedTimes(), logging.getLogger("factorizer_tpu_torch")
+        logger.addHandler(handler)
+        level = logger.level
+        logger.setLevel(logging.INFO)
+        zoo_scripts.sliding_window_inference = timed
+        reset_counters(counters)
+        saved_at.clear()
+        try:
+            t0 = time.perf_counter()
+            paths = bundle_run([str(f) for f in files], **overrides)["inferencer"]
+        finally:
+            zoo_scripts.sliding_window_inference = sliding
+            logger.removeHandler(handler)
+            logger.setLevel(level)
+        made = read_counters(counters)
+        replays, captures = zoo_scripts.ensemble_inference.graph_replays, zoo_scripts.ensemble_inference.graph_captures
+        check(len(paths) == n_volumes and len(saved_at) == n_volumes, f"bundle {bundle} inference: saved {paths}")
+        n_forwards = n_volumes * n_folds * forwards
+        if aot:
+            warm = zoo_scripts._GraphedForward.WARMUP + 1  # the warm-up forwards launch, the captured one only counts
+            expected = {k: warm * per_forward.get(k, 0) for k in counters}
+            check(captures == 1 and replays == n_forwards, f"bundle {bundle} graph: {captures} captures, {replays} replays, "
+                                                           f"expected 1 and {n_forwards}")
+        else:
+            expected = {k: n_forwards * per_forward.get(k, 0) for k in counters}
+            check(captures == replays == 0, f"bundle {bundle} eager inference replayed a graph")
+        check(made == expected, f"bundle {bundle} inference{' aot' if aot else ''}: launches {made}, expected {expected}")
+        per_volume = [saved_at[0] - t0] + [b - a for a, b in zip(saved_at, saved_at[1:])]
+        return paths, made, replays, per_volume, predict_s
+
+    def equal_files(paths_a, paths_b, tag: str) -> str:
+        shapes = []
+        for a, b in zip(paths_a, paths_b):
+            va, vb = load_nifti(a).data, load_nifti(b).data
+            check(va.shape == vb.shape and np.array_equal(va, vb), f"bundle {tag}: {a} and {b} differ in "
+                                                                   f"{int((va != vb).sum()) if va.shape == vb.shape else 'shape'} voxels")
+            check(tuple(va.shape[-3:]) == tuple(shape), f"bundle {tag}: prediction of shape {va.shape}")
+            shapes.append(tuple(va.shape))
+        return f"{len(paths_a)} files {shapes[0]} equal voxel for voxel"
+
+    with tempfile.TemporaryDirectory(prefix="bundle_") as tmp:
+        root = Path(tmp)
+        items, suffix, _, write_s, size_mb = write_native_cases(root, 5, seed, shape, workers, "bundle")
+        datalist = root / "datalist.json"
+        datalist.write_text(json.dumps({"training": items, "test": items[:2]}))
+        data = {"data_dir": str(root), "datalist_path": str(datalist), "num_workers": workers}
+        print(f"[bundle] data: 5 synthetic BraTS-native cases {suffix} ({size_mb:.1f} MB, written in {write_s:.2f} s), "
+              f"training 4, validation 1, test 2; loader workers {workers} (threads)")
+        t0 = time.perf_counter()
+        probe = subprocess.run([sys.executable, "-c", STARTUP_PROBE], cwd=repo, capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        check(probe.returncode == 0, f"bundle: the start-up probe failed\n{probe.stderr[-2000:]}")
+        startup = json.loads(probe.stdout.strip().splitlines()[-1])
+        steps = dict(zip(("import torch", "import the port's config and zoo_scripts", "CUDA context",
+                          "load the kernel library (built)", "import torch.utils.tensorboard"), startup["steps"]))
+        print(f"[bundle] a fresh interpreter's fixed cost: {wall:.2f} s, of it the interpreter's own start and exit "
+              f"{wall - sum(steps.values()):.2f} s, " + ", ".join(f"{k} {v:.2f} s" for k, v in steps.items())
+              + f" (tensorboard {'present' if startup['tensorboard'] else 'absent'})")
+
+        # factorizer_brats23: train.yaml through the CLI.
+        fz = repo / "zoo" / "factorizer_brats23" / "configs"
+        out = root / "factorizer"
+        train_s, _ = cli([fz / "train.yaml"], {**data, "output_dir": str(out), "max_epochs": 2, "val_interval": 2}, "train")
+        history = [json.loads(line) for line in (out / "history.jsonl").read_text().splitlines()]
+        ckpt_dir = out / "ckpt"
+        check((ckpt_dir / "step_2.pt").is_file(), f"bundle train: no step_2.pt in {sorted(p.name for p in ckpt_dir.iterdir())}")
+        losses = [h["loss"] for h in history]
+        dice = history[-1].get("mean_dice", float("nan"))
+        check(len(history) == 2 and all(map(math.isfinite, losses)) and 0.0 <= dice <= 1.0,
+              f"bundle train: history {history}")
+        print(f"[bundle] factorizer_brats23 train.yaml (CLI, subprocess): {train_s:.1f} s end to end, epochs "
+              + ", ".join(f"{h['time_s']:.3f} s (loss {h['loss']:.6f})" for h in history)
+              + f"; validation mean Dice {dice:.4f}; checkpoint step_2.pt (numbered by epoch); 2 x 2 steps")
+
+        # evaluate.yaml over the trainer's ckpt_dir, through the CLI.
+        ev = root / "evaluate"
+        eval_s, stdout = cli([fz / "train.yaml", fz / "evaluate.yaml"],
+                             {**data, "output_dir": str(ev), "ckpt_path": str(ckpt_dir)}, "evaluate")
+        metrics = json.loads(stdout.strip().splitlines()[-1])
+        cases = json.loads((ev / "case_metrics.json").read_text())["cases"]
+        csvs = sorted(p.name for p in (ev / "metrics").iterdir())
+        preds = sorted((ev / "preds").glob("*.nii.gz"))
+        check(len(cases) == 1 and {"mean_dice_raw.csv", "hd95_raw.csv", "metrics.csv"} <= set(csvs) and len(preds) == 1,
+              f"bundle evaluate: cases {cases}, CSVs {csvs}, predictions {preds}")
+        pred_shape = load_nifti(preds[0]).data.shape
+        check(tuple(pred_shape[-3:]) == tuple(shape), f"bundle evaluate: prediction of shape {pred_shape}")
+        # The same weights through Evaluator in this process, with the subprocess's default TF32 setting for cuDNN.
+        model = zoo_scripts.brats23_network(generator=torch.Generator().manual_seed(0))
+        variables = zoo_scripts.load_model_checkpoint(model, ckpt_dir)
+        val_items = load_decathlon_datalist(datalist, "validation", fold=0, base_dir=root)
+        deterministic, _ = zoo_scripts.brats23_transforms(roi)
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            batch = next(iter(DataLoader(Dataset(val_items, deterministic), batch_size=1, num_workers=0)))
+            preds_in = Evaluator(model, variables, roi, 2, 0.5, compute_hd95=False).predict_mask(batch["image"])
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        dice_in = float(np.nanmean(np.asarray(dice_metric(preds_in, np.asarray(batch["label"])))))
+        check(dice_in == metrics["mean_dice"], f"bundle evaluate: mean Dice {metrics['mean_dice']!r}, Evaluator in this "
+                                               f"process {dice_in!r}")
+        print(f"[bundle] factorizer_brats23 evaluate.yaml (CLI, subprocess): {eval_s:.1f} s end to end for 1 case; metrics "
+              f"{metrics}; case_metrics.json, {csvs}, {preds[0].name} {pred_shape}; mean Dice equal to Evaluator's in this "
+              f"process on the same weights ({dice_in!r})")
+        del model, variables, batch, preds_in
+
+        # inference.yaml, then inference_aot.yaml, in this process over 2 folds.
+        fold1 = root / "fold1.pt"
+        save_checkpoint(fold1, zoo_scripts.brats23_network(generator=torch.Generator().manual_seed(1)))
+        common = {**data, "ckpt_paths": [str(ckpt_dir), str(fold1)]}
+        runs = {}
+        for aot in (False, True):
+            runs[aot] = infer("factorizer_brats23", {**common, "output_dir": str(root / f"infer_{int(aot)}")}, aot, k1k2, 2, 2)
+            gc.collect()
+            torch.cuda.empty_cache()
+        same = equal_files(runs[False][0], runs[True][0], "factorizer inference")
+        for aot, (_, made, replays, per_volume, predict_s) in runs.items():
+            how = (f"CUDA graph: {replays} replays x {N_BLOCKS} K1 factors / {N_BLOCKS} K1 reconstruct / {N_BLOCKS} K2 per "
+                   f"captured forward (launches counted at capture: {made['windowed_nmf_factors']} each, the warm-up and "
+                   f"the capture)") if aot else (f"eager: {made['windowed_nmf_factors']} K1 factors, "
+                                                 f"{made['windowed_nmf_reconstruct']} K1 reconstruct, {made['prenorm_mlp']} K2 "
+                                                 f"launches = 2 volumes x 2 folds x {forwards} forwards x {N_BLOCKS}")
+            print(f"[bundle] factorizer_brats23 inference{'_aot' if aot else ''}.yaml: s/volume file to file "
+                  + ", ".join(f"{t:.3f}" for t in per_volume) + " (the first with the run's set-up"
+                  + (", warm-up and capture" if aot else "") + "); sliding window per volume and fold "
+                  + ", ".join(f"{t:.3f}" for t in predict_s) + f" s; {how}")
+        print(f"[bundle] factorizer_brats23 inference eager against CUDA graph: {same}; predict per fold after the first "
+              f"volume: eager {statistics.mean(runs[False][4][2:]):.4f} s, graph {statistics.mean(runs[True][4][2:]):.4f} s "
+              f"(graph / eager {statistics.mean(runs[True][4][2:]) / statistics.mean(runs[False][4][2:]):.3f})")
+
+        # deconver_brats23: train.yaml for 1 epoch without validation, then inference eager and as a CUDA graph.
+        dz = repo / "zoo" / "deconver_brats23" / "configs"
+        dout = root / "deconver"
+        t0 = time.perf_counter()
+        trainer = bundle_run(str(dz / "train.yaml"), **data, output_dir=str(dout), max_epochs=1, val_interval=0)["trainer"]
+        torch.backends.cudnn.benchmark = False  # the trainer turned it on
+        d_train_s = time.perf_counter() - t0
+        check(trainer.state.step == 2 and (dout / "ckpt" / "step_1.pt").is_file() and math.isfinite(trainer.history[0]["loss"]),
+              f"bundle deconver train: step {trainer.state.step}, history {trainer.history}")
+        print(f"[bundle] deconver_brats23 train.yaml (in this process): {d_train_s:.1f} s, 1 epoch of 2 steps "
+              f"{trainer.history[0]['time_s']:.3f} s, loss {trainer.history[0]['loss']:.6f}, no validation")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        druns = {}
+        for aot in (False, True):
+            druns[aot] = infer("deconver_brats23", {**data, "ckpt_paths": [str(dout / "ckpt")],
+                                                    "output_dir": str(root / f"dinfer_{int(aot)}")}, aot, k3, 2, 1)
+            gc.collect()
+            torch.cuda.empty_cache()
+        same = equal_files(druns[False][0], druns[True][0], "deconver inference")
+        print(f"[bundle] deconver_brats23 inference eager against CUDA graph: {same}; s/volume file to file eager "
+              + ", ".join(f"{t:.3f}" for t in druns[False][3]) + ", graph " + ", ".join(f"{t:.3f}" for t in druns[True][3])
+              + f"; sliding window per volume eager {', '.join(f'{t:.3f}' for t in druns[False][4])} s, graph "
+              + f"{', '.join(f'{t:.3f}' for t in druns[True][4])} s; graph {druns[True][2]} replays x {3 * N_BLOCKS} K3 per "
+              + f"captured forward, eager {druns[False][1]['depthwise_conv']} K3 launches")
+    left = child_processes()
+    check(not left, f"bundle: processes still alive: {left}")
+    reset_counters(counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     import torch
 
@@ -1000,6 +1287,7 @@ def main() -> None:
     cases += [(2, 32, 128, 8, torch.float32, "mu", four), (2, 32, 128, 8, torch.float32, "hals", zero_shift)]
     cases += [(2, 32, 128, 8, dt, "hals", ten) for dt in (torch.float32, torch.bfloat16)]
     cases += [(b, s, c, 4, dt, "hals", isles_shifts) for b, s, c in isles_shapes for dt in (torch.float32, torch.bfloat16)]
+    cases += [(2, 64, 64, 8, torch.float16, "hals", four)]  # the f16 instance at one stage shape
     with torch.inference_mode():
         for b, s, c, p, dt, solver, shifts in cases:
             x = torch.relu(torch.randn(b, s, s, s, c, device=dev, generator=gen.manual_seed(s + c))).to(dt)
@@ -1055,7 +1343,7 @@ def main() -> None:
     with torch.inference_mode():
         for s, c in STAGES:
             params = mlp_params(c)
-            for dt in (torch.float32, torch.bfloat16):
+            for dt in (torch.float32, torch.bfloat16) + ((torch.float16,) if c == 64 else ()):  # f16 at one stage
                 x = torch.randn(2, s, s, s, c, device=dev, generator=gen).to(dt)
                 args = (x, *params)
                 out, again, ref = prenorm_mlp(*args), prenorm_mlp(*args), prenorm_mlp_plain(*args)
@@ -1150,8 +1438,9 @@ def main() -> None:
 
     def forward_slice(tag: str, model, inputs, expected_launches: dict, out_shape: tuple, what: str) -> None:
         """One timed forward of ``inputs`` after a warm-up: launches, finite logits of ``out_shape``, and the
-        logits against the plain versions."""
+        logits against the plain versions, at the band of the model's compute dtype."""
         check(next(model.parameters()).is_cuda, f"{tag}: the network did not build on the card")
+        name = dname(model.stem.dtype or torch.float32)
         with torch.inference_mode():
             model(inputs)  # warm-up
             torch.cuda.synchronize()
@@ -1170,15 +1459,19 @@ def main() -> None:
         check(made == expected, f"{tag}: launches {made}, expected {expected}")
         check(tuple(logits.shape) == out_shape and bool(torch.isfinite(logits).all()), f"{tag}: wrong or non-finite logits")
         err, rel = compare(logits, ref)
-        print(f"[{tag}] float32: {seconds:.4f} s per forward of {tuple(inputs.shape)} ({what}), peak memory {mem / 2**30:.2f} GiB, "
+        print(f"[{tag}] {name}: {seconds:.4f} s per forward of {tuple(inputs.shape)} ({what}), peak memory {mem / 2**30:.2f} GiB, "
               f"launches { {k: v for k, v in expected.items() if v} }; logits vs plain versions: max_abs={err:.3e} "
-              f"max_rel={rel:.3e} (tol {SLICE_RTOL['float32']:.1e})")
-        check(rel <= SLICE_RTOL["float32"], f"{tag}: logits differ from the plain versions by {rel:.3e}")
+              f"max_rel={rel:.3e} (tol {SLICE_RTOL[name]:.1e})")
+        check(rel <= SLICE_RTOL[name], f"{tag}: logits differ from the plain versions by {rel:.3e}")
         for k, v in made.items():
             serve_launches[k] += v
 
     k1_forward = {"windowed_nmf_factors": n_blocks, "windowed_nmf_reconstruct": n_blocks}
     serve_slice("slice", brats23_network, {**k1_forward, "prenorm_mlp": n_blocks})
+    # The f16 instances on the serving path: one forward of a window pair through brats23_network(dtype=float16).
+    forward_slice("slice f16", brats23_network(dtype=torch.float16, device=dev, generator=torch.Generator().manual_seed(0)).eval(),
+                  torch.randn((2, 4, 128, 128, 128), device=dev, generator=gen.manual_seed(7)),
+                  {**k1_forward, "prenorm_mlp": n_blocks}, (2, 3, 128, 128, 128), "a window pair of brats23_network(dtype=torch.float16)")
 
     # 6. K1 backward against autograd through the plain version
     # MU runs on a strictly positive input: where a whole row of a window is zero its factor decays to
@@ -1190,6 +1483,8 @@ def main() -> None:
         (2, 32, 128, 8, torch.float32, "hals", zero_shift, None, False),
         (2, 32, 128, 8, torch.float32, "hals", four, 2, False),
         (2, 64, 64, 8, torch.float32, "hals", four, None, True),  # a quarter of the volume all zero, as BraTS background
+        (2, 64, 64, 8, torch.float16, "hals", four, None, False),  # the f16 instance
+        (2, 64, 64, 8, torch.float16, "hals", four, None, True),   # f16 at all-zero windows: f32 cotangents, dx rounded
     ]
     cases += [(b, s, c, 4, dt, "hals", isles_shifts, None, False) for b, s, c in isles_shapes for dt in (torch.float32, torch.bfloat16)]
     for b, s, c, p, dt, solver, shifts, grad_steps, zero_windows in cases:
@@ -1225,7 +1520,7 @@ def main() -> None:
     grad_names = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
     for s, c in STAGES:
         params = mlp_params(c)
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in (torch.float32, torch.bfloat16) + ((torch.float16,) if c == 64 else ()):  # f16 at one stage
             x = torch.randn(2, s, s, s, c, device=dev, generator=gen).to(dt)
             g = torch.randn(x.shape, device=dev, generator=gen).to(dt)
             args = (x, g, *params)
@@ -1404,6 +1699,7 @@ def main() -> None:
         ((2, 32, 32, 32, 30), k3, torch.float32, False, ("run", "run")),
         ((2, 32, 32, 32, 20), k3, torch.bfloat16, False, ("run", "run")),
         ((2, 32, 32, 32, 32), (3, 5, 5), torch.float32, False, ("tile", "run")),
+        ((2, 64, 64, 64, 64), k3, torch.float16, False, ("tile", "tile")),       # the f16 instance
     ]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     slower_than_library = []  # (line tag, label, per call or device, kernel / library)
@@ -1611,7 +1907,7 @@ def main() -> None:
     # on the device (a CUDA graph of 20 calls); a case on the register route also runs through the shared-memory
     # kernel, against the plain version and timed beside.
     torch.backends.cudnn.benchmark = False
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     k4_cases = [((n, 8, 512), 1, "hals", dt, False) for n in FLAT_STAGES for dt in (f32, bf16)]
     # the 2-D model's stages 0 and 2: 2 shifts x 16 x 4 heads x 64^2 windows, and 2 x 16 x 16 heads x 16^2
     k4_cases += [(shape, 1, "hals", dt, False) for shape in ((524288, 8, 64), (32768, 8, 64)) for dt in (f32, bf16)]
@@ -1627,6 +1923,7 @@ def main() -> None:
         ((1000, 5, 37), 3, "hals", f32, False),     # no size a multiple of anything: the shared-memory kernel
         ((2048, 8, 4096), 1, "hals", f32, False),   # patches of 16^3: fits the forward kernel alone
         ((32768, 8, 512), 1, "hals", f32, True),    # a quarter of the matrices all zero
+        ((32768, 8, 512), 1, "hals", f16, False),   # the f16 instance
     ]
     register_sizes = ((8, 512), (8, 64))  # the sizes the register kernels are compiled for
     nmf_query = (ctypes.c_longlong * 8)()
@@ -1729,6 +2026,7 @@ def main() -> None:
         ((32768, 8, 512), "hals", f32, 2, False),
         ((1000, 5, 37), "hals", f32, None, False),
         ((32768, 8, 512), "hals", f32, None, True),
+        ((32768, 8, 512), "hals", f16, None, False),  # the f16 instance
     ]
     for shape, solver, dt, grad_steps, zero_quarter in k4_bwd_cases:
         x, g, tu, tv = k4_inputs(shape, 1, dt, zero_quarter, positive=solver == "mu")
@@ -1788,19 +2086,30 @@ def main() -> None:
         del x, g, xg, dx, dx_ref, zero
         torch.cuda.empty_cache()
 
-    # What must raise on the card instead of giving way to a plain version: a dtype the kernels do not read
-    # (through the module, whose route never looks at the dtype), and a gradient at a rank-1 size that only the
-    # forward kernel can hold.  Under no_grad that size is served through K4; when a gradient is recorded the
-    # module takes its decompose chain, and the wrapper itself refuses.
+    # Through the module, whose route never looks at the dtype: float16 is served through K4 and held against the
+    # plain version; float64, which no kernel reads, raises on the card instead of giving way to a plain version.
     before = read_counts()
     layer = MatrixFactorization((8, 512), rank=1, init_method="uniform", solver="hals", device=dev)
-    for dt in (torch.float16, torch.float64):
-        try:
-            layer(torch.rand(64, 8, 512, device=dev).to(dt))
-        except TypeError as e:
-            print(f"[K4] MatrixFactorization on a {dname(dt)} CUDA tensor raises: {e}")
-        else:
-            check(False, f"K4: a {dname(dt)} CUDA tensor did not raise")
+    xh = torch.rand(64, 8, 512, device=dev, generator=gen.manual_seed(16)).to(torch.float16)
+    with torch.no_grad():
+        served = layer(xh)
+        with reference_kernels():
+            plain = layer(xh)
+    made = {k: v - before[k] for k, v in read_counts().items() if v != before[k]}
+    check(made == {"nmf_reconstruct": 1, "nmf_reconstruct_registers": 1}, f"K4: the float16 module call launched {made}")
+    err, rel = compare(served, plain)
+    check(served.dtype == torch.float16 and rel <= KERNEL_RTOL["float16"],
+          f"K4: MatrixFactorization on a float16 CUDA tensor: {served.dtype}, max_rel {rel:.3e}")
+    print(f"[K4] MatrixFactorization on a float16 CUDA tensor (64,8,512): served through the register kernel, max_abs={err:.3e} "
+          f"max_rel={rel:.3e} from the plain version (tol {KERNEL_RTOL['float16']:.1e})")
+    try:
+        layer(torch.rand(64, 8, 512, device=dev).double())
+    except TypeError as e:
+        print(f"[K4] MatrixFactorization on a float64 CUDA tensor raises: {e}")
+    else:
+        check(False, "K4: a float64 CUDA tensor did not raise")
+    del xh, served, plain
+    before = read_counts()
     big = MatrixFactorization((8, 4096), rank=1, init_method="uniform", solver="hals", device=dev)
     xb = torch.rand(64, 8, 4096, device=dev)
     with torch.no_grad():
@@ -1905,6 +2214,7 @@ def main() -> None:
         (2, 32, 128, 8, torch.float32, "hals", s1_none, 4, None),      # dims 2 and 3 alone: no byte leaves a slab
         (2, 32, 128, 8, torch.float32, "hals", four, 1, None),         # a ring of one
         (2, 32, 128, 8, torch.float32, "hals", four, 4, 2),            # num_grad_steps: the backward alone differs
+        (2, 64, 64, 8, torch.float16, "hals", four, 4, None),          # the f16 instance, one ring
     ]
     k5 = windowed_nmf_multi_spatial
 
@@ -2029,6 +2339,8 @@ def main() -> None:
 
     # 22. the training workflow from NIfTI files; its launches are checked there and left out of the kernels line.
     workflow_slice(wrappers)
+    # 23. the bundles' YAML programs through the config parser and the CLI; left out of the kernels line too.
+    bundle_slice(wrappers)
 
     sources = {
         "windowed_nmf_factors": ("factorizer_tpu_torch/csrc/windowed_nmf.cu",

@@ -47,7 +47,7 @@
 // - A 2-D image batch arrives as (B, H, 1, W, C) with kernel (kh, 1, kw): the
 //   walk runs down the image rows.
 // The products of each output run in tap order (k1, k2, k3 row-major), one f32
-// fma each, for f32 or bf16 activations.
+// fma each, for f32, bf16 or f16 activations.
 //
 // Dispatch by shape (the wrapper chooses, the C entry checks): the tiled
 // kernel takes k2, k3 in {1, 3, 5, 7}, any odd k1, and C divided by a
@@ -316,6 +316,8 @@ extern "C" int ftt_depthwise_conv(const void* x, const void* w, void* y, int dty
     err = dispatch<float>(x, fw, y, B, S1, S2, S3, C, k1, k2, k3, route, plan, s);
   } else if (dtype == ftt::kBFloat16) {
     err = dispatch<__nv_bfloat16>(x, fw, y, B, S1, S2, S3, C, k1, k2, k3, route, plan, s);
+  } else if (dtype == ftt::kFloat16) {
+    err = dispatch<__half>(x, fw, y, B, S1, S2, S3, C, k1, k2, k3, route, plan, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -17,7 +17,7 @@ enum K3Route : int { kRouteTile = 0, kRouteRun = 1, kRouteAny = 2 };
 // Outputs along S3 that one thread computes: it reads kTileRun + k3 - 1 inputs of a row from shared memory and
 // uses each in up to k3 products.
 constexpr int kTileRun = 4;
-// Channels one thread computes: 16 bytes of f32 or 8 of bf16 from shared memory at a time.
+// Channels one thread computes: 16 bytes of f32 or 8 of bf16 or f16 from shared memory at a time.
 constexpr int kTileChannels = 4;
 constexpr int kTileMaxThreads = 256;
 constexpr int kSmemLimit = 232448;  // 227 KB, the most one block of an H100 can take
@@ -121,6 +121,13 @@ __device__ __forceinline__ float4 lds4(const char* p, __nv_bfloat16) {
                      __uint_as_float(u.y & 0xffff0000u));
 }
 
+__device__ __forceinline__ float4 lds4(const char* p, __half) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
 __device__ __forceinline__ void fma4(float4& acc, const float4& a, const float4& b) {
   acc.x = fmaf(a.x, b.x, acc.x);
   acc.y = fmaf(a.y, b.y, acc.y);
@@ -132,6 +139,14 @@ __device__ __forceinline__ void fma4(float4& acc, const float4& a, const float4&
 __device__ __forceinline__ void store4(float* p, const float4& v) { *reinterpret_cast<float4*>(p) = v; }
 __device__ __forceinline__ void store4(__nv_bfloat16* p, const float4& v) {
   const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&lo);
+  u.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+__device__ __forceinline__ void store4(__half* p, const float4& v) {
+  const __half2 lo = __floats2half2_rn(v.x, v.y), hi = __floats2half2_rn(v.z, v.w);
   uint2 u;
   u.x = *reinterpret_cast<const unsigned*>(&lo);
   u.y = *reinterpret_cast<const unsigned*>(&hi);

@@ -381,6 +381,8 @@ extern "C" int ftt_depthwise_conv_dw(const void* x, const void* g, void* partial
     err = dispatch<float>(x, g, fp, B, S1, S2, S3, C, k1, k2, k3, route, plan, P, s);
   } else if (dtype == ftt::kBFloat16) {
     err = dispatch<__nv_bfloat16>(x, g, fp, B, S1, S2, S3, C, k1, k2, k3, route, plan, P, s);
+  } else if (dtype == ftt::kFloat16) {
+    err = dispatch<__half>(x, g, fp, B, S1, S2, S3, C, k1, k2, k3, route, plan, P, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -5,8 +5,8 @@
 // (:493, launched by `_slab_fwd_fn` at :596) under `fused_prenorm_mlp` (:735).
 // The two TPU kernels compute the same function in two TPU layouts; this one
 // kernel serves every block tail of the model: C in {32, 64, 128, 256, 512},
-// any H that 32 divides (the bundles' H = 4C, the module's default 2C), f32
-// or bf16 activations, f32 parameters, a two-pass f32 LayerNorm
+// any H that 32 divides (the bundles' H = 4C, the module's default 2C), f32,
+// bf16 or f16 activations, f32 parameters, a two-pass f32 LayerNorm
 // and the exact erf GELU (`erff`), as the unfused module computes them.
 //
 // What bounds it on the H100: the two products, 4 C H = 16 C^2 flops per
@@ -18,13 +18,14 @@
 //   * Both products run on tensor cores (`mma.sync`).  bf16 activations: bf16
 //     operands (the normalised tokens, GELU's output and the weights rounded
 //     once, the weights into a bf16 copy ahead of the kernel) with f32
-//     accumulation, m16n8k16, the JAX kernel's own numerics.
+//     accumulation, m16n8k16, the JAX kernel's own numerics.  f16 activations
+//     take the same path with f16 operands (one pass, as bf16).
 //     f32 activations: three-pass TF32, m16n8k8, each operand split into
 //     hi = tf32(v) and lo = tf32(v - hi) (cut, not rounded) and the product taken as
 //     lo*hi + hi*lo + hi*hi, which keeps ~22 bits where one TF32 pass keeps
 //     11.  LayerNorm statistics, bias, GELU and the residual are f32.
 //   * Weights are staged once per block.  At C <= 64 and H = 4C all of W1 and
-//     W2 fit in shared memory (f32: 32 / 128 KB; bf16 half that): a persistent grid of
+//     W2 fit in shared memory (f32: 32 / 128 KB; bf16 and f16 half that): a persistent grid of
 //     as many blocks as fit walks over tiles of 64 tokens, with the next
 //     tile's x in flight (`cp.async`) behind the current tile's products.
 //     Else (C >= 128, where tokens are few and weights large) a block owns one token
@@ -254,7 +255,7 @@ __device__ __forceinline__ void prefetch_tile(const T* __restrict__ x, int64_t m
   commit();
 }
 
-// w1, w2: the weights in the operand type (f32, or the bf16 copy the entry point makes).
+// w1, w2: the weights in the operand type (f32, or the bf16 or f16 copy the entry point makes).
 template <typename T, class Cf>
 __global__ void __launch_bounds__(Cf::kThreads)
 prenorm_mlp_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, float* __restrict__ partial,
@@ -344,11 +345,12 @@ prenorm_mlp_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, float* __rest
   }
 }
 
-// The weights' bf16 copy for bf16 activations.
-__global__ void __launch_bounds__(kThreads) to_bf16_kernel(const float* __restrict__ a, __nv_bfloat16* __restrict__ out,
-                                                           int64_t n) {
+// The weights' copy in the operand type (bf16 or f16) for bf16 or f16 activations.
+template <typename S>
+__global__ void __launch_bounds__(kThreads) to_operand_kernel(const float* __restrict__ a, S* __restrict__ out,
+                                                              int64_t n) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i < n) out[i] = __float2bfloat16_rn(a[i]);
+  if (i < n) out[i] = ftt::from_float<S>(a[i]);
 }
 
 // y = x + (sum of the shares' partial sums, in share order, + b2), four channels a thread.
@@ -444,6 +446,20 @@ cudaError_t dispatch(const void* x, void* y, const float* const* p, float* parti
   return with_cfg(C, H, [&](auto cfg) { return launch<T, decltype(cfg)>(x, y, p, partial, w1, w2, M, H, eps, s); });
 }
 
+// 16-bit activations: the weights copied to `wconv` in the operand type (W1, then W2), then the kernel.
+template <typename T>
+cudaError_t dispatch16(const void* x, void* y, const float* const* p, float* partial, void* wconv, int64_t M, int C,
+                       int H, float eps, cudaStream_t s) {
+  if (wconv == nullptr) return cudaErrorInvalidValue;
+  auto w1h = static_cast<T*>(wconv);
+  auto w2h = w1h + static_cast<int64_t>(H) * C;
+  const int64_t n = static_cast<int64_t>(H) * C;
+  const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  to_operand_kernel<T><<<grid, kThreads, 0, s>>>(p[2], w1h, n);
+  to_operand_kernel<T><<<grid, kThreads, 0, s>>>(p[4], w2h, n);
+  return dispatch<T>(x, y, p, partial, w1h, w2h, M, C, H, eps, s);
+}
+
 }  // namespace
 
 // The shares of the hidden width that ftt_prenorm_mlp splits M tokens into
@@ -457,8 +473,8 @@ extern "C" int ftt_prenorm_mlp_shares(long long M, int C, int H, int* shares) {
 // (C,); w1: (H, C); b1: (H,); w2: (C, H); all parameters f32 and 16-byte
 // aligned; H a multiple of 32.  partial: (shares, M, C) f32 scratch when
 // ftt_prenorm_mlp_shares gives more than one share, else unused; wconv:
-// 2 H C bf16 of scratch for the weights' bf16 copy when dtype is bf16, else
-// unused.  Returns cudaGetLastError().
+// 2 H C 16-bit values of scratch for the weights' copy in the operand type
+// when dtype is bf16 or f16, else unused.  Returns cudaGetLastError().
 extern "C" int ftt_prenorm_mlp(const void* x, void* y, const void* gamma, const void* beta, const void* w1,
                                const void* b1, const void* w2, const void* b2, void* partial, void* wconv, int dtype,
                                long long M, int C, int H, float eps, void* stream) {
@@ -473,14 +489,9 @@ extern "C" int ftt_prenorm_mlp(const void* x, void* y, const void* gamma, const 
   } else if (dtype == ftt::kFloat32) {
     err = dispatch<float>(x, y, params, part, params[2], params[4], M, C, H, eps, s);
   } else if (dtype == ftt::kBFloat16) {
-    if (wconv == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    auto w1h = static_cast<__nv_bfloat16*>(wconv);
-    auto w2h = w1h + static_cast<int64_t>(H) * C;
-    const int64_t n = static_cast<int64_t>(H) * C;
-    const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-    to_bf16_kernel<<<grid, kThreads, 0, s>>>(params[2], w1h, n);
-    to_bf16_kernel<<<grid, kThreads, 0, s>>>(params[4], w2h, n);
-    err = dispatch<__nv_bfloat16>(x, y, params, part, w1h, w2h, M, C, H, eps, s);
+    err = dispatch16<__nv_bfloat16>(x, y, params, part, wconv, M, C, H, eps, s);
+  } else if (dtype == ftt::kFloat16) {
+    err = dispatch16<__half>(x, y, params, part, wconv, M, C, H, eps, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -3,8 +3,8 @@
 // Replaces the Pallas kernels `_bwd_kernel` (factorizer_tpu/ops/pallas/
 // mlp_block.py:197, launched at :347) and `_slab_bwd_kernel` (:506, launched
 // at :650): two TPU layouts of one function, one kernel here, for C in
-// {32, 64, 128, 256, 512}, any H that 32 divides, f32 or bf16 activations, f32
-// parameters and f32 gradients.  From the saved x it recomputes, per token
+// {32, 64, 128, 256, 512}, any H that 32 divides, f32, bf16 or f16 activations,
+// f32 parameters and f32 gradients.  From the saved x it recomputes, per token
 // tile, xhat = (x - mean) rstd, xn = xhat gamma + beta, h = xn W1^T + b1 and
 // gel = GELU(h), and emits
 //
@@ -25,8 +25,8 @@
 // What the design does about it:
 //   * All five products run on tensor cores with the forward's fragments
 //     (`Mma<float>`, mma.cuh): three-pass TF32, m16n8k8, f32 accumulation,
-//     about 1e-6 of the f32 result, for both activation dtypes (bf16
-//     activations are widened to f32 as they are staged; their bf16 operands
+//     about 1e-6 of the f32 result, for every activation dtype (bf16 and f16
+//     activations are widened to f32 as they are staged; 16-bit operands
 //     would not hold the parameter gradients' band).  h = xn W1^T and
 //     dgel = g W2 share one warp tiling, so each thread turns its own h and
 //     dgel into gel and dh; dxn = dh W1 is a token-tile product; dW2 += g^T gel
@@ -651,6 +651,8 @@ extern "C" int ftt_prenorm_mlp_bwd_scratch(long long M, int C, int H, int dtype,
     err = with_cfg(C, H, [&](auto cfg) { return make_plan<float, decltype(cfg)>(M, H, &pl); });
   } else if (dtype == ftt::kBFloat16) {
     err = with_cfg(C, H, [&](auto cfg) { return make_plan<__nv_bfloat16, decltype(cfg)>(M, H, &pl); });
+  } else if (dtype == ftt::kFloat16) {
+    err = with_cfg(C, H, [&](auto cfg) { return make_plan<__half, decltype(cfg)>(M, H, &pl); });
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -682,6 +684,8 @@ extern "C" int ftt_prenorm_mlp_bwd(const void* x, const void* g, void* dx, const
     err = dispatch<float>(x, g, dx, params, fs, floats, fg, M, C, H, eps, s);
   } else if (dtype == ftt::kBFloat16) {
     err = dispatch<__nv_bfloat16>(x, g, dx, params, fs, floats, fg, M, C, H, eps, s);
+  } else if (dtype == ftt::kFloat16) {
+    err = dispatch<__half>(x, g, dx, params, fs, floats, fg, M, C, H, eps, s);
   } else {
     err = cudaErrorInvalidValue;
   }

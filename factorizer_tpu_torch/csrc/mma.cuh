@@ -1,9 +1,10 @@
 // The tensor-core fragments of K2's forward (mlp_block.cu) and backward
 // (mlp_block_bwd.cu): mma.sync m16n8k8 TF32 in three passes for f32 operands,
-// m16n8k16 bf16 for bf16 operands, f32 accumulation.
+// m16n8k16 bf16 or f16 for bf16 or f16 operands, f32 accumulation.
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -62,9 +63,10 @@ template <> struct Mma<float> {
   static __device__ __forceinline__ void store2(S* p, float a, float b) { *reinterpret_cast<float2*>(p) = make_float2(a, b); }
 };
 
-// bf16 activations: bf16 operands, f32 accumulation.
-template <> struct Mma<__nv_bfloat16> {
-  using S = __nv_bfloat16;
+// bf16 and f16 activations: operands of the activations' type, f32 accumulation.  The two m16n8k16 forms share
+// their fragment layout; only the operand type of the instruction differs.
+template <typename T16> struct Mma16 {
+  using S = T16;
   static constexpr int kK = 16;
   static constexpr int kPad = 8;
   struct A { uint32_t r[4]; };
@@ -80,15 +82,27 @@ template <> struct Mma<__nv_bfloat16> {
     return B{{pair(p), pair(p + 8)}};
   }
   static __device__ __forceinline__ void mma(float (&c)[4], const A& a, const B& b) {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "r"(b.r[0]), "r"(b.r[1]));
+    if constexpr (std::is_same_v<S, __half>) {
+      asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+          : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+          : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "r"(b.r[0]), "r"(b.r[1]));
+    } else {
+      asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+          : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+          : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "r"(b.r[0]), "r"(b.r[1]));
+    }
   }
   static constexpr int kPasses = 1;
   static __device__ __forceinline__ void mma_passes(float (&c)[kPasses][4], const A& a, const B& b) { mma(c[0], a, b); }
   static __device__ __forceinline__ void store2(S* p, float a, float b) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+    if constexpr (std::is_same_v<S, __half>) {
+      *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+    } else {
+      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+    }
   }
 };
+template <> struct Mma<__nv_bfloat16> : Mma16<__nv_bfloat16> {};
+template <> struct Mma<__half> : Mma16<__half> {};
 
 }  // namespace ftt

@@ -391,7 +391,9 @@ cudaError_t launch(const ftt::NmfPlan& plan, int rank, const void* x, void* y, c
 extern "C" int ftt_nmf_reconstruct(const void* x, void* y, const void* u0, const void* v0, int dtype,
                                    long long n_mats, int M, int N, int rank, int mu, int num_iters,
                                    float eps, int route, void* stream) {
-  if (dtype != ftt::kFloat32 && dtype != ftt::kBFloat16) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != ftt::kFloat32 && dtype != ftt::kBFloat16 && dtype != ftt::kFloat16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const ftt::NmfPlan plan =
       ftt::nmf_plan(rank, M, N, dtype == ftt::kFloat32 ? 4 : 2, num_iters, n_mats, /*backward=*/false, route);
   if (plan.route == ftt::kNmfNone || n_mats > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
@@ -399,8 +401,9 @@ extern "C" int ftt_nmf_reconstruct(const void* x, void* y, const void* u0, const
   auto fu0 = static_cast<const float*>(u0);
   auto fv0 = static_cast<const float*>(v0);
   const cudaError_t err =
-      dtype == ftt::kFloat32 ? launch<float>(plan, rank, x, y, fu0, fv0, n_mats, M, N, mu, num_iters, eps, s)
-                             : launch<__nv_bfloat16>(plan, rank, x, y, fu0, fv0, n_mats, M, N, mu, num_iters, eps, s);
+      dtype == ftt::kFloat32   ? launch<float>(plan, rank, x, y, fu0, fv0, n_mats, M, N, mu, num_iters, eps, s)
+      : dtype == ftt::kBFloat16 ? launch<__nv_bfloat16>(plan, rank, x, y, fu0, fv0, n_mats, M, N, mu, num_iters, eps, s)
+                                : launch<__half>(plan, rank, x, y, fu0, fv0, n_mats, M, N, mu, num_iters, eps, s);
   return static_cast<int>(err);
 }
 

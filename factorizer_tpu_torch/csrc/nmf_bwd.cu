@@ -104,8 +104,8 @@ cudaError_t launch_plan(const ftt::NmfPlan& plan, const void* x, const void* g, 
 extern "C" int ftt_nmf_reconstruct_bwd(const void* x, const void* g, void* dx, const void* u0, const void* v0,
                                        int dtype, long long n_mats, int M, int N, int mu, int num_iters,
                                        int grad_steps, float eps, int route, void* stream) {
-  if ((dtype != ftt::kFloat32 && dtype != ftt::kBFloat16) || n_mats > 2147483647LL || grad_steps < 1 ||
-      grad_steps > num_iters) {
+  if ((dtype != ftt::kFloat32 && dtype != ftt::kBFloat16 && dtype != ftt::kFloat16) || n_mats > 2147483647LL ||
+      grad_steps < 1 || grad_steps > num_iters) {
     return cudaErrorInvalidValue;
   }
   const ftt::NmfPlan plan =
@@ -117,6 +117,8 @@ extern "C" int ftt_nmf_reconstruct_bwd(const void* x, const void* g, void* dx, c
   const cudaError_t err =
       dtype == ftt::kFloat32
           ? launch_plan<float>(plan, x, g, dx, fu0, fv0, n_mats, M, N, mu, num_iters, grad_steps, eps, s)
-          : launch_plan<__nv_bfloat16>(plan, x, g, dx, fu0, fv0, n_mats, M, N, mu, num_iters, grad_steps, eps, s);
+      : dtype == ftt::kBFloat16
+          ? launch_plan<__nv_bfloat16>(plan, x, g, dx, fu0, fv0, n_mats, M, N, mu, num_iters, grad_steps, eps, s)
+          : launch_plan<__half>(plan, x, g, dx, fu0, fv0, n_mats, M, N, mu, num_iters, grad_steps, eps, s);
   return static_cast<int>(err);
 }

@@ -27,7 +27,7 @@
 //     a group of 4 warps holds an 8 x 512 matrix, 4 rows of 8 channels a
 //     thread; at p = 4 a warp holds a matrix and a block four.  X v reduces
 //     by shuffles (one barrier an iteration), X^T u needs no reduction.
-//   * A row's 8 channels are one 16-byte access (bf16) or two (f32), in both
+//   * A row's 8 channels are one 16-byte access (bf16, f16) or two (f32), in both
 //     passes; the wrapper keeps the tensors 16-byte aligned.
 //   * (d, p) = (8, 8) and (8, 4), the bundles' sizes, are compile-time
 //     instances; other sizes take a shared-memory solve by a 256-thread block
@@ -280,7 +280,7 @@ extern "C" int ftt_windowed_nmf_factors(const void* x, void* U, void* V, const v
                                         int B, int S1, int S2, int S3, int C, int d, int p, int n_shifts,
                                         const int* shifts, int mu, int num_iters, float eps, void* stream) {
   if (!valid(B, S1, S2, S3, C, d, p, n_shifts, shifts) || num_iters < 0) return cudaErrorInvalidValue;
-  if (dtype != ftt::kFloat32 && dtype != ftt::kBFloat16) return cudaErrorInvalidValue;
+  if (dtype != ftt::kFloat32 && dtype != ftt::kBFloat16 && dtype != ftt::kFloat16) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto fu0 = static_cast<const float*>(u0);
   auto fv0 = static_cast<const float*>(v0);
@@ -292,7 +292,9 @@ extern "C" int ftt_windowed_nmf_factors(const void* x, void* U, void* V, const v
     const cudaError_t err =
         dtype == ftt::kFloat32
             ? launch_factors<float>(x, fU, fV, fu0, fv0, B, S1, S2, S3, C, d, p, sh, mu, num_iters, eps, s)
-            : launch_factors<__nv_bfloat16>(x, fU, fV, fu0, fv0, B, S1, S2, S3, C, d, p, sh, mu, num_iters, eps, s);
+        : dtype == ftt::kBFloat16
+            ? launch_factors<__nv_bfloat16>(x, fU, fV, fu0, fv0, B, S1, S2, S3, C, d, p, sh, mu, num_iters, eps, s)
+            : launch_factors<__half>(x, fU, fV, fu0, fv0, B, S1, S2, S3, C, d, p, sh, mu, num_iters, eps, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaSuccess);
@@ -315,6 +317,8 @@ extern "C" int ftt_windowed_nmf_reconstruct(const void* U, const void* V, void* 
     err = launch_reconstruct<float>(fU, fV, facc, out, B, S1, S2, S3, C, d, p, n_shifts, shifts, s);
   } else if (dtype == ftt::kBFloat16) {
     err = launch_reconstruct<__nv_bfloat16>(fU, fV, facc, out, B, S1, S2, S3, C, d, p, n_shifts, shifts, s);
+  } else if (dtype == ftt::kFloat16) {
+    err = launch_reconstruct<__half>(fU, fV, facc, out, B, S1, S2, S3, C, d, p, n_shifts, shifts, s);
   } else {
     err = cudaErrorInvalidValue;
   }

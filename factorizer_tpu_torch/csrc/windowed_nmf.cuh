@@ -154,8 +154,8 @@ __device__ __forceinline__ void store_at(float* acc, T* out, float* send, int64_
   store_pass(acc, out, o, y, first, last, scale);
 }
 
-// Eight consecutive values as f32: 32 bytes of f32 or 16 of bf16, in one or
-// two 16-byte accesses (the caller keeps `p` 16-byte aligned).
+// Eight consecutive values as f32: 32 bytes of f32 or 16 of bf16 or f16, in
+// one or two 16-byte accesses (the caller keeps `p` 16-byte aligned).
 __device__ __forceinline__ void load8(const float* p, float (&r)[8]) {
   const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
   r[0] = a.x; r[1] = a.y; r[2] = a.z; r[3] = a.w; r[4] = b.x; r[5] = b.y; r[6] = b.z; r[7] = b.w;
@@ -170,6 +170,16 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&r)[8]) {
     r[2 * i + 1] = f.y;
   }
 }
+__device__ __forceinline__ void load8(const __half* p, float (&r)[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+    r[2 * i] = f.x;
+    r[2 * i + 1] = f.y;
+  }
+}
 __device__ __forceinline__ void store8(float* p, const float (&r)[8]) {
   reinterpret_cast<float4*>(p)[0] = make_float4(r[0], r[1], r[2], r[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(r[4], r[5], r[6], r[7]);
@@ -179,6 +189,16 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&r)[8]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const __nv_bfloat162 h = __floats2bfloat162_rn(r[2 * i], r[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ void store8(__half* p, const float (&r)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __half2 h = __floats2half2_rn(r[2 * i], r[2 * i + 1]);
     w[i] = *reinterpret_cast<const uint32_t*>(&h);
   }
   *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);

@@ -188,6 +188,9 @@ extern "C" int ftt_windowed_nmf_slab_shift(const void* x, const void* halo, void
   } else if (dtype == ftt::kBFloat16) {
     err = launch<__nv_bfloat16>(x, halo, acc, out, send, fu0, fv0, B, L, S2, S3, C, d, p, sh1, sh2, sh3, mu,
                                 num_iters, eps, first, last, scale, s);
+  } else if (dtype == ftt::kFloat16) {
+    err = launch<__half>(x, halo, acc, out, send, fu0, fv0, B, L, S2, S3, C, d, p, sh1, sh2, sh3, mu, num_iters,
+                         eps, first, last, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -206,6 +209,8 @@ extern "C" int ftt_windowed_nmf_slab_tail(const void* recv, void* acc, void* out
     err = launch_tail<float>(recv, acc, out, B, L, R, sh1, first, last, scale, s);
   } else if (dtype == ftt::kBFloat16) {
     err = launch_tail<__nv_bfloat16>(recv, acc, out, B, L, R, sh1, first, last, scale, s);
+  } else if (dtype == ftt::kFloat16) {
+    err = launch_tail<__half>(recv, acc, out, B, L, R, sh1, first, last, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }

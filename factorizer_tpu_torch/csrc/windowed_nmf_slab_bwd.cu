@@ -142,6 +142,9 @@ extern "C" int ftt_windowed_nmf_slab_shift_bwd(const void* x, const void* g, con
   } else if (dtype == ftt::kBFloat16) {
     err = launch<__nv_bfloat16>(x, g, x_halo, g_halo, acc, out, send, fu0, fv0, B, L, S2, S3, C, d, p, sh1, sh2, sh3,
                                 mu, num_iters, grad_steps, eps, first, last, scale, s);
+  } else if (dtype == ftt::kFloat16) {
+    err = launch<__half>(x, g, x_halo, g_halo, acc, out, send, fu0, fv0, B, L, S2, S3, C, d, p, sh1, sh2, sh3, mu,
+                         num_iters, grad_steps, eps, first, last, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }

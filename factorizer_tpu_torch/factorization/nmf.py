@@ -9,7 +9,7 @@ JAX package's ``stop_gradient`` phase makes them.
 input's dtype or device.  A batch of matrices (``x.ndim >= 3``) under ``hals``
 or ``mu`` at rank 1 to 4 whose size the flat kernel takes
 (``ops.kernels.nmf.supports``) goes through ``ops.kernels.nmf_reconstruct``:
-K4 on the card, which reads f32 or bf16, solves in f32 on chip and raises for
+K4 on the card, which reads f32, bf16 or f16, solves in f32 on chip and raises for
 any other dtype, and its plain version on the CPU.  Everything else, the
 default global ``Matricize`` (``M = C``, ``N`` = all voxels) among it, takes
 the ``decompose`` chain of matrix products; there bf16 and f16 inputs are

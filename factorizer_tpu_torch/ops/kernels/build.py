@@ -86,7 +86,7 @@ _SIGNATURES = {
     "ftt_windowed_nmf_slab_tail": [_P] * 3 + [_I, _I, _I, _L, _I, _I, _I, _F, _P],
 }
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # csrc/common.cuh's DType
 
 _state = {"lib": None, "build_seconds": None, "build_log": "", "reference": False}
 
@@ -175,7 +175,7 @@ def check_aligned(name: str, t: torch.Tensor) -> None:
 
 def dtype_code(dtype: torch.dtype) -> int:
     if dtype not in _DTYPE_CODES:
-        raise TypeError(f"kernels take float32 or bfloat16 activations, got {dtype}")
+        raise TypeError(f"kernels take float32, bfloat16 or float16 activations, got {dtype}")
     return _DTYPE_CODES[dtype]
 
 

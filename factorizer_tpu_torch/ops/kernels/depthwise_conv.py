@@ -23,7 +23,7 @@ kernel (:func:`depthwise_conv_dw`), which sums per-block partial sums in block
 order, so a gradient is the same from run to run.  A CPU tensor takes
 :func:`depthwise_conv_plain`, a grouped ``F.conv{2,3}d`` that autograd
 differentiates; :func:`depthwise_conv_dw_plain` is its weight gradient by name.
-Both kernels accumulate in float32 for float32 or bfloat16 activations; the
+Both kernels accumulate in float32 for float32, bfloat16 or float16 activations; the
 taps and their gradient are float32.
 """
 
@@ -196,7 +196,7 @@ def conv_plan(shape: Sequence[int], ks: Sequence[int], dtype: torch.dtype, sms: 
     ``shape`` and ``dtype`` with kernel ``ks``, on a card of ``sms`` SMs.  Chosen from the shape alone.
 
     The tiled route takes k2, k3 in (1, 3, 5, 7) (for dw also k2 * k3 <= 16), any odd k1, and a channel count
-    that a 16-byte vector divides (4 f32 or 8 bf16 channels).  A 2-D batch runs as ``(B, H, 1, W, C)`` with
+    that a 16-byte vector divides (4 f32 or 8 bf16 or f16 channels).  A 2-D batch runs as ``(B, H, 1, W, C)`` with
     kernel ``(kh, 1, kw)``, so that the block walks down the image rows.  Other shapes take the run kernel
     (k3 in (1, 3, 5, 7)) or the one-output-per-thread kernel.  ``route="run"`` or ``"any"`` gives the plan of that
     route instead, for a comparison of the routes on one shape; the wrappers never pass it."""

@@ -95,8 +95,8 @@ def _launch_forward(x, params: dict, eps: float) -> torch.Tensor:
     tokens = x.numel() // c
     shares = forward_shares(tokens, c, hidden)
     partial = torch.empty(shares, tokens, c, dtype=torch.float32, device=x.device) if shares > 1 else None
-    # bf16 activations: the kernel's operands are the weights' bf16 copy, made in this scratch.
-    wconv = torch.empty(2 * hidden * c, dtype=torch.bfloat16, device=x.device) if x.dtype == torch.bfloat16 else None
+    # bf16 and f16 activations: the kernel's operands are the weights' copy in that type, made in this scratch.
+    wconv = torch.empty(2 * hidden * c, dtype=x.dtype, device=x.device) if x.dtype in (torch.bfloat16, torch.float16) else None
     y = torch.empty_like(x)
     status = lib.ftt_prenorm_mlp(
         x.data_ptr(), y.data_ptr(), *(p.data_ptr() for p in params.values()),

@@ -19,7 +19,7 @@ it, exactly as the JAX package's ``_bwd`` does with XLA; each such call is
 counted in ``nmf_reconstruct_backward.recomputes``.  ``u0`` and ``v0`` get no
 gradient.  A CPU tensor takes the plain versions.  The solve runs in float32
 for every input dtype; a float64 input (CPU only) is solved in float64.  On
-the card the kernels read float32 or bfloat16; any other dtype raises.
+the card the kernels read float32, bfloat16 or float16; any other dtype raises.
 
 :func:`nmf_plan` says how a call runs, as ``csrc/nmf_plan.cuh`` decides it:
 the register route at the bundles' sizes, ``M = 8`` and ``N = 512`` or ``64``
@@ -131,7 +131,8 @@ def nmf_plan(solver: str, rank: int, size: Sequence[int], dtype: torch.dtype = t
 
     ``(8, 512)`` and ``(8, 64)`` take the register route (forward at ranks 1 to 4, backward at rank 1) unless the
     backward's iterates overflow a block's shared memory; any other size takes the shared-memory route if its
-    matrix and factors fit; the kernels read float32 and bfloat16, and the plan is the same for both.
+    matrix and factors fit; the kernels read float32, bfloat16 and float16, and the plan is the same for the two element
+    sizes.
     ``route="shared"`` asks for the shared-memory route at a size the register route takes, for a comparison of
     the routes on one size; the wrappers' callers never pass it.  Plans are cached, so a launch pays for a
     dictionary lookup."""
@@ -144,7 +145,7 @@ def _nmf_plan(solver: str, rank: int, size: tuple[int, int], dtype: torch.dtype,
               backward: bool, route: Optional[str]) -> Optional[NmfPlan]:
     m, n = size
     if (solver not in SOLVERS or not 1 <= rank <= (1 if backward else MAX_RANK) or m < 1 or n < 1 or num_iters < 1
-            or n_mats < 1 or dtype not in (torch.float32, torch.bfloat16) or route not in (None, "shared")
+            or n_mats < 1 or dtype not in (torch.float32, torch.bfloat16, torch.float16) or route not in (None, "shared")
             or (route == "shared" and not (m == 8 and n in (512, 64)))):
         return None
 

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["load_flax_variables", "flax_path"]
+__all__ = ["load_flax_variables", "flax_state_dict", "flax_path"]
 
 Transform = Optional[Callable[[np.ndarray], np.ndarray]]
 
@@ -117,14 +117,14 @@ def _get(tree: Mapping[str, Any], path: tuple[str, ...]) -> np.ndarray:
     return np.asarray(node)
 
 
-def load_flax_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Module:
-    """Load the JAX package's ``{"params", "buffers"}`` variables into ``model`` in place.
+def flax_state_dict(model: nn.Module, variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The ``state_dict`` of ``model`` that the JAX package's ``{"params", "buffers"}`` variables give, as host
+    tensors in the model's dtypes; ``model`` itself is not changed.
 
     Every entry of ``model.state_dict()`` must have a counterpart; shapes are checked.
     """
-    state = model.state_dict()
     new_state = {}
-    for key, current in state.items():
+    for key, current in model.state_dict().items():
         collection, path, fn = flax_path(key)
         value = _get(variables[collection], path)
         if fn is not None:
@@ -132,5 +132,10 @@ def load_flax_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Mo
         if tuple(value.shape) != tuple(current.shape):
             raise ValueError(f"{key}: Flax leaf {'.'.join(path)} has shape {value.shape}, expected {tuple(current.shape)}")
         new_state[key] = torch.tensor(np.ascontiguousarray(value)).to(current.dtype)
-    model.load_state_dict(new_state, strict=True)
+    return new_state
+
+
+def load_flax_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Module:
+    """Load the JAX package's ``{"params", "buffers"}`` variables into ``model`` in place (:func:`flax_state_dict`)."""
+    model.load_state_dict(flax_state_dict(model, variables), strict=True)
     return model

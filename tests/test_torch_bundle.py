@@ -1,0 +1,312 @@
+"""The bundles' YAML programs on the port: ``factorizer_tpu_torch.config`` (parser, overlays, CLI) against the JAX package's.
+
+Every bundle's files are read unedited from ``zoo/<bundle>/configs``.  The five
+bundles whose models the port has build their ``network_def`` (the zoo
+factory's weights from the same seed, ``amp`` and a ``dtype`` override),
+their transforms and their overlays; the seven baseline bundles build their
+transforms and name the model class the port lacks.  The port-parsed loader
+gives the JAX-parsed loader's batches bit for bit; the CLI's override forms
+and ``main()`` are the JAX package's tests ported; a 2-epoch
+``factorizer_brats23`` run at 16^3 on the CPU repeats its losses from the
+config's ``seed``; resolving ``evaluate.yaml``'s program imports nothing of
+JAX; and reduced float16 models built from ``network_def#dtype=$jnp.float16``
+match the JAX package's ``jnp.float16`` models with the same weights.
+Everything runs on the CPU (``network_def#device=cpu`` and the like), where
+the kernels' wrappers take their plain versions.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from factorizer_tpu import config as jax_config
+
+import factorizer_tpu_torch as ftt
+from factorizer_tpu_torch import zoo_scripts
+from factorizer_tpu_torch.config import ConfigParser, load_config_files, merge_config, run
+from factorizer_tpu_torch.config.bundle import _normalize_cli_overrides, main
+from torch_workflow_cases import write_cases
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+ZOO = REPO / "zoo"
+PORTED = {
+    "factorizer_brats23": ftt.brats23_network,
+    "factorizer_isles22": ftt.factorizer_isles22_network,
+    "deconver_brats23": ftt.deconver_brats23_network,
+    "deconver_isles22": ftt.deconver_isles22_network,
+    "deconver_fives": ftt.deconver_fives_network,
+}
+BASELINES = {"nnunet_brats23": "DynUNet", "nnunet_fives": "DynUNet", "nnunet_isles22": "DynUNet",
+             "segresnet_brats23": "SegResNet", "segresnet_fives": "SegResNet", "segresnet_isles22": "SegResNet",
+             "swinunetr_isles22": "SwinUNETR"}
+# The overlays as the bundles' docs/*.sh stack them over train.yaml; inference_aot.yaml goes over inference.yaml.
+OVERLAYS = [("train_multidevice.yaml",), ("evaluate.yaml",), ("inference.yaml",), ("inference.yaml", "inference_aot.yaml")]
+ON_CPU = {"network_def#device": "cpu", "trainer#device": "cpu", "evaluator#device": "cpu", "inferencer#device": "cpu"}
+
+# factorizer_brats23 at 16^3: two stages of widths 8 and 16, patches of 4^3, two shifts.
+TINY_FACTORIZER = {
+    "roi_size": [16, 16, 16],
+    "network_def#encoder_depth": [1, 1],
+    "network_def#encoder_width": [8, 16],
+    "network_def#strides": [1, 2],
+    "network_def#decoder_depth": [1],
+    "network_def#reshape": ["$ftx.SWMatricize", {"head_dim": 4, "patch_size": 4, "shifts": [None, 2]}],
+}
+# deconver_brats23 at 16^3: two stages of widths 4 and 8.
+TINY_DECONVER = {
+    "roi_size": [16, 16, 16],
+    "network_def#encoder_depth": [1, 1],
+    "network_def#encoder_width": [4, 8],
+    "network_def#strides": [1, 2],
+    "network_def#decoder_depth": [1],
+}
+
+
+def _config(bundle: str, *overlays: str, **overrides) -> dict:
+    configs = ZOO / bundle / "configs"
+    cfg = load_config_files([configs / "train.yaml", *(configs / o for o in overlays)])
+    cfg["bundle_root"] = str(ZOO / bundle)
+    for key, value in overrides.items():
+        cfg = merge_config(cfg, {key: value})
+    return cfg
+
+
+@pytest.mark.parametrize("bundle", list(PORTED))
+def test_network_def_builds_the_zoo_factory_model(bundle):
+    """``network_def`` from the port's parser, on the CPU, after ``torch.manual_seed(0)``: the zoo factory's model
+    from a generator seeded 0, every parameter and buffer equal, in float32 as ``amp: false`` ships it.  The parser
+    resolves ``$ftx.<Name>`` to the port's classes and ``$jnp.bfloat16 if @amp else None`` to None."""
+    parser = ConfigParser(_config(bundle, **{"network_def#device": "cpu"}))
+    torch.manual_seed(0)
+    model = parser["network_def"]
+    factory = PORTED[bundle](device="cpu", generator=torch.Generator().manual_seed(0))
+    assert type(model) is type(factory) and model.stem.dtype is None
+    sd, want = model.state_dict(), factory.state_dict()
+    assert sd.keys() == want.keys()
+    for key in want:
+        assert torch.equal(sd[key], want[key]), key
+
+
+@pytest.mark.parametrize("bundle", ["factorizer_brats23", "deconver_fives"])
+def test_amp_and_dtype_overrides(bundle):
+    """``amp: true`` gives a bfloat16 network, ``network_def#dtype=$jnp.float16`` a float16 one; another ``jnp``
+    attribute raises, naming the port."""
+    small = TINY_FACTORIZER if bundle.startswith("factorizer") else {}
+    base = {"network_def#device": "cpu", **small}
+    assert ConfigParser(_config(bundle, amp=True, **base))["network_def"].stem.dtype == torch.bfloat16
+    assert ConfigParser(_config(bundle, **{"network_def#dtype": "$jnp.float16"}, **base))["network_def"].stem.dtype == torch.float16
+    with pytest.raises(AttributeError, match="factorizer_tpu_torch"):
+        ConfigParser(_config(bundle, **{"network_def#dtype": "$jnp.int8"}, **base))["network_def"]
+
+
+@pytest.mark.parametrize("bundle", list(PORTED))
+def test_transforms_build_with_the_random_tail(bundle):
+    """The train preprocessing is the deterministic list with the random tail after it; validation has no tail."""
+    parser = ConfigParser(_config(bundle))
+    train, val = parser["train_preprocessing"], parser["val_preprocessing"]
+    assert len(train.transforms) > len(val.transforms)
+    assert [type(t) for t in train.transforms[: len(val.transforms)]] == [type(t) for t in val.transforms]
+    assert all(isinstance(t, ftt.transforms.RandomizableTransform) for t in train.transforms[len(val.transforms):])
+
+
+@pytest.mark.parametrize("bundle", list(PORTED))
+def test_overlays_parse_and_name_the_port(bundle):
+    """Each overlay merges over train.yaml; its program's ``_target_`` (``factorizer_tpu.zoo_scripts.*``,
+    ``factorizer_tpu.parallel.mesh.data_parallel_mesh``) is read in the port; ``inference_aot.yaml`` sets
+    ``aot_compile``; ``sharded_train_datalist`` is the whole training list in one process."""
+    for overlays in OVERLAYS:
+        cfg = _config(bundle, *overlays)
+        parser = ConfigParser(cfg)
+        overlay = overlays[-1]
+        if overlay == "train_multidevice.yaml":
+            from factorizer_tpu_torch.parallel.mesh import data_parallel_mesh
+
+            assert parser._lookup(cfg["mesh"]["_target_"]) is data_parallel_mesh
+            assert parser["sharded_train_datalist"] == parser["train_datalist"] and parser["train_datalist"]
+            assert parser["train_dataset"].data == parser["sharded_train_datalist"]
+        elif overlay == "evaluate.yaml":
+            assert parser._lookup(cfg["evaluator"]["_target_"]) is zoo_scripts.evaluate_bundle
+            assert parser["ckpt_path"] == str(ZOO / bundle) + "/models/fold0"
+        else:
+            assert parser._lookup(cfg["inferencer"]["_target_"]) is zoo_scripts.ensemble_inference
+            assert cfg["inferencer"].get("aot_compile", False) is (overlay == "inference_aot.yaml")
+            assert parser["ckpt_paths"] == []  # no models/fold* in the repository
+
+
+@pytest.mark.parametrize("bundle", sorted(BASELINES))
+def test_baseline_bundles_build_transforms_and_name_the_missing_model(bundle):
+    """The seven baseline bundles: their transforms build; ``network_def`` raises a KeyError naming its class."""
+    parser = ConfigParser(_config(bundle))
+    assert len(parser["train_preprocessing"].transforms) > len(parser["val_preprocessing"].transforms)
+    with pytest.raises(KeyError, match=BASELINES[bundle]):
+        parser["network_def"]
+
+
+def test_jax_only_targets_raise_by_name():
+    """``train_tp.yaml``'s ``model_parallel_mesh`` has no counterpart; a ``_target_`` in JAX's own packages is
+    refused before any import."""
+    parser = ConfigParser(_config("factorizer_brats23", "train_tp.yaml"))
+    with pytest.raises(AttributeError, match="model_parallel_mesh"):
+        parser["mesh"]
+    with pytest.raises(KeyError, match="optax.adamw"):
+        ConfigParser({"x": {"_target_": "optax.adamw"}})["x"]
+
+
+def _data_overrides(root: Path, datalist: Path) -> dict:
+    return {"data_dir": str(root / "data"), "datalist_path": str(datalist), "num_workers": 0}
+
+
+def test_port_parsed_loader_matches_jax_parsed(tmp_path):
+    """``train_dataloader`` parsed by each package from the same files (roi 16^3, main-thread loader): with the
+    transform chain seeded alike, one epoch's batches are equal bit for bit."""
+    datalist = write_cases(tmp_path, 5, ftt.save_nifti, seed=4, folds=5)
+    overrides = {**_data_overrides(tmp_path, datalist), "roi_size": [16, 16, 16]}
+    epochs = []
+    for parser in (ConfigParser(_config("factorizer_brats23", **overrides)),
+                   jax_config.ConfigParser(_config("factorizer_brats23", **overrides))):
+        parser["train_preprocessing"].set_random_state(17)
+        epochs.append([(b["id"], b["image"], b["label"]) for b in parser["train_dataloader"]])
+    port, ref = epochs
+    assert len(port) == len(ref) == 2
+    for (ids, x, y), (ids_r, x_r, y_r) in zip(port, ref):
+        assert ids == ids_r and x.shape == (2, 4, 16, 16, 16) and y.dtype == np.uint8
+        np.testing.assert_array_equal(x, x_r)
+        np.testing.assert_array_equal(y, y_r)
+
+
+def test_cli_override_forms():
+    """The CLI takes positional ``key=value`` and the reference's ``--key value`` / ``--key=value`` forms."""
+    got = _normalize_cli_overrides(["a=1", "--max_epochs", "5", "--roi_size=[16,16,16]", "--network_def#solver", "hals"])
+    assert got == ["a=1", "max_epochs=5", "roi_size=[16,16,16]", "network_def#solver=hals"]
+    with pytest.raises(SystemExit):
+        _normalize_cli_overrides(["--dangling"])
+
+
+def test_cli_main_runs_program(tmp_path):
+    """``main()`` (``python -m factorizer_tpu_torch.bundle``) runs a tiny program with mixed-form overrides."""
+    cfg = tmp_path / "c.yaml"
+    cfg.write_text("x: 1\nmsg: $str(@x) + '-' + str(@y)\nout_file: null\nrun: [\"$open(@out_file, 'w').write(@msg)\"]\n")
+    out = tmp_path / "o.txt"
+    main(["run", "--config_file", str(cfg), "--y", "7", f"out_file={out}"])
+    assert out.read_text() == "1-7"
+    with pytest.raises(SystemExit):
+        main(["run"])
+
+
+def test_expressions_see_registry_names():
+    """``$``-expressions resolve registry helpers without module paths (``$partition_datalist(...)``)."""
+    parser = ConfigParser({"items": [1, 2, 3, 4], "shard": "$partition_datalist(@items, 2, 0)"})
+    assert parser["shard"] == [1, 3]
+
+
+def test_cli_trains_factorizer_brats23_the_same_twice(tmp_path):
+    """``train.yaml`` through ``run`` at 16^3 on the CPU: 2 epochs of 2 steps, a validation at epoch 2, the
+    checkpoint ``step_2.pt`` (the trainers number checkpoints by epoch, as the JAX trainer does);
+    a second run from the same ``seed`` repeats every epoch loss and the validation bit for bit (the seed draws
+    the weights when ``network_def`` is built and seeds the transform chains)."""
+    datalist = write_cases(tmp_path, 5, ftt.save_nifti, seed=8, folds=5)
+    overrides = {**_data_overrides(tmp_path, datalist), **TINY_FACTORIZER, **ON_CPU, "max_epochs": 2,
+                 "val_interval": 2}
+    histories = []
+    for i in range(2):
+        parser = run(str(ZOO / "factorizer_brats23" / "configs" / "train.yaml"), output_dir=str(tmp_path / f"run{i}"),
+                     **overrides)
+        trainer = parser["trainer"]
+        assert trainer.state.step == 4 and (tmp_path / f"run{i}" / "ckpt" / "step_2.pt").is_file()
+        assert next(trainer.model.parameters()).device.type == "cpu"
+        histories.append([{k: v for k, v in h.items() if k != "time_s"} for h in trainer.history])
+    assert histories[0] == histories[1]
+    assert all(np.isfinite(h["loss"]) for h in histories[0]) and 0.0 <= histories[0][-1]["mean_dice"] <= 1.0
+
+
+def test_evaluate_program_imports_nothing_of_jax(tmp_path):
+    """In a fresh interpreter, resolving ``evaluate.yaml``'s ``evaluator`` over a trained port checkpoint evaluates
+    the case and leaves ``jax`` and ``factorizer_tpu`` out of ``sys.modules``."""
+    datalist = write_cases(tmp_path, 2, ftt.save_nifti, seed=2, folds=2)
+    model = ftt.Factorizer(in_channels=4, out_channels=3, spatial_size=(16, 16, 16), encoder_depth=(1, 1),
+                           encoder_width=(8, 16), strides=(1, 2), decoder_depth=(1,), mlp_ratio=4,
+                           reshape=(ftt.SWMatricize, {"head_dim": 4, "patch_size": 4, "shifts": [None, 2]}), rank=1,
+                           num_iters=5, init_method="uniform", solver="hals", device="cpu")
+    ftt.save_checkpoint(tmp_path / "fold0.pt", model)
+    overrides = {**_data_overrides(tmp_path, datalist), **TINY_FACTORIZER, **ON_CPU,
+                 "ckpt_path": str(tmp_path / "fold0.pt"), "output_dir": str(tmp_path / "eval")}
+    configs = ZOO / "factorizer_brats23" / "configs"
+    script = (
+        "import json, sys\n"
+        "from factorizer_tpu_torch.config import run\n"
+        f"parser = run([{str(configs / 'train.yaml')!r}, {str(configs / 'evaluate.yaml')!r}], run_id=[], **json.loads(sys.argv[1]))\n"
+        "metrics = parser['evaluator']\n"
+        "assert 0.0 <= metrics['mean_dice'] <= 1.0, metrics\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'orbax', 'factorizer_tpu'))))\n"
+    )
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [str(REPO), os.environ.get("PYTHONPATH")]))}
+    done = subprocess.run([sys.executable, "-c", script, json.dumps(overrides)], cwd=REPO, capture_output=True,
+                          text=True, timeout=300, env=env)
+    assert done.returncode == 0, done.stderr[-2000:]
+    assert json.loads(done.stdout.strip().splitlines()[-1]) == []
+    assert (tmp_path / "eval" / "case_metrics.json").is_file()
+    assert sorted(p.name for p in (tmp_path / "eval" / "preds").iterdir()) == ["case0_pred.nii.gz"]
+
+
+def _bridged_pair(bundle: str, overrides: dict, dtype: str):
+    """The JAX model and the port model that the two parsers build from the same overrides, with the JAX model's
+    weights (``init`` from key 0) loaded into the port model."""
+    model_j = jax_config.ConfigParser(_config(bundle, **overrides, **{"network_def#dtype": f"$jnp.{dtype}"}))["network_def"]
+    model_t = ConfigParser(_config(bundle, **overrides, **{"network_def#dtype": f"$jnp.{dtype}", "network_def#device": "cpu"}))["network_def"]
+    variables = jax.tree.map(np.asarray, dict(jax.jit(model_j.init)(jax.random.key(0), jnp.zeros((1, 4, 16, 16, 16)))))
+    ftt.load_flax_variables(model_t, variables)
+    return model_j, variables, model_t
+
+
+# float16 logits, port against JAX, relative to the largest |logit|: both compute each layer in float16 with
+# float32 solves and statistics and round each layer's output once, at 2^-11 (4.9e-4) relative; the two orders of
+# summation put the roundings on different sides, and the layers carry them to the head.  Measured on the CPU:
+# 1.2e-3 (Factorizer) and 3.2e-3 (Deconver), the float16 models against their own float32 runs 0.8e-3 and 4.6e-3.
+F16_RTOL = 2e-2
+
+
+@pytest.mark.parametrize("bundle, overrides", [("factorizer_brats23", TINY_FACTORIZER), ("deconver_brats23", TINY_DECONVER)],
+                         ids=["factorizer", "deconver"])
+def test_float16_model_matches_jax(bundle, overrides):
+    """``network_def#dtype=$jnp.float16`` on the reduced models in both packages, the JAX weights bridged: the
+    port's float16 logits against the JAX ``jnp.float16`` logits within ``F16_RTOL`` of the largest, against the
+    float32 models' within the same band, and finite."""
+    x = np.random.default_rng(0).standard_normal((1, 4, 16, 16, 16)).astype(np.float32)
+    logits = {}
+    for dtype in ("float16", "float32"):
+        model_j, variables, model_t = _bridged_pair(bundle, overrides, dtype)
+        ref = np.asarray(jax.jit(model_j.apply)(variables, jnp.asarray(x)), np.float32)
+        with torch.no_grad():
+            got = model_t(torch.from_numpy(x)).float().numpy()
+        assert got.shape == ref.shape == (1, 3, 16, 16, 16) and np.isfinite(got).all()
+        logits[dtype] = got, ref
+    (got, ref), (got32, _) = logits["float16"], logits["float32"]
+    scale = np.abs(ref).max()
+    assert np.abs(got - ref).max() <= F16_RTOL * scale
+    assert np.abs(got - got32).max() <= F16_RTOL * np.abs(got32).max()
+
+
+def test_dtype_codes_match_common_cuh():
+    """The wrappers' dtype codes are the kernels' ``DType`` values in ``csrc/common.cuh``: float16 is ``kFloat16``;
+    float64 has no code and raises by name."""
+    import re
+
+    from factorizer_tpu_torch.ops.kernels import build
+
+    header = (build.CSRC_DIR / "common.cuh").read_text()
+    codes = {name: int(value) for name, value in re.findall(r"k(Float32|BFloat16|Float16) = (\d+)", header)}
+    assert codes == {"Float32": 0, "BFloat16": 1, "Float16": 2}
+    for dtype, name in ((torch.float32, "Float32"), (torch.bfloat16, "BFloat16"), (torch.float16, "Float16")):
+        assert build.dtype_code(dtype) == codes[name]
+    with pytest.raises(TypeError, match="torch.float64"):
+        build.dtype_code(torch.float64)

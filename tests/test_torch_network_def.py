@@ -1,9 +1,9 @@
 """The port's models build from the bundles' ``network_def`` (``norm``, ``factorize``, ``remat``), as the JAX models do.
 
 Each of the five Factorizer and Deconver bundles' ``configs/train.yaml`` is
-read unedited; a small resolver stands in for the config parser (``$ftx.<Name>``
--> the port's class, ``@key`` -> the file's value, ``dtype`` -> None as
-``amp: false`` gives).  Then: the full-width models equal the zoo factories';
+read unedited and its ``network_def`` resolved key by key by the port's
+``ConfigParser`` (``$ftx.<Name>`` -> the port's class, ``@key`` -> the file's
+value, ``dtype`` -> None as ``amp: false`` gives).  Then: the full-width models equal the zoo factories';
 ``remat=True`` gives the step of ``remat=False``; a reduced model with
 ``remat=True``, and one with ``norm=InstanceNorm``, against the JAX model in f64.
 Everything runs on the CPU, where the kernels' wrappers take their plain versions.
@@ -16,13 +16,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import yaml
 
 import factorizer_tpu as ftx
 from factorizer_tpu.train import losses as jax_losses
 from factorizer_tpu.utils.torch_import import convert_state_dict
 
 import factorizer_tpu_torch as ftt
+from factorizer_tpu_torch.config import ConfigParser, load_config_files
 from factorizer_tpu_torch.models import factorizer as port_factorizer
 from factorizer_tpu_torch.ops.kernels import prenorm_mlp as k2
 from factorizer_tpu_torch.train import trainer as port_trainer
@@ -39,27 +39,16 @@ BUNDLES = {
 }
 
 
-def _resolve(value, config: dict):
-    """The bundle's expressions the network definitions use: ``$ftx.<Name>`` and ``@key``."""
-    if isinstance(value, dict):
-        return {k: _resolve(v, config) for k, v in value.items()}
-    if isinstance(value, list):
-        return [_resolve(v, config) for v in value]
-    if isinstance(value, str) and value.startswith("$ftx."):
-        return getattr(ftt, value[len("$ftx."):])
-    if isinstance(value, str) and value.startswith("@"):
-        return _resolve(config[value[1:]], config)
-    return value
-
-
 def network_def(bundle: str) -> tuple[type, dict]:
-    """``(model class, keyword arguments)`` of the bundle's unedited ``network_def``, f32 (``amp: false``)."""
-    config = yaml.safe_load((ZOO / bundle / "configs" / "train.yaml").read_text())
+    """``(model class, keyword arguments)`` of the bundle's unedited ``network_def``, f32 (``amp: false``), each
+    argument resolved by the port's ``ConfigParser``."""
+    config = load_config_files([ZOO / bundle / "configs" / "train.yaml"])
     assert config["amp"] is False and config["network_def"]["dtype"] == "$jnp.bfloat16 if @amp else None"
-    spec = dict(config["network_def"])
-    cls = getattr(ftt, spec.pop("_target_"))
-    spec["dtype"] = None
-    return cls, _resolve(spec, config)
+    parser = ConfigParser(config)
+    keys = [k for k in config["network_def"] if k != "_target_"]
+    kwargs = {k: parser[f"network_def#{k}"] for k in keys}
+    assert kwargs["dtype"] is None
+    return parser.registry[config["network_def"]["_target_"]], kwargs
 
 
 @pytest.mark.parametrize("bundle", list(BUNDLES))

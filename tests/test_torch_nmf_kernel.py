@@ -266,12 +266,14 @@ def test_matrix_factorization_routes_by_shape():
 
 def test_wrapper_raises_rather_than_giving_way():
     """What the wrappers refuse, they refuse before anything is built or launched, so the checks run without a
-    card: a dtype the kernels do not read, and a rank-1 size that the backward kernel cannot hold."""
+    card: a dtype the kernels do not read (float64, named in the error; float16 is read), and a rank-1 size that
+    the backward kernel cannot hold."""
     from factorizer_tpu_torch.ops.kernels import build
     from factorizer_tpu_torch.ops.kernels.nmf import _check
 
-    for dtype in (torch.float16, torch.float64):
-        with pytest.raises(TypeError, match="float32 or bfloat16"):
+    assert build.dtype_code(torch.float16) == 2
+    for dtype in (torch.float64, torch.int32):
+        with pytest.raises(TypeError, match=f"float32, bfloat16 or float16 activations, got {dtype}"):
             build.dtype_code(dtype)
     x, u0, v0 = torch.rand(2, 64, 1024), torch.rand(64, 2), torch.rand(1024, 2)
     with pytest.raises(ValueError, match="do not cover"):

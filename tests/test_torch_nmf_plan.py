@@ -105,7 +105,8 @@ def test_supports_edges():
     assert supports("hals", 1, (256, 27)) and supports_backward("hals", 1, (256, 27))
     assert supports("hals", 1, (257, 27)) and not supports_backward("hals", 1, (257, 27))
     assert not supports("hals", 2, (64, 1024)) and not supports_backward("hals", 2, (64, 1024))
-    assert nmf_plan("hals", 1, (8, 512), torch.float16) is None and nmf_plan("hals", 1, (8, 512), n_mats=0) is None
+    assert nmf_plan("hals", 1, (8, 512), torch.float16) == nmf_plan("hals", 1, (8, 512), torch.bfloat16)
+    assert nmf_plan("hals", 1, (8, 512), torch.float64) is None and nmf_plan("hals", 1, (8, 512), n_mats=0) is None
 
 
 def test_describe_and_query():
