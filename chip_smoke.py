@@ -115,7 +115,18 @@ Phases, one or more result lines each:
      metrics files, a native-shape prediction, and Dice equal to Evaluator's in this process on the same weights),
      then inference.yaml and inference_aot.yaml in this process over 2 folds: the CUDA graph's files equal the eager
      run's voxel for voxel, eager launches and graph replays asserted, s/volume file to file; deconver_brats23's
-     train.yaml for 1 epoch, then the same two inference programs, equal.  Left out of the kernels line too.
+     train.yaml for 1 epoch, then the same two inference programs, equal; nnunet_brats23's train.yaml for 1 epoch
+     through the CLI, then its inference.yaml in this process (native-shape files, no kernel launch).  Left out of
+     the kernels line too.
+ 24. the baselines, stock PyTorch (cuDNN, cuBLAS): the seven baseline bundles' network_def (nnunet_*: DynUNet,
+     segresnet_*: SegResNet, swinunetr_isles22: SwinUNETR), built from the unedited train.yaml through the port's
+     ConfigParser with the bundle's seed, each serve 2 requests through ensemble_predict after a warm-up (BraTS-native
+     (1, 4, 240, 240, 155) at roi 128^3, ISLES (1, 2, 112, 112, 73) at 64^3; FIVES one forward of (16, 3, 512, 512)),
+     take 1 warm-up and 3 timed steps at the bundle's batch x roi in f32 (and in bf16, amp: true, for nnunet_brats23,
+     segresnet_brats23 and swinunetr_isles22), and hold their f32 logits on one window against the CPU forward of the
+     same weights; UNETR at its canonical configuration takes a forward and the steps at batch 2.  cuDNN's heuristics
+     choose the CNNs' convolutions, its timing search (benchmark mode, as SegmentationTrainer runs) SwinUNETR's and
+     UNETR's.  s/volume, s/step, peak memory; every launch counter stays 0.
 The float16 instance of every kernel is checked beside f32 and bf16 at one stage shape each (K1, K1 bwd with and
 without all-zero windows, K2, K2 bwd, K3, K3 dw, K4, K4 bwd, K5), with one float16 forward of brats23_network
 (`[slice f16]`); MatrixFactorization serves a float16 tensor through K4, and a float64 one raises.
@@ -1159,11 +1170,223 @@ def bundle_slice(counters: dict, seed: int = 123, shape=WORKFLOW_SHAPE, roi=(128
               + f"; sliding window per volume eager {', '.join(f'{t:.3f}' for t in druns[False][4])} s, graph "
               + f"{', '.join(f'{t:.3f}' for t in druns[True][4])} s; graph {druns[True][2]} replays x {3 * N_BLOCKS} K3 per "
               + f"captured forward, eager {druns[False][1]['depthwise_conv']} K3 launches")
+
+        # nnunet_brats23 (a baseline, stock PyTorch): train.yaml for 1 epoch through the CLI, then inference.yaml here.
+        del druns
+        gc.collect()
+        torch.cuda.empty_cache()
+        nz = repo / "zoo" / "nnunet_brats23" / "configs"
+        nout = root / "nnunet"
+        n_train_s, _ = cli([nz / "train.yaml"], {**data, "output_dir": str(nout), "max_epochs": 1, "val_interval": 0},
+                           "nnunet train")
+        history = [json.loads(line) for line in (nout / "history.jsonl").read_text().splitlines()]
+        check(len(history) == 1 and math.isfinite(history[0]["loss"]) and (nout / "ckpt" / "step_1.pt").is_file(),
+              f"bundle nnunet train: history {history}, checkpoints {sorted(p.name for p in (nout / 'ckpt').iterdir())}")
+        print(f"[bundle] nnunet_brats23 train.yaml (CLI, subprocess): {n_train_s:.1f} s end to end, 1 epoch of 2 steps "
+              f"{history[0]['time_s']:.3f} s, loss {history[0]['loss']:.6f}, checkpoint step_1.pt, no validation")
+        npaths, nmade, _, nper_volume, npredict_s = infer("nnunet_brats23", {**data, "ckpt_paths": [str(nout / "ckpt")],
+                                                                             "output_dir": str(root / "ninfer")}, False, {}, 2, 1)
+        nshapes = [tuple(load_nifti(path).data.shape) for path in npaths]
+        check(all(s[-3:] == tuple(shape) for s in nshapes), f"bundle nnunet inference: predictions of shapes {nshapes}")
+        print(f"[bundle] nnunet_brats23 inference.yaml (in this process, 1 fold): {len(npaths)} predictions {nshapes} at "
+              f"the native shape; s/volume file to file " + ", ".join(f"{t:.3f}" for t in nper_volume)
+              + "; sliding window per volume " + ", ".join(f"{t:.3f}" for t in npredict_s)
+              + f" s; launches of the port's kernels {sum(nmade.values())}")
     left = child_processes()
     check(not left, f"bundle: processes still alive: {left}")
     reset_counters(counters)
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# The baseline bundles on the card (`[baselines]`): name -> (served input, roi, the training batch), from their
+# train.yaml (roi_size, batch_size) and the data each bundle reads: BraTS-native volumes, ISLES'22 volumes at
+# 2 mm, FIVES fundus images.
+BASELINE_BUNDLES = {
+    "nnunet_brats23": ((1, 4, 240, 240, 155), (128, 128, 128), 2),
+    "segresnet_brats23": ((1, 4, 240, 240, 155), (128, 128, 128), 2),
+    "nnunet_isles22": ((1, 2, 112, 112, 73), (64, 64, 64), 8),
+    "segresnet_isles22": ((1, 2, 112, 112, 73), (64, 64, 64), 8),
+    "swinunetr_isles22": ((1, 2, 112, 112, 73), (64, 64, 64), 8),
+    "nnunet_fives": ((16, 3, 512, 512), (512, 512), 16),
+    "segresnet_fives": ((16, 3, 512, 512), (512, 512), 16),
+}
+BASELINE_AMP = ("nnunet_brats23", "segresnet_brats23", "swinunetr_isles22")
+# The networks that run under cuDNN's timing search (benchmark mode, as SegmentationTrainer runs): the transformers'
+# steps are several times slower on its heuristics' choices, and their search takes seconds; the CNNs' search takes
+# minutes with TF32 off (dozens of full-width 3-D f32 convolution shapes), so they run on the heuristics' choices.
+# A plan, once chosen for a shape, is reused in the process whichever way it was chosen: the CNNs run first.
+BASELINE_BENCHMARK = ("swinunetr_isles22", "UNETR")
+# The card's float32 logits (TF32 off) against the CPU's from the same weights on one window: cuDNN and oneDNN
+# sum each convolution in their own orders (2^-24 relative each), and the instance / group norms and up to 22
+# layers carry the differences to the head.
+CPU_RTOL = 1e-3
+
+
+def baselines_slice(counters: dict) -> None:
+    """Phase 24: the seven baseline bundles and UNETR at full width on the card, stock PyTorch (cuDNN, cuBLAS) with no
+    kernel of the port.  Each bundle's ``network_def`` is built from its unedited ``train.yaml`` through the port's
+    ``ConfigParser`` (weights from the bundle's seed); it serves 2 requests through ``ensemble_predict`` after a warm-up
+    request (BraTS-native and ISLES'22 volumes; FIVES: one forward of 16 images), takes 1 warm-up and 3 timed steps of
+    ``make_train_step`` at its batch x roi in float32 (and in bfloat16, ``amp: true``, for three), and its float32
+    logits on one window (64^3 or one 512^2 image) are held against the CPU forward of the same weights.  UNETR at its
+    canonical configuration takes a forward and the same steps at batch 2.  cuDNN's heuristics choose the CNNs'
+    convolutions, its timing search the transformers' (``BASELINE_BENCHMARK``).  The launch counters must read 0
+    throughout."""
+    import copy
+    from pathlib import Path
+
+    import torch
+    import torch.nn.functional as F
+
+    import factorizer_tpu_torch as ftt
+    from factorizer_tpu_torch.config import ConfigParser, load_config_files, merge_config
+    from factorizer_tpu_torch.train.sliding_window import sliding_window_positions
+    from factorizer_tpu_torch.train.trainer import create_train_state, make_train_step
+    from factorizer_tpu_torch.utils.helpers import materialize
+    from factorizer_tpu_torch.zoo_scripts import ensemble_predict
+
+    repo = Path(__file__).resolve().parent
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t_phase = time.perf_counter()
+    reset_counters(counters)
+    gen = torch.Generator(device=dev)
+
+    def network_def(bundle: str, amp: bool) -> tuple:
+        configs = repo / "zoo" / bundle / "configs"
+        cfg = merge_config(load_config_files([configs / "train.yaml"]), {"bundle_root": str(configs.parent), "amp": amp})
+        parser = ConfigParser(cfg)
+        parser.seed(cfg["seed"])
+        model = materialize(parser["network_def"], len(cfg["roi_size"]))
+        check(next(model.parameters()).is_cuda, f"baselines {bundle}: the network did not build on the card")
+        return model, cfg
+
+    def train_batch(b: int, c_in: int, c_out: int, roi: tuple, seed: int) -> dict:
+        if len(roi) == 3:
+            return synthetic_batch(b, c_in, c_out, roi[0], seed)
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        field = F.interpolate(torch.randn(b, c_out, 16, 16, device="cuda", generator=g), size=roi, mode="bilinear")
+        return {"image": torch.randn(b, c_in, *roi, device="cuda", generator=g), "label": (field > 0.3).float()}
+
+    def steps(model, batch: dict, cfg: dict, tag: str) -> tuple:
+        state = create_train_state(model, lr=cfg["learning_rate"], weight_decay=cfg["weight_decay"])
+        step = make_train_step(state.model)
+        losses, seconds = [], []
+        for i in range(4):
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            losses.append(metrics["loss"].item())
+            check(math.isfinite(losses[-1]) and math.isfinite(metrics["grad_norm"].item()),
+                  f"{tag}: step {i + 1} loss {losses[-1]}, grad norm {metrics['grad_norm'].item()}")
+        mem = torch.cuda.max_memory_allocated(dev) / 2**30
+        del state, step, metrics
+        return statistics.mean(seconds[1:]), seconds, mem, losses
+
+    def cudnn_choice(name: str) -> str:
+        torch.backends.cudnn.benchmark = name in BASELINE_BENCHMARK
+        return "cuDNN's timing search" if torch.backends.cudnn.benchmark else "cuDNN's heuristics"
+
+    for bundle, (volume, roi, b) in BASELINE_BUNDLES.items():
+        t_bundle = time.perf_counter()
+        choice = cudnn_choice(bundle)
+        model, cfg = network_def(bundle, amp=False)
+        name = type(model).__name__
+        n_params = sum(p.numel() for p in model.parameters())
+        c_in, c_out = volume[1], 3 if bundle.endswith("brats23") else 1
+        model.eval()
+        # serve: 2 requests after a warm-up one (FIVES: 16 images a forward, as the Deconver FIVES phase runs them)
+        requests = [torch.randn(volume, device=dev, generator=gen.manual_seed(300 + i)) for i in range(3)]
+        n_windows = len(sliding_window_positions(volume[2:], roi, 0.5))
+        served = []
+        with torch.inference_mode():
+            for i, image in enumerate(requests):
+                if i == 1:
+                    torch.cuda.reset_peak_memory_stats(dev)
+                t0 = time.perf_counter()
+                if len(roi) == 3:
+                    mask, probs = ensemble_predict([model], image, roi, 2, 0.5)
+                else:
+                    probs = torch.sigmoid(model(image))
+                torch.cuda.synchronize()
+                served.append(time.perf_counter() - t0)
+                check(tuple(probs.shape) == (volume[0], c_out, *volume[2:]) and bool(torch.isfinite(probs).all()),
+                      f"baselines {bundle}: served {tuple(probs.shape)} or non-finite probabilities")
+        serve_mem = torch.cuda.max_memory_allocated(dev) / 2**30
+        # the card's float32 logits against the CPU's on one window, TF32 off
+        window = (1, c_in, *((64, 64, 64) if len(roi) == 3 else roi))
+        x = torch.randn(window, generator=torch.Generator().manual_seed(400))
+        with torch.inference_mode():
+            got = model(x.to(dev)).cpu()
+            ref = copy.deepcopy(model).cpu()(x)
+        err, rel = compare(got, ref)
+        check(bool(torch.isfinite(got).all()) and rel <= CPU_RTOL, f"baselines {bundle}: card vs CPU logits {rel:.3e}")
+        del requests, probs, got, ref
+        # train, float32
+        batch = train_batch(b, c_in, c_out, roi, seed=500)
+        s_step, seconds, mem, losses = steps(model.train(), batch, cfg, f"baselines {bundle} float32")
+        what = "s/volume" if len(roi) == 3 else "s per forward of 16 images"
+        line = (f"[baselines] {bundle}: {name} ({n_params / 1e6:.2f}M parameters) float32, {choice}; serve {tuple(volume)} at roi "
+                f"{tuple(roi)} ({n_windows} windows, sw_batch 2): {statistics.mean(served[1:]):.4f} {what} (requests "
+                + ", ".join(f"{t:.4f}" for t in served[1:]) + f" s after a {served[0]:.2f} s warm-up), peak "
+                f"{serve_mem:.2f} GiB; train batch {b} x {tuple(roi)}: {s_step:.4f} s/step (steps "
+                + ", ".join(f"{t:.4f}" for t in seconds[1:]) + f" s after a {seconds[0]:.2f} s warm-up), peak {mem:.2f} GiB, "
+                f"loss {' -> '.join(f'{v:.5f}' for v in losses)}; card vs CPU logits on {window}: max_abs={err:.3e} "
+                f"max_rel={rel:.3e} (tol {CPU_RTOL:.0e})")
+        del model, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        if bundle in BASELINE_AMP:
+            model, cfg = network_def(bundle, amp=True)
+            batch = train_batch(b, c_in, c_out, roi, seed=500)
+            s16, seconds, mem16, losses = steps(model.train(), batch, cfg, f"baselines {bundle} bfloat16")
+            line += (f"; bfloat16 (amp: true) train: {s16:.4f} s/step (steps " + ", ".join(f"{t:.4f}" for t in seconds[1:])
+                     + f" s), peak {mem16:.2f} GiB, loss {' -> '.join(f'{v:.5f}' for v in losses)}")
+            del model, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+        print(line + f"; {time.perf_counter() - t_bundle:.1f} s")
+
+    # UNETR, which no bundle ships, at its canonical configuration: a forward of 2 x 2 x 128^3 and the steps.
+    t_unetr = time.perf_counter()
+    choice = cudnn_choice("UNETR")
+    unetr = ftt.UNETR(in_channels=2, out_channels=1, img_size=(128, 128, 128), feature_size=16,
+                      generator=torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in unetr.parameters())
+    batch = synthetic_batch(2, 2, 1, 128, seed=600)
+    with torch.inference_mode():
+        unetr.eval()(batch["image"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = unetr(batch["image"])
+        torch.cuda.synchronize()
+        s_forward = time.perf_counter() - t0
+        check(tuple(logits.shape) == (2, 1, 128, 128, 128) and bool(torch.isfinite(logits).all()),
+              f"baselines UNETR: logits {tuple(logits.shape)} or non-finite")
+        x = torch.randn(1, 2, 128, 128, 128, generator=torch.Generator().manual_seed(400))
+        got = unetr(x.to(dev)).cpu()
+        ref = copy.deepcopy(unetr).cpu()(x)
+    err, rel = compare(got, ref)
+    check(rel <= CPU_RTOL, f"baselines UNETR: card vs CPU logits {rel:.3e}")
+    s_step, seconds, mem, losses = steps(unetr.train(), batch, {"learning_rate": 1e-4, "weight_decay": 1e-5},
+                                         "baselines UNETR")
+    print(f"[baselines] UNETR ({n_params / 1e6:.2f}M parameters, in 2, out 1, img_size 128^3, feature_size 16) float32, "
+          f"{choice}: "
+          f"{s_forward:.4f} s per forward of (2, 2, 128, 128, 128); train batch 2 x 128^3: {s_step:.4f} s/step (steps "
+          + ", ".join(f"{t:.4f}" for t in seconds[1:]) + f" s after a {seconds[0]:.2f} s warm-up), peak {mem:.2f} GiB, loss "
+          f"{' -> '.join(f'{v:.5f}' for v in losses)}; card vs CPU logits on (1, 2, 128, 128, 128): max_abs={err:.3e} "
+          f"max_rel={rel:.3e} (tol {CPU_RTOL:.0e}); {time.perf_counter() - t_unetr:.1f} s")
+    del unetr, batch, logits, got, ref
+    torch.backends.cudnn.benchmark = False
+    made = read_counters(counters)
+    check(not any(made.values()), f"baselines: the port's kernels launched: { {k: v for k, v in made.items() if v} }")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[baselines] no launch of K1-K5 across the phase (every counter 0); phase wall time "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> None:
@@ -2341,6 +2564,8 @@ def main() -> None:
     workflow_slice(wrappers)
     # 23. the bundles' YAML programs through the config parser and the CLI; left out of the kernels line too.
     bundle_slice(wrappers)
+    # 24. the baseline bundles and UNETR, stock PyTorch: no kernel of the port launches.
+    baselines_slice(wrappers)
 
     sources = {
         "windowed_nmf_factors": ("factorizer_tpu_torch/csrc/windowed_nmf.cu",

@@ -4,32 +4,46 @@ Mirrors the JAX package's tree.  Imports torch only, never jax; the CUDA
 kernels build at their first launch, not at import.  The training workflow
 (``data``: NIfTI IO, datasets, loader, transforms; ``train``: metrics,
 checkpoints, ``SegmentationTrainer``, ``Evaluator``, ``EnsembleEvaluator``) is
-exported here as the JAX package's ``train`` and ``data`` export it.  Conventional alias:
+exported here as the JAX package's ``train`` and ``data`` export it, and so are
+the conv blocks and the baseline models (``DynUNet``, ``SegResNet``,
+``SwinUNETR``, ``UNETR``), which the bundles' ``network_def`` names.  Conventional alias:
 ``import factorizer_tpu_torch as ftt``.
 """
 
 from .factorization import NMF, Deconv, MatrixFactorization, RandomInit, batched_conv, sconv
 from .layers import (
     MLP,
+    BasicBlock,
     Conv,
     ConvTranspose,
+    Dense,
+    DoubleConv,
+    Dropout,
     GroupNorm,
     Identity,
     InstanceNorm,
     LayerNorm,
     Linear,
     PositionalEmbedding,
+    PreActivationBlock,
+    SepConv,
 )
 from .models import (
+    UNETR,
     Deconver,
     DeconverBlock,
     DeconverStage,
     DeconvMixer,
+    DynUNet,
+    DynUNetBlock,
     FactMixer,
     Factorizer,
     FactorizerBlock,
     FactorizerStage,
+    SegResBlock,
+    SegResNet,
     Stem,
+    SwinUNETR,
     UNet,
 )
 from .ops import Matricize, Reshape, SWMatricize
@@ -75,7 +89,7 @@ from .train import (
     sliding_window_positions,
     warmup_cosine_schedule,
 )
-from .utils import load_flax_variables, resolve_device
+from .utils import load_flax_variables, materialize, resolve_device
 from .zoo_scripts import (
     brats23_network,
     brats23_optimizer_settings,

@@ -1,4 +1,4 @@
-"""Basic layers on channels-last tensors: Linear, the norms, MLP, Conv, ConvTranspose.
+"""Basic layers on channels-last tensors: Linear, Dense, the norms, MLP, Dropout, Conv, ConvTranspose.
 
 PyTorch counterpart of ``factorizer_tpu/layers/basic.py``.  Every layer takes
 ``(B, *spatial, C)``.  Submodules and parameters carry the reference torch
@@ -10,6 +10,12 @@ a conv's own ``weight``), so a state dict maps onto the JAX variables through
 float32 and are cast at the call, as the JAX layers do.  Weights are drawn on
 the CPU from an explicit ``torch.Generator`` (torch's default scheme: uniform
 in ``±1/sqrt(fan_in)`` for kernels and biases) and moved to ``device``.
+
+``Dense``, ``FlaxLayerNorm`` and ``FlaxGroupNorm`` are flax's own
+``nn.Dense``, ``nn.LayerNorm`` and ``nn.GroupNorm`` as the JAX baselines call
+them bare: their parameters sit on the module itself, flax's defaults hold
+(lecun-normal kernels and zero biases; LayerNorm's eps 1e-6), and the weight
+bridge reads them by class.
 """
 
 from __future__ import annotations
@@ -23,23 +29,39 @@ from torch import nn
 
 from ..utils.helpers import to_ntuple
 
-__all__ = ["Identity", "Linear", "LayerNorm", "GroupNorm", "InstanceNorm", "MLP", "Conv", "ConvTranspose",
-           "ACTIVATIONS", "resolve_activation", "build_norm"]
+__all__ = ["Identity", "Linear", "Dense", "LayerNorm", "FlaxLayerNorm", "GroupNorm", "FlaxGroupNorm", "InstanceNorm",
+           "MLP", "Dropout", "Conv", "ConvTranspose", "ACTIVATIONS", "resolve_activation", "build_norm"]
 
-ACTIVATIONS = {"relu": torch.relu, "identity": lambda x: x}  # the names the ported bundles use
+ACTIVATIONS = {
+    "relu": torch.relu,
+    "gelu": F.gelu,  # the exact erf form, torch's default and the JAX table's
+    "leaky_relu": F.leaky_relu,  # negative slope 0.01, as jax.nn.leaky_relu
+    "silu": F.silu,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "identity": lambda x: x,
+}
 
 
 def resolve_activation(spec):
-    """An elementwise function from a name in :data:`ACTIVATIONS`, None (identity) or a callable."""
+    """An elementwise function from a name in :data:`ACTIVATIONS`, None (identity), an elementwise callable, or a
+    zero-argument factory of one (a class such as ``torch.nn.ReLU``), as the JAX ``resolve_activation`` takes them."""
     if spec is None:
         return ACTIVATIONS["identity"]
     if isinstance(spec, str):
         return ACTIVATIONS[spec]
     if not callable(spec):
         raise TypeError(f"activation must be a name, None or a callable, got {spec!r}")
-    return spec
+    try:
+        if isinstance(spec(torch.zeros(())), torch.Tensor):
+            return spec
+    except TypeError:
+        pass
+    return spec()
+
 
 LN_EPS = 1e-5  # torch's LayerNorm default, as the JAX model's
+FLAX_LN_EPS = 1e-6  # flax's nn.LayerNorm default, which the JAX transformers use bare
 
 Identity = nn.Identity
 
@@ -48,6 +70,18 @@ def _uniform(shape: Sequence[int], fan_in: int, device, generator) -> nn.Paramet
     """torch's default init: U(-1/sqrt(fan_in), 1/sqrt(fan_in)), drawn on the CPU."""
     bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
     w = (torch.rand(tuple(shape), generator=generator) * 2 - 1) * bound
+    return nn.Parameter(w.to(device))
+
+
+def _lecun_normal(shape: Sequence[int], fan_in: int, device, generator) -> nn.Parameter:
+    """flax's default Dense kernel: a normal truncated at two deviations, scaled to variance 1 / fan_in."""
+    # 0.8796... is the deviation of a unit normal truncated to [-2, 2]
+    return truncated_normal(shape, math.sqrt(1.0 / fan_in) / 0.87962566103423978, device, generator)
+
+
+def truncated_normal(shape: Sequence[int], std: float, device, generator) -> nn.Parameter:
+    """flax's ``truncated_normal(std)``: a normal of deviation ``std`` truncated at two deviations."""
+    w = nn.init.trunc_normal_(torch.empty(tuple(shape)), 0.0, std, -2 * std, 2 * std, generator=generator)
     return nn.Parameter(w.to(device))
 
 
@@ -89,20 +123,59 @@ class Linear(nn.Module):
         return F.linear(x.to(dt), w.to(dt), None if b is None else b.to(dt))
 
 
-class LayerNorm(nn.Module):
-    """LayerNorm over the trailing axis (eps 1e-5); statistics in float32, output in ``dtype``."""
+class Dense(nn.Module):
+    """flax's ``nn.Dense`` over the trailing axis: ``weight (out, in)`` (the Flax ``kernel``, transposed) and ``bias``
+    on the module itself, drawn as flax draws them (lecun-normal kernel, zero bias)."""
 
-    def __init__(self, dim: int, dtype: Optional[torch.dtype] = None, device=None) -> None:
+    def __init__(
+        self,
+        in_features: int,
+        out_features: int,
+        bias: bool = True,
+        dtype: Optional[torch.dtype] = None,
+        device=None,
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
         super().__init__()
         self.dtype = dtype
-        self.eps = LN_EPS
-        self.norm = nn.LayerNorm(dim, eps=LN_EPS, device=device)
+        self.weight = _lecun_normal((out_features, in_features), in_features, device, generator)
+        self.bias = nn.Parameter(torch.zeros(out_features, device=device)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = _compute_dtype(self.dtype, x, self.norm.weight)
-        stat = torch.promote_types(x.dtype, torch.float32)  # float64 stays float64, for semantic checks
-        y = F.layer_norm(x.to(stat), self.norm.normalized_shape, self.norm.weight.to(stat), self.norm.bias.to(stat), self.eps)
-        return y.to(dt)
+        dt = _compute_dtype(self.dtype, x, self.weight)
+        return F.linear(x.to(dt), self.weight.to(dt), None if self.bias is None else self.bias.to(dt))
+
+
+def _layer_norm(x: torch.Tensor, norm: nn.LayerNorm, eps: float, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    dt = _compute_dtype(dtype, x, norm.weight)
+    stat = torch.promote_types(x.dtype, torch.float32)  # float64 stays float64, for semantic checks
+    y = F.layer_norm(x.to(stat), norm.normalized_shape, norm.weight.to(stat), norm.bias.to(stat), eps)
+    return y.to(dt)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the trailing axis (eps 1e-5 by default); statistics in float32, output in ``dtype``."""
+
+    def __init__(self, dim: int, eps: float = LN_EPS, dtype: Optional[torch.dtype] = None, device=None) -> None:
+        super().__init__()
+        self.dtype = dtype
+        self.eps = eps
+        self.norm = nn.LayerNorm(dim, eps=eps, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _layer_norm(x, self.norm, self.eps, self.dtype)
+
+
+class FlaxLayerNorm(nn.LayerNorm):
+    """flax's bare ``nn.LayerNorm`` (eps 1e-6): ``weight`` / ``bias`` are the Flax ``scale`` / ``bias`` of this
+    module; statistics in float32, output in ``dtype``."""
+
+    def __init__(self, dim: int, eps: float = FLAX_LN_EPS, dtype: Optional[torch.dtype] = None, device=None) -> None:
+        super().__init__(dim, eps=eps, device=device)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _layer_norm(x, self, self.eps, self.dtype)
 
 
 def _group_norm(x: torch.Tensor, groups: int, weight, bias, eps: float, dtype) -> torch.Tensor:
@@ -144,6 +217,20 @@ class GroupNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(self.dtype, x, self.norm.weight)
         return _group_norm(x, self.num_groups, self.norm.weight, self.norm.bias, self.eps, dt)
+
+
+class FlaxGroupNorm(nn.GroupNorm):
+    """flax's bare ``nn.GroupNorm`` on channels-last tensors: ``weight`` / ``bias`` are the Flax ``scale`` / ``bias``
+    of this module; statistics in float32, output in ``dtype``."""
+
+    def __init__(self, num_groups: int, dim: int, eps: float = LN_EPS, dtype: Optional[torch.dtype] = None,
+                 device=None) -> None:
+        super().__init__(num_groups, dim, eps=eps, device=device)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _compute_dtype(self.dtype, x, self.weight)
+        return _group_norm(x, self.num_groups, self.weight, self.bias, self.eps, dt)
 
 
 class InstanceNorm(nn.Module):
@@ -215,6 +302,13 @@ class MLP(nn.Module):
         return self.block(x)
 
 
+class Dropout(nn.Dropout):
+    """Dropout with torch's ``p`` (0 by default, as the JAX layer); the identity in eval mode."""
+
+    def __init__(self, p: float = 0.0) -> None:
+        super().__init__(p)
+
+
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 _CONV_TRANSPOSE = {1: F.conv_transpose1d, 2: F.conv_transpose2d, 3: F.conv_transpose3d}
 
@@ -234,16 +328,22 @@ class Conv(nn.Module):
         device=None,
         generator: Optional[torch.Generator] = None,
         spatial_dims: int = 3,
+        groups: int = 1,
+        dilation: int | Sequence[int] = 1,
     ) -> None:
         super().__init__()
         ks = to_ntuple(kernel_size, spatial_dims)
         self.spatial_dims = spatial_dims
         self.stride = to_ntuple(stride, spatial_dims)
         self.padding = to_ntuple(padding, spatial_dims)
-        self.pointwise = set(ks) == {1} and set(self.stride) == {1} and set(self.padding) == {0}
+        self.dilation = to_ntuple(dilation, spatial_dims)
+        self.groups = groups
+        self.pointwise = set(ks) == {1} and set(self.stride) == {1} and set(self.padding) == {0} and groups == 1
         self.dtype = dtype
-        fan_in = in_channels * math.prod(ks)
-        self.weight = _uniform((out_channels, in_channels, *ks), fan_in, device, generator)
+        if in_channels % groups or out_channels % groups:
+            raise ValueError(f"{in_channels} -> {out_channels} channels do not split into {groups} groups")
+        fan_in = in_channels // groups * math.prod(ks)
+        self.weight = _uniform((out_channels, in_channels // groups, *ks), fan_in, device, generator)
         self.bias = _uniform((out_channels,), fan_in, device, generator) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -253,7 +353,8 @@ class Conv(nn.Module):
             # A k1 convolution is a linear over the channel axis: one GEMM on the channels-last tensor,
             # no layout transposes, and a GEMM for the weight gradient.
             return F.linear(x.to(dt), self.weight.to(dt).flatten(1), b)
-        y = _CONV[self.spatial_dims](_to_channels_first(x.to(dt)), self.weight.to(dt), b, self.stride, self.padding)
+        y = _CONV[self.spatial_dims](_to_channels_first(x.to(dt)), self.weight.to(dt), b, self.stride, self.padding,
+                                     self.dilation, self.groups)
         return _to_channels_last(y)
 
 

@@ -1,0 +1,115 @@
+"""DynUNet: an nnU-Net-style dynamic U-Net.
+
+PyTorch counterpart of ``factorizer_tpu/models/dynunet.py`` (after Isensee et
+al.): (Conv -> InstanceNorm -> LeakyReLU) x 2 blocks, strided-conv
+downsampling, transposed-conv upsampling with concatenated skips, and
+optional deep-supervision heads on the decoder pyramid.  Channels-last
+inside; submodules carry the Flax module names (``enc{i}``, ``up{i}``,
+``dec{i}``, ``head``, ``supr{j}``), so the weight bridge maps them by name.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Sequence
+
+import torch
+from torch import nn
+
+from ..layers.basic import Conv, ConvTranspose, InstanceNorm, resolve_activation
+from ..utils.helpers import resolve_device, to_ntuple
+
+__all__ = ["DynUNet", "DynUNetBlock"]
+
+
+class DynUNetBlock(nn.Module):
+    """(Conv -> InstanceNorm -> act) x 2; the first convolution may stride.  ``kernel_size`` and ``stride`` are ints
+    or one entry per axis; the padding is ``k // 2`` per axis."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int | Sequence[int] = 3,
+                 stride: int | Sequence[int] = 1, act: Any = "leaky_relu", dtype: Optional[torch.dtype] = None,
+                 device=None, generator: Optional[torch.Generator] = None, spatial_dims: int = 3) -> None:
+        super().__init__()
+        device = resolve_device(device)
+        ks = to_ntuple(kernel_size, spatial_dims)
+        conv = dict(kernel_size=ks, padding=tuple(k // 2 for k in ks), dtype=dtype, device=device, generator=generator,
+                    spatial_dims=spatial_dims)
+        self.act = resolve_activation(act)
+        self.conv1 = Conv(in_channels, out_channels, stride=stride, **conv)
+        self.norm1 = InstanceNorm(out_channels, affine=True, dtype=dtype, device=device)
+        self.conv2 = Conv(out_channels, out_channels, stride=1, **conv)
+        self.norm2 = InstanceNorm(out_channels, affine=True, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.act(self.norm1(self.conv1(x)))
+        return self.act(self.norm2(self.conv2(out)))
+
+
+class DynUNet(nn.Module):
+    """nnU-Net-style U-Net with per-stage kernels and strides, and deep supervision.
+
+    Args:
+        kernel_size / strides: one entry per encoder stage, each an int or one
+            entry per axis (the stride of stage 0 applies to the first block).
+        filters: per-stage widths; by default ``min(32 * 2**i, 320)``.
+        deep_supervision: in training mode, return ``[head, supr0, ...]``, the
+            extra heads on the ``deep_supr_num`` next coarser decoder outputs;
+            in eval mode the head alone.
+        data_format: ``"channels_first"`` takes and returns ``(B, C, *S)``.
+    """
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        spatial_dims: int = 3,
+        kernel_size: Sequence[Any] = (3, 3, 3, 3, 3),
+        strides: Sequence[Any] = (1, 2, 2, 2, 2),
+        filters: Optional[Sequence[int]] = None,
+        deep_supervision: bool = False,
+        deep_supr_num: int = 1,
+        act: Any = "leaky_relu",
+        data_format: str = "channels_first",
+        dtype: Optional[torch.dtype] = None,
+        device=None,
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__()
+        device = resolve_device(device)
+        n = len(strides)
+        filters = list(filters) if filters is not None else [min(32 * 2**i, 320) for i in range(n)]
+        if deep_supervision and not 1 <= deep_supr_num <= n - 2:
+            raise ValueError(f"deep_supr_num {deep_supr_num} needs 1 to {n - 2} coarser decoder outputs")
+        self.n, self.data_format, self.deep_supervision, self.deep_supr_num = n, data_format, deep_supervision, deep_supr_num
+        kw = dict(dtype=dtype, device=device, generator=generator, spatial_dims=spatial_dims)
+        widths_in = [in_channels] + filters[:-1]
+        for i in range(n):
+            setattr(self, f"enc{i}", DynUNetBlock(widths_in[i], filters[i], kernel_size[i], strides[i], act=act, **kw))
+        for i in range(n - 1, 0, -1):
+            setattr(self, f"up{i}", ConvTranspose(filters[i], filters[i - 1], kernel_size=strides[i], stride=strides[i],
+                                                  **kw))
+            setattr(self, f"dec{i}", DynUNetBlock(2 * filters[i - 1], filters[i - 1], kernel_size[i - 1], 1, act=act,
+                                                  **kw))
+        self.head = Conv(filters[0], out_channels, kernel_size=1, **kw)
+        if deep_supervision:
+            for j in range(deep_supr_num):
+                setattr(self, f"supr{j}", Conv(filters[j + 1], out_channels, kernel_size=1, **kw))
+
+    def _out(self, y: torch.Tensor) -> torch.Tensor:
+        return y.movedim(-1, 1) if self.data_format == "channels_first" else y
+
+    def forward(self, x: torch.Tensor):
+        if self.data_format == "channels_first":
+            x = x.movedim(1, -1).contiguous()
+        skips, out = [], x
+        for i in range(self.n):
+            out = getattr(self, f"enc{i}")(out)
+            skips.append(out)
+        ys = []  # decoder outputs, deepest first
+        for i in range(self.n - 1, 0, -1):
+            up = getattr(self, f"up{i}")(out)
+            out = getattr(self, f"dec{i}")(torch.cat([skips[i - 1], up], dim=-1))
+            ys.append(out)
+        head = self._out(self.head(out))
+        if not (self.deep_supervision and self.training):
+            return head
+        return [head] + [self._out(getattr(self, f"supr{j}")(ys[-2 - j])) for j in range(self.deep_supr_num)]

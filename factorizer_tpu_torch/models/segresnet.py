@@ -1,0 +1,171 @@
+"""SegResNet: residual encoder-decoder segmentation CNN.
+
+PyTorch counterpart of ``factorizer_tpu/models/segresnet.py`` (after
+Myronenko 2018): GroupNorm + ReLU pre-activation residual blocks,
+strided-conv downsampling, a decoder of k1 channel reductions, upsampling
+(transposed convolutions, or linear, which the bundles use) and additive
+skips.  Channels-last inside; submodules carry the Flax module names
+(``stem``, ``down1``, ``enc1_0``, ``reduce0``, ``up0``, ``dec0_0``,
+``final_norm``, ``head``), so the weight bridge maps them by name.
+
+The JAX model takes its rank from the input it is initialised with, and the
+bundles' ``network_def`` names none (``segresnet_fives`` is 2-D).  So this one
+builds its layers at its first input, or when :meth:`SegResNet.materialize`
+is called with the rank: the entry points that know ``roi_size``
+(``SegmentationTrainer``, ``Evaluator``, ``evaluate_bundle``,
+``ensemble_inference``, ``ensemble_predict``) call it before they move the
+model, make its optimiser or load weights.  The weights are drawn then, from
+the generator given at construction (with none, from one seeded by a draw
+from torch's default generator at construction, so that a seed set before the
+model is made fixes its weights).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..layers.basic import Conv, ConvTranspose, Dropout, FlaxGroupNorm, resolve_activation
+from ..utils.helpers import resolve_device
+
+__all__ = ["SegResNet", "SegResBlock"]
+
+_LINEAR_MODES = {1: "linear", 2: "bilinear", 3: "trilinear"}
+
+
+def _resize_linear(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """N-D linear upsampling of a channels-last tensor by an integer factor: ``jax.image.resize(method="linear")``
+    at half-pixel centres."""
+    y = F.interpolate(x.movedim(-1, 1), scale_factor=factor, mode=_LINEAR_MODES[x.ndim - 2], align_corners=False)
+    return y.movedim(1, -1).contiguous()
+
+
+class SegResBlock(nn.Module):
+    """Pre-activation residual block: (GN -> act -> Conv3) x 2 + skip."""
+
+    def __init__(self, channels: int, norm_groups: int = 8, act: Any = "relu", dtype: Optional[torch.dtype] = None,
+                 device=None, generator: Optional[torch.Generator] = None, spatial_dims: int = 3) -> None:
+        super().__init__()
+        device = resolve_device(device)
+        conv = dict(kernel_size=3, padding=1, dtype=dtype, device=device, generator=generator, spatial_dims=spatial_dims)
+        self.act = resolve_activation(act)
+        self.norm1 = FlaxGroupNorm(norm_groups, channels, dtype=dtype, device=device)
+        self.conv1 = Conv(channels, channels, **conv)
+        self.norm2 = FlaxGroupNorm(norm_groups, channels, dtype=dtype, device=device)
+        self.conv2 = Conv(channels, channels, **conv)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.conv1(self.act(self.norm1(x)))
+        out = self.conv2(self.act(self.norm2(out)))
+        return out + x
+
+
+class SegResNet(nn.Module):
+    """Residual encoder-decoder with additive skips, over volumes or images (the rank of its first input).
+
+    Args:
+        init_filters: stem width (doubles per encoder level).
+        blocks_down / blocks_up: residual blocks per level.
+        upsample_mode: ``"deconv"`` (k2 stride-2 transposed convolutions) or ``"linear"``.
+        dropout: after the stem, in training mode.
+        data_format: ``"channels_first"`` takes and returns ``(B, C, *S)``; ``"channels_last"`` ``(B, *S, C)``.
+    """
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        init_filters: int = 32,
+        blocks_down: Sequence[int] = (1, 2, 2, 4),
+        blocks_up: Sequence[int] = (1, 1, 1),
+        norm_groups: int = 8,
+        act: Any = "relu",
+        dropout: float = 0.0,
+        upsample_mode: str = "deconv",
+        data_format: str = "channels_first",
+        dtype: Optional[torch.dtype] = None,
+        device=None,
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__()
+        if upsample_mode not in ("deconv", "linear"):
+            raise ValueError(f"upsample_mode must be 'deconv' or 'linear', got {upsample_mode!r}")
+        self.in_channels, self.out_channels, self.init_filters = in_channels, out_channels, init_filters
+        self.blocks_down, self.blocks_up = tuple(blocks_down), tuple(blocks_up)
+        self.norm_groups, self.upsample_mode, self.data_format = norm_groups, upsample_mode, data_format
+        self.act_spec, self.act = act, resolve_activation(act)
+        self.dtype, self._device = dtype, resolve_device(device)
+        self.drop = Dropout(dropout)
+        if generator is None:
+            generator = torch.Generator().manual_seed(int(torch.randint(2**62, (1,)).item()))
+        self._generator: Optional[torch.Generator] = generator
+        self.spatial_dims: Optional[int] = None
+
+    @property
+    def materialized(self) -> bool:
+        return self.spatial_dims is not None
+
+    def materialize(self, spatial_dims: int) -> "SegResNet":
+        """Build the layers for ``spatial_dims``-D inputs (2 or 3), drawing their weights; a second call must name the
+        same rank."""
+        if self.materialized:
+            if spatial_dims != self.spatial_dims:
+                raise ValueError(f"SegResNet was built for {self.spatial_dims}-D inputs, not {spatial_dims}-D")
+            return self
+        with torch.inference_mode(False):  # a first forward under inference mode must still give trainable weights
+            self._build(spatial_dims)
+        return self
+
+    def _build(self, spatial_dims: int) -> None:
+        gen, f = self._generator, self.init_filters
+        kw = dict(dtype=self.dtype, device=self._device, generator=gen, spatial_dims=spatial_dims)
+        block = dict(norm_groups=self.norm_groups, act=self.act_spec, **kw)
+        self.stem = Conv(self.in_channels, f, kernel_size=3, padding=1, **kw)
+        for level, n_blocks in enumerate(self.blocks_down):
+            width = f * 2**level
+            if level > 0:
+                setattr(self, f"down{level}", Conv(width // 2, width, kernel_size=3, stride=2, padding=1, **kw))
+            for j in range(n_blocks):
+                setattr(self, f"enc{level}_{j}", SegResBlock(width, **block))
+        for i, n_blocks in enumerate(self.blocks_up):
+            level = len(self.blocks_down) - 1 - i
+            width = f * 2 ** (level - 1)
+            setattr(self, f"reduce{i}", Conv(2 * width, width, kernel_size=1, **kw))
+            if self.upsample_mode == "deconv":
+                setattr(self, f"up{i}", ConvTranspose(width, width, kernel_size=2, stride=2, **kw))
+            for j in range(n_blocks):
+                setattr(self, f"dec{i}_{j}", SegResBlock(width, **block))
+        width = f * 2 ** (len(self.blocks_down) - 1 - len(self.blocks_up))
+        self.final_norm = FlaxGroupNorm(self.norm_groups, width, dtype=self.dtype, device=self._device)
+        self.head = Conv(width, self.out_channels, kernel_size=1, **kw)
+        self.spatial_dims, self._generator = spatial_dims, None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.materialized:
+            self.materialize(x.ndim - 2)
+        if self.data_format == "channels_first":
+            x = x.movedim(1, -1).contiguous()
+        out = self.stem(x)
+        if self.drop.p:
+            out = self.drop(out)
+        skips = []
+        for level, n_blocks in enumerate(self.blocks_down):
+            if level > 0:
+                out = getattr(self, f"down{level}")(out)
+            for j in range(n_blocks):
+                out = getattr(self, f"enc{level}_{j}")(out)
+            skips.append(out)
+        for i, n_blocks in enumerate(self.blocks_up):
+            level = len(self.blocks_down) - 1 - i
+            out = getattr(self, f"reduce{i}")(out)
+            out = getattr(self, f"up{i}")(out) if self.upsample_mode == "deconv" else _resize_linear(out, 2)
+            out = out + skips[level - 1]
+            for j in range(n_blocks):
+                out = getattr(self, f"dec{i}_{j}")(out)
+        out = self.head(self.act(self.final_norm(out)))
+        if self.data_format == "channels_first":
+            out = out.movedim(-1, 1)
+        return out

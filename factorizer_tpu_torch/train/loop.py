@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..utils.helpers import resolve_device
+from ..utils.helpers import materialize, resolve_device
 from .checkpoint import CheckpointManager
 from .metrics import MeanDice, MeanHausdorffDistance, dice_metric, voxel_spacing_from_meta
 from .sliding_window import SlidingWindowInfererAdapt
@@ -143,7 +143,7 @@ class SegmentationTrainer:
             if is_set:
                 raise NotImplementedError(f"SegmentationTrainer: {name} is not supported by the port")
         self.device = resolve_device(device)
-        self.model = model.to(self.device)
+        self.model = materialize(model, len(roi_size)).to(self.device)
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.max_epochs = max_epochs
@@ -360,7 +360,7 @@ class Evaluator:
         device=None,
     ) -> None:
         self.device = resolve_device(device)
-        self.model = model.to(self.device)
+        self.model = materialize(model, len(roi_size)).to(self.device)
         if variables is not None and "model" in variables and "optimizer" in variables:
             variables = variables["model"]
         self.variables = None if variables is None else {k: v.to(self.device) for k, v in variables.items()}

@@ -33,7 +33,7 @@ from torch import nn
 from ..parallel.collectives import all_gather_cat
 from ..parallel.mesh import Mesh
 from ..parallel.sharding import data_parallel, shard_batch
-from ..utils.helpers import resolve_device
+from ..utils.helpers import materialize, resolve_device
 from .losses import deep_supervision_loss, dice_ce_loss
 from .schedules import Schedule, clip_by_global_norm, global_norm, make_adamw
 
@@ -69,11 +69,12 @@ def create_train_state(
     """A train state on ``device`` (None = the card; ``"cpu"`` only when asked for).
 
     ``model`` is a module, which is moved there, or a factory taking
-    ``device=``.  ``optimizer_settings`` go to :func:`make_adamw` (``lr``,
+    ``device=``; a model that takes its rank from its input must be built
+    (``utils.helpers.materialize``).  ``optimizer_settings`` go to :func:`make_adamw` (``lr``,
     ``weight_decay``, ``warmup_steps``, ``total_steps``, ``b1``, ``b2``, ``eps``).
     """
     device = resolve_device(device)
-    model = model.to(device) if isinstance(model, nn.Module) else model(device=device)
+    model = materialize(model).to(device) if isinstance(model, nn.Module) else materialize(model(device=device))
     optimizer, schedule = make_adamw(model.parameters(), **optimizer_settings)
     return TrainState(model=model, optimizer=optimizer, schedule=schedule, grad_clip_norm=grad_clip_norm)
 

@@ -1,19 +1,25 @@
-"""Helpers shared across the port: tuple broadcasting and the default device.
+"""Helpers shared across the port: tuples, the ``partialize`` idiom, the default device, late-built models.
 
-``to_ntuple`` is the counterpart of the helper in
-``factorizer_tpu/utils/helpers.py``.  ``resolve_device`` has none there (JAX
-places arrays on its default backend): it is the one place where the port's
-entry points turn ``device=None`` into the card.
+``as_tuple``, ``to_ntuple``, ``has_args`` and ``partialize`` are the
+counterparts of the helpers in ``factorizer_tpu/utils/helpers.py``.
+``resolve_device`` has none there (JAX places arrays on its default backend):
+it is the one place where the port's entry points turn ``device=None`` into
+the card.  ``materialize`` has none either: a Flax module takes its rank from
+the input it is initialised with, and the port's ``SegResNet`` builds its
+layers at its first input, or when an entry point that knows ``roi_size``
+calls ``materialize``.
 """
 
 from __future__ import annotations
 
-from collections.abc import Sequence
-from typing import Any
+import inspect
+from collections.abc import Mapping, Sequence
+from functools import partial
+from typing import Any, Callable, Optional
 
 import torch
 
-__all__ = ["to_ntuple", "resolve_device"]
+__all__ = ["as_tuple", "to_ntuple", "has_args", "partialize", "resolve_device", "materialize"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -42,3 +48,60 @@ def to_ntuple(obj: Any, n: int) -> tuple[Any, ...]:
     if len(t) != n:
         raise ValueError(f"Expected length-{n} sequence, got {t!r}.")
     return t
+
+
+def as_tuple(obj: Any) -> tuple[Any, ...]:
+    """Convert ``obj`` to a tuple; strings and scalars become 1-tuples."""
+    if not isinstance(obj, Sequence) or isinstance(obj, str):
+        return (obj,)
+    return tuple(obj)
+
+
+def has_args(obj: Any, keywords: str | Sequence[str]) -> bool:
+    """True if callable ``obj`` accepts all of the given keyword arguments."""
+    if not callable(obj):
+        return False
+    try:
+        sig = inspect.signature(obj)
+    except (ValueError, TypeError):
+        return False
+    return all(key in sig.parameters for key in as_tuple(keywords))
+
+
+def partialize(obj: Any) -> Callable:
+    """Resolve ``Callable | (Callable, args..., kwargs...)`` into a callable.
+
+    Tuple elements after the callable may be dicts (merged as keyword args) or
+    sequences (extended as positional args); any other value is appended as a
+    single positional arg.
+    """
+    if callable(obj):
+        return obj
+    if isinstance(obj, Sequence) and obj and callable(obj[0]):
+        args: list[Any] = []
+        kwargs: dict[str, Any] = {}
+        for item in obj[1:]:
+            if isinstance(item, Mapping):
+                kwargs.update(item)
+            elif isinstance(item, Sequence) and not isinstance(item, str):
+                args.extend(item)
+            else:
+                args.append(item)
+        return partial(obj[0], *args, **kwargs)
+    raise TypeError(f"Expected a callable or (callable, args...) tuple, got {type(obj).__name__}")
+
+
+def materialize(model: torch.nn.Module, spatial_dims: Optional[int] = None) -> torch.nn.Module:
+    """Build the layers of a model that takes its rank from its input (``SegResNet``) at ``spatial_dims``.
+
+    Entry points call it with ``len(roi_size)`` before they move the model,
+    make its optimiser or load weights into it.  A model built already is
+    returned as it is; ``spatial_dims=None`` only checks that it is built.
+    """
+    build = getattr(model, "materialize", None)
+    if build is None or model.materialized:
+        return model
+    if spatial_dims is None:
+        raise RuntimeError(f"{type(model).__name__} takes its rank from its input and has not been built yet: "
+                           "call materialize(spatial_dims) or run a forward first")
+    return build(spatial_dims)

@@ -15,6 +15,20 @@ and undoes the layout changes that ``convert_state_dict`` makes:
 Convolutions of either rank (2-D images, 3-D volumes) go through the same rules.
 
 So ``convert_state_dict(model.state_dict())`` reproduces the variables leaf for leaf.
+
+Those rules serve the models laid out as the reference torch model, the U-Net
+family (``Factorizer``, ``Deconver``).  Every other model of the port (the
+baselines ``DynUNet``, ``SegResNet``, ``SwinUNETR``, ``UNETR``, the conv blocks
+and their parts) names its submodules after the Flax modules, so a leaf's
+Flax path is its module path and a name given by the layer's class:
+
+* ``Conv`` / ``ConvTranspose`` at ``P``  -> ``P.conv.kernel`` / ``P.conv.bias`` (layouts as above)
+* ``Dense`` or ``nn.Linear`` at ``P``     -> ``P.kernel`` (transposed; a DenseGeneral's axes folded) / ``P.bias``
+* a norm at ``P`` (LayerNorm, GroupNorm, an InstanceNorm's or GroupNorm's inner ``norm``) -> ``P.scale`` / ``P.bias``
+* any other parameter                    -> its own path (``rel_pos_bias``, ``pos_embed``)
+
+and the bridge checks both ways: every entry of the state dict has a Flax
+leaf, and every Flax parameter is used.
 """
 
 from __future__ import annotations
@@ -25,6 +39,8 @@ from typing import Any, Callable, Mapping, Optional
 import numpy as np
 import torch
 from torch import nn
+
+from .helpers import materialize
 
 __all__ = ["load_flax_variables", "flax_state_dict", "flax_path"]
 
@@ -110,6 +126,40 @@ def flax_path(key: str) -> tuple[str, tuple[str, ...], Transform]:
     raise KeyError(f"no Flax counterpart for state-dict key {key!r}")
 
 
+def _flax_named_paths(model: nn.Module) -> dict[str, tuple[str, tuple[str, ...], Transform]]:
+    """State-dict key -> ``(collection, path, transform)`` for a model whose submodules carry the Flax names."""
+    from ..layers.basic import Conv, ConvTranspose, Dense, _Affine
+
+    paths = {}
+    for mpath, module in model.named_modules():
+        prefix = tuple(mpath.split(".")) if mpath else ()
+        for name, param in module.named_parameters(recurse=False):
+            shape = tuple(param.shape)
+            fn: Transform = None
+            if isinstance(module, (Conv, ConvTranspose)):
+                leaf = ("conv", "kernel" if name == "weight" else "bias")
+                if name == "weight":
+                    fn = _conv_weight if isinstance(module, Conv) else _tconv_weight
+            elif isinstance(module, (Dense, nn.Linear)):
+                if name == "weight":  # a DenseGeneral kernel (in, heads, hd) or (heads, hd, out) folds to (in, out)
+                    leaf, fn = ("kernel",), lambda k, s=shape: k.reshape(s[1], s[0]).T
+                else:
+                    leaf, fn = ("bias",), lambda b, s=shape: b.reshape(s)
+            elif isinstance(module, (nn.LayerNorm, nn.GroupNorm, _Affine)):
+                leaf = ("scale" if name == "weight" else "bias",)
+            else:
+                leaf = (name,)
+            paths[".".join((*prefix, name))] = ("params", prefix + leaf, fn)
+    return paths
+
+
+def _leaf_paths(tree: Mapping[str, Any], prefix: tuple[str, ...] = ()) -> set[tuple[str, ...]]:
+    out = set()
+    for k, v in tree.items():
+        out |= _leaf_paths(v, (*prefix, k)) if isinstance(v, Mapping) else {(*prefix, k)}
+    return out
+
+
 def _get(tree: Mapping[str, Any], path: tuple[str, ...]) -> np.ndarray:
     node: Any = tree
     for p in path:
@@ -121,17 +171,32 @@ def flax_state_dict(model: nn.Module, variables: Mapping[str, Any]) -> dict[str,
     """The ``state_dict`` of ``model`` that the JAX package's ``{"params", "buffers"}`` variables give, as host
     tensors in the model's dtypes; ``model`` itself is not changed.
 
-    Every entry of ``model.state_dict()`` must have a counterpart; shapes are checked.
+    Every entry of ``model.state_dict()`` must have a counterpart; shapes are checked.  For a model outside the
+    U-Net family every Flax parameter must be used, too.  A model that takes its rank from its input must be built.
     """
-    new_state = {}
+    from ..models.unet import UNet
+
+    materialize(model)
+    named = None if isinstance(model, UNet) else _flax_named_paths(model)
+    new_state, used = {}, set()
     for key, current in model.state_dict().items():
-        collection, path, fn = flax_path(key)
+        if named is None:
+            collection, path, fn = flax_path(key)
+        elif key in named:
+            collection, path, fn = named[key]
+        else:
+            raise KeyError(f"no Flax counterpart for state-dict key {key!r}")
+        used.add(path)
         value = _get(variables[collection], path)
         if fn is not None:
             value = fn(value)
         if tuple(value.shape) != tuple(current.shape):
             raise ValueError(f"{key}: Flax leaf {'.'.join(path)} has shape {value.shape}, expected {tuple(current.shape)}")
         new_state[key] = torch.tensor(np.ascontiguousarray(value)).to(current.dtype)
+    if named is not None:
+        unused = sorted(".".join(p) for p in _leaf_paths(variables["params"]) - used)
+        if unused:
+            raise ValueError(f"Flax parameters without a counterpart in {type(model).__name__}: {unused[:5]}")
     return new_state
 
 

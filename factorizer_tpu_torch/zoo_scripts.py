@@ -40,7 +40,7 @@ from .train.loop import Evaluator, _first
 from .train.metrics import dice_metric, hausdorff_distance_95, voxel_spacing_from_meta
 from .train.observability import write_metrics_reports
 from .train.sliding_window import sliding_window_inference
-from .utils.helpers import resolve_device
+from .utils.helpers import materialize, resolve_device
 from .utils.weights import flax_state_dict
 
 logger = logging.getLogger("factorizer_tpu_torch")
@@ -243,6 +243,7 @@ def ensemble_predict(
         raise ValueError("ensemble_predict needs at least one model")
     probs = None
     for model in models:
+        materialize(model, len(roi_size))
         logits = sliding_window_inference(image, roi_size, model, sw_batch_size=sw_batch_size, overlap=overlap)
         p = torch.sigmoid(logits)
         probs = p if probs is None else probs + p
@@ -290,6 +291,7 @@ def load_model_checkpoint(model: torch.nn.Module, ckpt_path) -> dict[str, torch.
     ``ckpt_path`` is any layout :func:`_resolve_checkpoint_dir` takes.  The weights must name every entry of
     ``model.state_dict()`` with its shape.
     """
+    materialize(model)
     path = _resolve_checkpoint_dir(ckpt_path)
     if path.suffix == ".npz":
         with np.load(path) as flat:
@@ -347,7 +349,7 @@ def evaluate_bundle(
     ``dice_<name>`` means.  Runs on the card unless ``device`` names another one.  Prints the metrics as one JSON line
     and returns them.
     """
-    variables = load_model_checkpoint(model, ckpt_path)
+    variables = load_model_checkpoint(materialize(model, len(roi_size)), ckpt_path)
     evaluator = Evaluator(model, variables, roi_size, sw_batch_size, overlap, compute_hd95=False, device=device)
 
     cases, dices, hds = [], [], []
@@ -487,6 +489,7 @@ def ensemble_inference(
     device = resolve_device(device)
     if aot_compile and device.type != "cuda":
         raise ValueError(f"aot_compile=True replays a CUDA graph, which needs the card; the device is {device}")
+    materialize(model, len(roi_size))
     folds = [{k: v.to(device) for k, v in load_model_checkpoint(model, p).items()} for p in ckpt_paths]
     preprocessing = _inference_preprocessing(roi_size, pix_size)
     net = copy.deepcopy(model).to(device).eval()

@@ -1,16 +1,20 @@
 """The bundles' YAML programs on the port: ``factorizer_tpu_torch.config`` (parser, overlays, CLI) against the JAX package's.
 
-Every bundle's files are read unedited from ``zoo/<bundle>/configs``.  The five
-bundles whose models the port has build their ``network_def`` (the zoo
-factory's weights from the same seed, ``amp`` and a ``dtype`` override),
-their transforms and their overlays; the seven baseline bundles build their
-transforms and name the model class the port lacks.  The port-parsed loader
-gives the JAX-parsed loader's batches bit for bit; the CLI's override forms
-and ``main()`` are the JAX package's tests ported; a 2-epoch
-``factorizer_brats23`` run at 16^3 on the CPU repeats its losses from the
-config's ``seed``; resolving ``evaluate.yaml``'s program imports nothing of
-JAX; and reduced float16 models built from ``network_def#dtype=$jnp.float16``
-match the JAX package's ``jnp.float16`` models with the same weights.
+Every bundle's files are read unedited from ``zoo/<bundle>/configs``.  All
+twelve bundles build their transforms and their overlays.  The five
+Factorizer / Deconver bundles build their ``network_def`` as the zoo factory
+does (the same weights from the same seed, ``amp`` and a ``dtype`` override);
+the seven baseline bundles (``nnunet_*``: DynUNet, ``segresnet_*``: SegResNet,
+``swinunetr_isles22``: SwinUNETR) build theirs at a reduced override in both
+packages and, with the JAX weights bridged, give the JAX logits;
+``segresnet_fives`` builds a 2-D network.  The port-parsed loader gives the
+JAX-parsed loader's batches bit for bit; the CLI's override forms and
+``main()`` are the JAX package's tests ported; 2-epoch runs on the CPU of
+``factorizer_brats23`` at 16^3 and ``segresnet_fives`` at 32^2 repeat their
+losses from the config's ``seed``; resolving ``evaluate.yaml``'s program
+imports nothing of JAX; and reduced float16 models built from
+``network_def#dtype=$jnp.float16`` match the JAX package's ``jnp.float16``
+models with the same weights.
 Everything runs on the CPU (``network_def#device=cpu`` and the like), where
 the kernels' wrappers take their plain versions.
 """
@@ -46,9 +50,20 @@ PORTED = {
     "deconver_isles22": ftt.deconver_isles22_network,
     "deconver_fives": ftt.deconver_fives_network,
 }
-BASELINES = {"nnunet_brats23": "DynUNet", "nnunet_fives": "DynUNet", "nnunet_isles22": "DynUNet",
-             "segresnet_brats23": "SegResNet", "segresnet_fives": "SegResNet", "segresnet_isles22": "SegResNet",
-             "swinunetr_isles22": "SwinUNETR"}
+# The baseline bundles: the class each network_def names, a reduced override of it, and the input shape.
+NNUNET_SMALL = {"network_def#kernel_size": [3, 3, 3], "network_def#strides": [1, 2, 2], "network_def#filters": [4, 8, 16]}
+SEGRESNET_SMALL = {"network_def#init_filters": 8, "network_def#blocks_down": [1, 1, 1], "network_def#blocks_up": [1, 1]}
+BASELINES = {
+    "nnunet_brats23": ("DynUNet", NNUNET_SMALL, (1, 4, 16, 16, 16)),
+    "nnunet_fives": ("DynUNet", NNUNET_SMALL, (1, 3, 32, 32)),
+    "nnunet_isles22": ("DynUNet", NNUNET_SMALL, (1, 2, 16, 16, 16)),
+    "segresnet_brats23": ("SegResNet", SEGRESNET_SMALL, (1, 4, 16, 16, 16)),
+    "segresnet_fives": ("SegResNet", SEGRESNET_SMALL, (1, 3, 32, 32)),
+    "segresnet_isles22": ("SegResNet", SEGRESNET_SMALL, (1, 2, 16, 16, 16)),
+    # img_size is @roi_size: stages of 16^3 and 8^3 (window 7, padded, shifted), 4^3 and 2^3 (clamped)
+    "swinunetr_isles22": ("SwinUNETR", {"roi_size": [32, 32, 32], "network_def#feature_size": 12}, (1, 2, 32, 32, 32)),
+}
+BUNDLES = sorted(PORTED) + sorted(BASELINES)
 # The overlays as the bundles' docs/*.sh stack them over train.yaml; inference_aot.yaml goes over inference.yaml.
 OVERLAYS = [("train_multidevice.yaml",), ("evaluate.yaml",), ("inference.yaml",), ("inference.yaml", "inference_aot.yaml")]
 ON_CPU = {"network_def#device": "cpu", "trainer#device": "cpu", "evaluator#device": "cpu", "inferencer#device": "cpu"}
@@ -109,7 +124,7 @@ def test_amp_and_dtype_overrides(bundle):
         ConfigParser(_config(bundle, **{"network_def#dtype": "$jnp.int8"}, **base))["network_def"]
 
 
-@pytest.mark.parametrize("bundle", list(PORTED))
+@pytest.mark.parametrize("bundle", BUNDLES)
 def test_transforms_build_with_the_random_tail(bundle):
     """The train preprocessing is the deterministic list with the random tail after it; validation has no tail."""
     parser = ConfigParser(_config(bundle))
@@ -119,7 +134,7 @@ def test_transforms_build_with_the_random_tail(bundle):
     assert all(isinstance(t, ftt.transforms.RandomizableTransform) for t in train.transforms[len(val.transforms):])
 
 
-@pytest.mark.parametrize("bundle", list(PORTED))
+@pytest.mark.parametrize("bundle", BUNDLES)
 def test_overlays_parse_and_name_the_port(bundle):
     """Each overlay merges over train.yaml; its program's ``_target_`` (``factorizer_tpu.zoo_scripts.*``,
     ``factorizer_tpu.parallel.mesh.data_parallel_mesh``) is read in the port; ``inference_aot.yaml`` sets
@@ -144,12 +159,28 @@ def test_overlays_parse_and_name_the_port(bundle):
 
 
 @pytest.mark.parametrize("bundle", sorted(BASELINES))
-def test_baseline_bundles_build_transforms_and_name_the_missing_model(bundle):
-    """The seven baseline bundles: their transforms build; ``network_def`` raises a KeyError naming its class."""
-    parser = ConfigParser(_config(bundle))
-    assert len(parser["train_preprocessing"].transforms) > len(parser["val_preprocessing"].transforms)
-    with pytest.raises(KeyError, match=BASELINES[bundle]):
-        parser["network_def"]
+def test_baseline_network_def_matches_jax(bundle):
+    """The baseline bundles' ``network_def`` from both parsers at a reduced override: the port's class of the same
+    name, on the CPU, in float32 as ``amp: false`` ships it; with the JAX weights (``init`` from key 0) bridged, its
+    logits equal the JAX model's to 1e-4 of the largest.  ``segresnet_fives``, whose ``network_def`` names no rank,
+    builds a 2-D network at its first 2-D batch, as the JAX model does at ``init``."""
+    name, overrides, shape = BASELINES[bundle]
+    model_j = jax_config.ConfigParser(_config(bundle, **overrides))["network_def"]
+    model_t = ConfigParser(_config(bundle, **overrides, **{"network_def#device": "cpu"}))["network_def"]
+    assert type(model_t) is getattr(ftt, name) and type(model_j).__name__ == name
+    x = np.random.default_rng(0).standard_normal(shape).astype(np.float32)
+    variables = jax.tree.map(np.asarray, dict(jax.jit(model_j.init)(jax.random.key(0), jnp.asarray(x))))
+    with torch.no_grad():
+        model_t(torch.from_numpy(x))  # builds a SegResNet at the input's rank
+    ftt.load_flax_variables(model_t, variables)
+    assert next(model_t.parameters()).device.type == "cpu"
+    if bundle.endswith("fives"):
+        assert next(model_t.parameters()).ndim == 4  # (O, I, kh, kw): 2-D convolutions
+    want = np.asarray(jax.jit(model_j.apply)(variables, jnp.asarray(x)))
+    with torch.no_grad():
+        got = model_t(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (shape[0], 3 if bundle.endswith("brats23") else 1, *shape[2:])
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
 
 
 def test_jax_only_targets_raise_by_name():
@@ -224,6 +255,46 @@ def test_cli_trains_factorizer_brats23_the_same_twice(tmp_path):
         trainer = parser["trainer"]
         assert trainer.state.step == 4 and (tmp_path / f"run{i}" / "ckpt" / "step_2.pt").is_file()
         assert next(trainer.model.parameters()).device.type == "cpu"
+        histories.append([{k: v for k, v in h.items() if k != "time_s"} for h in trainer.history])
+    assert histories[0] == histories[1]
+    assert all(np.isfinite(h["loss"]) for h in histories[0]) and 0.0 <= histories[0][-1]["mean_dice"] <= 1.0
+
+
+def _fives_pngs(root: Path, n: int = 4) -> Path:
+    """``n`` FIVES-layout cases of raw 64^2 PNGs (an RGB image, a square vessel mask) and their datalist."""
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    items = []
+    for folder in ("Original", "Ground truth"):
+        (root / "train" / folder).mkdir(parents=True)
+    for i in range(n):
+        name = f"{i + 1}_A.png"
+        label = np.zeros((64, 64), np.uint8)
+        label[16:48, 16:48] = 255
+        Image.fromarray((rng.random((64, 64, 3)) * 255).astype(np.uint8)).save(root / "train" / "Original" / name)
+        Image.fromarray(label).save(root / "train" / "Ground truth" / name)
+        items.append({"id": f"train/Original_{i + 1}_A", "image": f"train/Original/{name}",
+                      "label": f"train/Ground truth/{name}", "fold": i % 2})
+    datalist = root / "datalist.json"
+    datalist.write_text(json.dumps({"training": items, "test": []}))
+    return datalist
+
+
+def test_cli_trains_segresnet_fives_in_2d_the_same_twice(tmp_path):
+    """``segresnet_fives``'s ``train.yaml`` through ``run`` on raw PNGs at 32^2, a reduced SegResNet, on the CPU:
+    the trainer builds the network 2-D from ``roi_size`` (the file names no rank); 2 epochs with a validation at
+    epoch 2; a second run from the same ``seed`` repeats every epoch loss and the validation bit for bit."""
+    datalist = _fives_pngs(tmp_path / "data")
+    overrides = {"data_dir": str(tmp_path / "data"), "datalist_path": str(datalist), "num_workers": 0,
+                 "roi_size": [32, 32], "batch_size": 2, "max_epochs": 2, "val_interval": 2, **SEGRESNET_SMALL, **ON_CPU}
+    histories = []
+    for i in range(2):
+        parser = run(str(ZOO / "segresnet_fives" / "configs" / "train.yaml"), output_dir=str(tmp_path / f"run{i}"),
+                     **overrides)
+        trainer = parser["trainer"]
+        assert trainer.state.step == 2 and (tmp_path / f"run{i}" / "ckpt" / "step_2.pt").is_file()
+        assert trainer.model.spatial_dims == 2 and trainer.model.stem.weight.ndim == 4
         histories.append([{k: v for k, v in h.items() if k != "time_s"} for h in trainer.history])
     assert histories[0] == histories[1]
     assert all(np.isfinite(h["loss"]) for h in histories[0]) and 0.0 <= histories[0][-1]["mean_dice"] <= 1.0

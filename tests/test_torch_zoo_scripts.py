@@ -8,6 +8,8 @@ and 1, each head bias set so that about half the voxels come out positive,
 so the masks are not trivial); the export tool writes each as ``.npz``.
 Then both packages' programs run on the same files: the port on the CPU
 (``device="cpu"``), where the kernels' wrappers take their plain versions.
+A reduced JAX ``DynUNet``'s checkpoint goes through the same export into the
+port's ``DynUNet``.
 """
 
 import json
@@ -241,3 +243,26 @@ def test_aot_compile_raises_on_the_cpu(bundle):
                                        str(bundle["data_dir"]), SP, (1.0, 1.0, 1.0), str(bundle["tmp"] / "aot"),
                                        aot_compile=True, device="cpu")
     assert not (bundle["tmp"] / "aot").exists()
+
+
+def test_jax_dynunet_checkpoint_loads_into_the_port(tmp_path):
+    """A reduced JAX ``DynUNet``'s train state saved as an orbax checkpoint and exported with
+    ``tools/export_jax_checkpoint.py``: ``load_model_checkpoint`` reads the ``.npz`` into the port's ``DynUNet`` (the
+    bridge uses every Flax leaf) and the port's logits equal JAX's to 1e-5 of the largest, in float32."""
+    cfg = dict(in_channels=2, out_channels=3, kernel_size=(3, 3, 3), strides=(1, 2, 2), filters=(4, 8, 16))
+    model_j = ftx.DynUNet(**cfg)
+    state = jax_create_train_state(model_j, optax.adamw(1e-3), np.zeros((1, 2, *SP), np.float32), jax.random.key(3),
+                                   {"train": False})
+    jax_save_checkpoint(tmp_path / "jax_ckpt", state)
+    flat = export_jax_checkpoint.export(tmp_path / "jax_ckpt", tmp_path / "dynunet.npz")
+    assert flat and all(k.startswith("params/") for k in flat)
+    model_t = ftt.DynUNet(**cfg, device="cpu")
+    weights = zoo_scripts.load_model_checkpoint(model_t, tmp_path / "dynunet.npz")
+    assert weights.keys() == model_t.state_dict().keys()
+    model_t.load_state_dict(weights)
+    x = np.random.default_rng(7).standard_normal((2, 2, *SP)).astype(np.float32)
+    want = np.asarray(jax.jit(model_j.apply)({"params": state.params}, jnp.asarray(x)))
+    with torch.no_grad():
+        got = model_t.eval()(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (2, 3, *SP)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
