@@ -3,7 +3,7 @@
 Run from the repository root:
 
     python3 chip_smoke.py             # one card: every phase below
-    python3 chip_smoke.py --cards 4   # a host with 4 cards: phases 1, 2, 20 and 21 alone, one process per card (NCCL)
+    python3 chip_smoke.py --cards 4   # a host with 4 cards: phases 1, 2, 20, 21 and 25 alone, one process per card (NCCL)
 
 Phases, one or more result lines each:
   1. environment: the card (name, power limit), torch / CUDA / nvcc versions; TF32 off.
@@ -127,6 +127,21 @@ Phases, one or more result lines each:
      same weights; UNETR at its canonical configuration takes a forward and the steps at batch 2.  cuDNN's heuristics
      choose the CNNs' convolutions, its timing search (benchmark mode, as SegmentationTrainer runs) SwinUNETR's and
      UNETR's.  s/volume, s/step, peak memory; every launch counter stays 0.
+ 25. (run after 21) the spatial train step, train_tp.yaml's: two processes on the one card, make_train_step(model,
+     mesh=model_parallel_mesh(), spatial_axis="model"): factorizer_brats23's network at batch 2 x 128^3 on slabs of 64
+     rows (1 warm-up and 3 steps) and factorizer_isles22's at 8 x 64^3 on slabs of 32 (1 warm-up and 2 steps), f32;
+     launches per step and process by kernel (K5 on the mixers on slabs, K1 on the gathered ones, K2 in every tail;
+     K5's tails), loss, gradient norm and parameters against the one-process steps on the whole volume as in 21;
+     one more step with each exchange timed; then a forward's loss under each gather rule from the same weights (the
+     rule, and the slabs thinner than a patch alone gathered) and 3 steps of each in turns, timed.  Its launches are
+     in the kernels line.
+ 26. the data-parallel bundle programs: factorizer_brats23's and deconver_brats23's train.yaml + train_multidevice.yaml
+     for 1 epoch each through `python -m torch.distributed.run --nproc_per_node 2 -m factorizer_tpu_torch.bundle run`
+     on phase 23's cases (each process its 2 of the 4 training cases): exit 0, each process's epoch loss equal, one
+     checkpoint, written by the primary; s/epoch beside train.yaml's first epoch in one process.
+ 27. the spatial bundle program: factorizer_brats23's train.yaml + train_tp.yaml for 1 epoch the same way (2 spatial
+     steps on the 4 cases, a validation of whole volumes on each process).  26 and 27 run inside 23's directory and
+     are left out of the kernels line.
 The float16 instance of every kernel is checked beside f32 and bf16 at one stage shape each (K1, K1 bwd with and
 without all-zero windows, K2, K2 bwd, K3, K3 dw, K4, K4 bwd, K5), with one float16 forward of brats23_network
 (`[slice f16]`); MatrixFactorization serves a float16 tensor through K4, and a float64 one raises.
@@ -655,6 +670,247 @@ def train_dp_slice(world: int, settings: dict, n_steps: int) -> dict:
     return launches
 
 
+# The spatial step's cases (`[train tp]`): name -> (network factory, global batch, input channels, output channels,
+# volume side, patch, rows its shifts move along the first axis (the sum of their s1), steps after the warm-up).
+TP_CASES = {"factorizer_brats23": ("brats23_network", 2, 4, 3, 128, 8, 2 + 4 + 6, 3),
+            "factorizer_isles22": ("factorizer_isles22_network", 8, 2, 1, 64, 4, 1 + 2 + 3, 2)}
+
+
+def tp_routes(side: int, patch: int, moved: int, world: int, itemsize: int = 4) -> dict:
+    """Per train step and process, the launches of the spatial step of a bundle's Factorizer on ``world`` slabs:
+    each of the 9 mixers (stages of side 1, 1/2 ... 1/16 and back up) runs K5, or K1 on the gathered tensor where its
+    slab of ``L`` rows holds no whole number of patches or where the all-gather sends fewer bytes, 2 (world - 1) L
+    rows, than K5's halos and routed rows, moved (3 + 2) rows in f32 (``FactMixer.gathers``); K2 in every block
+    tail either way."""
+    sides = [side >> i for i in range(5)] + [side >> i for i in range(3, -1, -1)]
+
+    def gathered(rows: int) -> bool:
+        return rows % patch != 0 or 2 * (world - 1) * rows * itemsize < moved * (3 * itemsize + 2 * max(itemsize, 4))
+
+    k1 = sum(gathered(s // world) for s in sides)
+    k5 = len(sides) - k1
+    return {"windowed_nmf_factors": k1, "windowed_nmf_reconstruct": k1, "windowed_nmf_bwd": k1 * N_SHIFTS,
+            "prenorm_mlp": N_BLOCKS, "prenorm_mlp_bwd": N_BLOCKS, "windowed_nmf_slab": k5 * N_SHIFTS,
+            "windowed_nmf_slab_bwd": k5 * N_SHIFTS}
+
+
+def gather_thinner_than_patch(self, x) -> bool:
+    """The other gather rule that the spatial step is timed against: gather only a slab that holds no whole number of
+    patches, and run K5 everywhere else."""
+    return x.shape[1] % self.windowed[1] != 0
+
+
+@contextlib.contextmanager
+def exchange_timer(spent: dict):
+    """Within the block, each exchange of the spatial step is timed (a synchronize before and after it) into
+    ``spent[label] = [seconds, calls]``: K5's halos and routed rows, the stem's halo, the gathered stages, the loss's
+    sums, the gradient all-reduce and the batch broadcast."""
+    import torch
+
+    import factorizer_tpu_torch.ops.kernels.windowed_sharded as k5
+    import factorizer_tpu_torch.parallel.collectives as collectives
+    import factorizer_tpu_torch.train.losses as losses
+    import factorizer_tpu_torch.train.trainer as trainer
+
+    targets = [(k5, "ring_exchange", "K5 halos and routed rows"), (collectives, "_line_shift", "stem halo"),
+               (collectives, "all_gather_cat", "gathered stages"), (losses, "all_reduce_sum", "loss sums"),
+               (trainer, "_sum_grads", "gradient all-reduce"), (trainer, "broadcast_from_first", "batch broadcast")]
+    saved = []
+    for module, name, label in targets:
+        fn = getattr(module, name)
+        spent[label] = [0.0, 0]
+
+        def timed(*args, _fn=fn, _label=label, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[_label][0] += time.perf_counter() - t0
+            spent[_label][1] += 1
+            return out
+
+        saved.append((module, name, fn))
+        setattr(module, name, timed)
+    try:
+        yield spent
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def train_tp_worker(rank: int, world: int, init_method: str, settings: dict) -> dict:
+    """The spatial step (``make_train_step(model, mesh=model_parallel_mesh(), spatial_axis="model")``) on this
+    process's slabs: ``TP_CASES`` in turn, 1 warm-up and the case's steps each; launches per step, losses, norms,
+    seconds, peak memory.  After factorizer_brats23's steps: one more step with its exchanges timed, the loss of a
+    forward under each gather rule, and six steps in turns under the rule and :func:`gather_thinner_than_patch`."""
+    import torch
+
+    from factorizer_tpu_torch import zoo_scripts
+    from factorizer_tpu_torch.models.factorizer import FactMixer
+    from factorizer_tpu_torch.ops.kernels import windowed_nmf_multi_spatial
+    from factorizer_tpu_torch.parallel import Slabs, model_parallel_mesh, on_slabs, shard_batch
+    from factorizer_tpu_torch.train.losses import dice_ce_loss
+    from factorizer_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    backend = join_group_on_the_card(rank, world, init_method)
+    torch.backends.cudnn.benchmark = True
+    mesh = model_parallel_mesh()
+    counters = kernel_counters()
+    report = {"backend": backend, "mesh": dict(mesh.shape)}
+    rules = {"rule": FactMixer.gathers, "other": gather_thinner_than_patch}
+
+    def timed_step(state, step, batch):
+        reset_counters(counters)
+        windowed_nmf_multi_spatial.tail_launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        return state, metrics, time.perf_counter() - t0, read_counters(counters), windowed_nmf_multi_spatial.tail_launches
+
+    for name, (factory, b, c_in, c_out, side, _, _, n_steps) in TP_CASES.items():
+        state = create_train_state(getattr(zoo_scripts, factory)(generator=torch.Generator().manual_seed(0)), **settings)
+        step = make_train_step(state.model, mesh=mesh, spatial_axis="model")
+        batch = synthetic_batch(b, c_in, c_out, side, seed=7)
+        run = {"losses": [], "norms": [], "seconds": [], "counts": [], "tails": [], "peak_memory": 0}
+        for i in range(1 + n_steps):
+            state, metrics, seconds, counts, tails = timed_step(state, step, batch)
+            for key, value in zip(("seconds", "counts", "tails", "losses", "norms"),
+                                  (seconds, counts, tails, metrics["loss"].item(), metrics["grad_norm"].item())):
+                run[key].append(value)
+            if i:
+                run["peak_memory"] = max(run["peak_memory"], torch.cuda.max_memory_allocated())
+        if rank == 0:
+            run["params"] = {k: p.detach().cpu() for k, p in state.model.named_parameters()}
+        else:  # a digest is enough to show that the processes made the same update
+            run["param_sum"] = sum(p.detach().double().sum().item() for p in state.model.parameters())
+        if name == "factorizer_brats23":
+            spent = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with exchange_timer(spent):
+                state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            run["instrumented"] = (time.perf_counter() - t0, spent)
+            # The two gather rules: one forward's loss each from the same weights, then steps in turns.
+            mine = shard_batch(batch, mesh, data_axis=None, spatial_axis="model")
+            run["rule_losses"], run["turns"] = {}, {label: [] for label in rules}
+            try:
+                for label, rule in rules.items():
+                    FactMixer.gathers = rule
+                    with torch.no_grad(), on_slabs(state.model, Slabs(mesh, "model")) as model:
+                        loss = dice_ce_loss(model(mine["image"]), mine["label"], slabs=Slabs(mesh, "model"))
+                    run["rule_losses"][label] = loss.item()
+                for label in ("other", "rule", "rule", "other", "other", "rule"):
+                    FactMixer.gathers = rules[label]
+                    state, _, seconds, counts, _ = timed_step(state, step, batch)
+                    run["turns"][label].append((seconds, torch.cuda.max_memory_allocated(), counts))
+            finally:
+                FactMixer.gathers = rules["rule"]
+        report[name] = run
+        del state, step, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return report
+
+
+def train_tp_slice(world: int, settings: dict) -> dict:
+    """Phase 25: ``world`` processes take the spatial step of factorizer_brats23 (2 x 128^3) and factorizer_isles22
+    (8 x 64^3) on slabs of the volumes' first axis, held against the one-process steps on the whole volumes as
+    ``[train dp]`` is; then the two gather rules in turns.  Returns the launches of all processes and of the steps
+    held against the one-process steps, by kernel."""
+    import torch
+
+    from factorizer_tpu_torch import zoo_scripts
+    from factorizer_tpu_torch.parallel import run_processes
+    from factorizer_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    reports = run_processes(train_tp_worker, world, settings, timeout=500)
+    started = time.perf_counter() - t0
+    launches = dict.fromkeys(kernel_counters(), 0)
+    lr = settings["lr"]
+    for name, (factory, b, c_in, c_out, side, patch, moved, n_steps) in TP_CASES.items():
+        state = create_train_state(getattr(zoo_scripts, factory)(generator=torch.Generator().manual_seed(0)), **settings)
+        step = make_train_step(state.model)
+        batch = synthetic_batch(b, c_in, c_out, side, seed=7)
+        ref_losses, ref_norms, ref_seconds = [], [], []
+        for i in range(1 + n_steps):
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            ref_seconds.append(time.perf_counter() - t1)
+            ref_losses.append(metrics["loss"].item())
+            ref_norms.append(metrics["grad_norm"].item())
+        ref_peak = torch.cuda.max_memory_allocated()
+        per_step = tp_routes(side, patch, moved, world)
+        for rank, report in enumerate(reports):
+            r = report[name]
+            for counts in r["counts"]:
+                check({k: v for k, v in counts.items() if v} == {k: v for k, v in per_step.items() if v},
+                      f"train tp {name} rank {rank}: launches {counts}, expected {per_step}")
+                for k, v in counts.items():
+                    launches[k] += v
+            # per K5 mixer and step: a forward and a backward tail for each shift that moves rows (all but the first)
+            check(all(t == 2 * (N_SHIFTS - 1) * per_step["windowed_nmf_slab"] // N_SHIFTS for t in r["tails"]),
+                  f"train tp {name} rank {rank}: K5 tail launches {r['tails']}")
+            check(r["losses"] == reports[0][name]["losses"] and r["norms"] == reports[0][name]["norms"],
+                  f"train tp {name}: the processes report different metrics: {r['losses']} / {reports[0][name]['losses']}")
+        r = reports[0][name]
+        loss_rel = max(abs(a - c) / abs(c) for a, c in zip(r["losses"], ref_losses))
+        norm_rel = max(abs(a - c) / c for a, c in zip(r["norms"], ref_norms))
+        diffs = {k: (r["params"][k].to(dev) - p.detach()).abs() for k, p in state.model.named_parameters()}
+        worst = max(diffs, key=lambda k: diffs[k].max().item())
+        far = sum((d > 0.1 * lr).sum().item() for d in diffs.values()) / sum(d.numel() for d in diffs.values())
+        digest = sum(p.double().sum().item() for p in r["params"].values())
+        n_timed = len(r["seconds"]) - 1
+        print(f"[train tp] {name}: make_train_step({factory}(), mesh=model_parallel_mesh() {reports[0]['mesh']}, "
+              f"spatial_axis='model') ({reports[0]['backend']}), batch {b} x {side}^3 on {world} slabs of {side // world} "
+              f"rows, float32: {' / '.join(f'{statistics.mean(q[name]['seconds'][1:]):.4f}' for q in reports)} s/step per "
+              f"process, one-process step {statistics.mean(ref_seconds[1:]):.4f} s (after a {r['seconds'][0]:.2f} s warm-up "
+              f"step); peak memory per process {' / '.join(f'{q[name]['peak_memory'] / 2**30:.2f}' for q in reports)} GiB, "
+              f"one process {ref_peak / 2**30:.2f} GiB; loss {' -> '.join(f'{v:.6f}' for v in r['losses'])}; launches per "
+              f"step and process { {k: v for k, v in per_step.items() if v} } + {r['tails'][-1]} K5 tails; against the "
+              f"one-process steps: loss rel {loss_rel:.2e} (tol {TRAIN_RTOL['float32']['loss']:.0e}), grad norm rel "
+              f"{norm_rel:.2e} (tol {TRAIN_RTOL['float32']['grad']:.0e}), parameters after {n_timed + 1} steps max |diff| "
+              f"{diffs[worst].max().item():.2e} at {worst} (tol 2 lr per step = {2 * lr * (n_timed + 1):.1e}), share of "
+              f"entries off by more than lr / 10: {far:.2e} (tol 1e-3). " + shared_card_note(world))
+        check(loss_rel <= TRAIN_RTOL["float32"]["loss"] and norm_rel <= TRAIN_RTOL["float32"]["grad"],
+              f"train tp {name}: loss {r['losses']} / {ref_losses}, grad norm {r['norms']} / {ref_norms}")
+        check(diffs[worst].max().item() <= 2 * lr * (n_timed + 1) and far <= 1e-3,
+              f"train tp {name}: parameters differ from the one-process steps: {worst}")
+        check(all(abs(q[name]["param_sum"] - digest) <= 1e-9 * abs(digest) for q in reports[1:]),
+              f"train tp {name}: the processes hold different parameters")
+        del state, step, batch, diffs
+        gc.collect()
+        torch.cuda.empty_cache()
+    total, spent = reports[0]["factorizer_brats23"]["instrumented"]
+    print(f"[train tp] where a factorizer_brats23 step goes on process 0 (one more step, {total:.4f} s, a synchronize "
+          f"around each exchange): " + ", ".join(f"{k} {v[0]:.4f} s ({v[1]} calls)" for k, v in spent.items())
+          + f", the rest (the kernels and stock operations of the slab) {total - sum(v[0] for v in spent.values()):.4f} s")
+    turns, rule_losses = reports[0]["factorizer_brats23"]["turns"], reports[0]["factorizer_brats23"]["rule_losses"]
+
+    def mean_s(label: str) -> str:
+        return " / ".join(f"{statistics.mean(t[0] for t in q['factorizer_brats23']['turns'][label]):.4f}" for q in reports)
+
+    print(f"[train tp] gather rule, factorizer_brats23 on {world} slabs, 3 steps each in turns (other, rule, rule, "
+          f"other, other, rule): gathered where the slab holds no whole number of patches or the all-gather sends fewer "
+          f"bytes than K5 (the rule) {mean_s('rule')} s/step, peak {max(t[1] for t in turns['rule']) / 2**30:.2f} GiB; "
+          f"gathered only where the slab holds no whole number of patches {mean_s('other')} s/step, peak "
+          f"{max(t[1] for t in turns['other']) / 2**30:.2f} GiB, launches per step "
+          f"{ {k: v for k, v in turns['other'][-1][2].items() if v} }; a forward's loss under each from the same "
+          f"weights: " + ("equal bit for bit" if rule_losses["rule"] == rule_losses["other"] else f"{rule_losses}")
+          + f" ({started:.1f} s with start-up)")
+    check(abs(rule_losses["rule"] - rule_losses["other"]) <= TRAIN_RTOL["float32"]["loss"] * abs(rule_losses["rule"]),
+          f"train tp: the two gather rules give different losses: {rule_losses}")
+    return launches
+
+
 WORKFLOW_SHAPE = (240, 240, 155)  # a BraTS-native volume at 1 mm
 WORKFLOW_AFFINE = ((-1.0, 0.0, 0.0, 0.0), (0.0, -1.0, 0.0, 239.0), (0.0, 0.0, 1.0, 0.0), (0.0, 0.0, 0.0, 1.0))  # BraTS's LPS
 
@@ -1078,6 +1334,7 @@ def bundle_slice(counters: dict, seed: int = 123, shape=WORKFLOW_SHAPE, roi=(128
         out = root / "factorizer"
         train_s, _ = cli([fz / "train.yaml"], {**data, "output_dir": str(out), "max_epochs": 2, "val_interval": 2}, "train")
         history = [json.loads(line) for line in (out / "history.jsonl").read_text().splitlines()]
+        train_epoch_s = history[0]["time_s"]
         ckpt_dir = out / "ckpt"
         check((ckpt_dir / "step_2.pt").is_file(), f"bundle train: no step_2.pt in {sorted(p.name for p in ckpt_dir.iterdir())}")
         losses = [h["loss"] for h in history]
@@ -1192,11 +1449,77 @@ def bundle_slice(counters: dict, seed: int = 123, shape=WORKFLOW_SHAPE, roi=(128
               f"the native shape; s/volume file to file " + ", ".join(f"{t:.3f}" for t in nper_volume)
               + "; sliding window per volume " + ", ".join(f"{t:.3f}" for t in npredict_s)
               + f" s; launches of the port's kernels {sum(nmade.values())}")
+
+        # 26., 27. the multi-device programs under torchrun: two processes on this card (gloo).
+        multidevice_programs(repo, root, {**data, "num_workers": max(1, workers // 2)}, train_epoch_s)
     left = child_processes()
     check(not left, f"bundle: processes still alive: {left}")
     reset_counters(counters)
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# A program the bundle CLI runs after `run` in `[bundle multidevice]` / `[bundle tp]`: each process prints its epoch losses.
+REPORT_LOSSES = "$print('[losses] %d %s' % (jax.process_index(), [h['loss'] for h in @trainer.history]), flush=True)"
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def multidevice_programs(repo, root, data: dict, train_epoch_s: float) -> None:
+    """Phases 26 and 27, on ``[bundle]``'s cases: ``train.yaml`` + ``train_multidevice.yaml`` of factorizer_brats23
+    and deconver_brats23, then ``train.yaml`` + ``train_tp.yaml`` of factorizer_brats23, 1 epoch each, through
+    ``python -m torch.distributed.run --nproc_per_node 2 -m factorizer_tpu_torch.bundle run``: exit 0, each
+    process's epoch losses equal, one checkpoint, written by the primary; s/epoch beside ``train.yaml``'s."""
+    from pathlib import Path
+
+    def torchrun(bundle: str, overlay: str, overrides: dict) -> tuple:
+        configs = repo / "zoo" / bundle / "configs"
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2", "--master_addr", "127.0.0.1",
+               "--master_port", str(free_port()), "-m", "factorizer_tpu_torch.bundle", "run",
+               "--config_file", str(configs / "train.yaml"), "--config_file", str(configs / overlay),
+               "--run_id", "run", "--run_id", "report_losses", "--report_losses", REPORT_LOSSES]
+        for k, v in overrides.items():
+            cmd += [f"--{k}", json.dumps(v) if not isinstance(v, str) else v]
+        t0 = time.perf_counter()
+        done = subprocess.run(cmd, cwd=repo, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        tag = f"{bundle} {overlay}"
+        check(done.returncode == 0, f"bundle {tag}: exit code {done.returncode}\n{done.stdout[-3000:]}\n{done.stderr[-3000:]}")
+        losses = {int(rank): json.loads(values) for rank, values in re.findall(r"\[losses\] (\d+) (\[[^\]]*\])", done.stdout)}
+        out = Path(overrides["output_dir"])
+        history = [json.loads(line) for line in (out / "history.jsonl").read_text().splitlines()]
+        saved = sorted(p.name for p in (out / "ckpt").glob("*.pt"))
+        check(sorted(losses) == [0, 1] and losses[0] == losses[1] and all(map(math.isfinite, losses[0])),
+              f"bundle {tag}: the processes' epoch losses {losses}\n{done.stdout[-3000:]}")
+        check(saved == ["step_1.pt"] and len(history) == 1 and history[0]["loss"] == losses[0][0],
+              f"bundle {tag}: checkpoints {saved}, history {history}")
+        backend = re.search(r"\[distributed\] (backend \w+)", done.stdout)
+        return seconds, history[0], losses, backend.group(1) if backend else "backend not printed"
+
+    for bundle in ("factorizer_brats23", "deconver_brats23"):
+        seconds, record, losses, backend = torchrun(
+            bundle, "train_multidevice.yaml", {**data, "output_dir": str(root / f"{bundle}_multidevice"), "max_epochs": 1,
+                                               "val_interval": 0})
+        print(f"[bundle multidevice] {bundle} train.yaml + train_multidevice.yaml (torchrun, 2 processes, {backend}, "
+              f"one card): {seconds:.1f} s end to end, epoch {record['time_s']:.3f} s of 1 step a process on its 2 cases "
+              f"(train.yaml's first epoch in one process, 2 steps on 4 cases: {train_epoch_s:.3f} s), loss "
+              f"{losses[0][0]:.6f} on both processes, one checkpoint step_1.pt written by the primary. "
+              + shared_card_note(2))
+    seconds, record, losses, backend = torchrun(
+        "factorizer_brats23", "train_tp.yaml", {**data, "output_dir": str(root / "factorizer_tp"), "max_epochs": 1,
+                                                "val_interval": 1})
+    print(f"[bundle tp] factorizer_brats23 train.yaml + train_tp.yaml (torchrun, 2 processes, {backend}, one card, a "
+          f"model axis of 2): {seconds:.1f} s end to end, epoch {record['time_s']:.3f} s of 2 spatial steps on 4 cases "
+          f"(train.yaml's first epoch in one process: {train_epoch_s:.3f} s), loss {losses[0][0]:.6f} on both "
+          f"processes, validation of whole volumes on each process, mean Dice {record['mean_dice']:.4f}; one checkpoint "
+          f"step_1.pt written by the primary. " + shared_card_note(2))
+    check(0.0 <= record["mean_dice"] <= 1.0, f"bundle tp: mean Dice {record['mean_dice']}")
 
 
 # The baseline bundles on the card (`[baselines]`): name -> (served input, roi, the training batch), from their
@@ -1483,6 +1806,7 @@ def main() -> None:
         spatial_slice(cards)
         torch.backends.cudnn.benchmark = True
         train_dp_slice(cards, {k: settings[k] for k in ("lr", "weight_decay")}, 4)
+        train_tp_slice(cards, {k: settings[k] for k in ("lr", "weight_decay")})
         last_lines()
         return
 
@@ -2559,6 +2883,10 @@ def main() -> None:
         train_launches[k] += v
     gc.collect()
     torch.cuda.empty_cache()
+    # 25. the spatial train step (train_tp.yaml's), two processes on this card; its launches are in the kernels line.
+    tp_launches = train_tp_slice(2, settings)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # 22. the training workflow from NIfTI files; its launches are checked there and left out of the kernels line.
     workflow_slice(wrappers)
@@ -2591,9 +2919,10 @@ def main() -> None:
     for name, (source, replaces) in sources.items():
         label, ms, plain_ms, b_ms, b_by, library_ms = results[name]["times"]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": serve_launches[name] + train_launches[name] + spatial_launches[name],
+                        "launches": serve_launches[name] + train_launches[name] + spatial_launches[name]
+                        + tp_launches[name],
                         "launches_serving": serve_launches[name], "launches_training": train_launches[name],
-                        "launches_spatial": spatial_launches[name],
+                        "launches_spatial": spatial_launches[name], "launches_train_tp": tp_launches[name],
                         "max_abs_err": max(results[name]["errs"]),
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": library_ms, "timed_at": label})

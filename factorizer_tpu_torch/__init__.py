@@ -48,7 +48,7 @@ from .models import (
 )
 from .ops import Matricize, Reshape, SWMatricize
 from .ops.kernels import reference_kernels
-from .parallel import data_parallel, data_parallel_mesh, initialize_distributed, make_mesh, shard_batch
+from .parallel import data_parallel, data_parallel_mesh, initialize_distributed, make_mesh, model_parallel_mesh, shard_batch
 from .data import (
     CacheDataset,
     DataLoader,

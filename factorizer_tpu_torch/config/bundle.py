@@ -13,12 +13,24 @@ torch's default generator is seeded with it before anything resolves, so
 it builds is seeded with it.  Two runs of one config with the same ``seed``
 take the same first step (with ``num_workers: 0``; worker threads take items
 in the order they finish).
+
+Under ``torchrun`` (``python -m torch.distributed.run --nproc_per_node N -m
+factorizer_tpu_torch.bundle run ...``) the CLI joins the process group that
+the environment describes before it reads a config, so that
+``train_multidevice.yaml``'s ``jax.process_count()`` / ``process_index()``
+and the ``mesh`` it builds see all processes; each process takes its own card
+when the host has one for each (NCCL), else all share card 0 (gloo), before
+``network_def`` is built on the current card.  One process with no
+``torchrun`` needs no group: its mesh is a mesh of one.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 from typing import Optional, Sequence
+
+import torch.distributed as dist
 
 from .parser import ConfigParser, load_config_files, merge_config, parse_override
 
@@ -110,11 +122,23 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             i += 1
     if not config_files:
         raise SystemExit("at least one --config_file is required")
-    run(
-        config_files,
-        run_id=run_ids or ["initialize", "run"],
-        overrides=_normalize_cli_overrides(override_tokens),
-    )
+    overrides = _normalize_cli_overrides(override_tokens)
+    joined = _join_torchrun_group()
+    try:
+        run(config_files, run_id=run_ids or ["initialize", "run"], overrides=overrides)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _join_torchrun_group() -> bool:
+    """Join the group that ``torchrun``'s environment describes (more than one process); False when there is none."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1 or dist.is_initialized():
+        return False
+    from ..parallel.mesh import initialize_distributed
+
+    initialize_distributed("env://")
+    return True
 
 
 if __name__ == "__main__":

@@ -70,13 +70,7 @@ def _jnp() -> _Namespace:
 
 
 def _jax() -> _Namespace:
-    import torch.distributed as dist
-
-    def process_count() -> int:
-        return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
-
-    def process_index() -> int:
-        return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+    from ..parallel.mesh import process_count, process_index
 
     return _Namespace(_name="jax", process_count=process_count, process_index=process_index)
 

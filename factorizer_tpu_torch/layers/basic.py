@@ -346,14 +346,16 @@ class Conv(nn.Module):
         self.weight = _uniform((out_channels, in_channels // groups, *ks), fan_in, device, generator)
         self.bias = _uniform((out_channels,), fan_in, device, generator) if bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, padding: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """``padding`` overrides the layer's own for this call (a slab with its halo takes none along the cut axis)."""
         dt = _compute_dtype(self.dtype, x, self.weight)
         b = None if self.bias is None else self.bias.to(dt)
         if self.pointwise:
             # A k1 convolution is a linear over the channel axis: one GEMM on the channels-last tensor,
             # no layout transposes, and a GEMM for the weight gradient.
             return F.linear(x.to(dt), self.weight.to(dt).flatten(1), b)
-        y = _CONV[self.spatial_dims](_to_channels_first(x.to(dt)), self.weight.to(dt), b, self.stride, self.padding,
+        padding = self.padding if padding is None else tuple(padding)
+        y = _CONV[self.spatial_dims](_to_channels_first(x.to(dt)), self.weight.to(dt), b, self.stride, padding,
                                      self.dilation, self.groups)
         return _to_channels_last(y)
 

@@ -139,6 +139,10 @@ class Deconver(UNet):
     take :class:`Deconv`'s defaults, as in the JAX model.
     """
 
+    def slab_path_missing(self) -> str:
+        """What keeps the model from the spatial step (``parallel.slabs``): it has no slab path."""
+        return "the Deconver: K3 (the depthwise convolution) and InstanceNorm statistics across slabs are not ported"
+
     def __init__(
         self,
         in_channels: int,

@@ -57,6 +57,10 @@ class DynUNet(nn.Module):
         data_format: ``"channels_first"`` takes and returns ``(B, C, *S)``.
     """
 
+    def slab_path_missing(self) -> str:
+        """What keeps the model from the spatial step (``parallel.slabs``): it has no slab path."""
+        return "DynUNet: InstanceNorm statistics across slabs and the deep-supervision heads are not ported"
+
     def __init__(
         self,
         in_channels: int,

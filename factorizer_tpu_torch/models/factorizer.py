@@ -31,7 +31,11 @@ over that axis of the process mesh, through K5
 (``ops.kernels.windowed_nmf_multi_spatial``: the slab kernels and a halo
 exchange); ``spatial_size`` stays the whole volume's.  Everything else in a
 block is per voxel and needs nothing; a stage's positional embedding is cut
-to the slab's rows.
+to the slab's rows.  The whole model runs on slabs under
+``parallel.slabs.on_slabs`` (the spatial train step): there each windowed
+mixer runs K5 on its slab, or gathers the stage's tensor, runs K1 on all of
+it and cuts its slab back out (:meth:`FactMixer.gathers`: where the slab holds
+no whole number of patches, or where gathering sends fewer bytes).
 
 in_proj, out_proj, the stage adapter, the folds and the convolutions stay
 stock PyTorch.  Dropout is not ported: the serving path runs without it.
@@ -48,7 +52,10 @@ from ..factorization.nmf import NMF
 from ..layers.basic import ACTIVATIONS, LayerNorm, Linear, MLP, NormSpec, build_norm
 from ..layers.pos_embed import PositionalEmbedding
 from ..ops.kernels import prenorm_mlp, windowed_nmf, windowed_nmf_multi_spatial
+from ..ops.kernels.windowed_nmf import _norm_shift
 from ..ops.reshape import Matricize, SWMatricize
+from ..parallel.collectives import cut_slab, gather_slabs
+from ..parallel.slabs import Slabs
 from .unet import UNet
 
 __all__ = ["FactMixer", "FactorizerBlock", "FactorizerStage", "Factorizer"]
@@ -72,6 +79,13 @@ def _spatial_option(factorize_options: Optional[dict]) -> Optional[tuple]:
     return mesh, axis
 
 
+def _slabs(module: nn.Module) -> Optional[Slabs]:
+    """The slabs a module runs on: those of ``on_slabs``, else those of its ``spatial_mesh`` option, else None."""
+    if module.slabs is not None:
+        return module.slabs
+    return None if module.spatial is None else Slabs(*module.spatial)
+
+
 class FactMixer(nn.Module):
     """Token mixing: project -> act -> fold -> factorize -> unfold -> project.
 
@@ -87,8 +101,13 @@ class FactMixer(nn.Module):
     ``factorize_options={"spatial_mesh": mesh, "spatial_axis": "model"}``:
     ``forward`` takes this process's slab ``(B, S1 / n, S2, S3, C)`` of the
     volume and mixes it through K5; only a mixer that K1 computes can, and
-    each slab must hold whole windows.
+    each slab must hold whole windows.  Under ``parallel.slabs.on_slabs``
+    (``slabs`` set) ``forward`` takes a slab too, of any row count, and
+    :meth:`gathers` chooses K5 or K1 on the gathered tensor.
     """
+
+    # This process's parallel.slabs.Slabs while the model runs on slabs, else None.
+    slabs = None
 
     def __init__(
         self,
@@ -159,19 +178,44 @@ class FactMixer(nn.Module):
             return None
         return ax["d"], ps[0], tuple(m.shifts for m in mats)
 
+    def gathers(self, x: torch.Tensor) -> bool:
+        """Whether this process's slab ``x`` is gathered around K1 instead of running K5 (the spatial step's one rule).
+
+        Gathered where the slab holds no whole number of patches, or where the
+        all-gather and its backward send fewer bytes than K5's exchanges would.
+        Per process K5 sends, for each shift that moves ``s1`` rows, ``s1``
+        rows of the slab in the forward and two sets in the backward (x and its
+        cotangent, in the slab's dtype), and ``s1`` routed rows back in each
+        direction (f32); the gather sends the slab to each of the ``n - 1``
+        others, forward and backward.  On 2 slabs that gathers every stage of
+        side 32 or less in ``factorizer_brats23`` (16 or less in
+        ``factorizer_isles22``).  Both routes give the same
+        values (K5 equals K1 bit for bit on the card): the rule moves time and
+        memory only.
+        """
+        patch, shifts = self.windowed[1:]
+        rows, n, item = x.shape[1], self.slabs.n, x.element_size()
+        if rows % patch:
+            return True
+        moved = sum(_norm_shift(shift, patch)[0] for shift in shifts)
+        return 2 * (n - 1) * rows * item < moved * (3 * item + 2 * max(item, 4))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.act(self.in_proj(x))  # elementwise, so it commutes with the fold
         if self.windowed is not None:
             fact = self.factorize
-            args = (out, fact.init.u0, fact.init.v0, *self.windowed, fact.solver, fact.num_iters, fact.eps,
-                    fact.num_grad_steps)
-            if self.spatial is None:
-                out = windowed_nmf(*args)
+            config = (fact.init.u0, fact.init.v0, *self.windowed, fact.solver, fact.num_iters, fact.eps,
+                      fact.num_grad_steps)
+            slabs = _slabs(self)
+            if slabs is None:
+                out = windowed_nmf(out, *config)
+            elif self.slabs is not None and self.gathers(out):
+                whole = gather_slabs(out, slabs.mesh, slabs.axis, dim=1)
+                out = cut_slab(windowed_nmf(whole, *config), slabs.mesh, slabs.axis, dim=1)
             else:
-                if out.shape[1] != self.slab_rows:
+                if self.slabs is None and out.shape[1] != self.slab_rows:
                     raise ValueError(f"spatial_mesh: expected a slab of {self.slab_rows} rows, got shape {tuple(out.shape)}")
-                mesh, axis = self.spatial
-                out = windowed_nmf_multi_spatial(*args, mesh=mesh, axis_name=axis)
+                out = windowed_nmf_multi_spatial(out, *config, mesh=slabs.mesh, axis_name=slabs.axis)
         else:
             out = self.reshape.inverse_forward(self.factorize(self.reshape.forward(out)))
         return self.out_proj(out)
@@ -213,9 +257,12 @@ class FactorizerBlock(nn.Module):
 class FactorizerStage(nn.Module):
     """One resolution stage: channel adapter, optional positional embedding, ``depth`` blocks.
 
-    Under ``factorize_options["spatial_mesh"]`` the stage runs on a slab and
-    adds the slab's rows of the embedding.
+    Under ``factorize_options["spatial_mesh"]``, or with ``slabs`` set, the
+    stage runs on a slab and adds the slab's rows of the embedding.
     """
+
+    # This process's parallel.slabs.Slabs while the model runs on slabs, else None.
+    slabs = None
 
     def __init__(
         self,
@@ -246,10 +293,9 @@ class FactorizerStage(nn.Module):
         if self.adapter is not None:
             x = self.adapter(x)
         if self.pos_embed is not None:
-            rows = None
-            if self.spatial is not None:  # x is this process's slab of the volume
-                start = self.spatial[0].axis_index(self.spatial[1]) * x.shape[1]
-                rows = slice(start, start + x.shape[1])
+            rows, slabs = None, _slabs(self)
+            if slabs is not None:  # x is this process's slab of the volume
+                rows = slice(slabs.index * x.shape[1], (slabs.index + 1) * x.shape[1])
             x = self.pos_embed(x, rows)
         for blk in self.blocks:
             x = blk(x)
@@ -266,6 +312,17 @@ class Factorizer(UNet):
     names: the blocks' norm, the factorizer (:class:`NMF`) and
     rematerialisation of each stage in the backward (:class:`UNet`).
     """
+
+    def slab_path_missing(self) -> Optional[str]:
+        if len(self.stem.weight.shape) != 5:
+            return "the 2-D Factorizer: slabs cut a volume's first spatial axis"
+        for name, m in self.named_modules():
+            if isinstance(m, FactMixer) and m.windowed is None:
+                return (f"the flat NMF route ({name}: use_windowed: False, or a mixer that K1 does not compute) has no "
+                        "sharded form")
+            if isinstance(m, FactorizerBlock) and not isinstance(m.norm1, LayerNorm):
+                return f"{type(m.norm1).__name__} statistics across slabs ({name}); LayerNorm is per voxel"
+        return None
 
     def __init__(
         self,

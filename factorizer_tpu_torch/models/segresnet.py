@@ -74,6 +74,10 @@ class SegResNet(nn.Module):
         data_format: ``"channels_first"`` takes and returns ``(B, C, *S)``; ``"channels_last"`` ``(B, *S, C)``.
     """
 
+    def slab_path_missing(self) -> str:
+        """What keeps the model from the spatial step (``parallel.slabs``): it has no slab path."""
+        return "SegResNet: GroupNorm statistics across slabs are not ported"
+
     def __init__(
         self,
         in_channels: int,

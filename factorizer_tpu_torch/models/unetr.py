@@ -101,6 +101,10 @@ class UNETR(nn.Module):
         data_format: ``"channels_first"`` takes and returns ``(B, C, D, H, W)``.
     """
 
+    def slab_path_missing(self) -> str:
+        """What keeps the model from the spatial step (``parallel.slabs``): it has no slab path."""
+        return "UNETR: attention over all patches across slabs is not ported"
+
     def __init__(
         self,
         in_channels: int,

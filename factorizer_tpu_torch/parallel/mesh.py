@@ -1,29 +1,34 @@
 """Process mesh with named axes over ``torch.distributed``.
 
 PyTorch counterpart of ``factorizer_tpu/parallel/mesh.py`` (``make_mesh``,
-``data_parallel_mesh``, ``initialize_distributed``, ``process_is_primary``).
-A JAX mesh is an array of devices that one controller addresses; here every
-process is one entry of the mesh and holds, per axis, the process group of
-the line through it.  Axes used by the port:
+``data_parallel_mesh``, ``model_parallel_mesh``, ``data_process_groups``,
+``initialize_distributed``, ``process_is_primary``).  A JAX mesh is an array
+of devices that one controller addresses; here every process is one entry of
+the mesh and holds, per axis, the process group of the line through it.  Axes
+used by the port:
 
     ``data``   the batch: data parallelism, gradients averaged over the axis
-    ``model``  the first spatial axis of a volume: slabs with a halo exchange
-               (``ops.kernels.windowed_nmf_multi_spatial``)
+    ``model``  the first spatial axis of a volume: slabs with halo exchanges
+               (``parallel.slabs``, ``ops.kernels.windowed_nmf_multi_spatial``)
 
-Not ported: ``model_parallel_mesh`` and ``data_process_groups``, which lay a
-mesh over several hosts' devices; ``param_sharding_rules`` is GSPMD's.
+``data_parallel_mesh()`` and ``model_parallel_mesh()`` work without a process
+group: one process is then a mesh of one, whose axes have size 1 and no
+group, as a one-device JAX mesh.  ``param_sharding_rules`` is GSPMD's and has
+no counterpart: the port keeps every weight whole on every process.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 from typing import Mapping, Optional
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["Mesh", "make_mesh", "data_parallel_mesh", "initialize_distributed", "process_is_primary"]
+__all__ = ["Mesh", "make_mesh", "data_parallel_mesh", "model_parallel_mesh", "data_process_groups",
+           "initialize_distributed", "process_is_primary", "process_count", "process_index"]
 
 
 @dataclass(frozen=True)
@@ -34,13 +39,19 @@ class Mesh:
     over the ranks, as a reshape of JAX's device list does); ``coords`` is this
     process's index along each axis; ``axis_ranks[name]`` lists the global
     ranks of the line through this process along ``name``, in axis order, and
-    ``groups[name]`` is that line's process group.
+    ``groups[name]`` is that line's process group (None in a mesh of one
+    process without a group, whose lines hold this process alone).
     """
 
     shape: Mapping[str, int]
     coords: Mapping[str, int]
     axis_ranks: Mapping[str, tuple[int, ...]]
-    groups: Mapping[str, dist.ProcessGroup]
+    groups: Mapping[str, Optional[dist.ProcessGroup]]
+
+    @property
+    def size(self) -> int:
+        """The number of processes in the mesh."""
+        return math.prod(self.shape.values())
 
     @property
     def axis_names(self) -> tuple[str, ...]:
@@ -57,36 +68,62 @@ class Mesh:
     def axis_index(self, name: str) -> int:
         return self.coords[self._known(name)]
 
-    def group(self, name: str) -> dist.ProcessGroup:
+    def group(self, name: str) -> Optional[dist.ProcessGroup]:
         return self.groups[self._known(name)]
 
 
-def initialize_distributed(init_method: str, world_size: int, rank: int, backend: Optional[str] = None) -> str:
+def initialize_distributed(init_method: str = "env://", world_size: Optional[int] = None, rank: Optional[int] = None,
+                           backend: Optional[str] = None) -> str:
     """Join the default process group and return the backend taken.
 
-    ``init_method`` is the meeting point (``tcp://host:port`` or
-    ``file://path``); nothing is read from the environment.  The backend is
-    the caller's, else the device count decides: ``nccl`` when this host has a
-    card for each of the ``world_size`` processes (process ``rank`` then takes
-    card ``rank``), ``gloo`` on the CPU and where processes have to share a
-    card (NCCL refuses two ranks on one device).  A backend this build of
-    PyTorch lacks raises.  The primary process prints the choice.
+    Two forms.  Explicit: ``init_method`` is the meeting point
+    (``tcp://host:port`` or ``file://path``) and ``world_size`` and ``rank``
+    are given; the processes are taken to share one host.  ``"env://"``, the
+    default: ``torchrun``'s environment names them (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``).
+
+    The backend is the caller's, else the device count decides: ``nccl`` when
+    this host has a card for each of its processes, ``gloo`` on the CPU and
+    where processes have to share a card (NCCL refuses two ranks on one
+    device).  With cards, the process takes its own (its local rank) when
+    there is one for each, else card 0, before it joins.  A backend this build
+    of PyTorch lacks raises.  The primary process prints the choice.
     """
+    if init_method == "env://":
+        world_size = int(os.environ["WORLD_SIZE"]) if world_size is None else world_size
+        rank = int(os.environ["RANK"]) if rank is None else rank
+        local_rank = int(os.environ.get("LOCAL_RANK", rank))
+        local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world_size))
+    elif world_size is None or rank is None:
+        raise ValueError(f"initialize_distributed({init_method!r}) needs world_size and rank")
+    else:
+        local_rank, local_world = rank, world_size
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    own_card = cards >= local_world
     if backend is None:
-        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        backend = "nccl" if cards >= world_size else "gloo"
-        reason = f"{cards} CUDA device(s) for {world_size} process(es)"
+        backend = "nccl" if own_card else "gloo"
+        reason = f"{cards} CUDA device(s) for {local_world} process(es)"
     else:
         reason = "the caller's choice"
     available = {"nccl": dist.is_nccl_available, "gloo": dist.is_gloo_available}
     if backend not in available or not available[backend]():
         raise RuntimeError(f"torch.distributed backend {backend!r} is not available in this build of PyTorch")
-    if backend == "nccl":
-        torch.cuda.set_device(rank % torch.cuda.device_count())
+    if cards:
+        torch.cuda.set_device(local_rank % cards if own_card else 0)
     dist.init_process_group(backend, init_method=init_method, world_size=world_size, rank=rank)
     if rank == 0:
         print(f"[distributed] backend {backend} ({reason}), world size {world_size}", flush=True)
     return backend
+
+
+def process_count() -> int:
+    """The processes of the default group, 1 without one (JAX's ``jax.process_count()``)."""
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def process_index() -> int:
+    """This process's rank, 0 without a group (JAX's ``jax.process_index()``)."""
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 
 
 def process_is_primary() -> bool:
@@ -123,6 +160,55 @@ def make_mesh(axes: Mapping[str, int]) -> Mesh:
     return Mesh(dict(zip(names, sizes)), dict(zip(names, mine)), axis_ranks, groups)
 
 
+def _mesh_of_one(axes: Mapping[str, int]) -> Mesh:
+    """The mesh of a process without a group: every axis of size 1, lines of this process alone."""
+    return Mesh(dict.fromkeys(axes, 1), dict.fromkeys(axes, 0), dict.fromkeys(axes, (0,)), dict.fromkeys(axes))
+
+
 def data_parallel_mesh(n: Optional[int] = None) -> Mesh:
-    """A one-axis ``data`` mesh over ``n`` processes (default: all of them)."""
+    """A one-axis ``data`` mesh over ``n`` processes (default: all of them); a mesh of one without a group."""
+    if not dist.is_initialized() and n in (None, 1):
+        return _mesh_of_one({"data": 1})
     return make_mesh({"data": -1 if n is None else n})
+
+
+def model_parallel_mesh(data: int = -1, model: Optional[int] = None, model_across_processes: bool = True) -> Mesh:
+    """A ``{data, model}`` mesh over the processes (JAX ``model_parallel_mesh``).
+
+    ``model`` defaults to the process count when there is more than one
+    process, else 1: a process is one device here, so JAX's model axis of 2 on
+    one multi-chip host does not arise.  ``data = -1`` takes the rest.  With
+    ``model_across_processes`` (the default) every ``model`` line spans
+    processes, each of which holds one device, so the only layout with more
+    than one process is ``{data 1, model n}``, as JAX's rule gives it
+    (``model`` a multiple of the process count, ``data`` at most the devices
+    of a process); without it ``data`` varies slowest over the ranks, as
+    JAX's ``[process, local device]`` grid reshaped.  Without a group: a mesh
+    of one.
+    """
+    n_proc = process_count()
+    model = (n_proc if n_proc > 1 else 1) if model is None else int(model)
+    data = n_proc // model if data == -1 else int(data)
+    if data * model != n_proc:
+        raise ValueError(f"a {data} x {model} mesh over {n_proc} process(es)")
+    if model_across_processes and n_proc > 1 and (model % n_proc or data > 1):
+        raise ValueError(f"model_across_processes: the model axis ({model}) must span all {n_proc} processes, "
+                         "each one device")
+    if not dist.is_initialized():
+        return _mesh_of_one({"data": 1, "model": 1})
+    return make_mesh({"data": data, "model": model})
+
+
+def data_process_groups(mesh: Mesh, data_axis: str = "data") -> tuple[int, int]:
+    """How this process shards the datalist under ``mesh``: ``(num_groups, group_index)`` (JAX ``data_process_groups``).
+
+    Processes on one line of the other axes share their ``data`` index, form
+    one loader group and load the same rows; groups with different ``data``
+    indices load disjoint partitions.  A process is one device, so the
+    groups are the ``data`` indices: pure data parallelism gives
+    ``(process_count, process_index)``, a ``model`` axis spanning the
+    processes ``(1, 0)``.
+    """
+    if data_axis not in mesh.shape:
+        return 1, 0
+    return mesh.axis_size(data_axis), mesh.axis_index(data_axis)

@@ -13,6 +13,14 @@ itself, from pinned host memory on a copy stream of its own, so that the copy
 of one batch overlaps the step before it.  Labels travel as the loader's
 integers (uint8) and images in the model's compute dtype; the losses stay on
 the card and are read once an epoch.
+
+Several processes (``torchrun``, one card or one gloo rank each) train one
+model under ``mesh``: each loader holds its own shard of the datalist and
+each batch is this process's block of the global batch (JAX's
+``_device_batch``, ``factorizer_tpu/train/loop.py:222-276``); every process
+validates its own ``val_loader`` and the metrics are averaged over the
+processes; only the primary process writes checkpoints, the history and
+TensorBoard files.
 """
 
 from __future__ import annotations
@@ -25,8 +33,10 @@ from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from ..parallel.mesh import Mesh, process_is_primary
 from ..utils.helpers import materialize, resolve_device
 from .checkpoint import CheckpointManager
 from .metrics import MeanDice, MeanHausdorffDistance, dice_metric, voxel_spacing_from_meta
@@ -79,6 +89,20 @@ def _tensorboard_writer(log_dir: Path):
     return SummaryWriter(str(log_dir))
 
 
+def _check_equal_shards(train_loader) -> None:
+    """Raise unless every process's loader holds as many cases and gives as many batches an epoch (collective)."""
+    dataset = getattr(train_loader, "dataset", None)
+    mine = (len(dataset) if hasattr(dataset, "__len__") else None, len(train_loader))
+    sizes = [None] * dist.get_world_size()
+    dist.all_gather_object(sizes, mine)
+    if len(set(sizes)) > 1:
+        raise ValueError(
+            f"SegmentationTrainer: unequal shards: the processes' train loaders hold (cases, batches an epoch) {sizes}; "
+            "a process with a step more would wait in the gradient all-reduce for a partner that has none. Give every "
+            "process as many cases (a datalist whose length the process count divides, and under drop_last as many "
+            "batches)")
+
+
 class SegmentationTrainer:
     """Supervised segmentation training with periodic validation.
 
@@ -103,11 +127,27 @@ class SegmentationTrainer:
         accum_steps: micro-batches a step (see ``make_train_step``).
         device: where the model trains; None is the card (raises without one),
             ``"cpu"`` runs on the CPU.
-
-    ``mesh``, ``model_axis``, ``shard_spatial`` and ``tp_min_weight_size`` are
-    the JAX trainer's sharded training: a ``mesh`` is not taken here yet, and
-    the other three (weight tensor parallelism) have no counterpart.  Left at
-    their defaults they are accepted; set, they raise ``NotImplementedError``.
+        mesh: a ``parallel.Mesh`` over the processes (``data_parallel_mesh()``,
+            ``model_parallel_mesh()``); a mesh of one process trains as
+            without one.  With more, every process builds the trainer with
+            its own loaders: ``train_loader`` holds this process's shard of
+            the training list (``partition_datalist`` over
+            ``data_process_groups``) and gives its block of each global batch,
+            which the step does not cut again.  The shards must be equal in
+            cases and in batches an epoch, or the constructor raises: a
+            process with a step more would wait in the gradient all-reduce for
+            a partner that has none.  The first process's parameters go to the
+            others; a resume reads the same directory on every process.
+        model_axis, shard_spatial: as the JAX trainer takes them: with
+            ``model_axis`` in ``mesh`` at a size above 1 and ``shard_spatial``,
+            the step is the spatial step over that axis (``make_train_step``'s
+            ``spatial_axis``): the processes of a ``model`` line train on
+            slabs of one batch, the first process's.  A ``model`` axis of size
+            1 (one process) is the plain step.  ``model_axis`` without
+            ``shard_spatial`` is weight tensor parallelism, which the port does
+            not have, and raises.
+        tp_min_weight_size: accepted and unused: in the port every weight is
+            whole on every process, so no weight is sharded at any size.
     """
 
     def __init__(
@@ -137,11 +177,16 @@ class SegmentationTrainer:
         tp_min_weight_size: int = 2**14,
         device=None,
     ) -> None:
-        unsupported = {"mesh": mesh is not None, "model_axis": model_axis is not None,
-                       "shard_spatial": bool(shard_spatial), "tp_min_weight_size": tp_min_weight_size != 2**14}
-        for name, is_set in unsupported.items():
-            if is_set:
-                raise NotImplementedError(f"SegmentationTrainer: {name} is not supported by the port")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"SegmentationTrainer: mesh must be a factorizer_tpu_torch.parallel.Mesh, got {type(mesh).__name__}")
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self._model_axis = (model_axis if self.mesh is not None and model_axis is not None
+                            and model_axis in self.mesh.shape and self.mesh.axis_size(model_axis) > 1 else None)
+        self._spatial_axis = self._model_axis if shard_spatial else None
+        if self._model_axis is not None and self._spatial_axis is None:
+            raise NotImplementedError("SegmentationTrainer: model_axis without shard_spatial is weight tensor "
+                                      "parallelism, which the port does not have (every weight is whole)")
+        self._primary = process_is_primary()
         self.device = resolve_device(device)
         self.model = materialize(model, len(roi_size)).to(self.device)
         self.train_loader = train_loader
@@ -163,16 +208,20 @@ class SegmentationTrainer:
             lr=lr, weight_decay=weight_decay,
             warmup_steps=warmup_epochs * steps_per_epoch, total_steps=max_epochs * steps_per_epoch,
         )
-        self.train_step = make_train_step(self.model, loss_fn=loss_fn, accum_steps=accum_steps)
+        if self.mesh is not None:
+            _check_equal_shards(train_loader)
+        self.train_step = make_train_step(self.model, loss_fn=loss_fn, accum_steps=accum_steps, mesh=self.mesh,
+                                          spatial_axis=self._spatial_axis, local_batch=True)
         self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
 
         self._ckpt_best = bool(ckpt_best and val_loader is not None)
+        # The other processes only read the directory (to resume), and only one that is there: making it is a write.
         self.ckpt = (
             CheckpointManager(ckpt_dir, max_to_keep=max_to_keep,
                               best_metric_key="mean_dice" if self._ckpt_best else None)
-            if ckpt_dir else None
+            if ckpt_dir and (self._primary or Path(ckpt_dir).is_dir()) else None
         )
-        self.log_dir = Path(log_dir) if log_dir else None
+        self.log_dir = Path(log_dir) if log_dir and self._primary else None
         self._tb = None
         if self.log_dir:
             self.log_dir.mkdir(parents=True, exist_ok=True)
@@ -190,7 +239,8 @@ class SegmentationTrainer:
     def initialize(self) -> TrainState:
         """Build the train state (AdamW, schedule) and resume from the latest checkpoint, if there is one."""
         self.state = create_train_state(self.model, device=self.device, **self._optimizer_settings)
-        logger.info("model parameters: %.2fM", sum(p.numel() for p in self.model.parameters()) / 1e6)
+        if self._primary:
+            logger.info("model parameters: %.2fM", sum(p.numel() for p in self.model.parameters()) / 1e6)
         if self.ckpt is not None and self.ckpt.latest_step() is not None:
             self.ckpt.restore(template=self.state)
             # The best-validation watermark, so that the first validation after
@@ -198,7 +248,8 @@ class SegmentationTrainer:
             saved_best = self.ckpt.best_saved_metric("mean_dice")
             if saved_best is not None:
                 self.best_metric = saved_best
-            logger.info("resumed from checkpoint step %s (best mean_dice %s)", self.state.step, saved_best)
+            if self._primary:
+                logger.info("resumed from checkpoint step %s (best mean_dice %s)", self.state.step, saved_best)
         return self.state
 
     def _device_batch(self, batch: dict) -> dict:
@@ -298,7 +349,8 @@ class SegmentationTrainer:
             dt = time.time() - t0
             timing = {"epoch": epoch, "steps": len(losses), "loader_wait_s": loader_wait,
                       "step_device_s": sum(a.elapsed_time(b) for a, b in events) / 1e3 if on_card else None}
-            logger.info("epoch %d/%d loss=%.4f (%.1fs)", epoch + 1, self.max_epochs, epoch_loss, dt)
+            if self._primary:
+                logger.info("epoch %d/%d loss=%.4f (%.1fs)", epoch + 1, self.max_epochs, epoch_loss, dt)
             self._log("train/loss", epoch_loss, epoch)
 
             record = {"epoch": epoch, "loss": epoch_loss, "time_s": dt}
@@ -307,15 +359,22 @@ class SegmentationTrainer:
             if self.val_loader is not None and self.val_interval and (epoch + 1) % self.val_interval == 0:
                 t_val = time.perf_counter()
                 val_metrics = self.validate()
+                if self.mesh is not None:
+                    # Each process validated its own loader: the mean over the processes (NaN where a process has
+                    # none), so that the log, the best metric and the best checkpoints agree on every process.
+                    gathered = [None] * dist.get_world_size()
+                    dist.all_gather_object(gathered, val_metrics)
+                    val_metrics = {k: float(np.nanmean([np.float64(m[k]) for m in gathered])) for k in val_metrics}
                 timing["val_s"] = time.perf_counter() - t_val
                 record.update(val_metrics)
-                logger.info("validation @ epoch %d: %s", epoch + 1, val_metrics)
+                if self._primary:
+                    logger.info("validation @ epoch %d: %s", epoch + 1, val_metrics)
                 for k, v in val_metrics.items():
                     self._log(f"val/{k}", v, epoch)
                 if val_metrics["mean_dice"] > self.best_metric:
                     self.best_metric = val_metrics["mean_dice"]
 
-            if self.ckpt is not None:
+            if self.ckpt is not None and self._primary:
                 # The write overlaps the next epoch; the tensors are on the host before save() returns.
                 metrics = {"mean_dice": float(val_metrics["mean_dice"])} if val_metrics is not None else None
                 if not self._ckpt_best or val_metrics is not None:
@@ -335,6 +394,8 @@ class SegmentationTrainer:
             self.ckpt.wait()  # the last epoch's save is on disk before this returns
         if self._tb is not None:
             self._tb.flush()
+        if self.mesh is not None:
+            dist.barrier()  # on every process too: a trainer resuming from the directory next reads the last save
         return state
 
 

@@ -4,6 +4,13 @@ PyTorch counterpart of ``factorizer_tpu/train/losses.py``: MONAI's
 ``DiceCELoss`` with ``sigmoid=True, squared_pred=True``, the bundles' training
 loss.  Plain functions on tensors; the loss math runs in at least float32
 whatever the logits' dtype, and float64 inputs stay float64.
+
+With ``slabs`` (a ``parallel.slabs.Slabs``) the tensors are this process's
+slab of the volume, cut along the first spatial axis: Dice's per-(sample,
+class) sums are summed over the slabs before the quotient, and the BCE is the
+slab's sum over the whole volume's voxel count, summed over the slabs.  Every
+process then holds the whole volume's loss, and its backward gives the
+gradient with respect to its own slab (``parallel.all_reduce_sum``).
 """
 
 from __future__ import annotations
@@ -12,6 +19,8 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.collectives import all_reduce_sum
 
 __all__ = ["dice_loss", "bce_with_logits", "dice_ce_loss", "deep_supervision_loss"]
 
@@ -31,11 +40,12 @@ def dice_loss(
     smooth_nr: float = 1e-5,
     smooth_dr: float = 1e-5,
     channel_axis: int = 1,
+    slabs=None,
 ) -> torch.Tensor:
     """Soft Dice loss in MONAI's formulation: the mean over batch and channels of ``1 - dice``.
 
     ``logits`` and ``targets`` are ``(B, C, *S)`` (``channel_axis`` selects C);
-    targets are {0, 1} masks per channel.
+    targets are {0, 1} masks per channel.  ``slabs``: see the module.
     """
     dt = _loss_dtype(logits)
     probs = logits.to(dt)
@@ -52,17 +62,22 @@ def dice_loss(
         ground, pred = (targets**2).sum(reduce_axes), (probs**2).sum(reduce_axes)
     else:
         ground, pred = targets.sum(reduce_axes), probs.sum(reduce_axes)
+    if slabs is not None:
+        intersection, ground, pred = all_reduce_sum(torch.stack([intersection, ground, pred]), slabs.mesh, slabs.axis)
     dice = (2.0 * intersection + smooth_nr) / (ground + pred + smooth_dr)
     return (1.0 - dice).mean()
 
 
-def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Numerically stable binary cross-entropy with logits (mean reduction)."""
+def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor, slabs=None) -> torch.Tensor:
+    """Numerically stable binary cross-entropy with logits (mean reduction; ``slabs``: see the module)."""
     dt = _loss_dtype(logits)
     logits = logits.to(dt)
     targets = targets.to(dt)
     # max(x, 0) - x*t + log(1 + exp(-|x|))
-    return (logits.clamp_min(0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))).mean()
+    terms = logits.clamp_min(0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
+    if slabs is None:
+        return terms.mean()
+    return all_reduce_sum(terms.sum() / (terms.numel() * slabs.n), slabs.mesh, slabs.axis)
 
 
 def dice_ce_loss(
@@ -75,8 +90,9 @@ def dice_ce_loss(
     lambda_ce: float = 1.0,
     smooth_nr: float = 1e-5,
     smooth_dr: float = 1e-5,
+    slabs=None,
 ) -> torch.Tensor:
-    """Dice + (binary) cross-entropy, the bundles' training loss."""
+    """Dice + (binary) cross-entropy, the bundles' training loss (``slabs``: see the module)."""
     d = dice_loss(
         logits,
         targets,
@@ -85,8 +101,9 @@ def dice_ce_loss(
         include_background=include_background,
         smooth_nr=smooth_nr,
         smooth_dr=smooth_dr,
+        slabs=slabs,
     )
-    return lambda_dice * d + lambda_ce * bce_with_logits(logits, targets)
+    return lambda_dice * d + lambda_ce * bce_with_logits(logits, targets, slabs)
 
 
 def deep_supervision_loss(

@@ -6,16 +6,24 @@ holding the model, the optimiser, the schedule and the step count, and the
 step updates it in place and hands it back, so callers read the same
 ``state, metrics = step(state, batch)``.
 
-With ``mesh=`` the step is data parallel: every process of the mesh holds
-the model and the whole batch, steps on its shard of the batch
-(``parallel.shard_batch``), and the gradients are averaged over ``data_axis``
-during the backward (``parallel.data_parallel``), so that all processes make
-the same update; the metrics are the whole batch's.
+With ``mesh=`` the step is data parallel: the gradients are averaged over
+``data_axis`` during the backward (``parallel.data_parallel``), so that all
+processes make the same update, and the metrics are the global batch's.  The
+batch is either the whole global batch on every process, which each cuts to
+its shard (``parallel.shard_batch``), or, with ``local_batch=True``, this
+process's block of it, as a loader over a partition of the datalist gives it.
+
+With ``spatial_axis=`` as well the step is the whole-model spatial step
+(JAX's ``spatial_axis``, which GSPMD partitions): the processes of one
+``spatial_axis`` line take one batch, the first process's, and each runs the
+model and the loss on its slab of the volume's first spatial axis
+(``parallel.slabs``).  The parameters stay whole on every process (weight
+sharding is GSPMD's layout, not ported); their gradients are summed over
+``spatial_axis``, where each slab gives a part, and averaged over
+``data_axis``.
 
 Not ported: the flat raveled optimiser (a workaround for the TPU's per-op
-cost; AdamW is fused on the card instead), buffer donation, and the
-``spatial_axis`` argument (a whole model on slabs of the volume needs halos
-for its convolutions too; ``make_train_step`` does not take the name).
+cost; AdamW is fused on the card instead) and buffer donation.
 bf16 is the model's own ``dtype=torch.bfloat16`` (f32 parameters, bf16
 activations, f32 loss), so there is no gradient scaler.
 """
@@ -30,9 +38,12 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from ..parallel.collectives import all_gather_cat
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+from ..parallel.collectives import all_gather_cat, broadcast_from_first
 from ..parallel.mesh import Mesh
 from ..parallel.sharding import data_parallel, shard_batch
+from ..parallel.slabs import Slabs, on_slabs, require_slab_path
 from ..utils.helpers import materialize, resolve_device
 from .losses import deep_supervision_loss, dice_ce_loss
 from .schedules import Schedule, clip_by_global_norm, global_norm, make_adamw
@@ -79,14 +90,28 @@ def create_train_state(
     return TrainState(model=model, optimizer=optimizer, schedule=schedule, grad_clip_norm=grad_clip_norm)
 
 
-def _default_loss(logits, labels) -> torch.Tensor:
+def _default_loss(logits, labels, **kwargs) -> torch.Tensor:
     if isinstance(logits, (list, tuple)):
-        return deep_supervision_loss(logits, labels)
-    return dice_ce_loss(logits, labels)
+        return deep_supervision_loss(logits, labels, **kwargs)
+    return dice_ce_loss(logits, labels, **kwargs)
+
+
+def _sum_grads(params: list, mesh: Mesh, axis: str, scale: float = 1.0) -> None:
+    """Sum the gradients in ``p.grad`` over ``axis`` (of more than one process) in one flat all-reduce, times ``scale``."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    flat = _flatten_dense_tensors(grads)
+    dist.all_reduce(flat, group=mesh.group(axis))
+    if scale != 1.0:
+        flat.mul_(scale)
+    for g, synced in zip(grads, _unflatten_dense_tensors(flat, grads)):
+        g.copy_(synced)
 
 
 def make_train_step(model: nn.Module, loss_fn: Optional[Callable] = None, accum_steps: int = 1,
-                    mesh: Optional[Mesh] = None, data_axis: str = "data"):
+                    mesh: Optional[Mesh] = None, data_axis: str = "data", spatial_axis: Optional[str] = None,
+                    local_batch: bool = False):
     """Build ``(state, batch) -> (state, {"loss", "grad_norm"})`` for ``model``.
 
     ``batch`` holds ``"image"`` and ``"label"``, both ``(B, C, *S)``, on the
@@ -97,18 +122,57 @@ def make_train_step(model: nn.Module, loss_fn: Optional[Callable] = None, accum_
     step stay in ``p.grad`` until the next step clears them.
 
     With ``mesh`` every process calls the step with the same whole batch and
-    runs its shard over ``data_axis`` (equal shards, or the call raises); the
-    gradients left in ``p.grad``, ``loss`` and ``grad_norm`` are those of the
-    whole batch, on every process alike.  Building the step is collective (the
-    first process's parameters go to the others) and hooks the gradient
-    exchange onto ``model``'s parameters: build one step per model.
+    runs its shard over ``data_axis`` (equal shards, or the call raises); with
+    ``local_batch=True`` each process calls it with its own block of the
+    global batch instead, which it runs as it is (blocks of one size on every
+    process).  The gradients left in ``p.grad``, ``loss`` and ``grad_norm``
+    are those of the global batch, on every process alike.  Building the step
+    is collective (the first process's parameters go to the others) and hooks
+    the gradient exchange onto ``model``'s parameters: build one step per
+    model.  A mesh of one process is the plain step.
+
+    ``spatial_axis`` (with ``mesh``): the spatial step, see the module.  The
+    batch that the first process of a ``spatial_axis`` line holds is broadcast
+    over the line, then cut over ``data_axis`` (unless ``local_batch``) and
+    each process runs its slab.  ``loss_fn`` is called with ``slabs=`` (the
+    default, DiceCE, sums over the slabs).  The model must have a slab path
+    (``parallel.slabs.require_slab_path``, checked here whatever the axis's
+    size): the flat NMF route and the Deconver, DynUNet, SegResNet, SwinUNETR
+    and UNETR raise by name.
     """
     loss_fn = loss_fn or _default_loss
-    net = model if mesh is None else data_parallel(model, mesh, data_axis)
+    if spatial_axis is not None:
+        if mesh is None:
+            raise ValueError("make_train_step: spatial_axis needs a mesh")
+        mesh.axis_size(spatial_axis)  # raises on an axis the mesh lacks
+        require_slab_path(model)
+    if mesh is not None and mesh.size == 1:
+        mesh = spatial_axis = None
+    spatial = spatial_axis is not None
+    data_size = 1 if mesh is None or data_axis not in mesh.shape else mesh.axis_size(data_axis)
+    if spatial:
+        slabs = Slabs(mesh, spatial_axis)
+        params = list(model.parameters())
+        with torch.no_grad():  # one model on every process, as DistributedDataParallel makes it
+            for t in [*params, *model.buffers()]:
+                dist.broadcast(t, src=0)
+        net = model
+    else:
+        net = model if mesh is None or data_size == 1 else data_parallel(model, mesh, data_axis)
+
+    def prepare(batch: dict) -> dict:
+        if mesh is None:
+            return batch
+        if spatial:  # the line's one batch: its first process's
+            batch = {k: broadcast_from_first(batch[k].contiguous(), mesh, spatial_axis) for k in ("image", "label")}
+        if not local_batch:
+            batch = shard_batch(batch, mesh, data_axis)
+        if spatial:
+            batch = shard_batch(batch, mesh, data_axis=None, spatial_axis=spatial_axis)
+        return batch
 
     def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
-        if mesh is not None:
-            batch = shard_batch(batch, mesh, data_axis)
+        batch = prepare(batch)
         images, labels = batch["image"], batch["label"]
         b = images.shape[0]
         if b % accum_steps:
@@ -118,15 +182,24 @@ def make_train_step(model: nn.Module, loss_fn: Optional[Callable] = None, accum_
         loss = 0.0
         micros = list(zip(images.chunk(accum_steps), labels.chunk(accum_steps)))
         for i, (im, lb) in enumerate(micros):
-            # The gradients cross the processes once, with the last micro-batch's backward.
-            held = net.no_sync() if mesh is not None and i < len(micros) - 1 else contextlib.nullcontext()
+            if spatial:  # the backward runs on slabs too: a rematerialised stage repeats its forward there
+                held = on_slabs(model, slabs)
+            elif net is not model and i < len(micros) - 1:
+                held = net.no_sync()  # the gradients cross the processes once, with the last micro-batch's backward
+            else:
+                held = contextlib.nullcontext()
             with held:
-                micro = loss_fn(net(im), lb) / accum_steps
+                out = net(im)
+                micro = (loss_fn(out, lb, slabs=slabs) if spatial else loss_fn(out, lb)) / accum_steps
                 micro.backward()
             loss = loss + micro.detach()
-        if mesh is not None:  # equal shards: the mean of their mean losses is the batch's
+        if spatial:  # each slab gave a part of every gradient; the data lines' gradients are averaged
+            _sum_grads(params, mesh, spatial_axis)
+            if data_size > 1:
+                _sum_grads(params, mesh, data_axis, 1.0 / data_size)
+        if data_size > 1:  # equal shards: the mean of their mean losses is the batch's
             dist.all_reduce(loss, group=mesh.group(data_axis))
-            loss = loss / mesh.axis_size(data_axis)
+            loss = loss / data_size
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         if state.grad_clip_norm is not None:
             grad_norm = clip_by_global_norm(grads, state.grad_clip_norm)

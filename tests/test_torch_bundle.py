@@ -35,14 +35,15 @@ from factorizer_tpu import config as jax_config
 
 import factorizer_tpu_torch as ftt
 from factorizer_tpu_torch import zoo_scripts
-from factorizer_tpu_torch.config import ConfigParser, load_config_files, merge_config, run
+from factorizer_tpu_torch.config import ConfigParser, run
 from factorizer_tpu_torch.config.bundle import _normalize_cli_overrides, main
+from torch_bundle_cases import (
+    NNUNET_SMALL, ON_CPU, REPO, SEGRESNET_SMALL, SWINUNETR_SMALL, TINY_DECONVER, TINY_FACTORIZER, ZOO, bundle_config,
+)
 from torch_workflow_cases import write_cases
 
 torch.set_num_threads(1)
 
-REPO = Path(__file__).resolve().parents[1]
-ZOO = REPO / "zoo"
 PORTED = {
     "factorizer_brats23": ftt.brats23_network,
     "factorizer_isles22": ftt.factorizer_isles22_network,
@@ -51,8 +52,6 @@ PORTED = {
     "deconver_fives": ftt.deconver_fives_network,
 }
 # The baseline bundles: the class each network_def names, a reduced override of it, and the input shape.
-NNUNET_SMALL = {"network_def#kernel_size": [3, 3, 3], "network_def#strides": [1, 2, 2], "network_def#filters": [4, 8, 16]}
-SEGRESNET_SMALL = {"network_def#init_filters": 8, "network_def#blocks_down": [1, 1, 1], "network_def#blocks_up": [1, 1]}
 BASELINES = {
     "nnunet_brats23": ("DynUNet", NNUNET_SMALL, (1, 4, 16, 16, 16)),
     "nnunet_fives": ("DynUNet", NNUNET_SMALL, (1, 3, 32, 32)),
@@ -61,39 +60,11 @@ BASELINES = {
     "segresnet_fives": ("SegResNet", SEGRESNET_SMALL, (1, 3, 32, 32)),
     "segresnet_isles22": ("SegResNet", SEGRESNET_SMALL, (1, 2, 16, 16, 16)),
     # img_size is @roi_size: stages of 16^3 and 8^3 (window 7, padded, shifted), 4^3 and 2^3 (clamped)
-    "swinunetr_isles22": ("SwinUNETR", {"roi_size": [32, 32, 32], "network_def#feature_size": 12}, (1, 2, 32, 32, 32)),
+    "swinunetr_isles22": ("SwinUNETR", SWINUNETR_SMALL, (1, 2, 32, 32, 32)),
 }
 BUNDLES = sorted(PORTED) + sorted(BASELINES)
 # The overlays as the bundles' docs/*.sh stack them over train.yaml; inference_aot.yaml goes over inference.yaml.
 OVERLAYS = [("train_multidevice.yaml",), ("evaluate.yaml",), ("inference.yaml",), ("inference.yaml", "inference_aot.yaml")]
-ON_CPU = {"network_def#device": "cpu", "trainer#device": "cpu", "evaluator#device": "cpu", "inferencer#device": "cpu"}
-
-# factorizer_brats23 at 16^3: two stages of widths 8 and 16, patches of 4^3, two shifts.
-TINY_FACTORIZER = {
-    "roi_size": [16, 16, 16],
-    "network_def#encoder_depth": [1, 1],
-    "network_def#encoder_width": [8, 16],
-    "network_def#strides": [1, 2],
-    "network_def#decoder_depth": [1],
-    "network_def#reshape": ["$ftx.SWMatricize", {"head_dim": 4, "patch_size": 4, "shifts": [None, 2]}],
-}
-# deconver_brats23 at 16^3: two stages of widths 4 and 8.
-TINY_DECONVER = {
-    "roi_size": [16, 16, 16],
-    "network_def#encoder_depth": [1, 1],
-    "network_def#encoder_width": [4, 8],
-    "network_def#strides": [1, 2],
-    "network_def#decoder_depth": [1],
-}
-
-
-def _config(bundle: str, *overlays: str, **overrides) -> dict:
-    configs = ZOO / bundle / "configs"
-    cfg = load_config_files([configs / "train.yaml", *(configs / o for o in overlays)])
-    cfg["bundle_root"] = str(ZOO / bundle)
-    for key, value in overrides.items():
-        cfg = merge_config(cfg, {key: value})
-    return cfg
 
 
 @pytest.mark.parametrize("bundle", list(PORTED))
@@ -101,7 +72,7 @@ def test_network_def_builds_the_zoo_factory_model(bundle):
     """``network_def`` from the port's parser, on the CPU, after ``torch.manual_seed(0)``: the zoo factory's model
     from a generator seeded 0, every parameter and buffer equal, in float32 as ``amp: false`` ships it.  The parser
     resolves ``$ftx.<Name>`` to the port's classes and ``$jnp.bfloat16 if @amp else None`` to None."""
-    parser = ConfigParser(_config(bundle, **{"network_def#device": "cpu"}))
+    parser = ConfigParser(bundle_config(bundle, **{"network_def#device": "cpu"}))
     torch.manual_seed(0)
     model = parser["network_def"]
     factory = PORTED[bundle](device="cpu", generator=torch.Generator().manual_seed(0))
@@ -118,16 +89,16 @@ def test_amp_and_dtype_overrides(bundle):
     attribute raises, naming the port."""
     small = TINY_FACTORIZER if bundle.startswith("factorizer") else {}
     base = {"network_def#device": "cpu", **small}
-    assert ConfigParser(_config(bundle, amp=True, **base))["network_def"].stem.dtype == torch.bfloat16
-    assert ConfigParser(_config(bundle, **{"network_def#dtype": "$jnp.float16"}, **base))["network_def"].stem.dtype == torch.float16
+    assert ConfigParser(bundle_config(bundle, amp=True, **base))["network_def"].stem.dtype == torch.bfloat16
+    assert ConfigParser(bundle_config(bundle, **{"network_def#dtype": "$jnp.float16"}, **base))["network_def"].stem.dtype == torch.float16
     with pytest.raises(AttributeError, match="factorizer_tpu_torch"):
-        ConfigParser(_config(bundle, **{"network_def#dtype": "$jnp.int8"}, **base))["network_def"]
+        ConfigParser(bundle_config(bundle, **{"network_def#dtype": "$jnp.int8"}, **base))["network_def"]
 
 
 @pytest.mark.parametrize("bundle", BUNDLES)
 def test_transforms_build_with_the_random_tail(bundle):
     """The train preprocessing is the deterministic list with the random tail after it; validation has no tail."""
-    parser = ConfigParser(_config(bundle))
+    parser = ConfigParser(bundle_config(bundle))
     train, val = parser["train_preprocessing"], parser["val_preprocessing"]
     assert len(train.transforms) > len(val.transforms)
     assert [type(t) for t in train.transforms[: len(val.transforms)]] == [type(t) for t in val.transforms]
@@ -140,7 +111,7 @@ def test_overlays_parse_and_name_the_port(bundle):
     ``factorizer_tpu.parallel.mesh.data_parallel_mesh``) is read in the port; ``inference_aot.yaml`` sets
     ``aot_compile``; ``sharded_train_datalist`` is the whole training list in one process."""
     for overlays in OVERLAYS:
-        cfg = _config(bundle, *overlays)
+        cfg = bundle_config(bundle, *overlays)
         parser = ConfigParser(cfg)
         overlay = overlays[-1]
         if overlay == "train_multidevice.yaml":
@@ -165,8 +136,8 @@ def test_baseline_network_def_matches_jax(bundle):
     logits equal the JAX model's to 1e-4 of the largest.  ``segresnet_fives``, whose ``network_def`` names no rank,
     builds a 2-D network at its first 2-D batch, as the JAX model does at ``init``."""
     name, overrides, shape = BASELINES[bundle]
-    model_j = jax_config.ConfigParser(_config(bundle, **overrides))["network_def"]
-    model_t = ConfigParser(_config(bundle, **overrides, **{"network_def#device": "cpu"}))["network_def"]
+    model_j = jax_config.ConfigParser(bundle_config(bundle, **overrides))["network_def"]
+    model_t = ConfigParser(bundle_config(bundle, **overrides, **{"network_def#device": "cpu"}))["network_def"]
     assert type(model_t) is getattr(ftt, name) and type(model_j).__name__ == name
     x = np.random.default_rng(0).standard_normal(shape).astype(np.float32)
     variables = jax.tree.map(np.asarray, dict(jax.jit(model_j.init)(jax.random.key(0), jnp.asarray(x))))
@@ -184,11 +155,21 @@ def test_baseline_network_def_matches_jax(bundle):
 
 
 def test_jax_only_targets_raise_by_name():
-    """``train_tp.yaml``'s ``model_parallel_mesh`` has no counterpart; a ``_target_`` in JAX's own packages is
-    refused before any import."""
-    parser = ConfigParser(_config("factorizer_brats23", "train_tp.yaml"))
-    with pytest.raises(AttributeError, match="model_parallel_mesh"):
-        parser["mesh"]
+    """``train_tp.yaml``'s ``model_parallel_mesh`` resolves to the port's (a mesh of one in one process); its spatial
+    step raises by name for a bundle without a slab path (``deconver_brats23``: K3 and InstanceNorm across slabs)
+    and is taken for ``factorizer_brats23``; a ``_target_`` in JAX's own packages is refused before any import."""
+    from factorizer_tpu_torch.parallel.mesh import model_parallel_mesh
+
+    cfg = bundle_config("factorizer_brats23", "train_tp.yaml", **TINY_FACTORIZER, **ON_CPU)
+    parser = ConfigParser(cfg)
+    assert parser._lookup(cfg["mesh"]["_target_"]) is model_parallel_mesh
+    assert dict(parser["mesh"].shape) == {"data": 1, "model": 1}
+    axis = cfg["trainer"]["model_axis"]
+    assert axis == "model" and cfg["trainer"]["shard_spatial"] is True
+    ftt.make_train_step(parser["network_def"], mesh=parser["mesh"], spatial_axis=axis)
+    deconver = ConfigParser(bundle_config("deconver_brats23", "train_tp.yaml", **TINY_DECONVER, **ON_CPU))
+    with pytest.raises(NotImplementedError, match="the Deconver: K3"):
+        ftt.make_train_step(deconver["network_def"], mesh=deconver["mesh"], spatial_axis=axis)
     with pytest.raises(KeyError, match="optax.adamw"):
         ConfigParser({"x": {"_target_": "optax.adamw"}})["x"]
 
@@ -203,8 +184,8 @@ def test_port_parsed_loader_matches_jax_parsed(tmp_path):
     datalist = write_cases(tmp_path, 5, ftt.save_nifti, seed=4, folds=5)
     overrides = {**_data_overrides(tmp_path, datalist), "roi_size": [16, 16, 16]}
     epochs = []
-    for parser in (ConfigParser(_config("factorizer_brats23", **overrides)),
-                   jax_config.ConfigParser(_config("factorizer_brats23", **overrides))):
+    for parser in (ConfigParser(bundle_config("factorizer_brats23", **overrides)),
+                   jax_config.ConfigParser(bundle_config("factorizer_brats23", **overrides))):
         parser["train_preprocessing"].set_random_state(17)
         epochs.append([(b["id"], b["image"], b["label"]) for b in parser["train_dataloader"]])
     port, ref = epochs
@@ -332,8 +313,8 @@ def test_evaluate_program_imports_nothing_of_jax(tmp_path):
 def _bridged_pair(bundle: str, overrides: dict, dtype: str):
     """The JAX model and the port model that the two parsers build from the same overrides, with the JAX model's
     weights (``init`` from key 0) loaded into the port model."""
-    model_j = jax_config.ConfigParser(_config(bundle, **overrides, **{"network_def#dtype": f"$jnp.{dtype}"}))["network_def"]
-    model_t = ConfigParser(_config(bundle, **overrides, **{"network_def#dtype": f"$jnp.{dtype}", "network_def#device": "cpu"}))["network_def"]
+    model_j = jax_config.ConfigParser(bundle_config(bundle, **overrides, **{"network_def#dtype": f"$jnp.{dtype}"}))["network_def"]
+    model_t = ConfigParser(bundle_config(bundle, **overrides, **{"network_def#dtype": f"$jnp.{dtype}", "network_def#device": "cpu"}))["network_def"]
     variables = jax.tree.map(np.asarray, dict(jax.jit(model_j.init)(jax.random.key(0), jnp.zeros((1, 4, 16, 16, 16)))))
     ftt.load_flax_variables(model_t, variables)
     return model_j, variables, model_t

@@ -297,8 +297,19 @@ def test_entry_points_default_to_the_card(cases):
 @pytest.mark.parametrize("name,value", [("mesh", object()), ("model_axis", "model"), ("shard_spatial", True),
                                         ("tp_min_weight_size", 1)])
 def test_sharded_training_arguments_raise(cases, name, value):
-    """The JAX trainer's sharding arguments raise by name when set; the bundles' mesh: null is accepted."""
+    """The JAX trainer's sharding arguments in one process: a ``mesh`` that is not a ``parallel.Mesh`` raises by name;
+    ``model_axis``, ``shard_spatial`` and ``tp_min_weight_size`` without a mesh of more than one process are taken
+    as JAX takes them, as the plain step (no model axis above size 1, so no spatial step); the bundles' ``mesh:
+    null`` and a mesh of one process are accepted.  (``tests/test_torch_multidevice.py`` runs them on processes.)"""
     train_loader, _ = _loaders(port_data, port_T, cases)
-    with pytest.raises(NotImplementedError, match=name):
-        port_loop.SegmentationTrainer(_port_model(), train_loader, device="cpu", **{name: value})
+    if name == "mesh":
+        with pytest.raises(TypeError, match="mesh"):
+            port_loop.SegmentationTrainer(_port_model(), train_loader, device="cpu", mesh=value)
+    else:
+        trainer = port_loop.SegmentationTrainer(_port_model(), train_loader, device="cpu", **{name: value})
+        assert trainer.mesh is None and trainer._spatial_axis is None
     port_loop.SegmentationTrainer(_port_model(), train_loader, device="cpu", mesh=None)
+    settings = {"model_axis": "model", "shard_spatial": True, **({name: value} if name != "mesh" else {})}
+    one = port_loop.SegmentationTrainer(_port_model(), train_loader, device="cpu", mesh=ftt.model_parallel_mesh(),
+                                        **settings)
+    assert one.mesh is None and one._spatial_axis is None

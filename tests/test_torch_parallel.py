@@ -16,8 +16,10 @@ import factorizer_tpu_torch as ftt
 from factorizer_tpu_torch.parallel import (
     child_processes,
     data_parallel_mesh,
+    data_process_groups,
     initialize_distributed,
     make_mesh,
+    model_parallel_mesh,
     process_is_primary,
     ring_exchange,
     run_processes,
@@ -74,6 +76,20 @@ def _mesh_worker(rank, world, init_method):
         mesh.axis_size("rows")
     flat = data_parallel_mesh()
     report["flat"] = (dict(flat.shape), flat.axis_index("data"), flat.axis_ranks["data"])
+    across, local = model_parallel_mesh(), model_parallel_mesh(data=2, model=2, model_across_processes=False)
+    report["layouts"] = {"data_parallel": data_process_groups(flat),
+                         "model_across": (dict(across.shape), dict(across.coords), data_process_groups(across)),
+                         "model_local": (dict(local.shape), dict(local.coords), data_process_groups(local))}
+    with pytest.raises(ValueError, match="model_across_processes"):
+        model_parallel_mesh(data=2, model=2)
+    with pytest.raises(ValueError, match="a 3 x 2 mesh over 4"):
+        model_parallel_mesh(data=3, model=2, model_across_processes=False)
+    # The spatial step on {data 2, model 2}: each data line's 2 samples of the whole batch of 4, on 2 slabs each.
+    model = _model().double()
+    state = trainer.create_train_state(model, device="cpu", **OPT)
+    step = trainer.make_train_step(model, mesh=local, spatial_axis="model")
+    state, m = step(state, {k: v.double() for k, v in _batch(seed=9).items()})
+    report["spatial_step"] = (m["loss"].item(), {k: q.grad.clone() for k, q in model.named_parameters()})
     return report
 
 
@@ -91,6 +107,32 @@ def test_make_mesh_axes_and_indices(mesh_reports):
         assert r["coords"] == {"data": rank // 2, "model": rank % 2}
         assert r["axis_ranks"] == {"data": (rank % 2, rank % 2 + 2), "model": (rank // 2 * 2, rank // 2 * 2 + 1)}
         assert r["flat"] == ({"data": 4}, rank, (0, 1, 2, 3))
+
+
+def test_mesh_layouts_and_loader_groups(mesh_reports):
+    """The layouts JAX's docstrings name, on four processes: pure data parallelism loads a partition per process
+    (``data_process_groups`` = ``(4, rank)``); ``model_parallel_mesh()`` puts all four on one ``model`` line, one
+    loader group ``(1, 0)``; with ``model_across_processes=False`` and ``{data 2, model 2}`` the data index varies
+    slowest, two loader groups of two.  Layouts that do not fit the processes raise."""
+    for rank, r in enumerate(mesh_reports):
+        layouts = r["layouts"]
+        assert layouts["data_parallel"] == (4, rank)
+        assert layouts["model_across"] == ({"data": 1, "model": 4}, {"data": 0, "model": rank}, (1, 0))
+        assert layouts["model_local"] == ({"data": 2, "model": 2}, {"data": rank // 2, "model": rank % 2}, (2, rank // 2))
+
+
+def test_spatial_step_on_a_data_and_model_mesh(mesh_reports):
+    """The spatial step on ``{data 2, model 2}`` with the whole batch of 4 on every process, f64: each data line takes
+    its 2 samples on 2 slabs; gradients summed over ``model`` and averaged over ``data`` equal the one-process step's
+    on the 4 samples to 1e-10, as does the loss, on all four processes."""
+    model = _model().double()
+    state = trainer.create_train_state(model, device="cpu", **OPT)
+    state, m = trainer.make_train_step(model)(state, {k: v.double() for k, v in _batch(seed=9).items()})
+    for r in mesh_reports:
+        loss, grads = r["spatial_step"]
+        assert abs(loss - m["loss"].item()) <= 1e-10 * m["loss"].item()
+        for key, q in model.named_parameters():
+            assert (grads[key] - q.grad).abs().max() <= 1e-10 * q.grad.abs().max(), key
 
 
 def test_mesh_groups_reduce_over_their_line(mesh_reports):
@@ -246,6 +288,20 @@ def test_initialize_distributed_names_its_choice(tmp_path, capsys):
 
 
 def test_train_step_refuses_spatial_axis_by_name():
-    """The whole-model spatial step is not ported: ``make_train_step`` does not take ``spatial_axis``."""
-    with pytest.raises(TypeError, match="spatial_axis"):
-        trainer.make_train_step(torch.nn.Linear(2, 2), spatial_axis="model")
+    """``make_train_step(spatial_axis=)`` takes only a model with a slab path, whatever the axis's size: the flat NMF
+    route (``use_windowed: False``) and a module without ``slab_path_missing`` raise by name, in one process (a
+    mesh of one, no group); the axis needs a mesh, and one the mesh has.  (``tests/test_torch_multidevice.py`` runs
+    the step on two processes.)"""
+    mesh = ftt.model_parallel_mesh()
+    assert mesh.size == 1 and dict(mesh.shape) == {"data": 1, "model": 1} and not dist.is_initialized()
+    flat = ftt.Factorizer(**CONFIG, reshape=(ftt.SWMatricize, SW), factorize_options={"use_windowed": False},
+                          device="cpu")
+    with pytest.raises(NotImplementedError, match="flat NMF route"):
+        trainer.make_train_step(flat, mesh=mesh, spatial_axis="model")
+    with pytest.raises(NotImplementedError, match="Linear has no slab path"):
+        trainer.make_train_step(torch.nn.Linear(2, 2), mesh=mesh, spatial_axis="model")
+    with pytest.raises(ValueError, match="needs a mesh"):
+        trainer.make_train_step(_model(), spatial_axis="model")
+    with pytest.raises(ValueError, match="not 'rows'"):
+        trainer.make_train_step(_model(), mesh=mesh, spatial_axis="rows")
+    trainer.make_train_step(_model(), mesh=mesh, spatial_axis="model")  # a slab path: taken
