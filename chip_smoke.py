@@ -142,6 +142,20 @@ Phases, one or more result lines each:
  27. the spatial bundle program: factorizer_brats23's train.yaml + train_tp.yaml for 1 epoch the same way (2 spatial
      steps on the 4 cases, a validation of whole volumes on each process).  26 and 27 run inside 23's directory and
      are left out of the kernels line.
+ 28. (run after 17) the rest of the factorization engine, selected by network_def keys: factorizer_brats23's unedited
+     train.yaml network_def through the port's ConfigParser with the bundle's seed (full width, 128^3, f32) under one
+     override set at a time: (a) init_method: nndsvd, (b) solver: nnls, (c) solver: [hals-0, mu-1], (d) factorize:
+     $ftx.SVD, (e) rank: null and compression: 10 (rank 1 at 8 x 512), (f) pos_embed: each of the sinusoidal, rotary
+     and axial embeddings, (g) factorize_options: {eps: 1e-8}.  Each serves 2 BraTS-native volumes through
+     ensemble_predict after a warm-up (one sliding-window batch instead where a volume would take over 30 s) and takes
+     1 warm-up and 2 steps at 2 x 128^3: s/volume, s/step, peak memory; launches per forward and per step asserted
+     ((a)-(d) the flat route on stock torch: 9 K2 forward, 9 K2 backward, no K1 and no K4; (e)-(g) the default's
+     9 + 9 K1, 9 K2, 36 K1 backward); logits on one window against reference_kernels() ((e)-(g)) or against the CPU
+     forward of the same weights ((a)-(d)).  One bf16 step of (a), its solve in f32.  Then the engine's calls at stage
+     0's batch of 131072 matrices of 8 x 512 (the randomized SVD, NNDSVD, an nnls iteration; torch.linalg's QR and SVD
+     at 2048 for scale), and KMeans, FuzzyCMeans and EntropyKMeans (4 centers) on stage 0's windows of a
+     (2, 128^3, 32) activation as points (32768, 512, 8), card against CPU: differing assignments (near ties counted),
+     the centers' max relative error, the times.  Its launches are in the kernels line.
 The float16 instance of every kernel is checked beside f32 and bf16 at one stage shape each (K1, K1 bwd with and
 without all-zero windows, K2, K2 bwd, K3, K3 dw, K4, K4 bwd, K5), with one float16 forward of brats23_network
 (`[slice f16]`); MatrixFactorization serves a float16 tensor through K4, and a float64 one raises.
@@ -1712,6 +1726,277 @@ def baselines_slice(counters: dict) -> None:
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 28 (`[engine]`): the override sets applied one at a time to factorizer_brats23's unedited train.yaml
+# network_def (full width, 128^3, f32): name -> network_def keys.  (a)-(d) leave the kernels' rules (an NNDSVD init,
+# a projected least-squares solver, a composed solver, the SVD factorizer) and take the flat route on the stock
+# decompose chain; (e)-(g) stay on K1.
+ENGINE_SETS = {
+    "a init_method=nndsvd": {"init_method": "nndsvd"},
+    "b solver=nnls": {"solver": "nnls"},
+    "c solver=[hals-0, mu-1]": {"solver": ["hals-0", "mu-1"]},
+    "d factorize=SVD": {"factorize": "$ftx.SVD"},
+    "e rank=null compression=10": {"rank": None, "compression": 10},
+    "f pos_embed=Sinusoidal": {"pos_embed": "$ftx.SinusoidalPositionalEmbedding"},
+    "f pos_embed=Rotary": {"pos_embed": "$ftx.RotaryPositionalEmbedding"},
+    "f pos_embed=Axial": {"pos_embed": "$ftx.AxialPositionalEmbedding"},
+    "g factorize_options={eps: 1e-8}": {"factorize_options": {"eps": 1.0e-8}},
+}
+# The card's f32 logits (TF32 off) against the CPU's from the same weights on one window, for the flat sets: the
+# convolutions and products sum in other orders (2^-24 relative each), the randomized SVD's normalisations and
+# NNDSVD's sign choices pass them through 5 solver iterations a mixer and 9 mixers.
+ENGINE_CPU_RTOL = 1e-3
+# A served volume above this many seconds is served as one sliding-window batch instead (a window pair).
+ENGINE_VOLUME_S = 30.0
+# Clustering on the card against the CPU (the first CLUSTER_CPU_WINDOWS windows; each window is clustered on its
+# own): a point's assignment may differ where the distances to the two centers are within CLUSTER_TIE_RTOL of the
+# point's largest distance (the distances are differences of sums of squares, exact to float32 rounding of those),
+# and where a flip in an earlier iteration moved its window's centers; at most CLUSTER_DIFFER_SHARE of the points
+# may differ.  The centers of the windows whose assignments agree within CLUSTER_CENTER_RTOL (relative): EntropyKMeans's
+# softmax at its default temperature alpha = 1e-3 multiplies the distances' float32 rounding (~1e-6 at distances near
+# 16) by 1000 before the exponential, so its soft memberships, and the centers they weight, agree to ~1e-3 only.
+CLUSTER_CPU_WINDOWS, CLUSTER_TIE_RTOL, CLUSTER_DIFFER_SHARE = 4096, 1e-4, 1e-4
+CLUSTER_CENTER_RTOL = {"KMeans": 1e-4, "FuzzyCMeans": 1e-4, "EntropyKMeans": 1e-2}
+
+
+def engine_slice(counters: dict) -> dict:
+    """Phase 28: the rest of the factorization engine (stock torch) on the card, selected by ``network_def`` keys.
+
+    For each set of ``ENGINE_SETS`` the network is built from ``zoo/factorizer_brats23/configs/train.yaml`` with the
+    keys merged in, through the port's ``ConfigParser`` with the bundle's seed; it serves 2 BraTS-native volumes
+    through ``ensemble_predict`` after a warm-up (one sliding-window batch where a volume would take over
+    ``ENGINE_VOLUME_S``), takes 1 warm-up and 2 steps of ``make_train_step`` at 2 x 128^3, and its launches per
+    forward and per step are asserted (the flat sets: K2 alone; the K1 sets: the default's).  Logits: the K1 sets
+    against the same call under ``reference_kernels()``, the flat sets on one window against the CPU forward of the
+    same weights.  One bfloat16 step of (a) checks that the solve runs in float32.  Then the engine's calls at stage
+    0's batch of 131072 matrices (8 x 512) are timed, and KMeans, FuzzyCMeans and EntropyKMeans (4 centers) run on
+    stage 0's windows of a (2, 128^3, 32) activation as points (32768, 512, 8), on the card against the CPU.
+    Returns the launches made in the served and trained sets."""
+    import copy
+    from pathlib import Path
+
+    import torch
+
+    import factorizer_tpu_torch as ftt
+    from factorizer_tpu_torch.config import ConfigParser, load_config_files, merge_config
+    from factorizer_tpu_torch.factorization import svd as svd_module
+    from factorizer_tpu_torch.factorization.solvers import LeastSquares
+    from factorizer_tpu_torch.ops.kernels import reference_kernels
+    from factorizer_tpu_torch.train.sliding_window import sliding_window_positions
+    from factorizer_tpu_torch.train.trainer import create_train_state, make_train_step
+    from factorizer_tpu_torch.zoo_scripts import ensemble_predict
+
+    repo = Path(__file__).resolve().parent
+    dev = torch.device("cuda", torch.cuda.current_device())
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    configs = repo / "zoo" / "factorizer_brats23" / "configs"
+    base = load_config_files([configs / "train.yaml"])
+    volume, roi, sw_batch, overlap = (1, 4, 240, 240, 155), tuple(base["roi_size"]), 2, 0.5
+    forwards = -(-len(sliding_window_positions(volume[2:], roi, overlap)) // sw_batch)
+    settings = {"lr": base["learning_rate"], "weight_decay": base["weight_decay"]}  # the bundle's AdamW, constant lr
+    k1_forward = {"windowed_nmf_factors": N_BLOCKS, "windowed_nmf_reconstruct": N_BLOCKS, "prenorm_mlp": N_BLOCKS}
+    made_total = dict.fromkeys(counters, 0)
+
+    def network(keys: dict, amp: bool = False):
+        cfg = merge_config(base, {"bundle_root": str(configs.parent), "amp": amp,
+                                  **{f"network_def#{k}": v for k, v in keys.items()}})
+        parser = ConfigParser(cfg)
+        parser.seed(cfg["seed"])
+        model = parser["network_def"]
+        check(type(model) is ftt.Factorizer and next(model.parameters()).is_cuda,
+              f"engine: network_def {keys} did not build a Factorizer on the card")
+        return model
+
+    def counted(expected: dict, tag: str):
+        made = read_counters(counters)
+        want = {k: expected.get(k, 0) for k in counters}
+        check(made == want, f"engine {tag}: launches {made}, expected {want}")
+        for k, v in made.items():
+            made_total[k] += v
+        reset_counters(counters)
+
+    requests = [torch.randn(volume, device=dev, generator=gen.manual_seed(700 + i)) for i in range(3)]
+    window = torch.randn((1, 4, *roi), generator=torch.Generator().manual_seed(710))
+    batch = synthetic_batch(2, 4, 3, roi[0], seed=720)
+    for name, keys in ENGINE_SETS.items():
+        t_set = time.perf_counter()
+        flat = name[0] in "abcd"
+        per_forward = {"prenorm_mlp": N_BLOCKS} if flat else k1_forward
+        per_step = {**per_forward, "prenorm_mlp_bwd": N_BLOCKS,
+                    **({} if flat else {"windowed_nmf_bwd": N_BLOCKS * N_SHIFTS})}
+        model = network(keys).eval()
+        mixers = [m for m in model.modules() if isinstance(m, ftt.FactMixer)]
+        check(len(mixers) == N_BLOCKS and all((m.windowed is None) == flat for m in mixers),
+              f"engine {name}: mixers on K1 {[m.windowed is not None for m in mixers]}, expected {not flat}")
+        check(not flat or not any(isinstance(m.factorize, ftt.MatrixFactorization) and m.factorize.supports()
+                                  for m in mixers), f"engine {name}: a flat mixer would take K4")
+        reset_counters(counters)
+        # serve (cuDNN's heuristics, as the serving phases run): a forward of a window pair after a warm-up one decides
+        # between whole volumes and window pairs (where a volume would take over ENGINE_VOLUME_S)
+        torch.backends.cudnn.benchmark = False
+        with torch.inference_mode():
+            pair = requests[0][:, :, : roi[0], : roi[1], : roi[2]].expand(sw_batch, -1, -1, -1, -1).contiguous()
+            model(pair)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(pair)
+            torch.cuda.synchronize()
+            pair_s = time.perf_counter() - t0
+            counted({k: 2 * v for k, v in per_forward.items()}, f"{name} two forwards of a window pair")
+            whole = pair_s * forwards <= ENGINE_VOLUME_S
+            served, served_mem = [], 0.0
+            torch.cuda.reset_peak_memory_stats(dev)
+            for i, image in enumerate(requests):
+                if not whole:
+                    image = image[:, :, : roi[0], : roi[1], : roi[2]].expand(sw_batch, -1, -1, -1, -1).contiguous()
+                t0 = time.perf_counter()
+                if whole:
+                    mask, probs = ensemble_predict([model], image, roi, sw_batch, overlap)
+                else:
+                    probs = torch.sigmoid(model(image))
+                torch.cuda.synchronize()
+                served.append(time.perf_counter() - t0)
+                check(bool(torch.isfinite(probs).all()), f"engine {name}: non-finite probabilities")
+                counted({k: v * (forwards if whole else 1) for k, v in per_forward.items()}, f"{name} request {i}")
+            served_mem = torch.cuda.max_memory_allocated(dev) / 2**30
+            what = (f"{statistics.mean(served[1:]):.4f} s/volume {volume} ({forwards} forwards of a window pair)" if whole
+                    else f"{statistics.mean(served[1:]):.4f} s per window pair (2, 4, 128^3): a volume would take "
+                         f"~{pair_s * forwards:.1f} s ({forwards} forwards)")
+            # logits: K1 sets against the plain versions on the card, flat sets against the CPU
+            if flat:
+                got = model(window.to(dev)).cpu()
+                ref = copy.deepcopy(model).cpu()(window)
+                tol, against = ENGINE_CPU_RTOL, "the CPU forward of the same weights"
+            else:
+                got = model(window.to(dev))
+                with reference_kernels():
+                    ref = model(window.to(dev))
+                tol, against = SLICE_RTOL["float32"], "reference_kernels()"
+            torch.cuda.synchronize()
+            reset_counters(counters)
+        err, rel = compare(got, ref)
+        check(bool(torch.isfinite(got).all()) and rel <= tol,
+              f"engine {name}: logits on one window differ from {against} by {rel:.3e} (tol {tol:.0e})")
+        del got, ref
+        # train: 1 warm-up and 2 steps, under cuDNN's timing search as the training phases run
+        torch.backends.cudnn.benchmark = True
+        state = create_train_state(model.train(), **settings)
+        step = make_train_step(state.model)
+        losses, seconds = [], []
+        for i in range(3):
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            losses.append(metrics["loss"].item())
+            check(math.isfinite(losses[-1]) and math.isfinite(metrics["grad_norm"].item()),
+                  f"engine {name}: step {i + 1} loss {losses[-1]}, grad norm {metrics['grad_norm'].item()}")
+            counted(per_step, f"{name} step {i + 1}")
+        mem = torch.cuda.max_memory_allocated(dev) / 2**30
+        print(f"[engine] {name}: {'flat route' if flat else 'K1'}; serve {what} (requests "
+              + ", ".join(f"{t:.4f}" for t in served[1:]) + f" s after a {served[0]:.2f} s warm-up), peak {served_mem:.2f} "
+              f"GiB; launches per forward { {k: v for k, v in per_forward.items()} }; logits on (1, 4, 128^3) vs {against}: "
+              f"max_abs={err:.3e} max_rel={rel:.3e} (tol {tol:.0e}); train 2 x 128^3 f32: {statistics.mean(seconds[1:]):.4f} "
+              "s/step (steps " + ", ".join(f"{t:.4f}" for t in seconds[1:]) + f" s after a {seconds[0]:.2f} s warm-up), "
+              f"peak {mem:.2f} GiB, loss {' -> '.join(f'{v:.5f}' for v in losses)}, launches per step "
+              f"{ {k: v for k, v in per_step.items()} }; {time.perf_counter() - t_set:.1f} s ({smi})")
+        del model, state, step, metrics, mixers
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # One bfloat16 step of (a): the NNDSVD init and HALS run in float32 on the bf16 activations' fold.
+    model = network(ENGINE_SETS["a init_method=nndsvd"], amp=True)
+    check(model.stem.dtype == torch.bfloat16, "engine a bf16: amp: true did not give a bfloat16 network")
+    solved = set()
+    fact = next(m for m in model.modules() if isinstance(m, ftt.FactMixer)).factorize
+    decompose = fact.decompose
+    fact.decompose = lambda x, *a, **k: (solved.add(x.dtype), decompose(x, *a, **k))[1]
+    state = create_train_state(model.train(), **settings)
+    step = make_train_step(state.model)
+    seconds = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        counted({"prenorm_mlp": N_BLOCKS, "prenorm_mlp_bwd": N_BLOCKS}, f"a bf16 step {i + 1}")
+    loss = metrics["loss"].item()
+    check(solved == {torch.float32} and math.isfinite(loss), f"engine a bf16: solved in {solved}, loss {loss}")
+    print(f"[engine] a init_method=nndsvd bfloat16 (amp: true): the mixers' solve ran in {sorted(map(str, solved))} on "
+          f"the bf16 fold; step {seconds[1]:.4f} s after a {seconds[0]:.2f} s warm-up, loss {loss:.5f} ({smi})")
+    del model, state, step, metrics, fact
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The engine's calls at stage 0's batch: 131072 matrices of 8 x 512 (2 x 4 heads x 4096 windows x 4 shifts).
+    x = torch.rand(131072, 8, 512, device=dev, generator=gen.manual_seed(730))
+    u = torch.rand(131072, 8, 1, device=dev, generator=gen)
+    v = torch.rand(131072, 512, 1, device=dev, generator=gen)
+    calls = {
+        "randomized_svd rank 1 (5 one-column QRs, a one-row SVD)": lambda: ftt.randomized_svd(x, 1),
+        "NNDSVDInit rank 1": lambda: ftt.NNDSVDInit((8, 512), rank=1)(x),
+        "one nnls iteration (LeastSquares: a solve for U, a pinv for V)": lambda: LeastSquares(project=torch.relu)(x, (u, v)),
+        "torch.linalg.qr (2048, 512, 1)": lambda: torch.linalg.qr(v[:2048]),
+        "torch.linalg.svd (2048, 1, 512)": lambda: torch.linalg.svd(x[:2048, :1], full_matrices=False),
+    }
+    timings = {k: cuda_time_ms(fn, warmup=1, runs=3) for k, fn in calls.items()}
+    print("[engine] at stage 0's batch (131072, 8, 512) f32: " + "; ".join(f"{k} {ms:.3f} ms" for k, ms in timings.items())
+          + f" ({smi})")
+    del x, u, v
+
+    # Clustering on stage 0's windows: points (32768, 512, 8) of a (2, 128^3, 32) activation, card against CPU.
+    activation = torch.relu(torch.randn(2, 128, 128, 128, 32, device=dev, generator=gen.manual_seed(740)))
+    points = ftt.Matricize(tuple(activation.shape), head_dim=8, patch_size=8)(activation).flatten(0, 1).transpose(-1, -2)
+    points = points.contiguous()
+    points_cpu = points[:CLUSTER_CPU_WINDOWS].cpu()
+    del activation
+    for cls in (ftt.KMeans, ftt.FuzzyCMeans, ftt.EntropyKMeans):
+        layer = cls(num_centers=4)
+        layer(points[:64])  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u_card, v_card = layer(points)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        u_cpu, v_cpu = layer(points_cpu)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        check(bool(torch.isfinite(u_card).all()) and bool(torch.isfinite(v_card).all()),
+              f"engine {cls.__name__}: non-finite memberships or centers")
+        u_card, v_card = u_card[:CLUSTER_CPU_WINDOWS].cpu(), v_card[:CLUSTER_CPU_WINDOWS].cpu()
+        a_card, a_cpu = u_card.argmax(-1), u_cpu.argmax(-1)
+        differ = a_card != a_cpu
+        d = layer.get_dist(points_cpu, v_cpu)
+        gap = d.gather(-1, a_card[..., None])[..., 0] - d.gather(-1, a_cpu[..., None])[..., 0]
+        ties = differ & (gap.abs() <= CLUSTER_TIE_RTOL * d.amax(-1))
+        windows_differ = differ.any(-1)
+        same = ~windows_differ
+        center_rel = compare(v_card[same], v_cpu[same])[1] if bool(same.any()) else 0.0
+        center_tol = CLUSTER_CENTER_RTOL[cls.__name__]
+        center_rel_all = compare(v_card, v_cpu)[1]
+        print(f"[engine] {cls.__name__} (4 centers, 10 iterations) on {tuple(points.shape)} f32: card {card_ms:.2f} ms, "
+              f"CPU {cpu_ms:.1f} ms on the first {CLUSTER_CPU_WINDOWS} windows {tuple(points_cpu.shape)}; there the "
+              f"assignments differ at {int(differ.sum())} of {differ.numel()} points ({int(ties.sum())} near ties, "
+              f"within {CLUSTER_TIE_RTOL:.0e} of the point's largest distance), in {int(windows_differ.sum())} of {windows_differ.numel()} windows; centers "
+              f"max_rel {center_rel:.3e} in the windows that agree (tol {center_tol:.0e}), {center_rel_all:.3e} "
+              f"over all ({smi})")
+        check(int(differ.sum()) <= CLUSTER_DIFFER_SHARE * differ.numel() and center_rel <= center_tol,
+              f"engine {cls.__name__}: card and CPU disagree: {int(differ.sum())} points in {int(windows_differ.sum())} "
+              f"windows, centers {center_rel:.3e}")
+        del u_card, v_card, u_cpu, v_cpu, d
+    del points, points_cpu
+    svd_module.gaussian.cache_clear()  # the randomized SVD's test matrices, kept on the card
+    torch.backends.cudnn.benchmark = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[engine] phase wall time {time.perf_counter() - t_phase:.1f} s; launches {made_total}")
+    return made_total
+
+
 def main() -> None:
     import torch
 
@@ -2746,6 +3031,11 @@ def main() -> None:
         factorizer_leaves, batch=isles_batch, dtypes=(torch.float32,),
     )
 
+    # 28. the rest of the factorization engine, selected by network_def keys: the flat sets on stock torch, the K1
+    # sets on the kernels; its launches are in the kernels line.
+    engine_launches = engine_slice(wrappers)
+    torch.backends.cudnn.benchmark = True
+
     # 18. K5 in one process: every slab of a ring held as a list, the halos wired by hand.  The plain version is
     # the whole ring in torch operations; K1 on the gathered volume is the second reference, bit for bit: the slab
     # kernel runs K1's block, the routed rows are f32 and the passes sum in K1's order.
@@ -2920,9 +3210,10 @@ def main() -> None:
         label, ms, plain_ms, b_ms, b_by, library_ms = results[name]["times"]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": serve_launches[name] + train_launches[name] + spatial_launches[name]
-                        + tp_launches[name],
+                        + tp_launches[name] + engine_launches[name],
                         "launches_serving": serve_launches[name], "launches_training": train_launches[name],
                         "launches_spatial": spatial_launches[name], "launches_train_tp": tp_launches[name],
+                        "launches_engine": engine_launches[name],
                         "max_abs_err": max(results[name]["errs"]),
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": library_ms, "timed_at": label})

@@ -6,13 +6,47 @@ kernels build at their first launch, not at import.  The training workflow
 checkpoints, ``SegmentationTrainer``, ``Evaluator``, ``EnsembleEvaluator``) is
 exported here as the JAX package's ``train`` and ``data`` export it, and so are
 the conv blocks and the baseline models (``DynUNet``, ``SegResNet``,
-``SwinUNETR``, ``UNETR``), which the bundles' ``network_def`` names.  Conventional alias:
+``SwinUNETR``, ``UNETR``), which the bundles' ``network_def`` names, and the
+factorization engine as the JAX package's ``factorization``, ``layers`` and
+``ops`` export it (solvers, initializers, ``SVD``, the clustering layers, the
+positional embeddings, ``dot`` / ``softmax`` / ``kl_divergence``), so that a
+``network_def``'s ``$ftx.<Name>`` resolves to the port's.  Conventional alias:
 ``import factorizer_tpu_torch as ftt``.
 """
 
-from .factorization import NMF, Deconv, MatrixFactorization, RandomInit, batched_conv, sconv
+from .factorization import (
+    INIT_DISPATCH_MAP,
+    NMF,
+    SOLVER_DISPATCH_MAP,
+    SVD,
+    BCDSolver,
+    Compose,
+    CoordinateDescent,
+    Deconv,
+    EntropyKMeans,
+    FastMultiplicativeUpdate,
+    FuzzyCMeans,
+    KMeans,
+    LeastSquares,
+    MatrixFactorization,
+    MultiplicativeUpdate,
+    NNDSVDInit,
+    ProjectedGradient,
+    RandomInit,
+    SemiMultiplicativeUpdate,
+    SVDInit,
+    WeightedMultiplicativeUpdate,
+    batched_conv,
+    infer_rank,
+    parse_init,
+    parse_solver,
+    randomized_svd,
+    sconv,
+    translate_mf_kwargs,
+)
 from .layers import (
     MLP,
+    AxialPositionalEmbedding,
     BasicBlock,
     Conv,
     ConvTranspose,
@@ -24,9 +58,12 @@ from .layers import (
     InstanceNorm,
     LayerNorm,
     Linear,
+    PosEmbed,
     PositionalEmbedding,
     PreActivationBlock,
+    RotaryPositionalEmbedding,
     SepConv,
+    SinusoidalPositionalEmbedding,
 )
 from .models import (
     UNETR,
@@ -46,7 +83,7 @@ from .models import (
     SwinUNETR,
     UNet,
 )
-from .ops import Matricize, Reshape, SWMatricize
+from .ops import Matricize, Reshape, SWMatricize, dot, kl_divergence, norm2, relative_error, softmax
 from .ops.kernels import reference_kernels
 from .parallel import data_parallel, data_parallel_mesh, initialize_distributed, make_mesh, model_parallel_mesh, shard_batch
 from .data import (
@@ -89,7 +126,17 @@ from .train import (
     sliding_window_positions,
     warmup_cosine_schedule,
 )
-from .utils import load_flax_variables, materialize, resolve_device
+from .utils import (
+    as_tuple,
+    has_args,
+    is_partializable,
+    load_flax_variables,
+    materialize,
+    partialize,
+    resolve_device,
+    spec_accepts,
+    to_ntuple,
+)
 from .zoo_scripts import (
     brats23_network,
     brats23_optimizer_settings,

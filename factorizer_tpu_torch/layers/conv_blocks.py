@@ -17,7 +17,7 @@ from typing import Any, Optional
 import torch
 from torch import nn
 
-from ..utils.helpers import as_tuple, has_args, partialize, resolve_device
+from ..utils.helpers import as_tuple, build_spec, partialize, resolve_device
 from .basic import Conv, Dropout, GroupNorm, Linear, resolve_activation
 
 __all__ = ["DoubleConv", "BasicBlock", "PreActivationBlock", "SepConv"]
@@ -33,18 +33,11 @@ def _spec_class(spec: Any):
     return getattr(fn, "func", fn)
 
 
-def _build(spec: Any, *args, context: dict, **kwargs) -> nn.Module:
-    """``spec(*args, **kwargs)`` with the entries of ``context`` (device, generator, spatial_dims) that its class takes."""
-    fn = partialize(spec)
-    cls = getattr(fn, "func", fn)
-    return fn(*args, **kwargs, **{k: v for k, v in context.items() if has_args(cls, k)})
-
-
 def _shortcut(conv: Any, in_channels: int, out_channels: int, stride: Any, context: dict) -> Optional[nn.Module]:
     """The k1 projection, without bias, of the conv spec's class where the stride or the width changes; else None."""
     if prod(as_tuple(stride)) == 1 and in_channels == out_channels:
         return None
-    return _build(_spec_class(conv), in_channels, out_channels, kernel_size=1, padding=0, stride=stride, bias=False,
+    return build_spec(_spec_class(conv), in_channels, out_channels, kernel_size=1, padding=0, stride=stride, bias=False,
                   context=context)
 
 
@@ -59,12 +52,12 @@ class DoubleConv(nn.Module):
         ctx = dict(device=resolve_device(device), generator=generator, spatial_dims=spatial_dims)
         mid = out_channels if mid_channels is None else mid_channels
         self.act = resolve_activation(act)
-        self.conv1 = _build(conv, in_channels, mid, stride=stride, context=ctx)
-        self.drop1 = _build(drop, context=ctx)
-        self.norm1 = _build(norm, mid, context=ctx)
-        self.conv2 = _build(conv, mid, out_channels, stride=1, context=ctx)
-        self.drop2 = _build(drop, context=ctx)
-        self.norm2 = _build(norm, out_channels, context=ctx)
+        self.conv1 = build_spec(conv, in_channels, mid, stride=stride, context=ctx)
+        self.drop1 = build_spec(drop, context=ctx)
+        self.norm1 = build_spec(norm, mid, context=ctx)
+        self.conv2 = build_spec(conv, mid, out_channels, stride=1, context=ctx)
+        self.drop2 = build_spec(drop, context=ctx)
+        self.norm2 = build_spec(norm, out_channels, context=ctx)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.act(self.norm1(self.drop1(self.conv1(x))))
@@ -84,12 +77,12 @@ class BasicBlock(nn.Module):
         mid = out_channels if mid_channels is None else mid_channels
         self.act = resolve_activation(act)
         self.shortcut = _shortcut(conv, in_channels, out_channels, stride, ctx)
-        self.conv1 = _build(conv, in_channels, mid, stride=stride, context=ctx)
-        self.drop1 = _build(drop, context=ctx)
-        self.norm1 = _build(norm, mid, context=ctx)
-        self.conv2 = _build(conv, mid, out_channels, stride=1, context=ctx)
-        self.drop2 = _build(drop, context=ctx)
-        self.norm2 = _build(norm, out_channels, context=ctx)
+        self.conv1 = build_spec(conv, in_channels, mid, stride=stride, context=ctx)
+        self.drop1 = build_spec(drop, context=ctx)
+        self.norm1 = build_spec(norm, mid, context=ctx)
+        self.conv2 = build_spec(conv, mid, out_channels, stride=1, context=ctx)
+        self.drop2 = build_spec(drop, context=ctx)
+        self.norm2 = build_spec(norm, out_channels, context=ctx)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shortcut = x if self.shortcut is None else self.shortcut(x)
@@ -110,13 +103,13 @@ class PreActivationBlock(nn.Module):
         ctx = dict(device=resolve_device(device), generator=generator, spatial_dims=spatial_dims)
         mid = out_channels if mid_channels is None else mid_channels
         self.act = resolve_activation(act)
-        self.norm1 = _build(norm, in_channels, context=ctx)
+        self.norm1 = build_spec(norm, in_channels, context=ctx)
         self.shortcut = _shortcut(conv, in_channels, out_channels, stride, ctx)
-        self.conv1 = _build(conv, in_channels, mid, stride=stride, context=ctx)
-        self.drop1 = _build(drop, context=ctx)
-        self.norm2 = _build(norm, mid, context=ctx)
-        self.conv2 = _build(conv, mid, out_channels, stride=1, context=ctx)
-        self.drop2 = _build(drop, context=ctx)
+        self.conv1 = build_spec(conv, in_channels, mid, stride=stride, context=ctx)
+        self.drop1 = build_spec(drop, context=ctx)
+        self.norm2 = build_spec(norm, mid, context=ctx)
+        self.conv2 = build_spec(conv, mid, out_channels, stride=1, context=ctx)
+        self.drop2 = build_spec(drop, context=ctx)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.act(self.norm1(x))

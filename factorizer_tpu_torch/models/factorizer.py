@@ -1,29 +1,36 @@
-"""Factorizer models: NMF-mixing pre-norm blocks in a U-Net.
+"""Factorizer models: factorization-mixing pre-norm blocks in a U-Net.
 
 PyTorch counterpart of ``factorizer_tpu/models/factorizer.py``
 (FactMixer -> FactorizerBlock -> FactorizerStage -> Factorizer), channels-last
 inside, over 3-D volumes or 2-D images (``spatial_size`` of length 3 or 2).
 Three kernels carry the blocks:
 
-* ``FactMixer``, the windowed route: every 3-D (SW)Matricize mixer with a
-  head_dim, cubic patches and a rank-1 hals/mu NMF goes through K1
-  (``ops.kernels.windowed_nmf``), which never materialises the fold.
+* ``FactMixer``, the windowed route: K1 (``ops.kernels.windowed_nmf``), which
+  never materialises the fold, takes a mixer under the JAX package's rule for
+  its fused windowed kernel (``_fused_fallback_reason`` without its TPU
+  check): a channels-last 3-D (SW)Matricize with a head_dim and cubic patches
+  that divide the volume, and a ``MatrixFactorization`` whose solver is the
+  string ``"hals"`` or ``"mu"``, with no ``project``, a ``RandomInit`` and
+  rank 1 (after the ``compression`` rule).
 * ``FactMixer``, the flat route: every other mixer (2-D, rank above 1,
-  non-cubic patches) and every mixer under
-  ``factorize_options={"use_windowed": False}`` runs fold -> NMF -> unfold,
-  where the NMF goes through K4 (``ops.kernels.nmf_reconstruct``) whenever
-  its matrices fit the kernel, else through the plain ``decompose`` chain
-  (the default global ``Matricize``).  The two routes compute the same
-  function.
+  non-cubic patches, an SVD or NNDSVD init, any other solver, ``SVD``) and
+  every mixer under ``factorize_options={"use_windowed": False}`` runs fold ->
+  factorize -> unfold, where a ``MatrixFactorization`` goes through K4
+  (``ops.kernels.nmf_reconstruct``) under that kernel's rule
+  (``MatrixFactorization.supports``), else through the stock ``decompose``
+  chain (the default global ``Matricize``, the SVD paths, the other solvers).
+  The two routes compute the same function where both apply.
 * ``FactorizerBlock`` sends its tail ``x + mlp(norm2(x))`` through K2
   (``ops.kernels.prenorm_mlp``), reading the ``norm2`` and ``mlp`` parameters,
   when ``norm`` is :class:`LayerNorm` (the default and the bundles' choice);
   under any other norm (e.g. :class:`InstanceNorm`) the tail is stock PyTorch,
   as ``DeconverBlock`` decides.
 
-The bundles' ``network_def`` keys ``norm``, ``factorize`` and ``remat`` are
-taken as the JAX model takes them.  ``factorize`` is :class:`NMF`, the one
-factorizer the bundles pass; the JAX package's others are not ported.
+The bundles' ``network_def`` keys ``norm``, ``factorize``, ``compression``,
+``pos_embed`` and ``remat`` are taken as the JAX model takes them.
+``factorize`` is any matrix factorizer spec (``NMF``, ``MatrixFactorization``,
+``SVD``, ``(class, kwargs)``); ``factorize_options`` reach it as they reach the
+JAX package's, filtered by the keywords its class accepts.
 
 With ``factorize_options={"spatial_mesh": mesh, "spatial_axis": name}`` a
 windowed mixer runs on a slab of the volume, cut along the first spatial axis
@@ -48,7 +55,8 @@ from typing import Any, Optional, Sequence
 import torch
 from torch import nn
 
-from ..factorization.nmf import NMF
+from ..factorization.inits import RandomInit
+from ..factorization.nmf import NMF, MatrixFactorization, translate_mf_kwargs
 from ..layers.basic import ACTIVATIONS, LayerNorm, Linear, MLP, NormSpec, build_norm
 from ..layers.pos_embed import PositionalEmbedding
 from ..ops.kernels import prenorm_mlp, windowed_nmf, windowed_nmf_multi_spatial
@@ -56,17 +64,20 @@ from ..ops.kernels.windowed_nmf import _norm_shift
 from ..ops.reshape import Matricize, SWMatricize
 from ..parallel.collectives import cut_slab, gather_slabs
 from ..parallel.slabs import Slabs
+from ..utils.helpers import build_spec, has_args, partialize, spec_accepts
 from .unet import UNet
 
 __all__ = ["FactMixer", "FactorizerBlock", "FactorizerStage", "Factorizer"]
 
-# Reshape spec: (class, keyword arguments), as the bundle configs write it.
-ReshapeSpec = tuple[type, dict]
+# Reshape spec: a class, or (class, keyword arguments) as the bundle configs write it.
+ReshapeSpec = Any
 DEFAULT_RESHAPE: ReshapeSpec = (Matricize, {"num_heads": 1, "grid_size": 1})
-# What ``factorize_options`` may hold.  The JAX package's other keys steer its
-# TPU kernels (``use_pallas``, ``explain``); here ``reference_kernels()`` is
-# the pure-torch mode.
-FACTORIZE_OPTIONS = ("use_windowed", "spatial_mesh", "spatial_axis")
+# The ``factorize_options`` keys that the mixer reads itself; every other key goes to the factorizer where its class
+# takes it, as in the JAX package.
+MIXER_OPTIONS = ("use_windowed", "spatial_mesh", "spatial_axis")
+# Keys of the JAX package that are refused by name: ``use_pallas`` and ``explain`` steer its TPU kernels (here
+# ``reference_kernels()`` is the pure-torch mode); ``split_shifts`` is not ported yet.
+REFUSED_OPTIONS = ("use_pallas", "explain", "split_shifts")
 
 
 def _spatial_option(factorize_options: Optional[dict]) -> Optional[tuple]:
@@ -89,9 +100,12 @@ def _slabs(module: nn.Module) -> Optional[Slabs]:
 class FactMixer(nn.Module):
     """Token mixing: project -> act -> fold -> factorize -> unfold -> project.
 
-    ``factorize`` is the factorizer class (:class:`NMF`, the only one
-    ported); ``factorize_kwargs`` go to it (``rank``, ``num_iters``,
-    ``num_grad_steps``, ``init_method``, ``solver``).
+    ``factorize`` is the factorizer spec (:class:`NMF` by default,
+    ``MatrixFactorization``, ``SVD``, ``(class, kwargs)``); it is built with
+    the folded matrices' size and the entries of ``factorize_kwargs`` (the
+    model's ``rank``, ``compression``, ``num_iters``, ``num_grad_steps``,
+    ``init_method``, ``solver``) and of ``factorize_options`` that its class
+    takes, ``factorize_options`` first, ``init`` read as ``init_method``.
     ``factorize_options={"use_windowed": False}`` takes a mixer that K1 would
     compute to the flat route instead (fold -> NMF -> unfold, K4).  It is the
     JAX package's opt-out, kept so that its configurations carry over and so
@@ -124,28 +138,42 @@ class FactMixer(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
-        if factorize is not NMF:
-            name = getattr(factorize, "__name__", repr(factorize))
-            raise NotImplementedError(f"factorize={name} is not ported: the Factorizer takes NMF")
-        unknown = sorted(set(factorize_options or {}) - set(FACTORIZE_OPTIONS))
-        if unknown:
-            raise ValueError(f"factorize_options takes {FACTORIZE_OPTIONS}, got {unknown}")
+        refused = [key for key in REFUSED_OPTIONS if key in (factorize_options or {})]
+        if refused:
+            raise ValueError(f"factorize_options {refused} are not ported: use_pallas and explain steer the JAX "
+                             "package's TPU kernels (reference_kernels() is the pure-torch mode), split_shifts is "
+                             "not ported yet")
+        fact_fn = partialize(factorize)
+        if not has_args(fact_fn, "size"):
+            name = getattr(getattr(fact_fn, "func", fact_fn), "__name__", repr(factorize))
+            raise NotImplementedError(f"factorize={name} is no matrix factorizer (a class taking the matrices' size): "
+                                      "the Factorizer takes NMF, MatrixFactorization, SVD or another such class")
         kw = dict(dtype=dtype, device=device, generator=generator)
         self.in_proj = Linear(in_channels, out_channels, bias=False, **kw)
-        cls, reshape_kwargs = reshape
-        self.reshape = cls((None, *spatial_size, out_channels), **reshape_kwargs)
+        reshape_kwargs = {}
+        if spec_accepts(reshape, "data_format"):
+            reshape_kwargs["data_format"] = "channels_last"
+        self.reshape = partialize(reshape)((None, *spatial_size, out_channels), **reshape_kwargs)
         self.act = ACTIVATIONS[act]
-        self.factorize = factorize(tuple(self.reshape.output_size[2:]), device=device, generator=generator,
-                                   **(factorize_kwargs or {}))
+        options = dict(factorize_options or {})
+        for key, value in (factorize_kwargs or {}).items():
+            if value is not None:
+                options.setdefault(key, value)
+        options = translate_mf_kwargs(options)
+        options = {k: v for k, v in options.items()
+                   if k not in ("device", "generator") and (spec_accepts(factorize, k) or has_args(fact_fn, k))}
+        self.factorize = build_spec(factorize, tuple(self.reshape.output_size[2:]),
+                                    context={"device": device, "generator": generator}, **options)
         self.out_proj = Linear(out_channels, out_channels, bias=True, **kw)
         opted_out = (factorize_options or {}).get("use_windowed") is False
-        self.windowed = None if opted_out else self._windowed_config(len(spatial_size))
+        self.windowed = None if opted_out else self._windowed_config(tuple(spatial_size), out_channels)
         self.spatial = _spatial_option(factorize_options)
         if self.spatial is not None:
             if self.windowed is None:
                 raise ValueError(
                     "factorize_options['spatial_mesh'] needs a mixer that the windowed kernel computes (3-D, a head_dim, "
-                    "cubic patches, rank-1 hals or mu, use_windowed not False): the flat route has no sharded form"
+                    "cubic patches, rank-1 hals or mu from a RandomInit, use_windowed not False): the flat route has no "
+                    "sharded form"
                 )
             mesh, axis = self.spatial
             n, patch = mesh.axis_size(axis), self.windowed[1]
@@ -156,27 +184,33 @@ class FactMixer(nn.Module):
                 )
             self.slab_rows = spatial_size[0] // n
 
-    def _windowed_config(self, spatial_dims: int) -> Optional[tuple[int, int, tuple]]:
-        """``(head_dim, patch, shifts)`` when K1 computes this mixer, else None."""
+    def _windowed_config(self, spatial_size: tuple, channels: int) -> Optional[tuple[int, int, tuple]]:
+        """``(head_dim, patch, shifts)`` when K1 computes this mixer, else None (the JAX package's
+        ``_fused_fallback_reason`` is None exactly then, its TPU check aside)."""
         if isinstance(self.reshape, SWMatricize):
             mats = self.reshape.shifted_windows
         elif isinstance(self.reshape, Matricize):
             mats = [self.reshape]
         else:
             return None
-        ax = mats[0].axis_sizes
-        ps = [ax.get(f"p{i}") for i in range(3)]
         fact = self.factorize
+        if not isinstance(fact, MatrixFactorization) or len(spatial_size) != 3:
+            return None
+        ax = mats[0].axis_sizes
+        d, ps = ax.get("d"), [ax.get(f"p{i}") for i in range(3)]
+        if mats[0].data_format != "channels_last" or d is None or ps[0] is None or ps.count(ps[0]) != 3:
+            return None
         if (
-            spatial_dims != 3
-            or "d" not in ax
-            or ps[0] is None
-            or ps.count(ps[0]) != 3
-            or fact.rank != 1
+            not isinstance(fact.solver, str)
+            or fact.project is not None
+            or not isinstance(fact.init, RandomInit)
+            or fact.rank_ != 1
             or fact.solver not in ("hals", "mu")
+            or channels % d
+            or any(s % ps[0] for s in spatial_size)
         ):
             return None
-        return ax["d"], ps[0], tuple(m.shifts for m in mats)
+        return d, ps[0], tuple(m.shifts for m in mats)
 
     def gathers(self, x: torch.Tensor) -> bool:
         """Whether this process's slab ``x`` is gathered around K1 instead of running K5 (the spatial step's one rule).
@@ -204,7 +238,7 @@ class FactMixer(nn.Module):
         out = self.act(self.in_proj(x))  # elementwise, so it commutes with the fold
         if self.windowed is not None:
             fact = self.factorize
-            config = (fact.init.u0, fact.init.v0, *self.windowed, fact.solver, fact.num_iters, fact.eps,
+            config = (fact.init.u0, fact.init.v0, *self.windowed, fact.solver, fact.num_iters, fact.kernel_eps,
                       fact.num_grad_steps)
             slabs = _slabs(self)
             if slabs is None:
@@ -257,8 +291,12 @@ class FactorizerBlock(nn.Module):
 class FactorizerStage(nn.Module):
     """One resolution stage: channel adapter, optional positional embedding, ``depth`` blocks.
 
-    Under ``factorize_options["spatial_mesh"]``, or with ``slabs`` set, the
-    stage runs on a slab and adds the slab's rows of the embedding.
+    ``pos_embed`` is an embedding spec (``PositionalEmbedding``,
+    ``SinusoidalPositionalEmbedding``, ``RotaryPositionalEmbedding``,
+    ``AxialPositionalEmbedding``, ``(class, kwargs)``) built with the width and
+    the stage's size, or None; ``True`` means ``PositionalEmbedding``.  Under
+    ``factorize_options["spatial_mesh"]``, or with ``slabs`` set, the stage runs
+    on a slab and adds the slab's rows of the embedding.
     """
 
     # This process's parallel.slabs.Slabs while the model runs on slabs, else None.
@@ -270,7 +308,7 @@ class FactorizerStage(nn.Module):
         out_channels: int,
         spatial_size: Sequence[int],
         depth: int = 1,
-        pos_embed: bool = False,
+        pos_embed: Any = None,
         dtype: Optional[torch.dtype] = None,
         device=None,
         generator: Optional[torch.Generator] = None,
@@ -279,9 +317,11 @@ class FactorizerStage(nn.Module):
         super().__init__()
         kw = dict(dtype=dtype, device=device, generator=generator)
         self.adapter = Linear(in_channels, out_channels, bias=False, **kw) if in_channels != out_channels else None
+        if pos_embed is True:
+            pos_embed = PositionalEmbedding
         self.pos_embed = (
-            PositionalEmbedding(out_channels, tuple(spatial_size), device=device, generator=generator)
-            if pos_embed
+            build_spec(pos_embed, out_channels, tuple(spatial_size), context={"device": device, "generator": generator})
+            if pos_embed not in (None, False)
             else None
         )
         self.spatial = _spatial_option(block_kwargs.get("factorize_options"))
@@ -303,13 +343,15 @@ class FactorizerStage(nn.Module):
 
 
 class Factorizer(UNet):
-    """Swin-Factorizer segmentation U-Net; the bottleneck stage carries a positional embedding.
+    """Swin-Factorizer segmentation U-Net; the bottleneck stage carries the positional embedding ``pos_embed``.
 
-    Factorization options left at None take :class:`NMF`'s defaults, as in the
-    JAX model.  ``spatial_size`` of length 2 builds the 2-D model, whose mixers
-    take the flat route; ``factorize_options`` goes to every :class:`FactMixer`.
-    ``norm``, ``factorize`` and ``remat`` are the bundles' keys of the same
-    names: the blocks' norm, the factorizer (:class:`NMF`) and
+    Factorization options left at None take the factorizer's defaults, as in
+    the JAX model.  ``spatial_size`` of length 2 builds the 2-D model, whose
+    mixers take the flat route; ``factorize_options`` goes to every
+    :class:`FactMixer`.  ``norm``, ``factorize``, ``compression``,
+    ``pos_embed`` and ``remat`` are the bundles' keys of the same names: the
+    blocks' norm, the factorizer spec, the auto-rank rule's target when
+    ``rank`` is None, the bottleneck's embedding spec (None: none), and
     rematerialisation of each stage in the backward (:class:`UNet`).
     """
 
@@ -339,24 +381,26 @@ class Factorizer(UNet):
         rank: Optional[int] = None,
         num_iters: Optional[int] = None,
         num_grad_steps: Optional[int] = None,
-        init_method: Optional[str] = None,
-        solver: Optional[str] = None,
+        init_method: Any = None,
+        solver: Any = None,
         factorize_options: Optional[dict[str, Any]] = None,
         norm: NormSpec = LayerNorm,
         factorize: Any = NMF,
         remat: bool = False,
+        compression: Optional[float] = None,
+        pos_embed: Any = PositionalEmbedding,
         dtype: Optional[torch.dtype] = None,
         device=None,
         generator: Optional[torch.Generator] = None,
     ) -> None:
-        fact_opts = dict(rank=rank, num_iters=num_iters, num_grad_steps=num_grad_steps,
+        fact_opts = dict(rank=rank, compression=compression, num_iters=num_iters, num_grad_steps=num_grad_steps,
                          init_method=init_method, solver=solver)
         factorize_kwargs = {k: v for k, v in fact_opts.items() if v is not None}
         bottleneck = len(encoder_depth) - 1
 
         def stage(i: int, cin: int, cout: int, depth: int, size: tuple) -> nn.Module:
             return FactorizerStage(
-                cin, cout, size, depth, pos_embed=i == bottleneck, mlp_ratio=mlp_ratio,
+                cin, cout, size, depth, pos_embed=pos_embed if i == bottleneck else None, mlp_ratio=mlp_ratio,
                 reshape=reshape, act=act, factorize_kwargs=factorize_kwargs, factorize_options=factorize_options,
                 norm=norm, factorize=factorize, dtype=dtype, device=device, generator=generator,
             )

@@ -1,4 +1,4 @@
-from .math import norm2, relative_error
+from .math import dot, kl_divergence, norm2, relative_error, softmax
 from .reshape import Matricize, Reshape, SWMatricize
 
-__all__ = ["Matricize", "Reshape", "SWMatricize", "norm2", "relative_error"]
+__all__ = ["Matricize", "Reshape", "SWMatricize", "dot", "kl_divergence", "norm2", "relative_error", "softmax"]

@@ -38,7 +38,8 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from ...factorization.solvers import EPS, SOLVER_DISPATCH_MAP
+from ...factorization.solvers import EPS, parse_solver
+from ...utils.helpers import partialize
 from . import build
 
 __all__ = ["nmf_reconstruct", "nmf_reconstruct_plain", "nmf_reconstruct_backward", "nmf_reconstruct_backward_plain",
@@ -213,8 +214,7 @@ def nmf_reconstruct_plain(
     """
     if solver not in SOLVERS:
         raise ValueError(f"solver must be one of {SOLVERS}, got {solver!r}")
-    cls, kwargs = SOLVER_DISPATCH_MAP[solver]
-    step = cls(eps=eps, **kwargs)  # one iteration: u from (x, v), then v from (x^T, u)
+    step = partialize(parse_solver(solver))(eps=eps)  # one iteration: u from (x, v), then v from (x^T, u)
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
     num_grad = num_iters if num_grad_steps is None else num_grad_steps
     k = num_iters - num_grad  # leading iterations outside autograd

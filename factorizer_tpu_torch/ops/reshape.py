@@ -1,8 +1,10 @@
 """Matricize / shifted-window matricize on torch tensors.
 
-PyTorch counterpart of ``factorizer_tpu/ops/reshape.py`` for channels-last
-volumes ``(B, *S, C)``, the layout inside the port's models.  The fold is the
-einops equation ``b (g0 p0)(g1 p1)(g2 p2)(h d) -> (b h)(g0 g1 g2) d (p0 p1 p2)``
+PyTorch counterpart of ``factorizer_tpu/ops/reshape.py``.  Channels-last
+volumes ``(B, *S, C)``, the layout inside the port's models, are the default
+here (the JAX package defaults to channels-first); ``data_format=
+"channels_first"`` takes ``(B, C, *S)``.  The channels-last fold is the einops
+equation ``b (g0 p0)(g1 p1)(g2 p2)(h d) -> (b h)(g0 g1 g2) d (p0 p1 p2)``
 (the patch index is ``p0``-major and ``d`` is the minor part of the channel
 index), preceded by ``torch.roll(+shift)`` over the spatial axes and undone
 exactly by the inverse equation and ``torch.roll(-shift)``.
@@ -24,6 +26,9 @@ from einops import rearrange
 from ..utils.helpers import to_ntuple
 
 __all__ = ["Reshape", "Matricize", "SWMatricize"]
+
+CHANNELS_FIRST = "channels_first"
+CHANNELS_LAST = "channels_last"
 
 
 def _parse_groups(pattern: str) -> list[list[str]]:
@@ -63,23 +68,27 @@ class Reshape:
     """Bidirectional einops reshape with optional cyclic shifts.
 
     ``inverse_forward(forward(x)) == x`` exactly for any input of the declared
-    ``input_size``.
+    ``input_size``; ``equation=None`` is the identity (the shifts still apply).
     """
 
     def __init__(
         self,
         input_size: Sequence[Optional[int]],
-        equation: str,
+        equation: Optional[str] = None,
         shifts: Optional[Sequence[int]] = None,
         dims: Optional[Sequence[int]] = None,
         **axis_sizes: int,
     ) -> None:
         self.input_size = tuple(input_size)
         self.equation = equation
-        left, right = (s.strip() for s in equation.split("->"))
-        self.axis_sizes = infer_axis_sizes(left, self.input_size, axis_sizes)
-        self.output_size = compute_size(right, self.axis_sizes)
-        self.equation_inv = f"{right} -> {left}"
+        if equation is None:
+            self.output_size = self.input_size
+            self.axis_sizes: dict[str, int] = {}
+        else:
+            left, right = (s.strip() for s in equation.split("->"))
+            self.axis_sizes = infer_axis_sizes(left, self.input_size, axis_sizes)
+            self.output_size = compute_size(right, self.axis_sizes)
+            self.equation_inv = f"{right} -> {left}"
         self.shifts = tuple(shifts) if shifts is not None else None
         if self.shifts is not None:
             self.shifts_inv = tuple(-s for s in self.shifts)
@@ -88,27 +97,32 @@ class Reshape:
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.shifts is not None:
             x = torch.roll(x, self.shifts, self.dims)
+        if self.equation is None:
+            return x
         return rearrange(x, self.equation, **self.axis_sizes)
 
     __call__ = forward
 
     def inverse_forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = rearrange(x, self.equation_inv, **self.axis_sizes)
+        if self.equation is not None:
+            x = rearrange(x, self.equation_inv, **self.axis_sizes)
         if self.shifts is not None:
             x = torch.roll(x, self.shifts_inv, self.dims)
         return x
 
 
 class Matricize(Reshape):
-    """Fold a channels-last volume into a batch of ``(head_dim, patch_voxels)`` matrices.
+    """Fold a volume into a batch of ``(head_dim, patch_voxels)`` matrices.
 
     Output shape ``(batch*heads, windows, head_dim, patch_voxels)``.
 
     Args:
-        input_size: ``(B, *S, C)``; entries may be None (e.g. the batch).
+        input_size: ``(B, *S, C)`` channels-last (the default) or ``(B, C, *S)``
+            channels-first; entries may be None (e.g. the batch).
         num_heads / head_dim: one of the two; ``C = h * d``.
         grid_size / patch_size: one of the two; ``S_i = g_i * p_i``.
         shifts: optional cyclic shift (scalar or per spatial axis).
+        data_format: ``"channels_last"`` or ``"channels_first"``.
     """
 
     def __init__(
@@ -119,14 +133,21 @@ class Matricize(Reshape):
         grid_size: Optional[int | Sequence[int]] = None,
         patch_size: Optional[int | Sequence[int]] = None,
         shifts: Optional[int | Sequence[int]] = None,
+        data_format: str = CHANNELS_LAST,
     ) -> None:
         if (num_heads, head_dim) == (None, None):
             raise ValueError("'num_heads' or 'head_dim' must be specified.")
         if (grid_size, patch_size) == (None, None):
             raise ValueError("'grid_size' or 'patch_size' must be specified.")
         p = len(input_size) - 2
+        self.data_format = data_format
         spatial = " ".join(f"(g{i} p{i})" for i in range(p))
-        left = f"b {spatial} (h d)"
+        if data_format == CHANNELS_FIRST:
+            left, spatial_axes = f"b (h d) {spatial}", tuple(range(2, 2 + p))
+        elif data_format == CHANNELS_LAST:
+            left, spatial_axes = f"b {spatial} (h d)", tuple(range(1, 1 + p))
+        else:
+            raise ValueError(f"Unknown data_format {data_format!r}.")
         grids = " ".join(f"g{i}" for i in range(p))
         patches = " ".join(f"p{i}" for i in range(p))
         equation = f"{left} -> (b h) ({grids}) d ({patches})"
@@ -142,7 +163,7 @@ class Matricize(Reshape):
         for j, q in enumerate(to_ntuple(patch_size, p)):
             if q is not None:
                 axis_sizes[f"p{j}"] = max(q, 1)
-        dims = tuple(range(1, 1 + p)) if shifts is not None else None
+        dims = spatial_axes if shifts is not None else None
         if shifts is not None:
             shifts = to_ntuple(shifts, p)
         super().__init__(input_size, equation=equation, shifts=shifts, dims=dims, **axis_sizes)
@@ -163,6 +184,7 @@ class SWMatricize:
         grid_size: Optional[int | Sequence[int]] = None,
         patch_size: Optional[int | Sequence[int]] = None,
         shifts: Optional[Sequence[None | int | Sequence[int]]] = None,
+        data_format: str = CHANNELS_LAST,
     ) -> None:
         p = len(input_size) - 2
         patch_size_t = to_ntuple(patch_size, p)
@@ -178,6 +200,7 @@ class SWMatricize:
                 grid_size=to_ntuple(grid_size, p),
                 patch_size=patch_size_t,
                 shifts=s,
+                data_format=data_format,
             )
             for s in shifts
         ]

@@ -1,4 +1,7 @@
-from .helpers import as_tuple, materialize, partialize, resolve_device, to_ntuple
+from .helpers import as_tuple, has_args, is_partializable, materialize, partialize, resolve_device, spec_accepts, to_ntuple
 from .weights import load_flax_variables
 
-__all__ = ["as_tuple", "materialize", "partialize", "resolve_device", "to_ntuple", "load_flax_variables"]
+__all__ = [
+    "as_tuple", "has_args", "is_partializable", "materialize", "partialize", "resolve_device", "spec_accepts", "to_ntuple",
+    "load_flax_variables",
+]

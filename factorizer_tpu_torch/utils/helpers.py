@@ -1,7 +1,11 @@
 """Helpers shared across the port: tuples, the ``partialize`` idiom, the default device, late-built models.
 
-``as_tuple``, ``to_ntuple``, ``has_args`` and ``partialize`` are the
-counterparts of the helpers in ``factorizer_tpu/utils/helpers.py``.
+``as_tuple``, ``to_ntuple``, ``has_args``, ``partialize`` and
+``is_partializable`` are the counterparts of the helpers in
+``factorizer_tpu/utils/helpers.py``, ``spec_accepts`` of the one in
+``factorizer_tpu/models/unet.py``.  ``build_spec`` builds a spec with the
+entries of a context (device, generator) that its class takes, which a Flax
+module never needs.
 ``resolve_device`` has none there (JAX places arrays on its default backend):
 it is the one place where the port's entry points turn ``device=None`` into
 the card.  ``materialize`` has none either: a Flax module takes its rank from
@@ -12,6 +16,7 @@ calls ``materialize``.
 
 from __future__ import annotations
 
+import dataclasses
 import inspect
 from collections.abc import Mapping, Sequence
 from functools import partial
@@ -19,7 +24,10 @@ from typing import Any, Callable, Optional
 
 import torch
 
-__all__ = ["as_tuple", "to_ntuple", "has_args", "partialize", "resolve_device", "materialize"]
+__all__ = [
+    "as_tuple", "to_ntuple", "has_args", "partialize", "is_partializable", "spec_accepts", "build_spec", "resolve_device",
+    "materialize",
+]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -89,6 +97,33 @@ def partialize(obj: Any) -> Callable:
                 args.append(item)
         return partial(obj[0], *args, **kwargs)
     raise TypeError(f"Expected a callable or (callable, args...) tuple, got {type(obj).__name__}")
+
+
+def is_partializable(obj: Any) -> bool:
+    """True if ``partialize(obj)`` would succeed."""
+    if callable(obj):
+        return True
+    return bool(isinstance(obj, Sequence) and obj and callable(obj[0]))
+
+
+def spec_accepts(spec: Any, key: str) -> bool:
+    """True if the class or callable under the partializable ``spec`` accepts keyword ``key``."""
+    fn = partialize(spec)
+    cls = getattr(fn, "func", fn)
+    if isinstance(cls, type) and dataclasses.is_dataclass(cls):
+        return any(f.name == key for f in dataclasses.fields(cls))
+    try:
+        return key in inspect.signature(cls).parameters
+    except (TypeError, ValueError):
+        return False
+
+
+def build_spec(spec: Any, *args, context: Mapping[str, Any], **kwargs) -> Any:
+    """``partialize(spec)(*args, **kwargs)`` with the entries of ``context`` (device, generator, ...) that its class
+    takes."""
+    fn = partialize(spec)
+    cls = getattr(fn, "func", fn)
+    return fn(*args, **kwargs, **{k: v for k, v in context.items() if has_args(cls, k)})
 
 
 def materialize(model: torch.nn.Module, spatial_dims: Optional[int] = None) -> torch.nn.Module:

@@ -8,8 +8,9 @@ and undoes the layout changes that ``convert_state_dict`` makes:
 * transposed-conv kernel ``(*k, I, O)`` -> weight ``(I, O, *k)``, un-flipped spatially
 * Dense kernel ``(I, O)``               -> Linear weight ``(O, I)``
 * LayerNorm ``scale``                   -> ``weight``
-* positional embedding ``(1, *S, C)``   -> ``(1, C, *S)``
-* NMF tables u0 / v0                    -> buffers ``factorize.init.u0`` / ``.v0``
+* positional embedding ``(1, *S, C)``   -> ``(1, C, *S)``; the axial tables ``pe{i}`` alike
+* NMF tables u0 / v0                    -> buffers ``factorize.init.u0`` / ``.v0`` (a ``RandomInit`` of either
+  method or a pair of them; a mixer without tables, an SVD init or ``SVD``, maps nothing)
 * Deconv ``h0`` and its ``linear`` head -> ``deconv.init.h0`` / ``deconv.init.linear``
 
 Convolutions of either rank (2-D images, 3-D volumes) go through the same rules.
@@ -82,6 +83,7 @@ _TOP_RULES: list[tuple[str, str, Transform]] = [
 _STAGE_RULES: list[tuple[str, str, Transform]] = [
     (r"adapter\.linear\.weight", "adapter_.linear.kernel", _linear_weight),
     (r"pos_embed\.pos", "pos_embed_.pos", _pos_embed),
+    (r"pos_embed\.(pe\d+)", "pos_embed_.{0}", _pos_embed),
     (r"blocks\.(\d+)\.norm(\d)\.norm\.weight", "block{0}.norm{1}.norm.scale", None),
     (r"blocks\.(\d+)\.norm(\d)\.norm\.bias", "block{0}.norm{1}.norm.bias", None),
     (r"blocks\.(\d+)\.fact\.(in_proj|out_proj)\.linear\.weight", "block{0}.fact.{1}.linear.kernel", _linear_weight),

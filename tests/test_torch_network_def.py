@@ -79,7 +79,7 @@ def test_bundle_factory_passes_remat(bundle):
 
 
 def test_factorizer_refuses_a_factorizer_it_does_not_port():
-    """``factorize`` other than NMF raises, naming the class."""
+    """``factorize`` that is no matrix factorizer (``Deconv``: no matrices' ``size``) raises, naming the class."""
     cls, kwargs = network_def("factorizer_brats23")
     with pytest.raises(NotImplementedError, match="Deconv"):
         cls(**{**kwargs, "factorize": ftt.Deconv}, device="cpu")

@@ -81,7 +81,11 @@ def test_nmf_bf16_solves_in_f32():
 
 @pytest.mark.parametrize("size,rank,compression", [((8, 64), None, 10.0), ((8, 512), None, 2.0), ((8, 64), 3, 10.0)])
 def test_auto_rank_matches_jax(size, rank, compression):
-    """rank=None takes the auto-rank rule ceil(MN / (compression (M+N))), as JAX's infer_rank."""
+    """rank=None takes the auto-rank rule ceil(MN / (compression (M+N))); infer_rank returns the pair
+    (rank, achieved compression) as JAX's infer_rank does, and the module keeps both as rank_ / compression_."""
     from factorizer_tpu.factorization.svd import infer_rank as infer_rank_jax
 
-    assert ftt.factorization.infer_rank(size, rank, compression) == infer_rank_jax(size, rank, compression)[0]
+    want = infer_rank_jax(size, rank, compression)
+    assert ftt.factorization.infer_rank(size, rank, compression) == want
+    m = ftt.NMF(size, rank=rank, compression=compression)
+    assert (m.rank_, m.compression_) == want
