@@ -133,14 +133,20 @@ Phases, one or more result lines each:
      launches per step and process by kernel (K5 on the mixers on slabs, K1 on the gathered ones, K2 in every tail;
      K5's tails), loss, gradient norm and parameters against the one-process steps on the whole volume as in 21;
      one more step with each exchange timed; then a forward's loss under each gather rule from the same weights (the
-     rule, and the slabs thinner than a patch alone gathered) and 3 steps of each in turns, timed.  Its launches are
-     in the kernels line.
+     rule, and the slabs thinner than a patch alone gathered) and 3 steps of each in turns, timed.  Then the other
+     families' bundles at full width from their unedited network_def, f32, 1 warm-up and 2 steps each:
+     deconver_brats23, nnunet_brats23 and segresnet_brats23 at 2 x 128^3, swinunetr_isles22 at 8 x 64^3 (cuDNN's
+     timing search) and deconver_fives at 16 x 512^2 (slabs of H): loss and gradient norm against the one-process
+     step on the same batch, s/step and peak memory per process beside the one-process step's, launches per step and
+     process equal to the one-process step's (54 K3 forward and dx, 27 K3 dw for a Deconver), one more step with each
+     exchange timed (the convolutions' halos, the norms' slab sums, the gathers, the loss's sums, the gradient
+     all-reduce).  Its launches are in the kernels line.
  26. the data-parallel bundle programs: factorizer_brats23's and deconver_brats23's train.yaml + train_multidevice.yaml
      for 1 epoch each through `python -m torch.distributed.run --nproc_per_node 2 -m factorizer_tpu_torch.bundle run`
      on phase 23's cases (each process its 2 of the 4 training cases): exit 0, each process's epoch loss equal, one
      checkpoint, written by the primary; s/epoch beside train.yaml's first epoch in one process.
- 27. the spatial bundle program: factorizer_brats23's train.yaml + train_tp.yaml for 1 epoch the same way (2 spatial
-     steps on the 4 cases, a validation of whole volumes on each process).  26 and 27 run inside 23's directory and
+ 27. the spatial bundle programs: factorizer_brats23's train.yaml + train_tp.yaml for 1 epoch the same way (2 spatial
+     steps on the 4 cases, a validation of whole volumes on each process), then deconver_brats23's (no validation).  26 and 27 run inside 23's directory and
      are left out of the kernels line.
  28. (run after 17) the rest of the factorization engine, selected by network_def keys: factorizer_brats23's unedited
      train.yaml network_def through the port's ConfigParser with the bundle's seed (full width, 128^3, f32) under one
@@ -454,6 +460,35 @@ def synthetic_batch(b: int, c_in: int, c_out: int, size: int, seed: int) -> dict
     return {"image": image, "label": (field > 0.3).float()}
 
 
+def roi_batch(b: int, c_in: int, c_out: int, roi: tuple, seed: int) -> dict:
+    """:func:`synthetic_batch` at a cubic 3-D roi; at a 2-D roi a ``randn`` image and a thresholded smooth field."""
+    import torch
+    import torch.nn.functional as F
+
+    if len(roi) == 3:
+        return synthetic_batch(b, c_in, c_out, roi[0], seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    field = F.interpolate(torch.randn(b, c_out, 16, 16, device="cuda", generator=g), size=roi, mode="bilinear")
+    return {"image": torch.randn(b, c_in, *roi, device="cuda", generator=g), "label": (field > 0.3).float()}
+
+
+def bundle_network(bundle: str, amp: bool = False) -> tuple:
+    """The bundle's ``network_def`` from its unedited ``train.yaml`` through the port's ConfigParser, weights from the
+    bundle's seed, built on the card for its roi's rank; and the config."""
+    from pathlib import Path
+
+    from factorizer_tpu_torch.config import ConfigParser, load_config_files, merge_config
+    from factorizer_tpu_torch.utils.helpers import materialize
+
+    configs = Path(__file__).resolve().parent / "zoo" / bundle / "configs"
+    cfg = merge_config(load_config_files([configs / "train.yaml"]), {"bundle_root": str(configs.parent), "amp": amp})
+    parser = ConfigParser(cfg)
+    parser.seed(cfg["seed"])
+    model = materialize(parser["network_def"], len(cfg["roi_size"]))
+    check(next(model.parameters()).is_cuda, f"{bundle}: the network did not build on the card")
+    return model, cfg
+
+
 def brats23_stage0(factorize_options=None):
     """Stage 0 of ``brats23_network()`` on its own: one block of 32 channels on 128^3, weights from seed 0."""
     import torch
@@ -688,6 +723,12 @@ def train_dp_slice(world: int, settings: dict, n_steps: int) -> dict:
 # volume side, patch, rows its shifts move along the first axis (the sum of their s1), steps after the warm-up).
 TP_CASES = {"factorizer_brats23": ("brats23_network", 2, 4, 3, 128, 8, 2 + 4 + 6, 3),
             "factorizer_isles22": ("factorizer_isles22_network", 8, 2, 1, 64, 4, 1 + 2 + 3, 2)}
+# The other model families' spatial step: bundle -> (its batch, its roi, steps after the warm-up, cuDNN's
+# timing search), each bundle's unedited network_def at full width in f32.  The CNNs take cuDNN's heuristics (its
+# search takes minutes for full-width 3-D f32 convolutions with TF32 off), SwinUNETR its search, as in [baselines].
+TP_BUNDLES = {"deconver_brats23": (2, (128, 128, 128), 2, False), "nnunet_brats23": (2, (128, 128, 128), 2, False),
+              "segresnet_brats23": (2, (128, 128, 128), 2, False), "swinunetr_isles22": (8, (64, 64, 64), 2, True),
+              "deconver_fives": (16, (512, 512), 2, False)}
 
 
 def tp_routes(side: int, patch: int, moved: int, world: int, itemsize: int = 4) -> dict:
@@ -717,8 +758,11 @@ def gather_thinner_than_patch(self, x) -> bool:
 @contextlib.contextmanager
 def exchange_timer(spent: dict):
     """Within the block, each exchange of the spatial step is timed (a synchronize before and after it) into
-    ``spent[label] = [seconds, calls]``: K5's halos and routed rows, the stem's halo, the gathered stages, the loss's
-    sums, the gradient all-reduce and the batch broadcast."""
+    ``spent[label] = [seconds, calls]``: K5's halos and routed rows, the convolutions' halos (the stem's, every
+    k3's, Deconv's, the resize's), the norms' statistics (``slab_sum``, forward and backward), the gathered stages,
+    the loss's sums, the gradient all-reduce and the batch broadcast."""
+    import inspect
+
     import torch
 
     import factorizer_tpu_torch.ops.kernels.windowed_sharded as k5
@@ -726,12 +770,13 @@ def exchange_timer(spent: dict):
     import factorizer_tpu_torch.train.losses as losses
     import factorizer_tpu_torch.train.trainer as trainer
 
-    targets = [(k5, "ring_exchange", "K5 halos and routed rows"), (collectives, "_line_shift", "stem halo"),
-               (collectives, "all_gather_cat", "gathered stages"), (losses, "all_reduce_sum", "loss sums"),
+    targets = [(k5, "ring_exchange", "K5 halos and routed rows"), (collectives, "_line_shift", "conv halos"),
+               (collectives._SlabSum, "forward", "norm sums"), (collectives._SlabSum, "backward", "norm sums"),
+               (collectives, "all_gather_cat", "gathers"), (losses, "all_reduce_sum", "loss sums"),
                (trainer, "_sum_grads", "gradient all-reduce"), (trainer, "broadcast_from_first", "batch broadcast")]
     saved = []
-    for module, name, label in targets:
-        fn = getattr(module, name)
+    for owner, name, label in targets:
+        fn = getattr(owner, name)
         spent[label] = [0.0, 0]
 
         def timed(*args, _fn=fn, _label=label, **kwargs):
@@ -743,20 +788,21 @@ def exchange_timer(spent: dict):
             spent[_label][1] += 1
             return out
 
-        saved.append((module, name, fn))
-        setattr(module, name, timed)
+        saved.append((owner, name, inspect.getattr_static(owner, name)))
+        setattr(owner, name, staticmethod(timed) if isinstance(owner, type) else timed)
     try:
         yield spent
     finally:
-        for module, name, fn in saved:
-            setattr(module, name, fn)
+        for owner, name, raw in saved:
+            setattr(owner, name, raw)
 
 
 def train_tp_worker(rank: int, world: int, init_method: str, settings: dict) -> dict:
     """The spatial step (``make_train_step(model, mesh=model_parallel_mesh(), spatial_axis="model")``) on this
     process's slabs: ``TP_CASES`` in turn, 1 warm-up and the case's steps each; launches per step, losses, norms,
     seconds, peak memory.  After factorizer_brats23's steps: one more step with its exchanges timed, the loss of a
-    forward under each gather rule, and six steps in turns under the rule and :func:`gather_thinner_than_patch`."""
+    forward under each gather rule, and six steps in turns under the rule and :func:`gather_thinner_than_patch`.
+    Then ``TP_BUNDLES`` the same way, each with one more step with its exchanges timed."""
     import torch
 
     from factorizer_tpu_torch import zoo_scripts
@@ -826,14 +872,43 @@ def train_tp_worker(rank: int, world: int, init_method: str, settings: dict) -> 
         del state, step, batch
         gc.collect()
         torch.cuda.empty_cache()
+    for bundle, (b, roi, n_steps, search) in TP_BUNDLES.items():
+        torch.backends.cudnn.benchmark = search
+        model, cfg = bundle_network(bundle)
+        state = create_train_state(model, lr=cfg["learning_rate"], weight_decay=cfg["weight_decay"])
+        step = make_train_step(state.model, mesh=mesh, spatial_axis="model")
+        net = cfg["network_def"]
+        batch = roi_batch(b, net["in_channels"], net["out_channels"], roi, seed=7)
+        run = {"losses": [], "norms": [], "seconds": [], "counts": [], "peak_memory": 0}
+        for i in range(1 + n_steps):
+            state, metrics, seconds, counts, _ = timed_step(state, step, batch)
+            for key, value in zip(("seconds", "counts", "losses", "norms"),
+                                  (seconds, counts, metrics["loss"].item(), metrics["grad_norm"].item())):
+                run[key].append(value)
+            if i:
+                run["peak_memory"] = max(run["peak_memory"], torch.cuda.max_memory_allocated())
+        run["param_sum"] = sum(p.detach().double().sum().item() for p in state.model.parameters())
+        spent = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with exchange_timer(spent):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        run["instrumented"] = (time.perf_counter() - t0, spent)
+        report[bundle] = run
+        del model, state, step, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = True
     return report
 
 
 def train_tp_slice(world: int, settings: dict) -> dict:
     """Phase 25: ``world`` processes take the spatial step of factorizer_brats23 (2 x 128^3) and factorizer_isles22
     (8 x 64^3) on slabs of the volumes' first axis, held against the one-process steps on the whole volumes as
-    ``[train dp]`` is; then the two gather rules in turns.  Returns the launches of all processes and of the steps
-    held against the one-process steps, by kernel."""
+    ``[train dp]`` is; then the two gather rules in turns; then ``TP_BUNDLES`` (the Deconver, DynUNet, SegResNet and
+    SwinUNETR bundles), each held against the one-process step on the same batch: loss and gradient norm, the same
+    launches per step on every process as in one.  Returns the launches of all processes, by kernel."""
     import torch
 
     from factorizer_tpu_torch import zoo_scripts
@@ -842,7 +917,7 @@ def train_tp_slice(world: int, settings: dict) -> dict:
 
     dev = torch.device("cuda", torch.cuda.current_device())
     t0 = time.perf_counter()
-    reports = run_processes(train_tp_worker, world, settings, timeout=500)
+    reports = run_processes(train_tp_worker, world, settings, timeout=900)
     started = time.perf_counter() - t0
     launches = dict.fromkeys(kernel_counters(), 0)
     lr = settings["lr"]
@@ -922,6 +997,66 @@ def train_tp_slice(world: int, settings: dict) -> dict:
           + f" ({started:.1f} s with start-up)")
     check(abs(rule_losses["rule"] - rule_losses["other"]) <= TRAIN_RTOL["float32"]["loss"] * abs(rule_losses["rule"]),
           f"train tp: the two gather rules give different losses: {rule_losses}")
+    counters = kernel_counters()
+    for bundle, (b, roi, n_steps, search) in TP_BUNDLES.items():
+        torch.backends.cudnn.benchmark = search
+        model, cfg = bundle_network(bundle)
+        n_params = sum(p.numel() for p in model.parameters())
+        state = create_train_state(model, lr=cfg["learning_rate"], weight_decay=cfg["weight_decay"])
+        step = make_train_step(state.model)
+        net = cfg["network_def"]
+        batch = roi_batch(b, net["in_channels"], net["out_channels"], roi, seed=7)
+        ref_losses, ref_norms, ref_seconds, ref_counts = [], [], [], []
+        for i in range(1 + n_steps):
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+            reset_counters(counters)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            ref_seconds.append(time.perf_counter() - t1)
+            ref_counts.append({k: v for k, v in read_counters(counters).items() if v})
+            ref_losses.append(metrics["loss"].item())
+            ref_norms.append(metrics["grad_norm"].item())
+        ref_peak = torch.cuda.max_memory_allocated()
+        for rank, report in enumerate(reports):
+            r = report[bundle]
+            for counts, want in zip(r["counts"], ref_counts):
+                check({k: v for k, v in counts.items() if v} == want,
+                      f"train tp {bundle} rank {rank}: launches {counts}, the one-process step's {want}")
+                for k, v in counts.items():
+                    launches[k] += v
+            check(r["losses"] == reports[0][bundle]["losses"] and r["norms"] == reports[0][bundle]["norms"]
+                  and abs(r["param_sum"] - reports[0][bundle]["param_sum"]) <= 1e-9 * abs(r["param_sum"]),
+                  f"train tp {bundle}: the processes report different metrics or parameters: {r['losses']} / "
+                  f"{reports[0][bundle]['losses']}")
+        r = reports[0][bundle]
+        check(all(map(math.isfinite, r["losses"] + r["norms"])), f"train tp {bundle}: {r['losses']}, {r['norms']}")
+        loss_rel = max(abs(a - c) / abs(c) for a, c in zip(r["losses"], ref_losses))
+        norm_rel = max(abs(a - c) / c for a, c in zip(r["norms"], ref_norms))
+        total, spent = r["instrumented"]
+        side = "x".join(map(str, roi))
+        print(f"[train tp] {bundle}: the unedited network_def ({type(model).__name__}, {n_params / 1e6:.2f}M parameters) "
+              f"through make_train_step(mesh=model_parallel_mesh(), spatial_axis='model') ({reports[0]['backend']}), "
+              f"batch {b} x {side} on {world} slabs of {roi[0] // world} rows, float32, cuDNN's "
+              f"{'timing search' if search else 'heuristics'}: "
+              f"{' / '.join(f'{statistics.mean(q[bundle]['seconds'][1:]):.4f}' for q in reports)} s/step per process, "
+              f"one-process step {statistics.mean(ref_seconds[1:]):.4f} s (warm-up {r['seconds'][0]:.2f} s / "
+              f"{ref_seconds[0]:.2f} s); peak memory per process "
+              f"{' / '.join(f'{q[bundle]['peak_memory'] / 2**30:.2f}' for q in reports)} GiB, one process "
+              f"{ref_peak / 2**30:.2f} GiB; loss {' -> '.join(f'{v:.6f}' for v in r['losses'])}; launches per step and "
+              f"process {ref_counts[-1] or 'none of the port'} as in one process; against the one-process steps: loss "
+              f"rel {loss_rel:.2e} (tol {TRAIN_RTOL['float32']['loss']:.0e}), grad norm rel {norm_rel:.2e} (tol "
+              f"{TRAIN_RTOL['float32']['grad']:.0e}). One more step on process 0, {total:.4f} s with a synchronize "
+              f"around each exchange: " + ", ".join(f"{k} {v[0]:.4f} s ({v[1]} calls)" for k, v in spent.items() if v[1])
+              + f", the rest {total - sum(v[0] for v in spent.values()):.4f} s. " + shared_card_note(world))
+        check(loss_rel <= TRAIN_RTOL["float32"]["loss"] and norm_rel <= TRAIN_RTOL["float32"]["grad"],
+              f"train tp {bundle}: loss {r['losses']} / {ref_losses}, grad norm {r['norms']} / {ref_norms}")
+        del model, state, step, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = True
     return launches
 
 
@@ -1487,7 +1622,7 @@ def free_port() -> int:
 
 def multidevice_programs(repo, root, data: dict, train_epoch_s: float) -> None:
     """Phases 26 and 27, on ``[bundle]``'s cases: ``train.yaml`` + ``train_multidevice.yaml`` of factorizer_brats23
-    and deconver_brats23, then ``train.yaml`` + ``train_tp.yaml`` of factorizer_brats23, 1 epoch each, through
+    and deconver_brats23, then ``train.yaml`` + ``train_tp.yaml`` of both, 1 epoch each, through
     ``python -m torch.distributed.run --nproc_per_node 2 -m factorizer_tpu_torch.bundle run``: exit 0, each
     process's epoch losses equal, one checkpoint, written by the primary; s/epoch beside ``train.yaml``'s."""
     from pathlib import Path
@@ -1534,6 +1669,13 @@ def multidevice_programs(repo, root, data: dict, train_epoch_s: float) -> None:
           f"processes, validation of whole volumes on each process, mean Dice {record['mean_dice']:.4f}; one checkpoint "
           f"step_1.pt written by the primary. " + shared_card_note(2))
     check(0.0 <= record["mean_dice"] <= 1.0, f"bundle tp: mean Dice {record['mean_dice']}")
+    seconds, record, losses, backend = torchrun(
+        "deconver_brats23", "train_tp.yaml", {**data, "output_dir": str(root / "deconver_tp"), "max_epochs": 1,
+                                              "val_interval": 0})
+    print(f"[bundle tp] deconver_brats23 train.yaml + train_tp.yaml (torchrun, 2 processes, {backend}, one card, a "
+          f"model axis of 2): {seconds:.1f} s end to end, epoch {record['time_s']:.3f} s of 2 spatial steps on 4 cases, "
+          f"K3 on haloed slabs (the epoch of train.yaml in one process: [bundle]'s line), loss {losses[0][0]:.6f} on "
+          f"both processes; one checkpoint step_1.pt written by the primary. " + shared_card_note(2))
 
 
 # The baseline bundles on the card (`[baselines]`): name -> (served input, roi, the training batch), from their
@@ -1571,39 +1713,18 @@ def baselines_slice(counters: dict) -> None:
     convolutions, its timing search the transformers' (``BASELINE_BENCHMARK``).  The launch counters must read 0
     throughout."""
     import copy
-    from pathlib import Path
 
     import torch
-    import torch.nn.functional as F
 
     import factorizer_tpu_torch as ftt
-    from factorizer_tpu_torch.config import ConfigParser, load_config_files, merge_config
     from factorizer_tpu_torch.train.sliding_window import sliding_window_positions
     from factorizer_tpu_torch.train.trainer import create_train_state, make_train_step
-    from factorizer_tpu_torch.utils.helpers import materialize
     from factorizer_tpu_torch.zoo_scripts import ensemble_predict
 
-    repo = Path(__file__).resolve().parent
     dev = torch.device("cuda", torch.cuda.current_device())
     t_phase = time.perf_counter()
     reset_counters(counters)
     gen = torch.Generator(device=dev)
-
-    def network_def(bundle: str, amp: bool) -> tuple:
-        configs = repo / "zoo" / bundle / "configs"
-        cfg = merge_config(load_config_files([configs / "train.yaml"]), {"bundle_root": str(configs.parent), "amp": amp})
-        parser = ConfigParser(cfg)
-        parser.seed(cfg["seed"])
-        model = materialize(parser["network_def"], len(cfg["roi_size"]))
-        check(next(model.parameters()).is_cuda, f"baselines {bundle}: the network did not build on the card")
-        return model, cfg
-
-    def train_batch(b: int, c_in: int, c_out: int, roi: tuple, seed: int) -> dict:
-        if len(roi) == 3:
-            return synthetic_batch(b, c_in, c_out, roi[0], seed)
-        g = torch.Generator(device="cuda").manual_seed(seed)
-        field = F.interpolate(torch.randn(b, c_out, 16, 16, device="cuda", generator=g), size=roi, mode="bilinear")
-        return {"image": torch.randn(b, c_in, *roi, device="cuda", generator=g), "label": (field > 0.3).float()}
 
     def steps(model, batch: dict, cfg: dict, tag: str) -> tuple:
         state = create_train_state(model, lr=cfg["learning_rate"], weight_decay=cfg["weight_decay"])
@@ -1630,7 +1751,7 @@ def baselines_slice(counters: dict) -> None:
     for bundle, (volume, roi, b) in BASELINE_BUNDLES.items():
         t_bundle = time.perf_counter()
         choice = cudnn_choice(bundle)
-        model, cfg = network_def(bundle, amp=False)
+        model, cfg = bundle_network(bundle, amp=False)
         name = type(model).__name__
         n_params = sum(p.numel() for p in model.parameters())
         c_in, c_out = volume[1], 3 if bundle.endswith("brats23") else 1
@@ -1663,7 +1784,7 @@ def baselines_slice(counters: dict) -> None:
         check(bool(torch.isfinite(got).all()) and rel <= CPU_RTOL, f"baselines {bundle}: card vs CPU logits {rel:.3e}")
         del requests, probs, got, ref
         # train, float32
-        batch = train_batch(b, c_in, c_out, roi, seed=500)
+        batch = roi_batch(b, c_in, c_out, roi, seed=500)
         s_step, seconds, mem, losses = steps(model.train(), batch, cfg, f"baselines {bundle} float32")
         what = "s/volume" if len(roi) == 3 else "s per forward of 16 images"
         line = (f"[baselines] {bundle}: {name} ({n_params / 1e6:.2f}M parameters) float32, {choice}; serve {tuple(volume)} at roi "
@@ -1677,8 +1798,8 @@ def baselines_slice(counters: dict) -> None:
         gc.collect()
         torch.cuda.empty_cache()
         if bundle in BASELINE_AMP:
-            model, cfg = network_def(bundle, amp=True)
-            batch = train_batch(b, c_in, c_out, roi, seed=500)
+            model, cfg = bundle_network(bundle, amp=True)
+            batch = roi_batch(b, c_in, c_out, roi, seed=500)
             s16, seconds, mem16, losses = steps(model.train(), batch, cfg, f"baselines {bundle} bfloat16")
             line += (f"; bfloat16 (amp: true) train: {s16:.4f} s/step (steps " + ", ".join(f"{t:.4f}" for t in seconds[1:])
                      + f" s), peak {mem16:.2f} GiB, loss {' -> '.join(f'{v:.5f}' for v in losses)}")
@@ -2532,6 +2653,10 @@ def main() -> None:
         ((2, 32, 32, 32, 20), k3, torch.bfloat16, False, ("run", "run")),
         ((2, 32, 32, 32, 32), (3, 5, 5), torch.float32, False, ("tile", "run")),
         ((2, 64, 64, 64, 64), k3, torch.float16, False, ("tile", "tile")),       # the f16 instance
+        # The spatial step's slabs with their halos (train_tp.yaml on 2 slabs): deconver_brats23's stage 0, 64 + 2
+        # rows, and deconver_fives' stage 0, 256 + 6 rows of H.
+        ((2, 66, 128, 128, 32), k3, torch.float32, False, ("tile", "tile")),
+        ((16, 262, 512, 32), (7, 7), torch.float32, False, ("tile", "tile")),
     ]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     slower_than_library = []  # (line tag, label, per call or device, kernel / library)
@@ -2684,6 +2809,31 @@ def main() -> None:
 
     check(routes_seen == {False: set(ROUTES), True: set(ROUTES)},
           f"K3: the cases do not reach every route in both directions: {routes_seen}")
+    # What a slab's K3 call costs beyond K3 on the slab's own rows (Deconv on slabs): the halo rows' concatenation,
+    # K3 on the slab and its halo, the crop back to the slab, forward, dx and dw; a K3 mode "valid" along S1 would
+    # read the halo in place and approach the second time.  The neighbours' rows are random stand-ins here.
+    for shape, ks in (((2, 64, 128, 128, 32), k3), ((16, 256, 512, 32), (7, 7))):
+        width = ks[0] // 2
+        x, g, w = k3_inputs(shape, ks, torch.float32, False)
+        x.requires_grad_(True)
+        w.requires_grad_(True)
+        edges = [torch.randn(shape[0], width, *shape[2:], device=dev, generator=gen) for _ in range(2)]
+
+        def on_slab():
+            y = depthwise_conv(torch.cat([edges[0], x, edges[1]], 1), w, ks).narrow(1, width, shape[1])
+            return torch.autograd.grad(y, (x, w), g)
+
+        def alone():
+            return torch.autograd.grad(depthwise_conv(x, w, ks), (x, w), g)
+
+        slab_ms, alone_ms = cuda_time_ms(on_slab), cuda_time_ms(alone)
+        cat_ms = cuda_time_ms(lambda: torch.cat([edges[0], x.detach(), edges[1]], 1))
+        print(f"[K3 slab] {k3_label(shape, ks, torch.float32, False)}, a slab of {shape[1]} rows and a halo of {width} "
+              f"each side, forward + dx + dw through the autograd function: concatenation, K3 and crop {slab_ms:.3f} ms "
+              f"against K3 on the slab's rows alone {alone_ms:.3f} ms (+{slab_ms - alone_ms:.3f} ms, "
+              f"{slab_ms / alone_ms:.3f}x); the concatenation alone {cat_ms:.3f} ms")
+        del x, g, w, edges
+        torch.cuda.empty_cache()
     print("[K3] kernel slower than its library call at: "
           + ("; ".join(f"{tag} {label}, {how} ({r:.2f}x)" for tag, label, how, r in slower_than_library) or "no case"))
 

@@ -14,6 +14,15 @@ is one stock ``F.conv{1,2,3}d`` over the ``(1, B*C, *S)`` view with
 ``groups = B * groups``.  The JAX package's block-diagonal weight expansion
 and its kernel-selection switches work around the TPU compiler and have no
 counterpart here.
+
+On slabs (``parallel.slabs.on_slabs`` sets ``Deconv.slabs``) each convolution
+of the source update takes its own input's halo of ``k1 // 2`` rows from each
+neighbour (zeros beyond the volume), runs as it does on a whole tensor ("same"
+padding, K3 where depthwise) and keeps its slab's rows.  The crop's backward
+pads the cotangent with zeros, so K3's weight gradient counts the slab's own
+outputs alone, and the halo's backward hands its rows' cotangent back to the
+slab they came from.  The filter update (``update_filter``) correlates over
+the whole volume and has no slab path.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from torch import nn
 from ..layers.basic import _CONV, Linear, _uniform
 from ..ops.kernels import depthwise_conv
 from ..ops.math import relative_error
+from ..parallel.collectives import halo_exchange
 from ..utils.helpers import to_ntuple
 
 __all__ = ["Deconv", "DeconvInit", "batched_conv", "sconv"]
@@ -149,6 +159,9 @@ class Deconv(nn.Module):
         self.init = DeconvInit(channels, self.source_channels, self.groups, self.kernel_size,
                                dtype=dtype, device=device, generator=generator)
 
+    # This process's parallel.slabs.Slabs while the model runs on slabs, else None.
+    slabs = None
+
     # -- group split: "b ... (g c) -> (b g) ... c", "b (g c) s ... -> (b g) c s ..." and the latter's inverse
 
     def _split_x(self, x: torch.Tensor) -> torch.Tensor:
@@ -177,8 +190,14 @@ class Deconv(nn.Module):
         return x.to(dt), s, h
 
     def _conv(self, s: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-        """``conv(s, h)``: source (g*sc channels) -> signal (C channels), grouped."""
-        return batched_conv(s, h, self.padding, self.groups)
+        """``conv(s, h)`` at the layer's padding and groups (source -> signal, or with the adjoint filter back);
+        on slabs, on the slab and its halo, then cropped to the slab's rows."""
+        if self.slabs is None:
+            return batched_conv(s, h, self.padding, self.groups)
+        width, rows = self.kernel_size[0] // 2, s.shape[1]
+        if width:
+            s = halo_exchange(s, self.slabs.mesh, self.slabs.axis, width, dim=1)
+        return batched_conv(s, h, self.padding, self.groups).narrow(1, width, rows)
 
     def _adjoint_h(self, h: torch.Tensor) -> torch.Tensor:
         """The adjoint filter: ``(B, C, sc, *k) -> (B, g*sc, C/g, *k)``, spatially flipped."""
@@ -195,8 +214,8 @@ class Deconv(nn.Module):
     def update_s(self, x: torch.Tensor, s: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         """The multiplicative update of the source: three convolutions and a quotient."""
         h_adj = self._adjoint_h(h)
-        numerator = batched_conv(x, h_adj, self.padding, self.groups) + self.eps
-        denominator = batched_conv(self._conv(s, h), h_adj, self.padding, self.groups) + self.eps
+        numerator = self._conv(x, h_adj) + self.eps
+        denominator = self._conv(self._conv(s, h), h_adj) + self.eps
         return s * numerator / denominator
 
     def update_h(self, x: torch.Tensor, s: torch.Tensor, h: torch.Tensor) -> torch.Tensor:

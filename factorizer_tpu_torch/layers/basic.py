@@ -16,6 +16,12 @@ in ``±1/sqrt(fan_in)`` for kernels and biases) and moved to ``device``.
 them bare: their parameters sit on the module itself, flax's defaults hold
 (lecun-normal kernels and zero biases; LayerNorm's eps 1e-6), and the weight
 bridge reads them by class.
+
+On slabs (``parallel.slabs.on_slabs`` sets ``slabs`` on the layers that have a
+slab path) the norms take their statistics over the whole volume through
+``parallel.slab_sum``, a convolution exchanges a halo of its padding rows
+along the cut axis and pads none there, and a transposed convolution whose
+kernel equals its stride runs on its slab as it is.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import halo_exchange, slab_sum
 from ..utils.helpers import to_ntuple
 
 __all__ = ["Identity", "Linear", "Dense", "LayerNorm", "FlaxLayerNorm", "GroupNorm", "FlaxGroupNorm", "InstanceNorm",
@@ -178,17 +185,28 @@ class FlaxLayerNorm(nn.LayerNorm):
         return _layer_norm(x, self, self.eps, self.dtype)
 
 
-def _group_norm(x: torch.Tensor, groups: int, weight, bias, eps: float, dtype) -> torch.Tensor:
+def _group_norm(x: torch.Tensor, groups: int, weight, bias, eps: float, dtype, slabs=None) -> torch.Tensor:
     """Normalise ``x (B, *S, C)`` over the spatial axes and the channels of each of ``groups`` groups.
 
     Reduces over the channels-last tensor directly (no transposes); statistics
     and arithmetic in float32 (float64 stays float64), output in ``dtype``.
+    With ``slabs`` (a ``parallel.slabs.Slabs``), ``x`` is this process's slab
+    of equal slabs and the statistics are the whole volume's: the slabs' sums
+    through :func:`~..parallel.collectives.slab_sum`, the mean first and then
+    the centred sum of squares, as the one-process form centres before it squares.
     """
     stat = torch.promote_types(x.dtype, torch.float32)
     b, c = x.shape[0], x.shape[-1]
     xg = x.to(stat).reshape(b, -1, groups, c // groups)
-    var, mean = torch.var_mean(xg, dim=(1, 3), correction=0, keepdim=True)
-    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    if slabs is None:
+        var, mean = torch.var_mean(xg, dim=(1, 3), correction=0, keepdim=True)
+        centred = xg - mean
+    else:
+        count = xg.shape[1] * xg.shape[3] * slabs.n
+        mean = slab_sum(xg.sum((1, 3), keepdim=True), slabs.mesh, slabs.axis) / count
+        centred = xg - mean
+        var = slab_sum(centred.square().sum((1, 3), keepdim=True), slabs.mesh, slabs.axis) / count
+    y = (centred * torch.rsqrt(var + eps)).reshape(x.shape)
     if weight is not None:
         y = y * weight.to(stat) + bias.to(stat)
     return y.to(dtype)
@@ -214,9 +232,12 @@ class GroupNorm(nn.Module):
         self.num_groups, self.eps, self.dtype = num_groups, eps, dtype
         self.norm = _Affine(dim, True, device)
 
+    # This process's parallel.slabs.Slabs while the model runs on slabs, else None.
+    slabs = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(self.dtype, x, self.norm.weight)
-        return _group_norm(x, self.num_groups, self.norm.weight, self.norm.bias, self.eps, dt)
+        return _group_norm(x, self.num_groups, self.norm.weight, self.norm.bias, self.eps, dt, self.slabs)
 
 
 class FlaxGroupNorm(nn.GroupNorm):
@@ -228,9 +249,11 @@ class FlaxGroupNorm(nn.GroupNorm):
         super().__init__(num_groups, dim, eps=eps, device=device)
         self.dtype = dtype
 
+    slabs = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(self.dtype, x, self.weight)
-        return _group_norm(x, self.num_groups, self.weight, self.bias, self.eps, dt)
+        return _group_norm(x, self.num_groups, self.weight, self.bias, self.eps, dt, self.slabs)
 
 
 class InstanceNorm(nn.Module):
@@ -247,12 +270,14 @@ class InstanceNorm(nn.Module):
         self.dim, self.eps, self.dtype = dim, eps, dtype
         self.norm = _Affine(dim, affine, device)
 
+    slabs = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.norm.weight is not None:
             dt = _compute_dtype(self.dtype, x, self.norm.weight)
         else:
             dt = self.dtype if self.dtype is not None else x.dtype
-        return _group_norm(x, self.dim, self.norm.weight, self.norm.bias, self.eps, dt)
+        return _group_norm(x, self.dim, self.norm.weight, self.norm.bias, self.eps, dt, self.slabs)
 
 
 # A norm spec: a class taking ``(channels, dtype=, device=)``, or ``(class, keyword arguments)``.
@@ -346,15 +371,36 @@ class Conv(nn.Module):
         self.weight = _uniform((out_channels, in_channels // groups, *ks), fan_in, device, generator)
         self.bias = _uniform((out_channels,), fan_in, device, generator) if bias else None
 
-    def forward(self, x: torch.Tensor, padding: Optional[Sequence[int]] = None) -> torch.Tensor:
-        """``padding`` overrides the layer's own for this call (a slab with its halo takes none along the cut axis)."""
+    # This process's parallel.slabs.Slabs while the model runs on slabs, else None.
+    slabs = None
+
+    def _on_slab(self, x: torch.Tensor) -> tuple[torch.Tensor, tuple]:
+        """This slab with a halo of ``padding[0]`` rows and the padding for the call: none along the cut axis.
+
+        The slabs' outputs join into the whole volume's where every slab's
+        output starts on a multiple of the stride (a row count the stride
+        divides) and holds ``rows / stride`` rows ("same" padding at stride 1,
+        k3 p1 at stride 2, or a kernel equal to the stride); else it raises.
+        """
+        rows, k, s, p, d = x.shape[1], self.weight.shape[2], self.stride[0], self.padding[0], self.dilation[0]
+        if rows % s or (rows + 2 * p - d * (k - 1) - 1) // s + 1 != rows // s:
+            layer = f"Conv({self.weight.shape[1] * self.groups} -> {self.weight.shape[0]}, k{k} s{s} p{p})"
+            raise ValueError(f"slabs: {layer} along the cut axis needs slabs of a row count that {s} divides and an "
+                             f"output of rows / {s} rows, got {rows} rows")
+        if p:
+            x = halo_exchange(x, self.slabs.mesh, self.slabs.axis, p, dim=1)
+        return x, (0, *self.padding[1:])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(self.dtype, x, self.weight)
         b = None if self.bias is None else self.bias.to(dt)
         if self.pointwise:
             # A k1 convolution is a linear over the channel axis: one GEMM on the channels-last tensor,
             # no layout transposes, and a GEMM for the weight gradient.
             return F.linear(x.to(dt), self.weight.to(dt).flatten(1), b)
-        padding = self.padding if padding is None else tuple(padding)
+        padding = self.padding
+        if self.slabs is not None:
+            x, padding = self._on_slab(x)
         y = _CONV[self.spatial_dims](_to_channels_first(x.to(dt)), self.weight.to(dt), b, self.stride, padding,
                                      self.dilation, self.groups)
         return _to_channels_last(y)
@@ -384,7 +430,14 @@ class ConvTranspose(nn.Module):
         self.weight = _uniform((in_channels, out_channels, *ks), fan_in, device, generator)
         self.bias = _uniform((out_channels,), fan_in, device, generator) if bias else None
 
+    # This process's parallel.slabs.Slabs while the model runs on slabs, else None: each input row then gives its
+    # own ``stride`` output rows, which needs a kernel equal to the stride along the cut axis.
+    slabs = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.slabs is not None and self.weight.shape[2] != self.stride[0]:
+            raise ValueError(f"slabs: ConvTranspose(k{self.weight.shape[2]} s{self.stride[0]}) along the cut axis: "
+                             "only a kernel equal to the stride runs on a slab as it is")
         dt = _compute_dtype(self.dtype, x, self.weight)
         b = None if self.bias is None else self.bias.to(dt)
         y = _CONV_TRANSPOSE[self.spatial_dims](_to_channels_first(x.to(dt)), self.weight.to(dt), b, self.stride)

@@ -14,7 +14,11 @@ volumes and 2-D images.  Submodules carry the reference torch model's names
   other norm (the bundles use :class:`InstanceNorm`) the tail is stock PyTorch.
 
 ``remat=True`` recomputes each stage's activations in the backward
-(:class:`~factorizer_tpu_torch.models.unet.UNet`).  Dropout, deep supervision
+(:class:`~factorizer_tpu_torch.models.unet.UNet`).  On slabs
+(``parallel.slabs.on_slabs``, the spatial step) the skeleton's convolutions
+and the norms take their slab paths (``layers.basic``), each of ``Deconv``'s
+three convolutions a step runs K3 on its slab and a halo, and the projections
+and tails are per voxel.  Dropout, deep supervision
 and the ``stem`` / ``downsample`` / ``upsample`` / ``head`` overrides of the
 JAX model are not ported; no bundle sets them.
 """
@@ -139,9 +143,12 @@ class Deconver(UNet):
     take :class:`Deconv`'s defaults, as in the JAX model.
     """
 
-    def slab_path_missing(self) -> str:
-        """What keeps the model from the spatial step (``parallel.slabs``): it has no slab path."""
-        return "the Deconver: K3 (the depthwise convolution) and InstanceNorm statistics across slabs are not ported"
+    def slab_path_missing(self) -> Optional[str]:
+        """What keeps the model from the spatial step (``parallel.slabs``), or None."""
+        for name, m in self.named_modules():
+            if isinstance(m, Deconv) and m.update_filter:
+                return f"the Deconver: the filter update over the whole volume ({name}: update_filter) has no slab path"
+        return None
 
     def __init__(
         self,

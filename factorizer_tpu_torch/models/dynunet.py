@@ -6,6 +6,12 @@ downsampling, transposed-conv upsampling with concatenated skips, and
 optional deep-supervision heads on the decoder pyramid.  Channels-last
 inside; submodules carry the Flax module names (``enc{i}``, ``up{i}``,
 ``dec{i}``, ``head``, ``supr{j}``), so the weight bridge maps them by name.
+
+On slabs (``parallel.slabs.on_slabs``, the spatial step) every layer takes
+its slab path (``layers.basic``): the convolutions a halo of ``k // 2`` rows
+(a stride-2 one needs an even row count per slab), the InstanceNorms the whole
+volume's statistics; the transposed convolutions (kernel = stride) and the
+k1 heads, deep supervision's too, are local to the slab.
 """
 
 from __future__ import annotations
@@ -57,9 +63,9 @@ class DynUNet(nn.Module):
         data_format: ``"channels_first"`` takes and returns ``(B, C, *S)``.
     """
 
-    def slab_path_missing(self) -> str:
-        """What keeps the model from the spatial step (``parallel.slabs``): it has no slab path."""
-        return "DynUNet: InstanceNorm statistics across slabs and the deep-supervision heads are not ported"
+    def slab_path_missing(self) -> Optional[str]:
+        """What keeps the model from the spatial step (``parallel.slabs``): nothing, its layers have slab paths."""
+        return None
 
     def __init__(
         self,

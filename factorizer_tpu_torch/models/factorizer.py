@@ -42,7 +42,9 @@ to the slab's rows.  The whole model runs on slabs under
 ``parallel.slabs.on_slabs`` (the spatial train step): there each windowed
 mixer runs K5 on its slab, or gathers the stage's tensor, runs K1 on all of
 it and cuts its slab back out (:meth:`FactMixer.gathers`: where the slab holds
-no whole number of patches, or where gathering sends fewer bytes).
+no whole number of patches, or where gathering sends fewer bytes); a flat
+mixer (K4, the 2-D model's) runs on the gathered tensor; and an
+``InstanceNorm`` or ``GroupNorm`` block norm sums its statistics over the slabs.
 
 in_proj, out_proj, the stage adapter, the folds and the convolutions stay
 stock PyTorch.  Dropout is not ported: the serving path runs without it.
@@ -57,7 +59,7 @@ from torch import nn
 
 from ..factorization.inits import RandomInit
 from ..factorization.nmf import NMF, MatrixFactorization, translate_mf_kwargs
-from ..layers.basic import ACTIVATIONS, LayerNorm, Linear, MLP, NormSpec, build_norm
+from ..layers.basic import ACTIVATIONS, FlaxGroupNorm, GroupNorm, InstanceNorm, LayerNorm, Linear, MLP, NormSpec, build_norm
 from ..layers.pos_embed import PositionalEmbedding
 from ..ops.kernels import prenorm_mlp, windowed_nmf, windowed_nmf_multi_spatial
 from ..ops.kernels.windowed_nmf import _norm_shift
@@ -117,7 +119,8 @@ class FactMixer(nn.Module):
     volume and mixes it through K5; only a mixer that K1 computes can, and
     each slab must hold whole windows.  Under ``parallel.slabs.on_slabs``
     (``slabs`` set) ``forward`` takes a slab too, of any row count, and
-    :meth:`gathers` chooses K5 or K1 on the gathered tensor.
+    :meth:`gathers` chooses K5 or K1 on the gathered tensor; the flat route
+    runs on the gathered tensor (K4 on the whole, on every process).
     """
 
     # This process's parallel.slabs.Slabs while the model runs on slabs, else None.
@@ -250,6 +253,11 @@ class FactMixer(nn.Module):
                 if self.slabs is None and out.shape[1] != self.slab_rows:
                     raise ValueError(f"spatial_mesh: expected a slab of {self.slab_rows} rows, got shape {tuple(out.shape)}")
                 out = windowed_nmf_multi_spatial(out, *config, mesh=slabs.mesh, axis_name=slabs.axis)
+        elif self.slabs is not None:  # the flat route on the gathered tensor, on every process
+            mesh, axis, once = self.slabs.mesh, self.slabs.axis, next(self.factorize.parameters(), None) is not None
+            whole = gather_slabs(out, mesh, axis, dim=1, count_once=once)
+            out = cut_slab(self.reshape.inverse_forward(self.factorize(self.reshape.forward(whole))), mesh, axis, dim=1,
+                           count_once=once)
         else:
             out = self.reshape.inverse_forward(self.factorize(self.reshape.forward(out)))
         return self.out_proj(out)
@@ -342,6 +350,10 @@ class FactorizerStage(nn.Module):
         return x
 
 
+# The block norms that run on slabs: per voxel, or with their statistics summed over the slabs (layers.basic).
+_SLAB_NORMS = (LayerNorm, InstanceNorm, GroupNorm, FlaxGroupNorm)
+
+
 class Factorizer(UNet):
     """Swin-Factorizer segmentation U-Net; the bottleneck stage carries the positional embedding ``pos_embed``.
 
@@ -356,14 +368,10 @@ class Factorizer(UNet):
     """
 
     def slab_path_missing(self) -> Optional[str]:
-        if len(self.stem.weight.shape) != 5:
-            return "the 2-D Factorizer: slabs cut a volume's first spatial axis"
         for name, m in self.named_modules():
-            if isinstance(m, FactMixer) and m.windowed is None:
-                return (f"the flat NMF route ({name}: use_windowed: False, or a mixer that K1 does not compute) has no "
-                        "sharded form")
-            if isinstance(m, FactorizerBlock) and not isinstance(m.norm1, LayerNorm):
-                return f"{type(m.norm1).__name__} statistics across slabs ({name}); LayerNorm is per voxel"
+            if isinstance(m, FactorizerBlock) and not isinstance(m.norm1, _SLAB_NORMS):
+                return (f"{type(m.norm1).__name__} statistics across slabs ({name}); LayerNorm is per voxel, "
+                        "InstanceNorm and GroupNorm sum over the slabs")
         return None
 
     def __init__(

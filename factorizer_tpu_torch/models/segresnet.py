@@ -18,6 +18,14 @@ model, make its optimiser or load weights.  The weights are drawn then, from
 the generator given at construction (with none, from one seeded by a draw
 from torch's default generator at construction, so that a seed set before the
 model is made fixes its weights).
+
+On slabs (``parallel.slabs.on_slabs``, the spatial step) the layers take their
+slab paths (``layers.basic``: the GroupNorms' statistics over the whole
+volume, the convolutions' halos, a stride-2 one on an even row count per
+slab), and the linear upsampling resizes the slab and a one-row halo whose
+rows beyond the volume repeat its edge (``halo_exchange(edge="replicate")``),
+then crops, which gives the whole volume's rows.  The model must be built
+before it runs on slabs: layers made inside ``on_slabs`` would not be on it.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..layers.basic import Conv, ConvTranspose, Dropout, FlaxGroupNorm, resolve_activation
+from ..parallel.collectives import halo_exchange
 from ..utils.helpers import resolve_device
 
 __all__ = ["SegResNet", "SegResBlock"]
@@ -36,10 +45,16 @@ __all__ = ["SegResNet", "SegResBlock"]
 _LINEAR_MODES = {1: "linear", 2: "bilinear", 3: "trilinear"}
 
 
-def _resize_linear(x: torch.Tensor, factor: int) -> torch.Tensor:
+def _resize_linear(x: torch.Tensor, factor: int, slabs=None) -> torch.Tensor:
     """N-D linear upsampling of a channels-last tensor by an integer factor: ``jax.image.resize(method="linear")``
-    at half-pixel centres."""
+    at half-pixel centres.  With ``slabs``, ``x`` is this process's slab: it is resized with a one-row halo, edge
+    rows repeated beyond the volume, and the ``factor`` rows that each halo row gives are cropped off."""
+    rows = x.shape[1]
+    if slabs is not None:
+        x = halo_exchange(x, slabs.mesh, slabs.axis, 1, dim=1, edge="replicate")
     y = F.interpolate(x.movedim(-1, 1), scale_factor=factor, mode=_LINEAR_MODES[x.ndim - 2], align_corners=False)
+    if slabs is not None:
+        y = y.narrow(2, factor, rows * factor)
     return y.movedim(1, -1).contiguous()
 
 
@@ -74,9 +89,14 @@ class SegResNet(nn.Module):
         data_format: ``"channels_first"`` takes and returns ``(B, C, *S)``; ``"channels_last"`` ``(B, *S, C)``.
     """
 
-    def slab_path_missing(self) -> str:
-        """What keeps the model from the spatial step (``parallel.slabs``): it has no slab path."""
-        return "SegResNet: GroupNorm statistics across slabs are not ported"
+    # This process's parallel.slabs.Slabs while the model runs on slabs, else None.
+    slabs = None
+
+    def slab_path_missing(self) -> Optional[str]:
+        """What keeps the model from the spatial step (``parallel.slabs``), or None."""
+        if not self.materialized:
+            return "SegResNet has not been built: utils.helpers.materialize(model, spatial_dims) before the spatial step"
+        return None
 
     def __init__(
         self,
@@ -165,7 +185,7 @@ class SegResNet(nn.Module):
         for i, n_blocks in enumerate(self.blocks_up):
             level = len(self.blocks_down) - 1 - i
             out = getattr(self, f"reduce{i}")(out)
-            out = getattr(self, f"up{i}")(out) if self.upsample_mode == "deconv" else _resize_linear(out, 2)
+            out = getattr(self, f"up{i}")(out) if self.upsample_mode == "deconv" else _resize_linear(out, 2, self.slabs)
             out = out + skips[level - 1]
             for j in range(n_blocks):
                 out = getattr(self, f"dec{i}_{j}")(out)

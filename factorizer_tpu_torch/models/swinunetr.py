@@ -19,6 +19,16 @@ Submodules carry the Flax module names (``patch_embed``,
 :class:`~..layers.basic.Dense` and :class:`~..layers.basic.FlaxLayerNorm`
 (eps 1e-6).  The ``InstanceNorm`` of the conv blocks and the k1 head take no
 ``dtype``, as in the JAX model, so they compute in float32 under amp.
+
+On slabs (``parallel.slabs.on_slabs``, the spatial step) the patch
+embedding (k2 stride 2), the conv blocks (halos, the InstanceNorms' whole-volume
+statistics), the up-blocks' k2 transposed convolutions and the head run on the
+slab; the Swin transformer, whose shifted windows of 7 span slabs, runs on the
+patch embedding gathered (``gather_slabs``) on every process, and each
+hidden state it returns is cut back to the slab (``cut_slab``).  Every process
+computes the transformer's whole parameter gradient, so the pair is
+``count_once``: the step's sum over the slabs counts it once.  The slab must
+hold a multiple of 32 rows, so that the deepest hidden state cuts evenly.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..layers.basic import Conv, ConvTranspose, Dense, FlaxLayerNorm, InstanceNorm, resolve_activation, truncated_normal
+from ..parallel.collectives import cut_slab, gather_slabs
 from ..utils.helpers import resolve_device, to_ntuple
 
 __all__ = ["SwinUNETR", "WindowAttention", "SwinBlock", "PatchMerging"]
@@ -207,9 +218,14 @@ class SwinUNETR(nn.Module):
         data_format: ``"channels_first"`` takes and returns ``(B, C, D, H, W)``.
     """
 
-    def slab_path_missing(self) -> str:
-        """What keeps the model from the spatial step (``parallel.slabs``): it has no slab path."""
-        return "SwinUNETR: attention windows across slabs are not ported"
+    # This process's parallel.slabs.Slabs while the model runs on slabs, else None.
+    slabs = None
+
+    def slab_path_missing(self) -> Optional[str]:
+        """What keeps the model from the spatial step (``parallel.slabs``), or None (the transformer is gathered)."""
+        if self.use_v2:
+            return "SwinUNETR V2 (use_v2): the conv blocks inside the gathered transformer have no slab path"
+        return None
 
     def __init__(
         self,
@@ -264,15 +280,21 @@ class SwinUNETR(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.data_format == "channels_first":
             x = x.movedim(1, -1).contiguous()
+        slabs = self.slabs
+        if slabs is not None and x.shape[1] % 32:
+            raise ValueError(f"slabs: SwinUNETR needs slabs of a multiple of 32 rows (its deepest hidden state is "
+                             f"1/32 of the volume), got {x.shape[1]} rows")
         h = self.patch_embed(x)
         skips = [h]  # as MONAI's SwinTransformer: the patch embedding, then every stage after its merge
+        if slabs is not None:  # the transformer on the whole volume, on every process
+            h = gather_slabs(h, slabs.mesh, slabs.axis, count_once=True)
         for s, depth in enumerate(self.depths):
             if self.use_v2:
                 h = getattr(self, f"stage{s}_conv")(h)
             for b in range(depth):
                 h = getattr(self, f"stage{s}_block{b}")(h)
             h = getattr(self, f"merge{s}")(h)
-            skips.append(h)
+            skips.append(h if slabs is None else cut_slab(h, slabs.mesh, slabs.axis, count_once=True))
         x0, x1, x2, x3, x4 = skips
         enc1, enc2, enc3, enc4 = self.encoder1(x), self.encoder2(x0), self.encoder3(x1), self.encoder4(x2)
         d5 = self._up("decoder5", self.encoder10(x4), x3)  # x3 enters decoder5 without a conv block, as in MONAI

@@ -16,11 +16,13 @@ JAX model wraps it in ``nn.remat``: the block's activations are recomputed in
 the backward, so the kernels' forwards launch twice per step.  Deep
 supervision is not ported yet.
 
-On slabs (``parallel.slabs.on_slabs``) the stem runs on its slab and a halo
-of ``padding`` rows from each neighbour, with valid padding along the cut
-axis; each stride-s downsampling needs a row count per slab that s divides
-(else it raises); the rest of the skeleton is local to the slab.  Whether the
-stage blocks are is the subclass's to say (``slab_path_missing``).
+On slabs (``parallel.slabs.on_slabs``) the skeleton's layers take their slab
+paths (``layers.basic``): the stem runs on its slab and a halo of ``padding``
+rows from each neighbour, with valid padding along the cut axis; each
+stride-s downsampling needs a row count per slab that s divides (else the
+:class:`Conv` raises, naming itself); the rest is local to the slab.  Whether
+the stage blocks have slab paths is the subclass's to say
+(``slab_path_missing``).
 """
 
 from __future__ import annotations
@@ -32,7 +34,6 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..layers.basic import Conv, ConvTranspose, Identity
-from ..parallel.collectives import halo_exchange
 
 __all__ = ["UNet", "StageFactory"]
 
@@ -150,22 +151,11 @@ class UNet(nn.Module):
         """What keeps the model from running on slabs, or None; the skeleton has a slab path, the stage blocks decide."""
         return f"{type(self).__name__}: its stage blocks are not known to be local to a slab"
 
-    def _stem(self, x: torch.Tensor) -> torch.Tensor:
-        if self.slabs is None:
-            return self.stem(x)
-        width = self.stem.padding[0]
-        x = halo_exchange(x, self.slabs.mesh, self.slabs.axis, width, dim=1) if width else x
-        return self.stem(x, padding=(0, *self.stem.padding[1:]))
-
     def forward_features(self, x: torch.Tensor) -> list[torch.Tensor]:
         """Channels-last feature pass; returns the decoder pyramid, finest first."""
-        out = self._stem(x)
+        out = self.stem(x)
         ys = []
-        for i, stage in enumerate(self.encoder.blocks):
-            stride = getattr(stage.downsample, "stride", (1,))[0]
-            if self.slabs is not None and out.shape[1] % stride:
-                raise ValueError(f"slabs: stage {i}'s k{stride} stride-{stride} downsampling needs a row count per "
-                                 f"slab that {stride} divides, got {out.shape[1]} rows")
+        for stage in self.encoder.blocks:
             out = stage(out)
             ys.append(out)
         for i, stage in enumerate(self.decoder.blocks):

@@ -11,6 +11,14 @@ weight bridge folds the Flax kernels' ``(hidden, heads, head_dim)`` axes), the
 query is divided by ``sqrt(head_dim)`` and the softmax runs in the compute
 dtype.  Submodules carry the Flax module names (``vit{i}``, ``vit_norm``,
 ``encoder2.up1``, ``decoder4_block``, ...).
+
+On slabs (``parallel.slabs.on_slabs``, the spatial step) the patch embedding
+(kernel = stride = patch), the conv branches and the head run on the slab; the
+ViT, whose attention spans every patch, runs on the patch grid gathered
+(``gather_slabs``) on every process, and each hidden state the decoder reads
+is cut back to the slab (``cut_slab``), ``count_once`` as the SwinUNETR's
+transformer.  The slab must hold whole patches and the patch grid's first axis
+must cut evenly.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..layers.basic import Conv, ConvTranspose, Dense, FlaxLayerNorm, truncated_normal
+from ..parallel.collectives import cut_slab, gather_slabs
 from ..utils.helpers import resolve_device, to_ntuple
 from .swinunetr import _ConvBlock as _ResBlock  # MONAI's UnetResBlock: the same layers and names
 
@@ -101,9 +110,12 @@ class UNETR(nn.Module):
         data_format: ``"channels_first"`` takes and returns ``(B, C, D, H, W)``.
     """
 
-    def slab_path_missing(self) -> str:
-        """What keeps the model from the spatial step (``parallel.slabs``): it has no slab path."""
-        return "UNETR: attention over all patches across slabs is not ported"
+    # This process's parallel.slabs.Slabs while the model runs on slabs, else None.
+    slabs = None
+
+    def slab_path_missing(self) -> Optional[str]:
+        """What keeps the model from the spatial step (``parallel.slabs``): nothing (the ViT is gathered)."""
+        return None
 
     def __init__(
         self,
@@ -151,9 +163,11 @@ class UNETR(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.data_format == "channels_first":
             x = x.movedim(1, -1).contiguous()
-        B = x.shape[0]
-        z = self.patch_embed(x).reshape(B, -1, self.hidden)
-        z = z + self.pos_embed.to(z.dtype)
+        B, slabs = x.shape[0], self.slabs
+        z = self.patch_embed(x)
+        if slabs is not None:  # the ViT on the whole patch grid, on every process
+            z = gather_slabs(z, slabs.mesh, slabs.axis, count_once=True)
+        z = z.reshape(B, -1, self.hidden) + self.pos_embed.to(z.dtype)
         states = {}
         for i in range(self.num_layers):
             z = getattr(self, f"vit{i}")(z)
@@ -161,7 +175,8 @@ class UNETR(nn.Module):
                 states[i + 1] = z
 
         def volume(t: torch.Tensor) -> torch.Tensor:
-            return t.reshape(B, *self.feat, self.hidden)
+            t = t.reshape(B, *self.feat, self.hidden)
+            return t if slabs is None else cut_slab(t, slabs.mesh, slabs.axis, count_once=True)
 
         enc1 = self.encoder1(x)
         enc2 = self.encoder2(volume(states[self.taps[0]]))

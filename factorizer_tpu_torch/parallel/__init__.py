@@ -6,7 +6,7 @@ card (or, on the CPU and where processes share a card, one gloo rank);
 """
 
 from .collectives import (
-    all_gather_cat, all_reduce_sum, broadcast_from_first, cut_slab, gather_slabs, halo_exchange, ring_exchange,
+    all_gather_cat, all_reduce_sum, broadcast_from_first, cut_slab, gather_slabs, halo_exchange, ring_exchange, slab_sum,
 )
 from .launch import child_processes, run_processes
 from .mesh import (
@@ -19,7 +19,7 @@ from .slabs import Slabs, on_slabs, require_slab_path
 __all__ = [
     "Mesh", "make_mesh", "data_parallel_mesh", "model_parallel_mesh", "data_process_groups", "initialize_distributed",
     "process_is_primary", "process_count", "process_index",
-    "ring_exchange", "all_gather_cat", "broadcast_from_first", "halo_exchange", "all_reduce_sum", "gather_slabs",
-    "cut_slab", "shard_batch", "data_parallel", "Slabs", "on_slabs", "require_slab_path", "run_processes",
+    "ring_exchange", "all_gather_cat", "broadcast_from_first", "halo_exchange", "all_reduce_sum", "slab_sum",
+    "gather_slabs", "cut_slab", "shard_batch", "data_parallel", "Slabs", "on_slabs", "require_slab_path", "run_processes",
     "child_processes",
 ]

@@ -13,15 +13,21 @@ for a volume sharded along its first spatial axis, each as an autograd
 function with its own backward:
 
 * :func:`halo_exchange`: a convolution's halo, *not* cyclic (the first and
-  last slab pad with zeros, unlike K5's ring); the backward sends the halo's
+  last slab pad with zeros, unlike K5's ring, or repeat their edge row for a
+  linear resize, ``edge="replicate"``); the backward sends the halo's
   cotangent back and adds it to the rows it came from;
 * :func:`all_reduce_sum`: partial sums (the loss's) made whole on every
   process; the backward passes the cotangent through, so each process
   differentiates its own part;
+* :func:`slab_sum`: partial sums (a norm's statistics) made whole on every
+  process, whose slab's own rows then consume them; the backward sums the
+  cotangent over the processes too, since every slab's rows contribute to it;
 * :func:`gather_slabs` / :func:`cut_slab`: a slab joined into the whole
   tensor on every process, and cut back out; each one's backward is the
   other, so between the two every process holds the same tensor and the same
-  cotangent.
+  cotangent.  With ``count_once=True`` the layers between the two hold
+  parameters: every process computes their whole gradient, so the cotangent
+  between is scaled by ``1 / n`` and the sum over the axis counts it once.
 """
 
 from __future__ import annotations
@@ -31,8 +37,8 @@ import torch.distributed as dist
 
 from .mesh import Mesh
 
-__all__ = ["ring_exchange", "all_gather_cat", "broadcast_from_first", "halo_exchange", "all_reduce_sum", "gather_slabs",
-           "cut_slab"]
+__all__ = ["ring_exchange", "all_gather_cat", "broadcast_from_first", "halo_exchange", "all_reduce_sum", "slab_sum",
+           "gather_slabs", "cut_slab"]
 
 
 def _staged(tensor: torch.Tensor, group) -> bool:
@@ -117,11 +123,17 @@ def _line_shift(tensor: torch.Tensor, mesh: Mesh, axis: str, forward: bool) -> t
 
 class _Halo(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axis, width, dim):
-        ctx.mesh, ctx.axis, ctx.width, ctx.dim = mesh, axis, width, dim
+    def forward(ctx, x, mesh, axis, width, dim, replicate):
+        ctx.mesh, ctx.axis, ctx.width, ctx.dim, ctx.replicate = mesh, axis, width, dim, replicate
         rows = x.shape[dim]
         top = _line_shift(x.narrow(dim, rows - width, width), mesh, axis, forward=True)
         bottom = _line_shift(x.narrow(dim, 0, width), mesh, axis, forward=False)
+        if replicate:  # the volume's first and last rows stand in for what lies beyond them
+            i, n = mesh.axis_index(axis), mesh.axis_size(axis)
+            if i == 0:
+                top = x.narrow(dim, 0, 1).expand_as(top)
+            if i == n - 1:
+                bottom = x.narrow(dim, rows - 1, 1).expand_as(bottom)
         return torch.cat([top, x, bottom], dim)
 
     @staticmethod
@@ -132,20 +144,30 @@ class _Halo(torch.autograd.Function):
         # The top halo came from the previous slab's last rows, the bottom halo from the next slab's first rows.
         dx.narrow(dim, rows - width, width).add_(_line_shift(g.narrow(dim, 0, width), mesh, axis, forward=False))
         dx.narrow(dim, 0, width).add_(_line_shift(g.narrow(dim, width + rows, width), mesh, axis, forward=True))
-        return dx, None, None, None, None
+        if ctx.replicate:  # at the volume's ends the halo was this slab's own edge row
+            i, n = mesh.axis_index(axis), mesh.axis_size(axis)
+            if i == 0:
+                dx.narrow(dim, 0, 1).add_(g.narrow(dim, 0, width).sum(dim, keepdim=True))
+            if i == n - 1:
+                dx.narrow(dim, rows - 1, 1).add_(g.narrow(dim, width + rows, width).sum(dim, keepdim=True))
+        return dx, None, None, None, None, None
 
 
-def halo_exchange(x: torch.Tensor, mesh: Mesh, axis: str, width: int, dim: int = 1) -> torch.Tensor:
-    """This slab with ``width`` rows of each neighbour's along ``dim``: zeros beyond the volume's first and last slab.
+def halo_exchange(x: torch.Tensor, mesh: Mesh, axis: str, width: int, dim: int = 1, edge: str = "zeros") -> torch.Tensor:
+    """This slab with ``width`` rows of each neighbour's along ``dim``; beyond the volume's first and last slab,
+    zeros (``edge="zeros"``) or that slab's edge row repeated (``edge="replicate"``).
 
     ``x`` is this process's slab of a tensor cut along ``dim`` over ``axis``;
     a convolution of valid padding along ``dim`` on the result equals the
-    zero-padded convolution of the whole tensor, cut.  Collective over the
-    axis, in the backward too.
+    zero-padded convolution of the whole tensor, cut; with ``"replicate"``,
+    a resize on the result equals the edge-clamped resize of the whole tensor.
+    Collective over the axis, in the backward too.
     """
     if not 0 < width <= x.shape[dim]:
         raise ValueError(f"halo_exchange: a halo of {width} rows from a slab of {x.shape[dim]}")
-    return _Halo.apply(x, mesh, axis, width, dim)
+    if edge not in ("zeros", "replicate"):
+        raise ValueError(f"halo_exchange: edge must be 'zeros' or 'replicate', got {edge!r}")
+    return _Halo.apply(x, mesh, axis, width, dim, edge == "replicate")
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -170,6 +192,47 @@ def all_reduce_sum(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     if mesh.axis_size(axis) == 1:
         return t
     return _AllReduceSum.apply(t, mesh, axis)
+
+
+class _SlabSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        out = t.clone()
+        dist.all_reduce(out, group=mesh.group(axis))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.mesh.group(ctx.axis))
+        return g, None, None
+
+
+def slab_sum(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The sum of ``t`` over the processes of ``axis``, on each; the backward sums the cotangent over them too.
+
+    For a statistic ``m = sum_r t_r`` that each process's own slab then
+    consumes (a norm's mean or variance), the loss reaches ``m`` through every
+    slab, so ``d loss / d t_r`` is the sum over the processes of what each
+    one's slab sends back.  :func:`all_reduce_sum`, which hands the cotangent
+    through, would give each process its own slab's part alone.  Collective
+    over the axis, forward and backward.
+    """
+    if mesh.axis_size(axis) == 1:
+        return t
+    return _SlabSum.apply(t, mesh, axis)
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
 
 
 def _cut(t: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor:
@@ -198,19 +261,32 @@ class _Cut(torch.autograd.Function):
         return all_gather_cat(g.contiguous(), ctx.mesh, ctx.axis, ctx.dim), None, None, None
 
 
-def gather_slabs(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = 1) -> torch.Tensor:
+def gather_slabs(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = 1, count_once: bool = False) -> torch.Tensor:
     """The whole tensor from the slabs of ``axis``, on every process; the backward cuts this slab's rows back out.
 
     The cotangent that reaches it must be the whole one, alike on every
-    process: what :func:`cut_slab`'s backward hands on.
+    process: what :func:`cut_slab`'s backward hands on.  ``count_once``: see
+    :func:`cut_slab`; the backward multiplies the cotangent by ``n`` again.
     """
-    if mesh.axis_size(axis) == 1:
+    n = mesh.axis_size(axis)
+    if n == 1:
         return x
-    return _Gather.apply(x, mesh, axis, dim)
+    whole = _Gather.apply(x, mesh, axis, dim)
+    return _ScaleGrad.apply(whole, float(n)) if count_once else whole
 
 
-def cut_slab(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = 1) -> torch.Tensor:
-    """This process's slab of a tensor that every process of ``axis`` holds whole; the backward gathers the cotangent."""
-    if mesh.axis_size(axis) == 1:
+def cut_slab(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = 1, count_once: bool = False) -> torch.Tensor:
+    """This process's slab of a tensor that every process of ``axis`` holds whole; the backward gathers the cotangent.
+
+    ``count_once=True`` (with the matching :func:`gather_slabs`): the layers
+    between the two have parameters, whose gradient every process computes
+    whole and the spatial step then sums over the axis.  The backward scales
+    the cotangent that enters them by ``1 / n`` (exact for a power of two), so
+    that the sum counts their gradient once.
+    """
+    n = mesh.axis_size(axis)
+    if n == 1:
         return x
-    return _Cut.apply(x, mesh, axis, dim)
+    if x.shape[dim] % n:
+        raise ValueError(f"cut_slab: {x.shape[dim]} rows do not cut into {n} equal slabs")
+    return _Cut.apply(_ScaleGrad.apply(x, 1.0 / n) if count_once else x, mesh, axis, dim)

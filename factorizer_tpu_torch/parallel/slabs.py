@@ -8,9 +8,24 @@ that have a slab path read this process's :class:`Slabs` from their
 ``slabs`` attribute, which :func:`on_slabs` sets on them for the time of a
 forward and its backward, and otherwise run as they always do:
 
-* ``UNet``: the stem's k3 convolution on its slab and a one-row halo
-  (:func:`~.collectives.halo_exchange`), valid along the cut axis; the
-  stride-2 downsampling, the transposed upsampling and the head are local;
+* ``layers.basic``: ``Conv`` with a kernel wider than 1 along the cut axis
+  exchanges a halo of its padding rows (:func:`~.collectives.halo_exchange`)
+  and pads none there; a stride-s one needs a row count per slab that s
+  divides (else it raises, naming the layer); ``ConvTranspose`` with a kernel
+  equal to its stride and the pointwise convolutions are local;
+  ``InstanceNorm``, ``GroupNorm`` and ``FlaxGroupNorm`` take the whole
+  volume's statistics (:func:`~.collectives.slab_sum`, whose backward sums
+  the cotangent over the slabs);
+* ``UNet``: the stem and the skeleton through those layers;
+* ``Deconv`` (the Deconver): each of the source update's three convolutions
+  runs K3 on its slab and a halo of ``k1 // 2`` rows, cropped back;
+* ``DynUNet``, its deep-supervision heads too, through the layers above;
+* ``SegResNet``: the layers above, and the linear upsampling on a one-row
+  halo that repeats the volume's edge rows (``edge="replicate"``);
+* ``SwinUNETR`` and ``UNETR``: the convolutional parts on the slab, the
+  transformer on the gathered tensor (:func:`~.collectives.gather_slabs` and
+  :func:`~.collectives.cut_slab` with ``count_once``, so that the transformer's
+  gradient, which every process computes whole, counts once in the step's sum);
 * ``FactorizerStage``: this slab's rows of the positional embedding;
 * ``FactMixer``: K5 (``ops.kernels.windowed_nmf_multi_spatial``) on the
   slab, or the stage's tensor gathered, K1 on the whole of it and this slab

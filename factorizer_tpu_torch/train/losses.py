@@ -110,12 +110,16 @@ def deep_supervision_loss(
     logits_pyramid: Sequence[torch.Tensor],
     targets: torch.Tensor,
     weights: Optional[Sequence[float]] = None,
+    slabs=None,
     **kwargs,
 ) -> torch.Tensor:
     """Weighted multi-scale loss over deep-supervision heads.
 
     Targets are average-pooled to each head's resolution; default weights
-    halve per level and are normalised to sum to 1.
+    halve per level and are normalised to sum to 1.  With ``slabs`` the heads
+    and targets are this process's slabs: a head's slab rows divide the
+    target's, so each slab pools its own rows, and each head's DiceCE sums
+    over the slabs (see the module).
     """
     n = len(logits_pyramid)
     if weights is None:
@@ -127,6 +131,9 @@ def deep_supervision_loss(
         t = targets
         if logits.shape != targets.shape:
             factors = tuple(ts // ls for ts, ls in zip(targets.shape[2:], logits.shape[2:]))
+            if slabs is not None and targets.shape[2] != factors[0] * logits.shape[2]:
+                raise ValueError(f"deep_supervision_loss on slabs: a head of {logits.shape[2]} rows a slab does not "
+                                 f"pool from a target of {targets.shape[2]}")
             t = pool[targets.ndim](targets.to(_loss_dtype(targets)), factors)
-        total = total + w * dice_ce_loss(logits, t, **kwargs)
+        total = total + w * dice_ce_loss(logits, t, slabs=slabs, **kwargs)
     return total / sum(weights)

@@ -135,10 +135,11 @@ def make_train_step(model: nn.Module, loss_fn: Optional[Callable] = None, accum_
     batch that the first process of a ``spatial_axis`` line holds is broadcast
     over the line, then cut over ``data_axis`` (unless ``local_batch``) and
     each process runs its slab.  ``loss_fn`` is called with ``slabs=`` (the
-    default, DiceCE, sums over the slabs).  The model must have a slab path
-    (``parallel.slabs.require_slab_path``, checked here whatever the axis's
-    size): the flat NMF route and the Deconver, DynUNet, SegResNet, SwinUNETR
-    and UNETR raise by name.
+    default, DiceCE or its deep-supervision form, sums over the slabs).  The
+    model must have a slab path (``parallel.slabs.require_slab_path``, checked
+    here whatever the axis's size): a Factorizer block norm other than
+    LayerNorm, InstanceNorm and GroupNorm, a Deconver with ``update_filter``,
+    SwinUNETR V2 and an unbuilt SegResNet raise by name.
     """
     loss_fn = loss_fn or _default_loss
     if spatial_axis is not None:

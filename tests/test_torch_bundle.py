@@ -156,8 +156,9 @@ def test_baseline_network_def_matches_jax(bundle):
 
 def test_jax_only_targets_raise_by_name():
     """``train_tp.yaml``'s ``model_parallel_mesh`` resolves to the port's (a mesh of one in one process); its spatial
-    step raises by name for a bundle without a slab path (``deconver_brats23``: K3 and InstanceNorm across slabs)
-    and is taken for ``factorizer_brats23``; a ``_target_`` in JAX's own packages is refused before any import."""
+    step is taken for ``factorizer_brats23`` and ``deconver_brats23`` and raises by name for a model option without
+    a slab path (``update_filter``: the Deconver's filter update over the whole volume); a ``_target_`` in JAX's
+    own packages is refused before any import."""
     from factorizer_tpu_torch.parallel.mesh import model_parallel_mesh
 
     cfg = bundle_config("factorizer_brats23", "train_tp.yaml", **TINY_FACTORIZER, **ON_CPU)
@@ -168,8 +169,11 @@ def test_jax_only_targets_raise_by_name():
     assert axis == "model" and cfg["trainer"]["shard_spatial"] is True
     ftt.make_train_step(parser["network_def"], mesh=parser["mesh"], spatial_axis=axis)
     deconver = ConfigParser(bundle_config("deconver_brats23", "train_tp.yaml", **TINY_DECONVER, **ON_CPU))
-    with pytest.raises(NotImplementedError, match="the Deconver: K3"):
-        ftt.make_train_step(deconver["network_def"], mesh=deconver["mesh"], spatial_axis=axis)
+    ftt.make_train_step(deconver["network_def"], mesh=deconver["mesh"], spatial_axis=axis)
+    filters = ConfigParser(bundle_config("deconver_brats23", "train_tp.yaml", **TINY_DECONVER, **ON_CPU,
+                                         **{"network_def#update_filter": True}))
+    with pytest.raises(NotImplementedError, match="the Deconver: the filter update"):
+        ftt.make_train_step(filters["network_def"], mesh=filters["mesh"], spatial_axis=axis)
     with pytest.raises(KeyError, match="optax.adamw"):
         ConfigParser({"x": {"_target_": "optax.adamw"}})["x"]
 

@@ -37,6 +37,11 @@ BUNDLE_SHAPES = [((2, s, s, s, c), (3, 3, 3), dt) for s, c in STAGES for dt in (
     ((2, 64, 64, 64, 48), (3, 3, 3), F32),
     ((2, 64, 64, 64, 64), (3, 3, 3), F32),
     ((2, 32, 32, 32, 128), (1, 3, 5), F32),
+    # The spatial step's slabs and their halos (train_tp.yaml on 2 slabs): deconver_brats23's stages 0 and 1,
+    # 64 + 2 and 32 + 2 rows, and deconver_fives' stage 0, 256 + 6 rows of H.
+    ((2, 66, 128, 128, 32), (3, 3, 3), F32),
+    ((2, 34, 64, 64, 64), (3, 3, 3), F32),
+    ((16, 262, 512, 32), (7, 7), F32),
 ]
 # Shapes whose plan, cut as far as it goes, still gives fewer than two waves: the deepest stages hold too few
 # outputs (2 x 8^3 x 512 is 64 blocks of 64 threads per plane pair, at 32 channels a block).

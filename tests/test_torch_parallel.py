@@ -287,17 +287,30 @@ def test_initialize_distributed_names_its_choice(tmp_path, capsys):
         dist.destroy_process_group()
 
 
+class _BatchStatisticsNorm(torch.nn.Module):
+    """A norm over the batch and the volume (as ``BatchNorm``), for which the port has no slab path."""
+
+    def __init__(self, channels, dtype=None, device=None):
+        super().__init__()
+
+    def forward(self, x):
+        return (x - x.mean()) / (x.std() + 1e-5)
+
+
 def test_train_step_refuses_spatial_axis_by_name():
-    """``make_train_step(spatial_axis=)`` takes only a model with a slab path, whatever the axis's size: the flat NMF
-    route (``use_windowed: False``) and a module without ``slab_path_missing`` raise by name, in one process (a
-    mesh of one, no group); the axis needs a mesh, and one the mesh has.  (``tests/test_torch_multidevice.py`` runs
-    the step on two processes.)"""
+    """``make_train_step(spatial_axis=)`` takes only a model with a slab path, whatever the axis's size: a Factorizer
+    whose block norm has no slab path (``BatchNorm``-like: statistics this port does not sum over slabs) and a module
+    without ``slab_path_missing`` raise by name, the flat NMF route (``use_windowed: False``, gathered) is taken, in
+    one process (a mesh of one, no group); the axis needs a mesh, and one the mesh has.
+    (``tests/test_torch_multidevice.py`` and ``tests/test_torch_slabs.py`` run the step on processes.)"""
     mesh = ftt.model_parallel_mesh()
     assert mesh.size == 1 and dict(mesh.shape) == {"data": 1, "model": 1} and not dist.is_initialized()
     flat = ftt.Factorizer(**CONFIG, reshape=(ftt.SWMatricize, SW), factorize_options={"use_windowed": False},
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="flat NMF route"):
-        trainer.make_train_step(flat, mesh=mesh, spatial_axis="model")
+    trainer.make_train_step(flat, mesh=mesh, spatial_axis="model")
+    other_norm = ftt.Factorizer(**CONFIG, reshape=(ftt.SWMatricize, SW), norm=_BatchStatisticsNorm, device="cpu")
+    with pytest.raises(NotImplementedError, match="_BatchStatisticsNorm statistics across slabs"):
+        trainer.make_train_step(other_norm, mesh=mesh, spatial_axis="model")
     with pytest.raises(NotImplementedError, match="Linear has no slab path"):
         trainer.make_train_step(torch.nn.Linear(2, 2), mesh=mesh, spatial_axis="model")
     with pytest.raises(ValueError, match="needs a mesh"):
