@@ -162,6 +162,16 @@ Phases, one or more result lines each:
      at 2048 for scale), and KMeans, FuzzyCMeans and EntropyKMeans (4 centers) on stage 0's windows of a
      (2, 128^3, 32) activation as points (32768, 512, 8), card against CPU: differing assignments (near ties counted),
      the centers' max relative error, the times.  Its launches are in the kernels line.
+ 29. (run after 28) the models' remaining options at full width, f32, 2 x 128^3: factorizer_brats23's network_def with
+     num_deep_supr: 3 and dropout: 0.1 beside the unedited one, 1 warm-up and 3 steps each (s/step, peak memory;
+     launches per step: K1 as the default's, no K2 forward or backward under active dropout), one eval forward of a
+     window (9 K2 launches, the three heads' shapes, logits equal bit for bit to the same weights with dropout 0) and one
+     BraTS-native volume through ensemble_predict, equal bit for bit to the same weights in a one-head model; the flat
+     route with factorize_options {use_windowed: False} against {use_windowed: False, split_shifts: True} (K4 9 and 36
+     launches a forward and a step, logits and the first loss against each other, peak memory, the split step against
+     reference_kernels()); the generic UNet (DoubleConv blocks, a k3 stem, widths 32...512) plain and with three heads (no
+     launch of the port); deconver_brats23's network_def with num_deep_supr: 2 and dropout: 0.1 (54 + 27 K3 a step).
+     Its launches are in the kernels line; chip_smoke.options_slice(chip_smoke.kernel_counters()) runs it alone.
 The float16 instance of every kernel is checked beside f32 and bf16 at one stage shape each (K1, K1 bwd with and
 without all-zero windows, K2, K2 bwd, K3, K3 dw, K4, K4 bwd, K5), with one float16 forward of brats23_network
 (`[slice f16]`); MatrixFactorization serves a float16 tensor through K4, and a float64 one raises.
@@ -2118,6 +2128,239 @@ def engine_slice(counters: dict) -> dict:
     return made_total
 
 
+# Phase 29: factorizer_brats23's network_def with the skeleton's and the blocks' remaining options.
+OPTION_KEYS = {"num_deep_supr": 3, "dropout": 0.1}
+DECONVER_OPTION_KEYS = {"num_deep_supr": 2, "dropout": 0.1}
+FLAT_ROUTES = {"concat": {"use_windowed": False}, "split": {"use_windowed": False, "split_shifts": True}}
+
+
+def options_slice(counters: dict) -> dict:
+    """Phase 29: the models' remaining options on the card, at full width, f32, 2 x 128^3.
+
+    1. ``factorizer_brats23``'s ``network_def`` with ``num_deep_supr: 3, dropout: 0.1`` beside the unedited one: 1
+       warm-up and 3 steps each (s/step, peak GiB, launches per step: K1 as the default's, no K2 forward or backward
+       under active dropout, the loss the heads' pyramid); one eval forward of a window (9 K2 launches, the three
+       heads' shapes, logits equal bit for bit to the same weights with ``dropout: 0``); one BraTS-native volume
+       through ``ensemble_predict`` equal bit for bit to the same weights in a one-head model (``head0`` as
+       ``head``).
+    2. The flat route, ``factorize_options={"use_windowed": False}`` against ``{..., "split_shifts": True}`` on the
+       unedited ``network_def``: an eval forward of a window each (logits against each other), 1 warm-up and 2 steps
+       each (the first step's loss against each other, s/step, peak GiB, K4 launches per step: 9 and 9 x 4 shifts
+       each way), and the split route's loss and gradient norm under ``reference_kernels()`` within K4's band.
+    3. The generic ``UNet`` (DoubleConv blocks, a k3 stem, widths 32 ... 512, 4 -> 3 channels), plain and with
+       ``num_deep_supr: True``: 1 warm-up and 3 steps each, s/step, peak GiB, no kernel of the port launched.
+    4. ``deconver_brats23``'s ``network_def`` with ``num_deep_supr: 2, dropout: 0.1``: 1 warm-up and 1 step, K3
+       launches per step as the default's (54 forward and dx, 27 dw), the loss finite.
+
+    Returns the launches made (they are in the kernels line)."""
+    from pathlib import Path
+
+    import torch
+
+    import factorizer_tpu_torch as ftt
+    from factorizer_tpu_torch.config import ConfigParser, load_config_files, merge_config
+    from factorizer_tpu_torch.ops.kernels import reference_kernels
+    from factorizer_tpu_torch.train.trainer import create_train_state, make_train_step
+    from factorizer_tpu_torch.zoo_scripts import ensemble_predict
+
+    repo = Path(__file__).resolve().parent
+    dev = torch.device("cuda", torch.cuda.current_device())
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    t_phase = time.perf_counter()
+    made_total = dict.fromkeys(counters, 0)
+    gen = torch.Generator(device=dev)
+
+    def network(bundle: str, keys: dict):
+        configs = repo / "zoo" / bundle / "configs"
+        cfg = merge_config(load_config_files([configs / "train.yaml"]),
+                           {"bundle_root": str(configs.parent), "amp": False,
+                            **{f"network_def#{k}": v for k, v in keys.items()}})
+        parser = ConfigParser(cfg)
+        parser.seed(cfg["seed"])
+        model = parser["network_def"]
+        check(next(model.parameters()).is_cuda, f"options: {bundle} {keys} did not build on the card")
+        return model, {"lr": cfg["learning_rate"], "weight_decay": cfg["weight_decay"]}
+
+    def take() -> dict:
+        made = read_counters(counters)
+        for k, v in made.items():
+            made_total[k] += v
+        reset_counters(counters)
+        return made
+
+    def steps(model, settings: dict, batch: dict, n: int, tag: str) -> dict:
+        """1 warm-up and ``n`` timed steps: mean s/step, peak GiB, the losses, launches per step."""
+        state = create_train_state(model.train(), **settings)
+        step = make_train_step(state.model)
+        reset_counters(counters)
+        seconds, losses = [], []
+        for i in range(n + 1):
+            if i == 1:
+                take()
+                torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            losses.append(metrics["loss"].item())
+            check(math.isfinite(losses[-1]) and math.isfinite(metrics["grad_norm"].item()),
+                  f"options {tag}: step {i + 1} loss {losses[-1]}, grad norm {metrics['grad_norm'].item()}")
+        made = take()
+        check(all(v % n == 0 for v in made.values()), f"options {tag}: launches {made} over {n} steps")
+        return {"s": statistics.mean(seconds[1:]), "warm": seconds[0], "peak": torch.cuda.max_memory_allocated(dev) / 2**30,
+                "losses": losses, "per_step": {k: v // n for k, v in made.items() if v}}
+
+    def line(tag: str, r: dict) -> str:
+        return (f"{tag}: {r['s']:.4f} s/step (after a {r['warm']:.2f} s warm-up), peak {r['peak']:.2f} GiB, loss "
+                + " -> ".join(f"{v:.5f}" for v in r["losses"]) + f", launches per step {r['per_step']}")
+
+    k1_step = {"windowed_nmf_factors": N_BLOCKS, "windowed_nmf_reconstruct": N_BLOCKS,
+               "windowed_nmf_bwd": N_BLOCKS * N_SHIFTS}
+    batch = synthetic_batch(2, 4, 3, 128, seed=800)
+    window = torch.randn((1, 4, 128, 128, 128), device=dev, generator=gen.manual_seed(801))
+
+    # 1. deep supervision and dropout
+    torch.backends.cudnn.benchmark = True  # the training phases' setting
+    default, settings = network("factorizer_brats23", {})
+    base = steps(default, settings, batch, 3, "default")
+    check(base["per_step"] == {**k1_step, "prenorm_mlp": N_BLOCKS, "prenorm_mlp_bwd": N_BLOCKS},
+          f"options default: launches per step {base['per_step']}")
+    del default
+    model, settings = network("factorizer_brats23", OPTION_KEYS)
+    check(model.head_names() == ["head0", "head1", "head2"], f"options: heads {model.head_names()}")
+    opt = steps(model, settings, batch, 3, "num_deep_supr 3, dropout 0.1")
+    check(opt["per_step"] == k1_step, f"options: launches per step under active dropout {opt['per_step']}, "
+          f"expected K1's {k1_step} and no K2")
+    print(f"[options] factorizer_brats23 network_def, train 2 x 128^3 f32: {line('unedited', base)}; "
+          f"{line(str(OPTION_KEYS), opt)} (the loss is the three heads' DiceCE pyramid; no K2 under active dropout) "
+          f"({smi})")
+    torch.backends.cudnn.benchmark = False  # the serving phases' setting
+    model.eval()
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = model(window)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+    made = {k: v for k, v in take().items() if v}
+    check(made == {"windowed_nmf_factors": N_BLOCKS, "windowed_nmf_reconstruct": N_BLOCKS, "prenorm_mlp": N_BLOCKS},
+          f"options: eval forward launches {made}")
+    shapes = [tuple(t.shape) for t in logits]
+    check(shapes == [(1, 3, 128, 128, 128), (1, 3, 64, 64, 64), (1, 3, 32, 32, 32)], f"options: pyramid {shapes}")
+    zero, _ = network("factorizer_brats23", {**OPTION_KEYS, "dropout": 0.0})
+    zero.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        logits0 = zero.eval()(window)
+    take()
+    equal = all(torch.equal(a, b) for a, b in zip(logits, logits0))
+    diff = max(compare(a, b)[0] for a, b in zip(logits, logits0))
+    check(equal, f"options: eval logits with dropout 0.1 differ from dropout 0 by {diff:.3e}")
+    del zero, logits0
+    single, _ = network("factorizer_brats23", {})
+    single.load_state_dict({k.replace("head0.", "head."): v for k, v in model.state_dict().items()
+                            if not k.startswith(("head1.", "head2."))})
+    volume = torch.randn((1, 4, 240, 240, 155), device=dev, generator=gen.manual_seed(802))
+    served = []
+    for m in (model, single):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served.append(ensemble_predict([m], volume, (128, 128, 128), sw_batch_size=2, overlap=0.5))
+        torch.cuda.synchronize()
+        served.append(time.perf_counter() - t0)
+    take()
+    (mask, probs), deep_s, (mask1, probs1), single_s = served
+    check(torch.equal(probs, probs1) and torch.equal(mask, mask1),
+          f"options: ensemble_predict of the deep-supervised model differs from head0's: {compare(probs, probs1)[0]:.3e}")
+    print(f"[options] eval forward of (1, 4, 128^3): {eval_s:.4f} s, launches {made}, pyramid {shapes}, logits equal "
+          f"bit for bit to dropout 0's (max abs diff {diff:.1e}); a (1, 4, 240, 240, 155) volume through ensemble_predict: "
+          f"{deep_s:.4f} s (one-head model {single_s:.4f} s), probabilities equal bit for bit to the one-head model's "
+          f"({smi})")
+    del model, single, logits, served, mask, probs, mask1, probs1, volume
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. the flat route, concatenated against split shifts
+    routes = {}
+    for name, options in FLAT_ROUTES.items():
+        model, settings = network("factorizer_brats23", {"factorize_options": options})
+        mixers = [m for m in model.modules() if isinstance(m, ftt.FactMixer)]
+        check(all(m.windowed is None and m.splits_shifts == (name == "split") for m in mixers),
+              f"options {name}: mixers not all on the {name} flat route")
+        with torch.inference_mode():
+            logits = model.eval()(window)
+        fwd = {k: v for k, v in take().items() if v}
+        torch.backends.cudnn.benchmark = True
+        run = steps(model, settings, batch, 2, name)
+        torch.backends.cudnn.benchmark = False
+        k4 = N_BLOCKS * (N_SHIFTS if name == "split" else 1)
+        check(fwd.get("nmf_reconstruct") == k4 and run["per_step"].get("nmf_reconstruct") == k4
+              and run["per_step"].get("nmf_reconstruct_bwd") == k4 and not fwd.get("windowed_nmf_factors"),
+              f"options {name}: K4 launches forward {fwd}, per step {run['per_step']}, expected {k4} each")
+        routes[name] = (logits, run, fwd)
+        del model, mixers
+        gc.collect()
+        torch.cuda.empty_cache()
+    (l_c, r_c, f_c), (l_s, r_s, f_s) = routes["concat"], routes["split"]
+    logit_diff, logit_rel = compare(l_s, l_c)
+    loss_diff = abs(r_s["losses"][0] - r_c["losses"][0])
+    check(logit_rel <= SLICE_RTOL["float32"] and loss_diff <= TRAIN_RTOL["float32"]["loss"] * abs(r_c["losses"][0]),
+          f"options: split against concat logits {logit_rel:.3e}, first loss {loss_diff:.3e}")
+    model, settings = network("factorizer_brats23", {"factorize_options": FLAT_ROUTES["split"]})
+    model.train()
+    checks = []
+    for ref in (False, True):
+        with reference_kernels() if ref else contextlib.nullcontext():
+            model.zero_grad(set_to_none=True)
+            loss = ftt.dice_ce_loss(model(batch["image"]), batch["label"])
+            loss.backward()
+            norm = torch.linalg.vector_norm(torch.stack([p.grad.norm() for p in model.parameters()])).item()
+        checks.append((loss.item(), norm))
+        take()
+    (loss_k, norm_k), (loss_p, norm_p) = checks
+    loss_rel, norm_rel = abs(loss_k - loss_p) / abs(loss_p), abs(norm_k - norm_p) / abs(norm_p)
+    check(loss_rel <= TRAIN_RTOL["float32"]["loss"] and norm_rel <= TRAIN_RTOL["float32"]["grad"],
+          f"options split: against reference_kernels() loss {loss_rel:.3e}, grad norm {norm_rel:.3e}")
+    print(f"[options] flat route, factorize_options {FLAT_ROUTES['concat']} (concat) vs {FLAT_ROUTES['split']} (split), "
+          f"train 2 x 128^3 f32: {line('concat', r_c)}; {line('split', r_s)}; eval forward launches concat {f_c}, split "
+          f"{f_s}; logits split vs concat max_abs={logit_diff:.3e} (bit for bit: {bool(torch.equal(l_s, l_c))}), first "
+          f"loss {r_s['losses'][0]!r} vs {r_c['losses'][0]!r} (bit for bit: {r_s['losses'][0] == r_c['losses'][0]}); "
+          f"split step vs reference_kernels(): loss {loss_rel:.3e}, grad norm {norm_rel:.3e} (tol "
+          f"{TRAIN_RTOL['float32']['loss']:.0e} / {TRAIN_RTOL['float32']['grad']:.0e}) ({smi})")
+    del model, routes, l_c, l_s, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. the generic UNet: stock torch (cuDNN's heuristics, as the baselines' CNNs run)
+    unets = {}
+    for deep in (False, True):
+        model = ftt.UNet(4, 3, stem=(ftt.Conv, {"kernel_size": 3, "padding": 1}), num_deep_supr=deep, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+        unets[deep] = steps(model, {"lr": 1e-4, "weight_decay": 1e-5}, batch, 3, f"UNet num_deep_supr={deep}")
+        check(not unets[deep]["per_step"], f"options UNet: kernels launched {unets[deep]['per_step']}")
+        params = sum(p.numel() for p in model.parameters())
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[options] generic UNet (DoubleConv blocks, k3 stem, widths 32..512, 4 -> 3, {params / 1e6:.2f}M parameters "
+          f"with 3 heads), train 2 x 128^3 f32: {line('plain', unets[False])}; {line('num_deep_supr True', unets[True])}; "
+          f"no kernel of the port launched ({smi})")
+
+    # 4. the Deconver with the options
+    torch.backends.cudnn.benchmark = True
+    model, settings = network("deconver_brats23", DECONVER_OPTION_KEYS)
+    run = steps(model, settings, batch, 1, "deconver")
+    check(run["per_step"] == {"depthwise_conv": 54, "depthwise_conv_dw": 27},
+          f"options deconver: launches per step {run['per_step']}, expected 54 depthwise_conv and 27 dw")
+    print(f"[options] deconver_brats23 network_def with {DECONVER_OPTION_KEYS}, train 2 x 128^3 f32: "
+          f"{line('deconver', run)} (the default's 54 + 27) ({smi})")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[options] phase {time.perf_counter() - t_phase:.1f} s")
+    return made_total
+
+
 def main() -> None:
     import torch
 
@@ -3184,6 +3427,9 @@ def main() -> None:
     # 28. the rest of the factorization engine, selected by network_def keys: the flat sets on stock torch, the K1
     # sets on the kernels; its launches are in the kernels line.
     engine_launches = engine_slice(wrappers)
+    # 29. the models' remaining options (deep supervision, dropout, split_shifts, the generic UNet); in the kernels
+    # line too.
+    options_launches = options_slice(wrappers)
     torch.backends.cudnn.benchmark = True
 
     # 18. K5 in one process: every slab of a ring held as a list, the halos wired by hand.  The plain version is
@@ -3360,10 +3606,10 @@ def main() -> None:
         label, ms, plain_ms, b_ms, b_by, library_ms = results[name]["times"]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": serve_launches[name] + train_launches[name] + spatial_launches[name]
-                        + tp_launches[name] + engine_launches[name],
+                        + tp_launches[name] + engine_launches[name] + options_launches[name],
                         "launches_serving": serve_launches[name], "launches_training": train_launches[name],
                         "launches_spatial": spatial_launches[name], "launches_train_tp": tp_launches[name],
-                        "launches_engine": engine_launches[name],
+                        "launches_engine": engine_launches[name], "launches_options": options_launches[name],
                         "max_abs_err": max(results[name]["errs"]),
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": library_ms, "timed_at": label})

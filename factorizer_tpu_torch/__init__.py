@@ -45,6 +45,7 @@ from .factorization import (
     translate_mf_kwargs,
 )
 from .layers import (
+    ACTIVATIONS,
     MLP,
     AxialPositionalEmbedding,
     BasicBlock,
@@ -64,6 +65,7 @@ from .layers import (
     RotaryPositionalEmbedding,
     SepConv,
     SinusoidalPositionalEmbedding,
+    resolve_activation,
 )
 from .models import (
     UNETR,
@@ -77,11 +79,14 @@ from .models import (
     Factorizer,
     FactorizerBlock,
     FactorizerStage,
+    Same,
     SegResBlock,
     SegResNet,
     Stem,
+    SwinBlock,
     SwinUNETR,
     UNet,
+    WindowAttention,
 )
 from .ops import Matricize, Reshape, SWMatricize, dot, kl_divergence, norm2, relative_error, softmax
 from .ops.kernels import reference_kernels
@@ -127,7 +132,9 @@ from .train import (
     warmup_cosine_schedule,
 )
 from .utils import (
+    Universaltuple,
     as_tuple,
+    cumprod,
     has_args,
     is_partializable,
     load_flax_variables,

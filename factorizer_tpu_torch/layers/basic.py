@@ -17,6 +17,10 @@ them bare: their parameters sit on the module itself, flax's defaults hold
 (lecun-normal kernels and zero biases; LayerNorm's eps 1e-6), and the weight
 bridge reads them by class.
 
+:func:`prenorm_mlp_reason` is the one rule by which a pre-norm block's tail
+``x + mlp(norm2(x))`` takes K2 (``ops.kernels.prenorm_mlp``), in the
+Factorizer's and the Deconver's blocks alike; :func:`prenorm_mlp_tail` applies it.
+
 On slabs (``parallel.slabs.on_slabs`` sets ``slabs`` on the layers that have a
 slab path) the norms take their statistics over the whole volume through
 ``parallel.slab_sum``, a convolution exchanges a halo of its padding rows
@@ -33,11 +37,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.kernels.mlp_block import KERNEL_WIDTHS, prenorm_mlp
 from ..parallel.collectives import halo_exchange, slab_sum
 from ..utils.helpers import to_ntuple
 
 __all__ = ["Identity", "Linear", "Dense", "LayerNorm", "FlaxLayerNorm", "GroupNorm", "FlaxGroupNorm", "InstanceNorm",
-           "MLP", "Dropout", "Conv", "ConvTranspose", "ACTIVATIONS", "resolve_activation", "build_norm"]
+           "MLP", "Dropout", "Conv", "ConvTranspose", "ACTIVATIONS", "resolve_activation", "build_norm",
+           "prenorm_mlp_reason", "prenorm_mlp_tail"]
 
 ACTIVATIONS = {
     "relu": torch.relu,
@@ -291,28 +297,39 @@ def build_norm(spec: NormSpec, channels: int, dtype: Optional[torch.dtype], devi
 
 
 class MLP(nn.Module):
-    """Token-wise feed-forward ``C -> ratio*C -> C``: ``block`` = Linear, GELU (erf), -, Linear, -.
+    """Token-wise feed-forward ``in -> hidden -> out``: ``block`` = Linear, GELU (erf), Dropout, Linear, Dropout.
 
-    Slots 2 and 4 hold the reference model's dropouts; dropout is not ported
-    (serving runs without it), and the slots keep fc2 at ``block.3``.
+    ``hidden_channels`` defaults to ``int(ratio * in_channels)`` and
+    ``out_channels`` to ``in_channels``; ``dropout`` is one rate for both
+    sites or a pair, and ``bias=False`` drops both linears' biases, as the JAX
+    ``MLP`` takes them.  fc1 and fc2 sit at ``block.0`` and ``block.3``, the
+    reference model's places.
     """
 
     def __init__(
         self,
-        channels: int,
+        in_channels: int,
+        out_channels: Optional[int] = None,
+        hidden_channels: Optional[int] = None,
         ratio: float = 3.0,
+        dropout: float | Sequence[float] = 0.0,
+        bias: bool = True,
         dtype: Optional[torch.dtype] = None,
         device=None,
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
-        hidden = int(ratio * channels)
+        self.in_channels = in_channels
+        self.out_channels = out_channels or in_channels
+        self.hidden_channels = hidden_channels or int(ratio * in_channels)
+        self.dropout = to_ntuple(dropout, 2)
+        kw = dict(bias=bias, dtype=dtype, device=device, generator=generator)
         self.block = nn.Sequential(
-            Linear(channels, hidden, dtype=dtype, device=device, generator=generator),
+            Linear(in_channels, self.hidden_channels, **kw),
             nn.GELU(),
-            nn.Identity(),
-            Linear(hidden, channels, dtype=dtype, device=device, generator=generator),
-            nn.Identity(),
+            Dropout(self.dropout[0]),
+            Linear(self.hidden_channels, self.out_channels, **kw),
+            Dropout(self.dropout[1]),
         )
 
     @property
@@ -325,6 +342,45 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.block(x)
+
+
+def prenorm_mlp_reason(norm2: nn.Module, mlp: nn.Module) -> Optional[str]:
+    """Why a block's tail ``x + mlp(norm2(x))`` does not take K2 (``ops.kernels.prenorm_mlp``); None when it does.
+
+    The JAX package's ``_fused_prenorm_mlp_reason`` without its TPU and
+    environment checks, decided by the configuration alone: a
+    :class:`LayerNorm`, a shape-preserving :class:`MLP`, no active dropout
+    (the module in training mode with a rate above 0 at either site), a width
+    in ``KERNEL_WIDTHS`` and a hidden width that 32 divides.  Both block
+    families route by it; a tail that it sends to K2 launches K2 for a CUDA
+    tensor or raises.
+    """
+    if not isinstance(norm2, LayerNorm):
+        return f"norm is {type(norm2).__name__}, K2 covers LayerNorm only"
+    if not isinstance(mlp, MLP):
+        return f"mlp is {type(mlp).__name__}"
+    if mlp.out_channels != mlp.in_channels:
+        return "the MLP is not shape-preserving (no residual form)"
+    if mlp.training and any(mlp.dropout):
+        return "active dropout (training with dropout > 0)"
+    if mlp.in_channels not in KERNEL_WIDTHS:
+        return f"C={mlp.in_channels} is not one of K2's widths {KERNEL_WIDTHS}"
+    if mlp.hidden_channels % 32:
+        return f"hidden width {mlp.hidden_channels} is not a multiple of 32"
+    return None
+
+
+def prenorm_mlp_tail(norm2: nn.Module, mlp: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``x + mlp(norm2(x))``: through K2 where :func:`prenorm_mlp_reason` allows it, else the modules' own calls.
+
+    A bias-free MLP hands K2 zero biases, as the JAX package does; no gradient is kept for them.
+    """
+    if prenorm_mlp_reason(norm2, mlp) is not None:
+        return x + mlp(norm2(x))
+    ln, fc1, fc2 = norm2.norm, mlp.fc1.linear, mlp.fc2.linear
+    b1 = fc1.bias if fc1.bias is not None else fc1.weight.new_zeros(fc1.weight.shape[0])
+    b2 = fc2.bias if fc2.bias is not None else fc2.weight.new_zeros(fc2.weight.shape[0])
+    return prenorm_mlp(x, ln.weight, ln.bias, fc1.weight, b1, fc2.weight, b2, norm2.eps)
 
 
 class Dropout(nn.Dropout):

@@ -3,7 +3,7 @@ from .dynunet import DynUNet, DynUNetBlock
 from .factorizer import FactMixer, Factorizer, FactorizerBlock, FactorizerStage
 from .segresnet import SegResBlock, SegResNet
 from .swinunetr import PatchMerging, SwinBlock, SwinUNETR, WindowAttention
-from .unet import UNet
+from .unet import Same, UNet
 from .unetr import UNETR
 
 __all__ = [
@@ -11,5 +11,5 @@ __all__ = [
     "DynUNet", "DynUNetBlock",
     "FactMixer", "Factorizer", "FactorizerBlock", "FactorizerStage",
     "PatchMerging", "SegResBlock", "SegResNet", "SwinBlock", "SwinUNETR", "WindowAttention",
-    "UNet", "UNETR",
+    "Same", "UNet", "UNETR",
 ]

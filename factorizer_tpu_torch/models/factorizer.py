@@ -20,14 +20,26 @@ Three kernels carry the blocks:
   (``MatrixFactorization.supports``), else through the stock ``decompose``
   chain (the default global ``Matricize``, the SVD paths, the other solvers).
   The two routes compute the same function where both apply.
+* ``FactMixer``, the split route: under ``factorize_options={"split_shifts":
+  True}`` a flat-route mixer with an ``SWMatricize`` of more than one shift
+  and a ``MatrixFactorization`` folds, factorizes (K4 under its rule) and
+  unfolds once per shift and sums the results (``acc + z``, then ``/ n``), as
+  the JAX package's does: the same values as the flat route, bit for bit,
+  without the concatenated fold of every shift.  A mixer that K1 computes
+  keeps K1 (the JAX package checks its fused kernel first).
 * ``FactorizerBlock`` sends its tail ``x + mlp(norm2(x))`` through K2
   (``ops.kernels.prenorm_mlp``), reading the ``norm2`` and ``mlp`` parameters,
-  when ``norm`` is :class:`LayerNorm` (the default and the bundles' choice);
-  under any other norm (e.g. :class:`InstanceNorm`) the tail is stock PyTorch,
-  as ``DeconverBlock`` decides.
+  where ``layers.basic.prenorm_mlp_reason`` allows it: a :class:`LayerNorm`
+  (the default and the bundles' choice), K2's widths, and no active dropout;
+  otherwise the tail is stock PyTorch, as ``DeconverBlock`` decides.
 
 The bundles' ``network_def`` keys ``norm``, ``factorize``, ``compression``,
-``pos_embed`` and ``remat`` are taken as the JAX model takes them.
+``pos_embed`` and ``remat`` are taken as the JAX model takes them, and so are
+the skeleton's ``stem``, ``downsample``, ``upsample``, ``head``,
+``num_deep_supr`` and ``data_format`` (:class:`~.unet.UNet`), ``dropout``
+(after each mixer's ``out_proj``, at the MLP's two sites and after the
+bottleneck's positional embedding; each process draws its own masks on slabs)
+and the stage's ``adapter`` spec.
 ``factorize`` is any matrix factorizer spec (``NMF``, ``MatrixFactorization``,
 ``SVD``, ``(class, kwargs)``); ``factorize_options`` reach it as they reach the
 JAX package's, filtered by the keywords its class accepts.
@@ -43,11 +55,12 @@ to the slab's rows.  The whole model runs on slabs under
 mixer runs K5 on its slab, or gathers the stage's tensor, runs K1 on all of
 it and cuts its slab back out (:meth:`FactMixer.gathers`: where the slab holds
 no whole number of patches, or where gathering sends fewer bytes); a flat
-mixer (K4, the 2-D model's) runs on the gathered tensor; and an
+mixer (K4, the 2-D model's, the split route too) runs on the gathered tensor;
+and an
 ``InstanceNorm`` or ``GroupNorm`` block norm sums its statistics over the slabs.
 
-in_proj, out_proj, the stage adapter, the folds and the convolutions stay
-stock PyTorch.  Dropout is not ported: the serving path runs without it.
+in_proj, out_proj, the stage adapter, the folds, the dropouts and the
+convolutions stay stock PyTorch.
 """
 
 from __future__ import annotations
@@ -59,15 +72,18 @@ from torch import nn
 
 from ..factorization.inits import RandomInit
 from ..factorization.nmf import NMF, MatrixFactorization, translate_mf_kwargs
-from ..layers.basic import ACTIVATIONS, FlaxGroupNorm, GroupNorm, InstanceNorm, LayerNorm, Linear, MLP, NormSpec, build_norm
+from ..layers.basic import (
+    ACTIVATIONS, Dropout, FlaxGroupNorm, GroupNorm, InstanceNorm, LayerNorm, Linear, MLP, NormSpec, build_norm,
+    prenorm_mlp_tail,
+)
 from ..layers.pos_embed import PositionalEmbedding
-from ..ops.kernels import prenorm_mlp, windowed_nmf, windowed_nmf_multi_spatial
+from ..ops.kernels import windowed_nmf, windowed_nmf_multi_spatial
 from ..ops.kernels.windowed_nmf import _norm_shift
 from ..ops.reshape import Matricize, SWMatricize
 from ..parallel.collectives import cut_slab, gather_slabs
 from ..parallel.slabs import Slabs
 from ..utils.helpers import build_spec, has_args, partialize, spec_accepts
-from .unet import UNet
+from .unet import CONV_STEM, UNet, build_block, slab_path_missing_of
 
 __all__ = ["FactMixer", "FactorizerBlock", "FactorizerStage", "Factorizer"]
 
@@ -76,10 +92,11 @@ ReshapeSpec = Any
 DEFAULT_RESHAPE: ReshapeSpec = (Matricize, {"num_heads": 1, "grid_size": 1})
 # The ``factorize_options`` keys that the mixer reads itself; every other key goes to the factorizer where its class
 # takes it, as in the JAX package.
-MIXER_OPTIONS = ("use_windowed", "spatial_mesh", "spatial_axis")
+MIXER_OPTIONS = ("use_windowed", "split_shifts", "spatial_mesh", "spatial_axis")
 # Keys of the JAX package that are refused by name: ``use_pallas`` and ``explain`` steer its TPU kernels (here
-# ``reference_kernels()`` is the pure-torch mode); ``split_shifts`` is not ported yet.
-REFUSED_OPTIONS = ("use_pallas", "explain", "split_shifts")
+# ``reference_kernels()`` is the pure-torch mode).
+REFUSED_OPTIONS = ("use_pallas", "explain")
+DEFAULT_ADAPTER = (Linear, {"bias": False})
 
 
 def _spatial_option(factorize_options: Optional[dict]) -> Optional[tuple]:
@@ -108,6 +125,9 @@ class FactMixer(nn.Module):
     model's ``rank``, ``compression``, ``num_iters``, ``num_grad_steps``,
     ``init_method``, ``solver``) and of ``factorize_options`` that its class
     takes, ``factorize_options`` first, ``init`` read as ``init_method``.
+    ``factorize_options={"split_shifts": True}`` runs a flat-route mixer with
+    an ``SWMatricize`` of several shifts and a ``MatrixFactorization`` once per
+    shift (:attr:`splits_shifts`).  ``dropout`` follows ``out_proj``.
     ``factorize_options={"use_windowed": False}`` takes a mixer that K1 would
     compute to the flat route instead (fold -> NMF -> unfold, K4).  It is the
     JAX package's opt-out, kept so that its configurations carry over and so
@@ -136,6 +156,7 @@ class FactMixer(nn.Module):
         factorize_kwargs: Optional[dict[str, Any]] = None,
         factorize_options: Optional[dict[str, Any]] = None,
         factorize: Any = NMF,
+        dropout: float = 0.0,
         dtype: Optional[torch.dtype] = None,
         device=None,
         generator: Optional[torch.Generator] = None,
@@ -144,8 +165,7 @@ class FactMixer(nn.Module):
         refused = [key for key in REFUSED_OPTIONS if key in (factorize_options or {})]
         if refused:
             raise ValueError(f"factorize_options {refused} are not ported: use_pallas and explain steer the JAX "
-                             "package's TPU kernels (reference_kernels() is the pure-torch mode), split_shifts is "
-                             "not ported yet")
+                             "package's TPU kernels (reference_kernels() is the pure-torch mode)")
         fact_fn = partialize(factorize)
         if not has_args(fact_fn, "size"):
             name = getattr(getattr(fact_fn, "func", fact_fn), "__name__", repr(factorize))
@@ -168,8 +188,10 @@ class FactMixer(nn.Module):
         self.factorize = build_spec(factorize, tuple(self.reshape.output_size[2:]),
                                     context={"device": device, "generator": generator}, **options)
         self.out_proj = Linear(out_channels, out_channels, bias=True, **kw)
+        self.drop = Dropout(dropout)
         opted_out = (factorize_options or {}).get("use_windowed") is False
         self.windowed = None if opted_out else self._windowed_config(tuple(spatial_size), out_channels)
+        self.splits_shifts = self.windowed is None and self._split_shift_eligible(factorize_options)
         self.spatial = _spatial_option(factorize_options)
         if self.spatial is not None:
             if self.windowed is None:
@@ -215,6 +237,28 @@ class FactMixer(nn.Module):
             return None
         return d, ps[0], tuple(m.shifts for m in mats)
 
+    def _split_shift_eligible(self, factorize_options: Optional[dict]) -> bool:
+        """Whether the flat route runs once per shift: ``split_shifts`` asked for, an ``SWMatricize`` of more than one
+        shift and a ``MatrixFactorization`` (which treats each matrix on its own), the JAX package's rule.  The sum
+        over shifts then skips the concatenated fold of every shift, which halves the mixer's peak activations."""
+        return (
+            bool((factorize_options or {}).get("split_shifts"))
+            and isinstance(self.reshape, SWMatricize)
+            and len(self.reshape.shifted_windows) > 1
+            and isinstance(self.factorize, MatrixFactorization)
+        )
+
+    def _flat(self, out: torch.Tensor) -> torch.Tensor:
+        """fold -> factorize -> unfold of the activated tensor: once per shift under :attr:`splits_shifts`, summed in
+        the JAX package's order (``acc + z``, then ``/ n``), else over the concatenated folds."""
+        if not self.splits_shifts:
+            return self.reshape.inverse_forward(self.factorize(self.reshape.forward(out)))
+        acc = None
+        for m in self.reshape.shifted_windows:
+            z = m.inverse_forward(self.factorize(m.forward(out)))
+            acc = z if acc is None else acc + z
+        return acc / len(self.reshape.shifted_windows)
+
     def gathers(self, x: torch.Tensor) -> bool:
         """Whether this process's slab ``x`` is gathered around K1 instead of running K5 (the spatial step's one rule).
 
@@ -256,15 +300,15 @@ class FactMixer(nn.Module):
         elif self.slabs is not None:  # the flat route on the gathered tensor, on every process
             mesh, axis, once = self.slabs.mesh, self.slabs.axis, next(self.factorize.parameters(), None) is not None
             whole = gather_slabs(out, mesh, axis, dim=1, count_once=once)
-            out = cut_slab(self.reshape.inverse_forward(self.factorize(self.reshape.forward(whole))), mesh, axis, dim=1,
-                           count_once=once)
+            out = cut_slab(self._flat(whole), mesh, axis, dim=1, count_once=once)
         else:
-            out = self.reshape.inverse_forward(self.factorize(self.reshape.forward(out)))
-        return self.out_proj(out)
+            out = self._flat(out)
+        return self.drop(self.out_proj(out))
 
 
 class FactorizerBlock(nn.Module):
-    """Pre-norm residual block: ``x + fact(norm1(x))``, then ``x + mlp(norm2(x))`` (K2 under LayerNorm)."""
+    """Pre-norm residual block: ``x + fact(norm1(x))``, then ``x + mlp(norm2(x))`` (K2 where
+    ``prenorm_mlp_reason`` allows it); ``dropout`` goes to the mixer and both of the MLP's sites."""
 
     def __init__(
         self,
@@ -277,6 +321,7 @@ class FactorizerBlock(nn.Module):
         factorize_options: Optional[dict[str, Any]] = None,
         norm: NormSpec = LayerNorm,
         factorize: Any = NMF,
+        dropout: float = 0.0,
         dtype: Optional[torch.dtype] = None,
         device=None,
         generator: Optional[torch.Generator] = None,
@@ -284,20 +329,20 @@ class FactorizerBlock(nn.Module):
         super().__init__()
         self.norm1 = build_norm(norm, channels, dtype, device)
         self.fact = FactMixer(channels, channels, spatial_size, reshape, act, factorize_kwargs, factorize_options,
-                              factorize, dtype=dtype, device=device, generator=generator)
+                              factorize, dropout=dropout, dtype=dtype, device=device, generator=generator)
         self.norm2 = build_norm(norm, channels, dtype, device)
-        self.mlp = MLP(channels, ratio=mlp_ratio, dtype=dtype, device=device, generator=generator)
+        self.mlp = MLP(channels, ratio=mlp_ratio, dropout=dropout, dtype=dtype, device=device, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.fact(self.norm1(x))
-        if isinstance(self.norm2, LayerNorm):
-            ln, fc1, fc2 = self.norm2.norm, self.mlp.fc1.linear, self.mlp.fc2.linear
-            return prenorm_mlp(x, ln.weight, ln.bias, fc1.weight, fc1.bias, fc2.weight, fc2.bias, self.norm2.eps)
-        return x + self.mlp(self.norm2(x))
+        return prenorm_mlp_tail(self.norm2, self.mlp, x)
 
 
 class FactorizerStage(nn.Module):
-    """One resolution stage: channel adapter, optional positional embedding, ``depth`` blocks.
+    """One resolution stage: channel adapter, optional positional embedding and its dropout, ``depth`` blocks.
+
+    ``adapter`` is the spec of the channel adapter, built where the widths
+    differ (``(Linear, {"bias": False})`` by default, as in the JAX model).
 
     ``pos_embed`` is an embedding spec (``PositionalEmbedding``,
     ``SinusoidalPositionalEmbedding``, ``RotaryPositionalEmbedding``,
@@ -316,7 +361,9 @@ class FactorizerStage(nn.Module):
         out_channels: int,
         spatial_size: Sequence[int],
         depth: int = 1,
+        adapter: Any = DEFAULT_ADAPTER,
         pos_embed: Any = None,
+        dropout: float = 0.0,
         dtype: Optional[torch.dtype] = None,
         device=None,
         generator: Optional[torch.Generator] = None,
@@ -324,7 +371,9 @@ class FactorizerStage(nn.Module):
     ) -> None:
         super().__init__()
         kw = dict(dtype=dtype, device=device, generator=generator)
-        self.adapter = Linear(in_channels, out_channels, bias=False, **kw) if in_channels != out_channels else None
+        self.adapter = (build_block(adapter, in_channels, out_channels, context={"device": device, "generator": generator},
+                                    dtype=dtype)
+                        if in_channels != out_channels else None)
         if pos_embed is True:
             pos_embed = PositionalEmbedding
         self.pos_embed = (
@@ -332,10 +381,20 @@ class FactorizerStage(nn.Module):
             if pos_embed not in (None, False)
             else None
         )
+        self.pos_drop = Dropout(dropout) if self.pos_embed is not None else None
         self.spatial = _spatial_option(block_kwargs.get("factorize_options"))
         self.blocks = nn.ModuleList(
-            FactorizerBlock(out_channels, spatial_size, **block_kwargs, **kw) for _ in range(depth)
+            FactorizerBlock(out_channels, spatial_size, dropout=dropout, **block_kwargs, **kw) for _ in range(depth)
         )
+
+    def slab_path_missing(self) -> Optional[str]:
+        """What keeps the stage from running on slabs, or None: a block norm whose statistics are not summed over the
+        slabs, or an adapter without a known slab path."""
+        for i, blk in enumerate(self.blocks):
+            if not isinstance(blk.norm1, _SLAB_NORMS):
+                return (f"{type(blk.norm1).__name__} statistics across slabs (blocks.{i}); LayerNorm is per voxel, "
+                        "InstanceNorm and GroupNorm sum over the slabs")
+        return None if self.adapter is None else slab_path_missing_of(self.adapter, "adapter")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.adapter is not None:
@@ -344,7 +403,7 @@ class FactorizerStage(nn.Module):
             rows, slabs = None, _slabs(self)
             if slabs is not None:  # x is this process's slab of the volume
                 rows = slice(slabs.index * x.shape[1], (slabs.index + 1) * x.shape[1])
-            x = self.pos_embed(x, rows)
+            x = self.pos_drop(self.pos_embed(x, rows))
         for blk in self.blocks:
             x = blk(x)
         return x
@@ -357,22 +416,22 @@ _SLAB_NORMS = (LayerNorm, InstanceNorm, GroupNorm, FlaxGroupNorm)
 class Factorizer(UNet):
     """Swin-Factorizer segmentation U-Net; the bottleneck stage carries the positional embedding ``pos_embed``.
 
-    Factorization options left at None take the factorizer's defaults, as in
-    the JAX model.  ``spatial_size`` of length 2 builds the 2-D model, whose
-    mixers take the flat route; ``factorize_options`` goes to every
-    :class:`FactMixer`.  ``norm``, ``factorize``, ``compression``,
-    ``pos_embed`` and ``remat`` are the bundles' keys of the same names: the
-    blocks' norm, the factorizer spec, the auto-rank rule's target when
-    ``rank`` is None, the bottleneck's embedding spec (None: none), and
-    rematerialisation of each stage in the backward (:class:`UNet`).
+    A :class:`UNet` whose stage blocks are :class:`FactorizerStage`, with the
+    JAX model's default stem ``(Conv, {"kernel_size": 3, "padding": 1,
+    "bias": False})``.  Factorization options left at None take the
+    factorizer's defaults, as in the JAX model.  ``spatial_size`` of length 2
+    builds the 2-D model, whose mixers take the flat route;
+    ``factorize_options`` goes to every :class:`FactMixer`.  ``norm``,
+    ``factorize``, ``compression``, ``pos_embed`` and ``remat`` are the
+    bundles' keys of the same names: the blocks' norm, the factorizer spec,
+    the auto-rank rule's target when ``rank`` is None, the bottleneck's
+    embedding spec (None: none), and rematerialisation of each stage in the
+    backward.  ``stem``, ``downsample``, ``upsample``, ``head``,
+    ``num_deep_supr`` and ``data_format`` go to the :class:`UNet`,
+    ``dropout`` to every stage.
     """
 
-    def slab_path_missing(self) -> Optional[str]:
-        for name, m in self.named_modules():
-            if isinstance(m, FactorizerBlock) and not isinstance(m.norm1, _SLAB_NORMS):
-                return (f"{type(m.norm1).__name__} statistics across slabs ({name}); LayerNorm is per voxel, "
-                        "InstanceNorm and GroupNorm sum over the slabs")
-        return None
+    flax_prefix = "unet."
 
     def __init__(
         self,
@@ -383,38 +442,45 @@ class Factorizer(UNet):
         encoder_width: Sequence[int] = (32, 64, 128, 256, 512),
         strides: Sequence[int] = (1, 2, 2, 2, 2),
         decoder_depth: Sequence[int] = (1, 1, 1, 1),
+        stem: Any = None,
+        downsample: Any = None,
+        upsample: Any = None,
+        head: Any = None,
+        pos_embed: Any = PositionalEmbedding,
+        num_deep_supr: Any = False,
+        data_format: str = "channels_first",
+        norm: NormSpec = LayerNorm,
+        dropout: float = 0.0,
         mlp_ratio: float = 2,
         reshape: ReshapeSpec = DEFAULT_RESHAPE,
         act: str = "relu",
+        factorize: Any = NMF,
         rank: Optional[int] = None,
+        compression: Optional[float] = None,
         num_iters: Optional[int] = None,
         num_grad_steps: Optional[int] = None,
         init_method: Any = None,
         solver: Any = None,
         factorize_options: Optional[dict[str, Any]] = None,
-        norm: NormSpec = LayerNorm,
-        factorize: Any = NMF,
         remat: bool = False,
-        compression: Optional[float] = None,
-        pos_embed: Any = PositionalEmbedding,
         dtype: Optional[torch.dtype] = None,
         device=None,
         generator: Optional[torch.Generator] = None,
     ) -> None:
         fact_opts = dict(rank=rank, compression=compression, num_iters=num_iters, num_grad_steps=num_grad_steps,
                          init_method=init_method, solver=solver)
-        factorize_kwargs = {k: v for k, v in fact_opts.items() if v is not None}
-        bottleneck = len(encoder_depth) - 1
-
-        def stage(i: int, cin: int, cout: int, depth: int, size: tuple) -> nn.Module:
-            return FactorizerStage(
-                cin, cout, size, depth, pos_embed=pos_embed if i == bottleneck else None, mlp_ratio=mlp_ratio,
-                reshape=reshape, act=act, factorize_kwargs=factorize_kwargs, factorize_options=factorize_options,
-                norm=norm, factorize=factorize, dtype=dtype, device=device, generator=generator,
-            )
-
+        block_kwargs = dict(
+            dropout=dropout, mlp_ratio=mlp_ratio, reshape=reshape, act=act,
+            factorize_kwargs={k: v for k, v in fact_opts.items() if v is not None},
+            factorize_options=factorize_options, norm=norm, factorize=factorize,
+        )
+        n_enc, n_dec = len(encoder_depth), len(decoder_depth)
+        blocks = ((n_enc - 1) * [(FactorizerStage, block_kwargs)]
+                  + [(FactorizerStage, {"pos_embed": pos_embed, **block_kwargs})]
+                  + n_dec * [(FactorizerStage, block_kwargs)])
         super().__init__(
-            in_channels, out_channels, spatial_size, encoder_depth, encoder_width, strides,
-            decoder_depth, stage, dtype=dtype, device=device, generator=generator,
-            spatial_dims=len(spatial_size), remat=remat,
+            in_channels, out_channels, spatial_size, encoder_depth, encoder_width, strides, decoder_depth,
+            stem=CONV_STEM if stem is None else stem, downsample=downsample, block=blocks, upsample=upsample,
+            head=head, num_deep_supr=num_deep_supr, data_format=data_format, dtype=dtype, device=device,
+            generator=generator, spatial_dims=len(spatial_size), remat=remat,
         )

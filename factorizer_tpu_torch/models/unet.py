@@ -1,47 +1,112 @@
-"""U-Net skeleton with per-stage blocks, channels-last inside.
+"""Generic U-Net skeleton, parameterized by per-stage block specs, channels-last inside.
 
 PyTorch counterpart of ``factorizer_tpu/models/unet.py``, laid out as the
 reference torch model is (``stem``, ``encoder.blocks.{i}.downsample`` /
-``.block``, ``decoder.blocks.{i}.upsample`` / ``.block``, ``head``) so its
-state dict converts with ``convert_state_dict``.  The public ``forward`` takes
-and returns channels-first ``(B, C, *S)``; everything between the stem and the
-head is channels-last ``(B, *S, C)``.
+``.block``, ``decoder.blocks.{i}.upsample`` / ``.block``, ``head``, or the
+deep-supervision heads ``head0``, ``head1``, ...) so its state dict converts
+with ``convert_state_dict``.  Between the stem and the heads everything is
+channels-last ``(B, *S, C)``; ``data_format`` says whether ``forward`` takes and
+returns channels-first ``(B, C, *S)`` (the default) or channels-last tensors.
 
-Volumes (``spatial_dims=3``) and images (``spatial_dims=2``).  The stem is a k3 convolution (padding 1, no bias), a stride-s stage
-downsamples with a k2 stride-2 convolution, the decoder upsamples with a k2
-stride-2 transposed convolution and concatenates ``[skip, up]`` on the channel
-axis, and the head is a k1 convolution.  ``remat=True`` runs each stage's
-block under ``torch.utils.checkpoint`` while autograd records a graph, as the
-JAX model wraps it in ``nn.remat``: the block's activations are recomputed in
-the backward, so the kernels' forwards launch twice per step.  Deep
-supervision is not ported yet.
+Each component is a spec in the ``partialize`` idiom, ``Class | (Class,
+kwargs)``, built by :func:`build_block` with the keywords its class accepts, as
+the JAX model builds them: ``block`` is one spec, a :class:`Same` wrapper or a
+list with one spec per stage (encoder stages first, then the decoder's,
+deepest first), called with ``(in_channels, out_channels, depth=,
+spatial_size=, dtype=)``; ``stem`` (None or ``Identity``: no stem, and then the
+first encoder width is the input's), ``downsample`` (default a k2 convolution
+of the stage's stride), ``upsample`` (a k2 transposed convolution) and ``head``
+(a k1 convolution, computing in float32 as the JAX model's does).
+``num_deep_supr`` (an int n, or True for 3) puts heads ``head{j}`` on the n
+finest decoder outputs; ``forward`` then returns their list, finest first, in
+training and evaluation alike.  Volumes (``spatial_dims=3``) and images
+(``spatial_dims=2``); ``device``, ``generator`` and ``spatial_dims`` go to each
+component whose class takes them.  ``remat=True`` runs each stage's block under
+``torch.utils.checkpoint`` while autograd records a graph, as the JAX model
+wraps it in ``nn.remat``: the block's activations are recomputed in the
+backward, so the kernels' forwards launch twice per step, and a dropout mask is
+drawn again from the same random state (``preserve_rng_state``).
 
 On slabs (``parallel.slabs.on_slabs``) the skeleton's layers take their slab
-paths (``layers.basic``): the stem runs on its slab and a halo of ``padding``
-rows from each neighbour, with valid padding along the cut axis; each
-stride-s downsampling needs a row count per slab that s divides (else the
-:class:`Conv` raises, naming itself); the rest is local to the slab.  Whether
-the stage blocks have slab paths is the subclass's to say
-(``slab_path_missing``).
+paths (``layers.basic``): a convolution runs on its slab and a halo of
+``padding`` rows from each neighbour, with valid padding along the cut axis;
+each stride-s downsampling needs a row count per slab that s divides (else the
+:class:`Conv` raises, naming itself); the rest is local to the slab.  A stem,
+resampling layer, head or stage block built of other layers than
+:data:`SLAB_LAYERS` has no known slab path and is named by
+``slab_path_missing``; the Factorizer's and the Deconver's stages and the
+patch stem judge themselves (their own ``slab_path_missing``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Any, Optional, Sequence
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..layers.basic import Conv, ConvTranspose, Identity
+from ..layers.basic import (
+    MLP,
+    Conv,
+    ConvTranspose,
+    Dense,
+    Dropout,
+    FlaxGroupNorm,
+    FlaxLayerNorm,
+    GroupNorm,
+    Identity,
+    InstanceNorm,
+    LayerNorm,
+    Linear,
+    _Affine,
+)
+from ..layers.conv_blocks import BasicBlock, DoubleConv, PreActivationBlock, SepConv
+from ..utils.helpers import has_args, partialize, spec_accepts
 
-__all__ = ["UNet", "StageFactory"]
+__all__ = ["UNet", "Same", "build_block", "dtype_kwargs", "SLAB_LAYERS", "slab_path_missing_of"]
 
-# (stage index, in_channels, out_channels, depth, spatial_size) -> stage module.
-# Stages 0 .. n_enc-1 are the encoder (n_enc-1 is the bottleneck), then the
-# decoder stages deepest-first.  ``spatial_size`` is None when the U-Net was
-# given none (translation-invariant stages need none).
-StageFactory = Callable[[int, int, int, int, Optional[tuple]], nn.Module]
+CHANNELS_FIRST = "channels_first"
+CHANNELS_LAST = "channels_last"
+# The default stem of the JAX Factorizer and Deconver (the generic UNet's is none).
+CONV_STEM = (Conv, {"kernel_size": 3, "padding": 1, "bias": False})
+
+
+class Same:
+    """Indexable wrapper returning the same block spec for every stage."""
+
+    def __init__(self, block: Any) -> None:
+        self.block = block
+
+    def __getitem__(self, idx: Any) -> Any:
+        return self.block
+
+
+def dtype_kwargs(spec: Any, dtype: Optional[torch.dtype]) -> dict:
+    """``{"dtype": dtype}`` when it should be threaded into ``spec``: empty when ``dtype`` is None, when the spec does
+    not take ``dtype``, or when it binds one itself (``(LayerNorm, {"dtype": torch.float32})`` keeps its float32)."""
+    if dtype is None or not spec_accepts(spec, "dtype"):
+        return {}
+    if "dtype" in getattr(partialize(spec), "keywords", {}):
+        return {}
+    return {"dtype": dtype}
+
+
+def build_block(spec: Any, *args: Any, context: Optional[dict] = None, **kwargs: Any) -> nn.Module:
+    """Instantiate a block spec with the keywords its class accepts, as the JAX ``build_block`` does.
+
+    ``dtype`` follows :func:`dtype_kwargs`; the entries of ``context`` (device,
+    generator, spatial_dims: what a Flax module never needs) go where the class
+    takes them.
+    """
+    fn = partialize(spec)
+    cls = getattr(fn, "func", fn)
+    kept = {k: v for k, v in kwargs.items() if spec_accepts(spec, k)}
+    if "dtype" in kept and not dtype_kwargs(spec, kept["dtype"]):
+        del kept["dtype"]
+    bound = getattr(fn, "keywords", {})
+    extra = {k: v for k, v in (context or {}).items() if k not in bound and has_args(cls, k)}
+    return fn(*args, **kept, **extra)
 
 
 def _run_block(block: nn.Module, remat: bool, x: torch.Tensor) -> torch.Tensor:
@@ -79,31 +144,73 @@ class _Blocks(nn.Module):
         self.blocks = nn.ModuleList(blocks)
 
 
-class UNet(nn.Module):
-    """U-shaped encoder/decoder with skip connections, over 3-D volumes or 2-D images.
+# The layers whose forward runs on a slab as it is, or through its own slab path (layers.basic): per-voxel layers,
+# the convolutions and the norms, and the blocks made of nothing else.  A module of any other class has no known
+# slab path.
+SLAB_LAYERS = (
+    Conv, ConvTranspose, Linear, Dense, nn.Linear, LayerNorm, FlaxLayerNorm, nn.LayerNorm, GroupNorm, FlaxGroupNorm,
+    InstanceNorm, _Affine, Dropout, nn.Dropout, Identity, MLP, nn.Sequential, nn.ModuleList, DoubleConv, BasicBlock,
+    PreActivationBlock, SepConv, nn.GELU, nn.ReLU, nn.LeakyReLU, nn.SiLU, nn.Sigmoid, nn.Tanh,
+)
 
-    Args:
+
+def slab_path_missing_of(module: nn.Module, name: str) -> Optional[str]:
+    """What keeps ``module`` (at ``name``) from running on slabs, or None.
+
+    A module with its own ``slab_path_missing`` (the Factorizer's and the
+    Deconver's stages, the patch stem) answers for itself; any other must be
+    one of :data:`SLAB_LAYERS`, and so must its children, recursively.
+    """
+    own = getattr(module, "slab_path_missing", None)
+    if own is not None:
+        reason = own()
+        return None if reason is None else f"{reason} (in {name})"
+    if not isinstance(module, SLAB_LAYERS):
+        return f"{type(module).__name__} ({name}) has no known slab path"
+    for child, m in module.named_children():
+        reason = slab_path_missing_of(m, f"{name}.{child}")
+        if reason is not None:
+            return reason
+    return None
+
+
+class UNet(nn.Module):
+    """Generic U-shaped encoder/decoder with skip connections, over 3-D volumes or 2-D images.
+
+    Args mirror the JAX model's (and the reference constructor's):
         in_channels / out_channels: model input / output channels.
-        spatial_size: input spatial size, handed to the stage blocks; None if no stage needs it.
-        encoder_depth / encoder_width / strides: per encoder stage.
+        spatial_size: input spatial size, handed to the stage blocks that take it; None if none needs it.
+        encoder_depth / encoder_width / strides: per encoder stage; stage i downsamples by ``strides[i]``
+            (stride 1: no downsampling, and matching widths).
         decoder_depth: per decoder stage, deepest first.
-        block: builds each stage's block (see :data:`StageFactory`).
-        dtype: compute dtype of the stem, resampling convs and stages
-            (the head computes in float32, as the JAX model's does).
-        spatial_dims: 3 or 2, the rank of the convolutions.
+        stem / downsample / block / upsample / head: component specs (see the module).
+        num_deep_supr: False for one full-resolution head, an int n for n deep-supervision heads, True for 3.
+        data_format: ``"channels_first"`` or ``"channels_last"``, the layout of ``forward``'s input and outputs.
+        dtype: compute dtype of the components that take one (not the heads).
+        spatial_dims: 3 or 2, handed to the components that take it.
         remat: recompute each stage block's activations in the backward (JAX ``remat``).
     """
+
+    # The prefix of this model's parameters among the JAX model's variables: the JAX Factorizer and Deconver hold
+    # their U-Net under ``unet``, the JAX UNet is the U-Net itself.
+    flax_prefix = ""
 
     def __init__(
         self,
         in_channels: int,
         out_channels: int,
-        spatial_size: Optional[Sequence[int]],
-        encoder_depth: Sequence[int],
-        encoder_width: Sequence[int],
-        strides: Sequence[int],
-        decoder_depth: Sequence[int],
-        block: StageFactory,
+        spatial_size: Optional[Sequence[int]] = None,
+        encoder_depth: Sequence[int] = (1, 1, 1, 1, 1),
+        encoder_width: Sequence[int] = (32, 64, 128, 256, 512),
+        strides: Sequence[int] = (1, 2, 2, 2, 2),
+        decoder_depth: Sequence[int] = (1, 1, 1, 1),
+        stem: Any = None,
+        downsample: Any = None,
+        block: Any = None,
+        upsample: Any = None,
+        head: Any = None,
+        num_deep_supr: Any = False,
+        data_format: str = CHANNELS_FIRST,
         dtype: Optional[torch.dtype] = None,
         device=None,
         generator: Optional[torch.Generator] = None,
@@ -113,43 +220,90 @@ class UNet(nn.Module):
         super().__init__()
         if spatial_size is not None and len(spatial_size) != spatial_dims:
             raise ValueError(f"spatial_size {tuple(spatial_size)} does not have {spatial_dims} axes")
-        conv_kw = dict(dtype=dtype, device=device, generator=generator, spatial_dims=spatial_dims)
-        widths = [encoder_width[0], *encoder_width]
-        self.stem = Conv(in_channels, widths[0], kernel_size=3, padding=1, bias=False, **conv_kw)
+        if data_format not in (CHANNELS_FIRST, CHANNELS_LAST):
+            raise ValueError(f"data_format must be {CHANNELS_FIRST!r} or {CHANNELS_LAST!r}, got {data_format!r}")
+        self.data_format = data_format
+        n_enc, n_dec = len(encoder_depth), len(decoder_depth)
+        ctx = dict(device=device, generator=generator, spatial_dims=spatial_dims)
 
+        # Per-stage block specs, encoder stages first, then the decoder's.
+        if block is None:
+            block = Same((DoubleConv, {}))
+        if isinstance(block, Same) or not isinstance(block, (list, tuple)):
+            block = block if isinstance(block, Same) else Same(block)
+            blocks = [block[i] for i in range(n_enc + n_dec)]
+        else:
+            blocks = list(block)
+
+        if stem in (None, Identity):
+            stem_width = in_channels
+            self.stem = Identity()
+        else:
+            stem_width = encoder_width[0]
+            self.stem = build_block(stem, in_channels, stem_width, context=ctx, dtype=dtype)
+        downsample = downsample or (Conv, {"kernel_size": 2})
+        upsample = upsample or (ConvTranspose, {"kernel_size": 2})
+        head = head or (Conv, {"kernel_size": 1})
+
+        widths = [stem_width, *encoder_width]
         size = None if spatial_size is None else tuple(spatial_size)
         encoder = []
-        for i, stride in enumerate(strides[: len(encoder_depth)]):
+        for i in range(n_enc):
+            stride = strides[i]
             size = None if size is None else tuple(s // stride for s in size)
             if stride == 1:
                 if widths[i] != widths[i + 1]:
-                    raise ValueError(f"stride-1 stage {i} needs matching widths, got {widths[i]} -> {widths[i + 1]}")
+                    raise ValueError(
+                        "stride-1 encoder stage requires matching widths "
+                        f"(got {widths[i]} -> {widths[i + 1]}); stage blocks adapt channels."
+                    )
                 down = Identity()
             else:
-                down = Conv(widths[i], widths[i + 1], kernel_size=2, stride=stride, **conv_kw)
-            stage = block(i, widths[i + 1], widths[i + 1], encoder_depth[i], size)
+                down = build_block(downsample, widths[i], widths[i + 1], context=ctx, stride=stride, dtype=dtype)
+            stage = build_block(blocks[i], widths[i + 1], widths[i + 1], context=ctx, depth=encoder_depth[i],
+                                spatial_size=size, dtype=dtype)
             encoder.append(_EncoderStage(down, stage, remat))
         self.encoder = _Blocks(encoder)
 
         dec_widths = list(encoder_width[::-1])
-        dec_strides = list(strides[::-1][: len(decoder_depth)])
+        dec_strides = list(strides[::-1][:n_dec])
         decoder = []
         for i, stride in enumerate(dec_strides):
             size = None if size is None else tuple(s * stride for s in size)
-            up = ConvTranspose(dec_widths[i], dec_widths[i + 1], kernel_size=2, stride=stride, **conv_kw)
-            stage = block(len(encoder_depth) + i, 2 * dec_widths[i + 1], dec_widths[i + 1], decoder_depth[i], size)
+            up = build_block(upsample, dec_widths[i], dec_widths[i + 1], context=ctx, stride=stride, dtype=dtype)
+            stage = build_block(blocks[n_enc + i], 2 * dec_widths[i + 1], dec_widths[i + 1], context=ctx,
+                                depth=decoder_depth[i], spatial_size=size, dtype=dtype)
             decoder.append(_DecoderStage(up, stage, remat))
         self.decoder = _Blocks(decoder)
 
-        self.head = Conv(encoder_width[0], out_channels, kernel_size=1, device=device, generator=generator,
-                         spatial_dims=spatial_dims)
+        if num_deep_supr in (False, None, 0):
+            self.num_deep_supr = 0
+            self.head = build_block(head, encoder_width[0], out_channels, context=ctx)
+        else:
+            self.num_deep_supr = 3 if num_deep_supr is True else int(num_deep_supr)
+            for j in range(self.num_deep_supr):
+                self.add_module(f"head{j}", build_block(head, encoder_width[j], out_channels, context=ctx))
 
     # This process's parallel.slabs.Slabs while the model runs on slabs, else None.
     slabs = None
 
+    def head_names(self) -> list[str]:
+        """The output heads' names, finest first: ``head``, or ``head0 .. head{n-1}`` under deep supervision."""
+        return [f"head{j}" for j in range(self.num_deep_supr)] if self.num_deep_supr else ["head"]
+
     def slab_path_missing(self) -> Optional[str]:
-        """What keeps the model from running on slabs, or None; the skeleton has a slab path, the stage blocks decide."""
-        return f"{type(self).__name__}: its stage blocks are not known to be local to a slab"
+        """What keeps the model from running on slabs, or None: the stem, each stage's resampling layer and block,
+        the heads (:func:`slab_path_missing_of`)."""
+        parts = [("stem", self.stem)]
+        for part, stages in (("encoder", self.encoder), ("decoder", self.decoder)):
+            for i, stage in enumerate(stages.blocks):
+                parts += [(f"{part}.blocks.{i}.{name}", m) for name, m in stage.named_children()]
+        parts += [(name, getattr(self, name)) for name in self.head_names()]
+        for name, part in parts:
+            reason = slab_path_missing_of(part, name)
+            if reason is not None:
+                return reason
+        return None
 
     def forward_features(self, x: torch.Tensor) -> list[torch.Tensor]:
         """Channels-last feature pass; returns the decoder pyramid, finest first."""
@@ -162,7 +316,13 @@ class UNet(nn.Module):
             ys[-2 - i] = stage(ys[-2 - i], ys[-1 - i])
         return ys
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """``(B, C_in, *S) -> (B, C_out, *S)``."""
-        y = self.head(self.forward_features(x.movedim(1, -1).contiguous())[0])
-        return y.movedim(-1, 1)
+    def forward(self, x: torch.Tensor):
+        """``(B, C_in, *S) -> (B, C_out, *S)`` (channels-last under ``data_format="channels_last"``), or the list of
+        the deep-supervision heads' outputs, finest first."""
+        if self.data_format == CHANNELS_FIRST:
+            x = x.movedim(1, -1).contiguous()
+        ys = self.forward_features(x)
+        outs = [getattr(self, name)(y) for name, y in zip(self.head_names(), ys)]
+        if self.data_format == CHANNELS_FIRST:
+            outs = [y.movedim(-1, 1) for y in outs]
+        return outs if self.num_deep_supr else outs[0]

@@ -16,7 +16,11 @@ forward and its backward, and otherwise run as they always do:
   ``InstanceNorm``, ``GroupNorm`` and ``FlaxGroupNorm`` take the whole
   volume's statistics (:func:`~.collectives.slab_sum`, whose backward sums
   the cotangent over the slabs);
-* ``UNet``: the stem and the skeleton through those layers;
+* ``UNet``: the stem, the resampling layers, the heads (the deep-supervision
+  heads too, k1 convolutions, with ``deep_supervision_loss(slabs=)``) and the
+  generic stage blocks through those layers; a part built of any other layer
+  (``models.unet.SLAB_LAYERS``) is named by ``slab_path_missing``;
+* ``Dropout``: each process draws its own mask for its slab;
 * ``Deconv`` (the Deconver): each of the source update's three convolutions
   runs K3 on its slab and a halo of ``k1 // 2`` rows, cropped back;
 * ``DynUNet``, its deep-supervision heads too, through the layers above;

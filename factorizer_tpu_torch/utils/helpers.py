@@ -1,7 +1,7 @@
 """Helpers shared across the port: tuples, the ``partialize`` idiom, the default device, late-built models.
 
-``as_tuple``, ``to_ntuple``, ``has_args``, ``partialize`` and
-``is_partializable`` are the counterparts of the helpers in
+``Universaltuple``, ``as_tuple``, ``to_ntuple``, ``cumprod``, ``has_args``,
+``partialize`` and ``is_partializable`` are the counterparts of the helpers in
 ``factorizer_tpu/utils/helpers.py``, ``spec_accepts`` of the one in
 ``factorizer_tpu/models/unet.py``.  ``build_spec`` builds a spec with the
 entries of a context (device, generator) that its class takes, which a Flax
@@ -20,13 +20,15 @@ import dataclasses
 import inspect
 from collections.abc import Mapping, Sequence
 from functools import partial
-from typing import Any, Callable, Optional
+from itertools import accumulate
+from operator import mul
+from typing import Any, Callable, Iterable, Optional
 
 import torch
 
 __all__ = [
-    "as_tuple", "to_ntuple", "has_args", "partialize", "is_partializable", "spec_accepts", "build_spec", "resolve_device",
-    "materialize",
+    "Universaltuple", "as_tuple", "to_ntuple", "cumprod", "has_args", "partialize", "is_partializable", "spec_accepts",
+    "build_spec", "resolve_device", "materialize",
 ]
 
 
@@ -46,6 +48,16 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+class Universaltuple(tuple):
+    """A tuple whose membership test always succeeds.
+
+    Useful as a sentinel for "applies to every index" in per-stage configs.
+    """
+
+    def __contains__(self, other: Any) -> bool:  # noqa: D105
+        return True
+
+
 def to_ntuple(obj: Any, n: int) -> tuple[Any, ...]:
     """Broadcast a scalar to an ``n``-tuple, or validate a length-``n`` sequence."""
     if not isinstance(obj, Sequence) or isinstance(obj, str):
@@ -63,6 +75,11 @@ def as_tuple(obj: Any) -> tuple[Any, ...]:
     if not isinstance(obj, Sequence) or isinstance(obj, str):
         return (obj,)
     return tuple(obj)
+
+
+def cumprod(x: Iterable[float]) -> list[float]:
+    """Cumulative product of an iterable."""
+    return list(accumulate(x, mul))
 
 
 def has_args(obj: Any, keywords: str | Sequence[str]) -> bool:

@@ -17,23 +17,31 @@ Convolutions of either rank (2-D images, 3-D volumes) go through the same rules.
 
 So ``convert_state_dict(model.state_dict())`` reproduces the variables leaf for leaf.
 
-Those rules serve the models laid out as the reference torch model, the U-Net
-family (``Factorizer``, ``Deconver``).  Every other model of the port (the
-baselines ``DynUNet``, ``SegResNet``, ``SwinUNETR``, ``UNETR``, the conv blocks
-and their parts) names its submodules after the Flax modules, so a leaf's
-Flax path is its module path and a name given by the layer's class:
+Those rules serve the stages of the models laid out as the reference torch
+model (``Factorizer``, ``Deconver``).  Every other module of the port (the
+U-Net skeleton, the generic ``UNet``'s stage blocks, the baselines
+``DynUNet``, ``SegResNet``, ``SwinUNETR``, ``UNETR``, the conv blocks and their
+parts) names its submodules after the Flax modules, up to the renames below,
+so a leaf's Flax path is its module path and a name given by the layer's class:
 
 * ``Conv`` / ``ConvTranspose`` at ``P``  -> ``P.conv.kernel`` / ``P.conv.bias`` (layouts as above)
 * ``Dense`` or ``nn.Linear`` at ``P``     -> ``P.kernel`` (transposed; a DenseGeneral's axes folded) / ``P.bias``
 * a norm at ``P`` (LayerNorm, GroupNorm, an InstanceNorm's or GroupNorm's inner ``norm``) -> ``P.scale`` / ``P.bias``
 * any other parameter                    -> its own path (``rel_pos_bias``, ``pos_embed``)
 
-and the bridge checks both ways: every entry of the state dict has a Flax
-leaf, and every Flax parameter is used.
+The renames: a U-Net's ``stem``, ``encoder.blocks.{i}.downsample`` /
+``.block``, ``decoder.blocks.{i}.upsample`` / ``.block`` and ``head`` /
+``head{j}`` are the Flax ``stem``, ``down{i}`` / ``enc{i}``, ``up{i}`` /
+``dec{i}`` and ``head`` / ``head{j}``, under ``unet`` in a Factorizer or a
+Deconver (``UNet.flax_prefix``); a stage's ``adapter`` is ``adapter_``; an
+MLP's ``block.0`` / ``block.3`` are ``fc1`` / ``fc2``.  The bridge checks that
+every entry of the state dict has a Flax leaf, and outside the Factorizer and
+the Deconver that every Flax parameter is used.
 """
 
 from __future__ import annotations
 
+import contextlib
 import re
 from typing import Any, Callable, Mapping, Optional
 
@@ -67,19 +75,9 @@ def _pos_embed(p: np.ndarray) -> np.ndarray:
     return np.moveaxis(p, -1, 1)
 
 
-# Port key (regex) -> (Flax path template, transform).  "{0}", "{1}" are the
-# regex groups; a "buffers:" prefix selects that collection.  Stage rules
-# apply below "encoder|decoder.blocks.{i}.block." -> "unet.enc|dec{i}.".
-_TOP_RULES: list[tuple[str, str, Transform]] = [
-    (r"stem\.weight", "unet.stem.conv.kernel", _conv_weight),
-    (r"stem\.bias", "unet.stem.conv.bias", None),
-    (r"encoder\.blocks\.(\d+)\.downsample\.weight", "unet.down{0}.conv.kernel", _conv_weight),
-    (r"encoder\.blocks\.(\d+)\.downsample\.bias", "unet.down{0}.conv.bias", None),
-    (r"decoder\.blocks\.(\d+)\.upsample\.weight", "unet.up{0}.conv.kernel", _tconv_weight),
-    (r"decoder\.blocks\.(\d+)\.upsample\.bias", "unet.up{0}.conv.bias", None),
-    (r"head\.weight", "unet.head.conv.kernel", _conv_weight),
-    (r"head\.bias", "unet.head.conv.bias", None),
-]
+# Port key (regex) -> (Flax path template, transform) inside a Factorizer or Deconver stage.  "{0}", "{1}" are the
+# regex groups; a "buffers:" prefix selects that collection.  They apply below "encoder|decoder.blocks.{i}.block." ->
+# "unet.enc|dec{i}.".
 _STAGE_RULES: list[tuple[str, str, Transform]] = [
     (r"adapter\.linear\.weight", "adapter_.linear.kernel", _linear_weight),
     (r"pos_embed\.pos", "pos_embed_.pos", _pos_embed),
@@ -108,33 +106,70 @@ def _fill(template: str, groups: tuple[str, ...]) -> str:
     return template
 
 
-def flax_path(key: str) -> tuple[str, tuple[str, ...], Transform]:
-    """``(collection, path, transform)`` of the Flax leaf behind port state-dict ``key``."""
+def flax_path(key: str, prefix: str = "unet.") -> tuple[str, tuple[str, ...], Transform]:
+    """``(collection, path, transform)`` of the Flax leaf behind ``key`` of a Factorizer or Deconver stage
+    (``encoder|decoder.blocks.{i}.block. ...``), by the stage rules; KeyError where no rule matches."""
     m = re.fullmatch(r"(encoder|decoder)\.blocks\.(\d+)\.block\.(.+)", key)
     if m:
-        prefix = f"unet.{'enc' if m.group(1) == 'encoder' else 'dec'}{m.group(2)}."
-        rules, rest = _STAGE_RULES, m.group(3)
-    else:
-        prefix, rules, rest = "", _TOP_RULES, key
-    for pattern, template, fn in rules:
-        mm = re.fullmatch(pattern, rest)
-        if mm is None:
-            continue
-        path = _fill(template, mm.groups())
-        collection = "params"
-        if path.startswith("buffers:"):
-            collection, path = "buffers", path[len("buffers:") :]
-        return collection, tuple((prefix + path).split(".")), fn
+        prefix += f"{'enc' if m.group(1) == 'encoder' else 'dec'}{m.group(2)}."
+        for pattern, template, fn in _STAGE_RULES:
+            mm = re.fullmatch(pattern, m.group(3))
+            if mm is None:
+                continue
+            path = _fill(template, mm.groups())
+            collection = "params"
+            if path.startswith("buffers:"):
+                collection, path = "buffers", path[len("buffers:") :]
+            return collection, tuple((prefix + path).split(".")), fn
     raise KeyError(f"no Flax counterpart for state-dict key {key!r}")
 
 
+def _flax_renames(model: nn.Module) -> dict[str, str]:
+    """Module path -> Flax module path, for the modules whose Flax names differ from the port's (see the module)."""
+    from ..layers.basic import MLP
+    from ..models.factorizer import FactorizerStage
+    from ..models.deconver import DeconverStage
+    from ..models.unet import UNet
+
+    renames: dict[str, str] = {}
+    if isinstance(model, UNet):
+        p = model.flax_prefix
+        renames["stem"] = p + "stem"
+        for i in range(len(model.encoder.blocks)):
+            renames[f"encoder.blocks.{i}.downsample"] = f"{p}down{i}"
+            renames[f"encoder.blocks.{i}.block"] = f"{p}enc{i}"
+        for i in range(len(model.decoder.blocks)):
+            renames[f"decoder.blocks.{i}.upsample"] = f"{p}up{i}"
+            renames[f"decoder.blocks.{i}.block"] = f"{p}dec{i}"
+        renames.update({name: p + name for name in model.head_names()})
+    for mpath, module in model.named_modules():  # parents before children, so each rename builds on its parent's
+        here = ".".join(_rename(mpath, renames))
+        sub = {"fc1": "block.0", "fc2": "block.3"} if isinstance(module, MLP) else {}
+        if isinstance(module, (FactorizerStage, DeconverStage)):
+            sub = {"adapter_": "adapter"}
+        for flax_name, port_name in sub.items():
+            renames[f"{mpath}.{port_name}" if mpath else port_name] = f"{here}.{flax_name}" if here else flax_name
+    return renames
+
+
+def _rename(mpath: str, renames: Mapping[str, str]) -> tuple[str, ...]:
+    """The Flax path of the module at ``mpath``: its longest renamed prefix, renamed, and the rest as it is."""
+    parts = mpath.split(".") if mpath else []
+    for n in range(len(parts), 0, -1):
+        head = ".".join(parts[:n])
+        if head in renames:
+            return tuple(p for p in renames[head].split(".") if p) + tuple(parts[n:])
+    return tuple(parts)
+
+
 def _flax_named_paths(model: nn.Module) -> dict[str, tuple[str, tuple[str, ...], Transform]]:
-    """State-dict key -> ``(collection, path, transform)`` for a model whose submodules carry the Flax names."""
+    """State-dict key -> ``(collection, path, transform)`` by module path, class and :func:`_flax_renames`."""
     from ..layers.basic import Conv, ConvTranspose, Dense, _Affine
 
+    renames = _flax_renames(model)
     paths = {}
     for mpath, module in model.named_modules():
-        prefix = tuple(mpath.split(".")) if mpath else ()
+        prefix = _rename(mpath, renames)
         for name, param in module.named_parameters(recurse=False):
             shape = tuple(param.shape)
             fn: Transform = None
@@ -151,7 +186,7 @@ def _flax_named_paths(model: nn.Module) -> dict[str, tuple[str, tuple[str, ...],
                 leaf = ("scale" if name == "weight" else "bias",)
             else:
                 leaf = (name,)
-            paths[".".join((*prefix, name))] = ("params", prefix + leaf, fn)
+            paths[f"{mpath}.{name}" if mpath else name] = ("params", prefix + leaf, fn)
     return paths
 
 
@@ -173,21 +208,26 @@ def flax_state_dict(model: nn.Module, variables: Mapping[str, Any]) -> dict[str,
     """The ``state_dict`` of ``model`` that the JAX package's ``{"params", "buffers"}`` variables give, as host
     tensors in the model's dtypes; ``model`` itself is not changed.
 
-    Every entry of ``model.state_dict()`` must have a counterpart; shapes are checked.  For a model outside the
-    U-Net family every Flax parameter must be used, too.  A model that takes its rank from its input must be built.
+    Every entry of ``model.state_dict()`` must have a counterpart; shapes are checked.  Every Flax parameter must be
+    used too, except in a Factorizer or a Deconver, whose variables may hold a table that the port computes instead
+    (a sinusoidal embedding built where the variables have a learnt one).  A model that takes its rank from its input
+    must be built.
     """
     from ..models.unet import UNet
 
     materialize(model)
-    named = None if isinstance(model, UNet) else _flax_named_paths(model)
+    named = _flax_named_paths(model)
+    prefix = model.flax_prefix if isinstance(model, UNet) else None
     new_state, used = {}, set()
     for key, current in model.state_dict().items():
-        if named is None:
-            collection, path, fn = flax_path(key)
-        elif key in named:
-            collection, path, fn = named[key]
-        else:
+        rule = None
+        if prefix is not None:
+            with contextlib.suppress(KeyError):
+                rule = flax_path(key, prefix)
+        rule = rule or named.get(key)
+        if rule is None:
             raise KeyError(f"no Flax counterpart for state-dict key {key!r}")
+        collection, path, fn = rule
         used.add(path)
         value = _get(variables[collection], path)
         if fn is not None:
@@ -195,10 +235,9 @@ def flax_state_dict(model: nn.Module, variables: Mapping[str, Any]) -> dict[str,
         if tuple(value.shape) != tuple(current.shape):
             raise ValueError(f"{key}: Flax leaf {'.'.join(path)} has shape {value.shape}, expected {tuple(current.shape)}")
         new_state[key] = torch.tensor(np.ascontiguousarray(value)).to(current.dtype)
-    if named is not None:
-        unused = sorted(".".join(p) for p in _leaf_paths(variables["params"]) - used)
-        if unused:
-            raise ValueError(f"Flax parameters without a counterpart in {type(model).__name__}: {unused[:5]}")
+    unused = sorted(".".join(p) for p in _leaf_paths(variables["params"]) - used)
+    if unused and prefix != "unet.":
+        raise ValueError(f"Flax parameters without a counterpart in {type(model).__name__}: {unused[:5]}")
     return new_state
 
 

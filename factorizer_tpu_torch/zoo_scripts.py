@@ -237,14 +237,24 @@ def ensemble_predict(
 
     Returns ``(mask, probs)``: the uint8 mask ``probs > 0.5`` and the mean over
     ``models`` of the sigmoid of each model's blended logits, both
-    ``(B, C_out, *S)``.
+    ``(B, C_out, *S)``; a deep-supervised model's logits are its first head's.
+    Each ``nn.Module`` runs in evaluation mode (no dropout) and is handed back
+    in the mode it came in; ``models`` may also be plain callables.
     """
     if not models:
         raise ValueError("ensemble_predict needs at least one model")
     probs = None
     for model in models:
         materialize(model, len(roi_size))
-        logits = sliding_window_inference(image, roi_size, model, sw_batch_size=sw_batch_size, overlap=overlap)
+        training = isinstance(model, torch.nn.Module) and model.training
+        if training:
+            model.eval()  # no dropout: the JAX package serves with train=False
+        try:
+            logits = sliding_window_inference(image, roi_size, lambda w, m=model: _first(m(w)),
+                                              sw_batch_size=sw_batch_size, overlap=overlap)
+        finally:
+            if training:
+                model.train()
         p = torch.sigmoid(logits)
         probs = p if probs is None else probs + p
     probs = probs / len(models)

@@ -185,12 +185,22 @@ def test_factmixer_opt_out_matches_jax_and_the_windowed_route():
 
 
 def test_factorize_options_takes_use_windowed_alone():
-    """The TPU-only keys of the JAX package are refused by name; ``use_windowed: True`` and None keep the default.
+    """The TPU-only keys of the JAX package are refused by name; ``use_windowed: True`` and None keep the default;
+    ``split_shifts`` is taken by a flat-route mixer, whose split route equals its concat route bit for bit.
     (``spatial_mesh`` and ``spatial_axis`` are taken: ``tests/test_torch_windowed_sharded.py``.)"""
     sw = (ftt.SWMatricize, {"head_dim": 4, "patch_size": 4})
-    for key in ("use_pallas", "explain", "split_shifts"):
+    for key in ("use_pallas", "explain"):
         with pytest.raises(ValueError, match=key):
             ftt.FactMixer(8, 8, (8, 8, 8), reshape=sw, factorize_options={key: True})
+    fk = dict(rank=1, num_iters=3, init_method="uniform", solver="hals")
+    concat = ftt.FactMixer(8, 8, (8, 8, 8), reshape=sw, factorize_kwargs=fk, factorize_options={"use_windowed": False})
+    split = ftt.FactMixer(8, 8, (8, 8, 8), reshape=sw, factorize_kwargs=fk,
+                          factorize_options={"use_windowed": False, "split_shifts": True})
+    split.load_state_dict(concat.state_dict())
+    assert split.splits_shifts and not concat.splits_shifts and split.windowed is None
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((2, 8, 8, 8, 8)).astype(np.float32))
+    with torch.no_grad():
+        assert torch.equal(split(x), concat(x))
     for options in (None, {}, {"use_windowed": True}, {"use_windowed": None}):
         assert ftt.FactMixer(8, 8, (8, 8, 8), reshape=sw, factorize_kwargs={"rank": 1}, factorize_options=options).windowed
     assert ftt.FactMixer(8, 8, (8, 8), reshape=sw, factorize_kwargs={"rank": 1}).windowed is None  # 2-D: the flat route

@@ -103,8 +103,9 @@ def test_routing_matches_jax(case):
 def test_factorize_options_reach_the_factorizer():
     """F7: every key the factorizer's class takes is passed (``eps``, ``init`` read as ``init_method``,
     ``compression``, ``seed``), ``factorize_options`` before the model's own fields, as JAX's ``FactMixer`` does (an
-    ``init_method`` field wins over an ``init`` key there too); a key no class takes is dropped; the TPU keys and
-    ``split_shifts`` raise by name."""
+    ``init_method`` field wins over an ``init`` key there too); a key no class takes is dropped; the TPU keys raise
+    by name; ``split_shifts`` is taken by a flat-route mixer (here a rank-2 one's) and is no factorizer's key, and the
+    split route equals the concat route bit for bit."""
     sw = (ftt.SWMatricize, SW)
     m = ftt.FactMixer(8, 8, (8, 8, 8), reshape=sw, factorize_kwargs={"rank": 1, "num_iters": 5},
                       factorize_options={"eps": 1e-8, "init": "nndsvd", "num_iters": 2, "not_a_key": 1})
@@ -120,9 +121,17 @@ def test_factorize_options_reach_the_factorizer():
                       factorize_options={"seed": 7})
     assert isinstance(m.factorize, ftt.SVD) and (m.factorize.rank, m.factorize.seed) == (2, 7) and m.windowed is None
     assert ftt.has_args(ftt.NMF, "rank") and ftt.spec_accepts((ftt.NMF, {}), "compression")
-    for key in ("use_pallas", "explain", "split_shifts"):
+    for key in ("use_pallas", "explain"):
         with pytest.raises(ValueError, match=key):
             ftt.FactMixer(8, 8, (8, 8, 8), reshape=sw, factorize_options={key: True})
+    fk = {"rank": 2, "num_iters": 2}
+    concat = ftt.FactMixer(8, 8, (8, 8, 8), reshape=sw, factorize_kwargs=fk)
+    split = ftt.FactMixer(8, 8, (8, 8, 8), reshape=sw, factorize_kwargs=fk, factorize_options={"split_shifts": True})
+    split.load_state_dict(concat.state_dict())
+    assert split.splits_shifts and split.windowed is None and not hasattr(split.factorize, "split_shifts")
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((2, 8, 8, 8, 8)).astype(np.float32))
+    with torch.no_grad():
+        assert torch.equal(split(x), concat(x))
     with pytest.raises(NotImplementedError, match="KMeans"):
         ftt.FactMixer(8, 8, (8, 8, 8), reshape=sw, factorize=ftt.KMeans)
 

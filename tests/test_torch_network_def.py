@@ -23,7 +23,7 @@ from factorizer_tpu.utils.torch_import import convert_state_dict
 
 import factorizer_tpu_torch as ftt
 from factorizer_tpu_torch.config import ConfigParser, load_config_files
-from factorizer_tpu_torch.models import factorizer as port_factorizer
+from factorizer_tpu_torch.layers import basic as port_basic
 from factorizer_tpu_torch.ops.kernels import prenorm_mlp as k2
 from factorizer_tpu_torch.train import trainer as port_trainer
 
@@ -188,13 +188,14 @@ def test_remat_factorizer_step_matches_jax_remat():
 
 
 def test_instance_norm_factorizer_takes_the_stock_tails_and_matches_jax(monkeypatch):
-    """``norm=InstanceNorm``: no block tail reaches K2's wrapper (LayerNorm sends all five there), the norms add
-    no parameter, and the f64 step matches the JAX Factorizer with ``norm=InstanceNorm``."""
+    """``norm=InstanceNorm``: no block tail reaches K2's wrapper (LayerNorm sends all five there at K2's widths), the
+    norms add no parameter, and the f64 step matches the JAX Factorizer with ``norm=InstanceNorm``."""
     calls = []
-    monkeypatch.setattr(port_factorizer, "prenorm_mlp", lambda *a: calls.append(1) or k2(*a))
+    monkeypatch.setattr(port_basic, "prenorm_mlp", lambda *a: calls.append(1) or k2(*a))
     x, y = _batch(9, np.float64)
     with torch.no_grad():
-        _port_model("factorizer", device="cpu")(torch.from_numpy(x).float())
+        ftt.Factorizer(**{**FACTORIZER, "encoder_width": (32, 32, 32)}, reshape=(ftt.SWMatricize, SW),
+                       device="cpu")(torch.from_numpy(x).float())
     assert len(calls) == 5
     calls.clear()
     port = _port_model("factorizer", norm=ftt.InstanceNorm, device="cpu")

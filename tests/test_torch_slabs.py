@@ -18,10 +18,13 @@ after the update equal one process's forward and step on the whole volume to
 * SwinUNETR and UNETR: the transformer on the gathered tensor, its gradient
   counted once in the sum over the slabs;
 * the Factorizer with InstanceNorm blocks, on its flat route (K4's plain
-  version on the gathered tensor) and in 2-D (the flat route, slabs of H).
+  version on the gathered tensor) and in 2-D (the flat route, slabs of H);
+* the Factorizer with two deep-supervision heads (k1 convolutions on each
+  slab, the heads' targets pooled per slab) and ``dropout: 0``.
 
 Unit cases: ``slab_sum``'s backward against ``all_reduce_sum``'s, the
-replicate-edged halo, ``_group_norm`` on slabs, the stride-2 refusal.  One
+replicate-edged halo, ``_group_norm`` on slabs, the stride-2 refusal, an
+overridden stem without a slab path refused by name.  One
 case holds the reduced Deconver's one-process forward against JAX's
 ``model.apply``.  The workers are module-level functions run by
 ``parallel.run_processes``; this module imports jax only inside a test.
@@ -82,6 +85,7 @@ FAMILIES = {
     "factorizer_instance_norm": (lambda: _factorizer((32, 8, 8), norm=ftt.InstanceNorm), (4, 3, (32, 8, 8))),
     "factorizer_flat": (lambda: _factorizer((32, 8, 8), factorize_options={"use_windowed": False}), (4, 3, (32, 8, 8))),
     "factorizer_2d": (lambda: _factorizer((32, 16), in_channels=3, out_channels=1), (3, 1, (32, 16))),
+    "factorizer_deep_supervision": (lambda: _factorizer((32, 8, 8), num_deep_supr=2, dropout=0.0), (4, 3, (32, 8, 8))),
 }
 
 
@@ -124,7 +128,9 @@ def _forward_and_step(name: str, mesh=None) -> dict:
         else:
             x = batch["image"].chunk(slabs.n, 2)[slabs.index].contiguous()
             with on_slabs(model, slabs):
-                logits = all_gather_cat(model(x), mesh, "model", 2)
+                out = model(x)
+                logits = ([all_gather_cat(y, mesh, "model", 2) for y in out] if isinstance(out, list)
+                          else all_gather_cat(out, mesh, "model", 2))
     state = trainer.create_train_state(model, device="cpu", **OPT)
     step = trainer.make_train_step(model) if mesh is None else trainer.make_train_step(model, mesh=mesh,
                                                                                         spatial_axis="model")
@@ -170,7 +176,9 @@ def _assert_equal_to_one_process(got: dict, want: dict) -> None:
     def close(a, b, scale):
         assert a.shape == b.shape and (a - b).abs().max().item() <= F64_TOL * scale
 
-    close(got["logits"], want["logits"], want["logits"].abs().max().item())
+    for a, b in zip(*(x if isinstance(x, list) else [x] for x in (got["logits"], want["logits"]))):
+        close(a, b, b.abs().max().item())
+    assert type(got["logits"]) is type(want["logits"])
     assert abs(got["loss"] - want["loss"]) <= F64_TOL * abs(want["loss"])
     assert got["grads"].keys() == want["grads"].keys()
     largest = max(g.abs().max().item() for g in want["grads"].values())
@@ -324,3 +332,28 @@ def test_stride_two_refuses_an_odd_slab(units):
     """A k3 stride-2 convolution on a slab of 5 rows raises, naming the layer and the row count, on each process."""
     for r in units:
         assert "Conv(3 -> 4, k3 s2 p1)" in r["refusal"] and "got 5 rows" in r["refusal"]
+
+
+class _WholeAxisStem(torch.nn.Module):
+    """A stem that centres each volume along its first spatial axis: a layer no slab path is known for."""
+
+    def __init__(self, in_channels: int, out_channels: int, device=None, generator=None) -> None:
+        super().__init__()
+        self.proj = Conv(in_channels, out_channels, kernel_size=1, device=device, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.proj(x - x.mean(1, keepdim=True))
+
+
+def test_an_overridden_stem_without_a_slab_path_is_refused_by_name():
+    """A stem override of a class without a known slab path is named by ``slab_path_missing`` and refused before a
+    spatial step; a DoubleConv stem, a k3 downsampling and the deep-supervision heads have slab paths."""
+    from factorizer_tpu_torch.parallel.slabs import require_slab_path
+
+    model = _factorizer((32, 8, 8), stem=_WholeAxisStem)
+    assert model.slab_path_missing() == "_WholeAxisStem (stem) has no known slab path"
+    with pytest.raises(NotImplementedError, match=r"_WholeAxisStem \(stem\)"):
+        require_slab_path(model)
+    known = _factorizer((32, 8, 8), stem=(ftt.DoubleConv, {}), downsample=(Conv, {"kernel_size": 3, "padding": 1}),
+                        num_deep_supr=2)
+    assert known.slab_path_missing() is None
