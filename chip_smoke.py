@@ -172,6 +172,17 @@ Phases, one or more result lines each:
      reference_kernels()); the generic UNet (DoubleConv blocks, a k3 stem, widths 32...512) plain and with three heads (no
      launch of the port); deconver_brats23's network_def with num_deep_supr: 2 and dropout: 0.1 (54 + 27 K3 a step).
      Its launches are in the kernels line; chip_smoke.options_slice(chip_smoke.kernel_counters()) runs it alone.
+ 30. (run after 25) the spatial step where the slab paths stop, each cell's processes sharing the one card over gloo,
+     the bundle's unedited network_def (with the one override named) at full width, batch and roi, f32, 1 warm-up and 2
+     steps: deconver_brats23 with update_filter: true at 2 x 128^3 on 2 processes (the filter update's correlations
+     summed over the slabs), swinunetr_isles22 with use_v2: true at 8 x 64^3 on 2, swinunetr_isles22 at 8 x 64^3 on 4
+     (slabs of 16 rows: its level 5 gathered), factorizer_isles22 at 8 x 64^3 on 8 (slabs of 8 rows: the deepest level
+     gathered, K1 on its mixers; an 8-card node's layout).  Each prints the route (parallel.slabs.slab_route), s/step
+     and peak memory per process beside the one-process step's, launches per step and process by kernel, loss and
+     gradient norm against the one-process step on the same batch (the f32 band of 21 and 25), and for the Deconver
+     the first stage's filter fitted on slabs, equal bit for bit on every process.  Then K2 forward and backward at
+     the slab shape (2, 64 x 128^2, 32) with their bounds.  Its launches are in the kernels line;
+     chip_smoke.slab_gaps_slice() runs it alone after build.library().
 The float16 instance of every kernel is checked beside f32 and bf16 at one stage shape each (K1, K1 bwd with and
 without all-zero windows, K2, K2 bwd, K3, K3 dw, K4, K4 bwd, K5), with one float16 forward of brats23_network
 (`[slice f16]`); MatrixFactorization serves a float16 tensor through K4, and a float64 one raises.
@@ -482,9 +493,10 @@ def roi_batch(b: int, c_in: int, c_out: int, roi: tuple, seed: int) -> dict:
     return {"image": torch.randn(b, c_in, *roi, device="cuda", generator=g), "label": (field > 0.3).float()}
 
 
-def bundle_network(bundle: str, amp: bool = False) -> tuple:
-    """The bundle's ``network_def`` from its unedited ``train.yaml`` through the port's ConfigParser, weights from the
-    bundle's seed, built on the card for its roi's rank; and the config."""
+def bundle_network(bundle: str, amp: bool = False, overrides: dict | None = None) -> tuple:
+    """The bundle's ``network_def`` from its unedited ``train.yaml`` (with ``overrides`` of ``network_def`` keys)
+    through the port's ConfigParser, weights from the bundle's seed, built on the card for its roi's rank; and the
+    config."""
     from pathlib import Path
 
     from factorizer_tpu_torch.config import ConfigParser, load_config_files, merge_config
@@ -492,6 +504,7 @@ def bundle_network(bundle: str, amp: bool = False) -> tuple:
 
     configs = Path(__file__).resolve().parent / "zoo" / bundle / "configs"
     cfg = merge_config(load_config_files([configs / "train.yaml"]), {"bundle_root": str(configs.parent), "amp": amp})
+    cfg["network_def"].update(overrides or {})
     parser = ConfigParser(cfg)
     parser.seed(cfg["seed"])
     model = materialize(parser["network_def"], len(cfg["roi_size"]))
@@ -1067,6 +1080,193 @@ def train_tp_slice(world: int, settings: dict) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     torch.backends.cudnn.benchmark = True
+    return launches
+
+
+# Phase 30's cells: (label, bundle, network_def overrides, processes, batch, roi, cuDNN's timing search).
+SLAB_GAP_CELLS = (
+    ("deconver_brats23 update_filter", "deconver_brats23", {"update_filter": True}, 2, 2, (128, 128, 128), False),
+    ("swinunetr_isles22 use_v2", "swinunetr_isles22", {"use_v2": True}, 2, 8, (64, 64, 64), True),
+    ("swinunetr_isles22", "swinunetr_isles22", {}, 4, 8, (64, 64, 64), True),
+    ("factorizer_isles22", "factorizer_isles22", {}, 8, 8, (64, 64, 64), True),
+)
+SLAB_GAP_STEPS = 2  # timed steps after one warm-up step
+
+
+def slab_gaps_worker(rank: int, world: int, init_method: str, labels: list) -> dict:
+    """The spatial step on this process's slabs for each of ``labels`` (``SLAB_GAP_CELLS`` of ``world`` processes):
+    the route, 1 warm-up and ``SLAB_GAP_STEPS`` steps with their seconds, launches, losses, norms and peak memory; for
+    a Deconver the first stage's filter fitted on slabs after the steps."""
+    import torch
+
+    from factorizer_tpu_torch.factorization.deconv import Deconv
+    from factorizer_tpu_torch.parallel import Slabs, model_parallel_mesh, on_slabs
+    from factorizer_tpu_torch.parallel.slabs import slab_route
+    from factorizer_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    backend = join_group_on_the_card(rank, world, init_method)
+    mesh = model_parallel_mesh()
+    slabs = Slabs(mesh, "model")
+    counters = kernel_counters()
+    report = {"backend": backend}
+    for label, bundle, overrides, _, b, roi, search in SLAB_GAP_CELLS:
+        if label not in labels:
+            continue
+        torch.backends.cudnn.benchmark = search
+        model, cfg = bundle_network(bundle, overrides=overrides)
+        state = create_train_state(model, lr=cfg["learning_rate"], weight_decay=cfg["weight_decay"])
+        step = make_train_step(state.model, mesh=mesh, spatial_axis="model")
+        net = cfg["network_def"]
+        batch = roi_batch(b, net["in_channels"], net["out_channels"], roi, seed=7)
+        deconv = next((m for m in model.modules() if isinstance(m, Deconv)), None)
+        seen = []
+
+        def keep(module, args):
+            seen[:] = [args[0].detach()]
+
+        hook = None if deconv is None else deconv.register_forward_pre_hook(keep)
+        run = {"route": str(slab_route(model, roi[0] // world, world)), "losses": [], "norms": [], "seconds": [],
+               "counts": [], "peak_memory": 0}
+        for i in range(1 + SLAB_GAP_STEPS):
+            reset_counters(counters)
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            run["seconds"].append(time.perf_counter() - t0)
+            run["counts"].append({k: v for k, v in read_counters(counters).items() if v})
+            run["losses"].append(metrics["loss"].item())
+            run["norms"].append(metrics["grad_norm"].item())
+            if i:
+                run["peak_memory"] = max(run["peak_memory"], torch.cuda.max_memory_allocated())
+        run["param_sum"] = sum(p.detach().double().sum().item() for p in state.model.parameters())
+        if deconv is not None:
+            hook.remove()
+            with torch.no_grad(), on_slabs(state.model, slabs):
+                run["h"] = deconv.fit(seen[0])[1].cpu()
+        report[label] = run
+        del model, state, step, batch, seen
+        gc.collect()
+        torch.cuda.empty_cache()
+    return report
+
+
+def slab_gaps_slice() -> dict:
+    """Phase 30: the spatial step where the layers' slab paths stop (``SLAB_GAP_CELLS``): the Deconver's filter
+    update on slabs, SwinUNETR V2, SwinUNETR on slabs of 16 rows and factorizer_isles22 on 8 slabs of 8 rows, each in
+    ``world`` processes sharing the card (gloo), held against the one-process step on the same batch; then K2 at the
+    slab shape of ``[train tp]``'s first cell.  Returns the launches of all processes' steps, by kernel."""
+    import torch
+
+    from factorizer_tpu_torch.ops.kernels import prenorm_mlp, prenorm_mlp_backward
+    from factorizer_tpu_torch.parallel import run_processes
+    from factorizer_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(kernel_counters(), 0)
+    worlds = {}
+    for cell in SLAB_GAP_CELLS:
+        worlds.setdefault(cell[3], []).append(cell[0])
+    reports, started = {}, {}
+    for world, labels in worlds.items():
+        t0 = time.perf_counter()
+        reports[world] = run_processes(slab_gaps_worker, world, labels, timeout=600)
+        started[world] = time.perf_counter() - t0
+    counters = kernel_counters()
+    tol = TRAIN_RTOL["float32"]
+    for label, bundle, overrides, world, b, roi, search in SLAB_GAP_CELLS:
+        torch.backends.cudnn.benchmark = search
+        model, cfg = bundle_network(bundle, overrides=overrides)
+        state = create_train_state(model, lr=cfg["learning_rate"], weight_decay=cfg["weight_decay"])
+        step = make_train_step(state.model)
+        net = cfg["network_def"]
+        batch = roi_batch(b, net["in_channels"], net["out_channels"], roi, seed=7)
+        ref = {"losses": [], "norms": [], "seconds": [], "counts": []}
+        for i in range(1 + SLAB_GAP_STEPS):
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+            reset_counters(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            ref["seconds"].append(time.perf_counter() - t0)
+            ref["counts"].append({k: v for k, v in read_counters(counters).items() if v})
+            ref["losses"].append(metrics["loss"].item())
+            ref["norms"].append(metrics["grad_norm"].item())
+        ref_peak = torch.cuda.max_memory_allocated()
+        runs = [rep[label] for rep in reports[world]]
+        r = runs[0]
+        for rank, q in enumerate(runs):
+            check(q["losses"] == r["losses"] and q["norms"] == r["norms"]
+                  and abs(q["param_sum"] - r["param_sum"]) <= 1e-9 * abs(r["param_sum"]),
+                  f"slab gaps {label}: the processes report different metrics or parameters: {q['losses']} / {r['losses']}")
+            check(q["counts"] == r["counts"], f"slab gaps {label} rank {rank}: launches {q['counts']} / {r['counts']}")
+            for counts in q["counts"]:
+                for k, v in counts.items():
+                    launches[k] += v
+        check(all(map(math.isfinite, r["losses"] + r["norms"])), f"slab gaps {label}: {r['losses']}, {r['norms']}")
+        loss_rel = max(abs(a - c) / abs(c) for a, c in zip(r["losses"], ref["losses"]))
+        norm_rel = max(abs(a - c) / c for a, c in zip(r["norms"], ref["norms"]))
+        check(loss_rel <= tol["loss"] and norm_rel <= tol["grad"],
+              f"slab gaps {label}: loss {r['losses']} / {ref['losses']}, grad norm {r['norms']} / {ref['norms']}")
+        extra = ""
+        if bundle.startswith("deconver"):  # no gather: the same K3 launches a process as in one process
+            check(r["counts"] == ref["counts"], f"slab gaps {label}: launches {r['counts']}, one process {ref['counts']}")
+            hs = [q["h"] for q in runs]
+            check(all(torch.equal(h, hs[0]) for h in hs) and bool(torch.isfinite(hs[0]).all()),
+                  f"slab gaps {label}: the fitted filter differs between the processes")
+            extra = f"; the first stage's filter fitted on slabs after the steps {tuple(hs[0].shape)} equal bit for bit on every process"
+        if bundle.startswith("factorizer"):
+            check(all(counts.get(k) for counts in r["counts"] for k in ("windowed_nmf_factors", "prenorm_mlp",
+                                                                        "prenorm_mlp_bwd", "windowed_nmf_bwd")),
+                  f"slab gaps {label}: K1 or K2 did not launch on the gathered levels: {r['counts']}")
+        side = "x".join(map(str, roi))
+        print(f"[slab gaps] {label}: the network_def with {overrides or 'no override'} through "
+              f"make_train_step(mesh=model_parallel_mesh(), spatial_axis='model') ({reports[world][0]['backend']}), batch "
+              f"{b} x {side} on {world} slabs of {roi[0] // world} rows, float32, cuDNN's "
+              f"{'timing search' if search else 'heuristics'}; route: {r['route']}; "
+              f"{' / '.join(f'{statistics.mean(q['seconds'][1:]):.4f}' for q in runs)} s/step per process, one-process "
+              f"step {statistics.mean(ref['seconds'][1:]):.4f} s (warm-up {r['seconds'][0]:.2f} s / {ref['seconds'][0]:.2f} "
+              f"s); peak memory per process {' / '.join(f'{q['peak_memory'] / 2**30:.2f}' for q in runs)} GiB, one "
+              f"process {ref_peak / 2**30:.2f} GiB; loss {' -> '.join(f'{v:.6f}' for v in r['losses'])}; launches per "
+              f"step and process {r['counts'][-1] or 'none of the port'} (one process {ref['counts'][-1] or 'none'}); "
+              f"against the one-process steps: loss rel {loss_rel:.2e} (tol {tol['loss']:.0e}), grad norm rel "
+              f"{norm_rel:.2e} (tol {tol['grad']:.0e}){extra}. " + shared_card_note(world))
+        del model, state, step, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    # K2's slab kernels are K2's: at the slab shape of [train tp]'s factorizer_brats23 cell on 2 slabs.
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    c = 32
+    x = torch.randn(2, 64, 128, 128, c, device="cuda", generator=gen)
+    params = (torch.ones(c, device="cuda"), torch.zeros(c, device="cuda"),
+              torch.randn(4 * c, c, device="cuda", generator=gen) / c**0.5, torch.zeros(4 * c, device="cuda"),
+              torch.randn(c, 4 * c, device="cuda", generator=gen) / (4 * c)**0.5, torch.zeros(c, device="cuda"))
+    with torch.inference_mode():
+        fwd_ms = cuda_time_ms(lambda: prenorm_mlp(x, *params))
+        bwd_ms = cuda_time_ms(lambda: prenorm_mlp_backward(x, x, *params))
+    fwd = bound_ms(*k2_work(x, 4 * c, backward=False)[:2], x.dtype, "tf32")
+    bwd = bound_ms(*k2_work(x, 4 * c, backward=True)[:2], x.dtype, "tf32")
+    print(f"[slab gaps] K2 at the slab shape (2,64x128^2,32) H=128 float32 (the JAX slab kernels' work, which K2 does on "
+          f"the slab's tokens): forward {fwd_ms:.3f} ms bound {fwd[0]:.3f} ms ({fwd[1]}), backward {bwd_ms:.3f} ms bound "
+          f"{bwd[0]:.3f} ms ({bwd[1]}); phase {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"{w} processes {t:.1f} s with start-up" for w, t in started.items()) + ")")
+    del x, params
+    # The filter update's correlation at stage 0 of deconver_brats23 (group-split: 64 one-channel volumes), whole
+    # and on a slab of 64 rows with its halo: cuDNN's grouped convolution whose kernel is the whole second operand.
+    from factorizer_tpu_torch.factorization.deconv import sconv
+
+    a, b_ = (torch.rand(64, 128, 128, 128, 1, device="cuda", generator=gen) for _ in range(2))
+    whole_ms = cuda_time_ms(lambda: sconv(a, b_, ((1, 1),) * 3), warmup=1, runs=3)
+    slab_ms = cuda_time_ms(lambda: sconv(a[:, :66], b_[:, :64], ((0, 0), (1, 1), (1, 1))), warmup=1, runs=3)
+    bound = bound_ms(2 * a.numel() * 4 + 64 * 27 * 4, 2.0 * 27 * a.numel(), torch.float32)
+    print(f"[slab gaps] sconv (the filter update's correlation, Deconv.update_h) at stage 0 of deconver_brats23, "
+          f"(64,128^3,1) with (64,128^3,1) -> (64,1,1,3,3,3) float32: {whole_ms:.3f} ms, bound {bound[0]:.3f} ms "
+          f"({bound[1]}); on a slab, (64,66x128^2,1) with (64,64x128^2,1): {slab_ms:.3f} ms; two a block and iteration")
+    del a, b_
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -3573,6 +3773,11 @@ def main() -> None:
     tp_launches = train_tp_slice(2, settings)
     gc.collect()
     torch.cuda.empty_cache()
+    # 30. the spatial step's former refusals; its launches are in the kernels line.
+    gap_launches = slab_gaps_slice()
+    torch.backends.cudnn.benchmark = True
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # 22. the training workflow from NIfTI files; its launches are checked there and left out of the kernels line.
     workflow_slice(wrappers)
@@ -3606,9 +3811,10 @@ def main() -> None:
         label, ms, plain_ms, b_ms, b_by, library_ms = results[name]["times"]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": serve_launches[name] + train_launches[name] + spatial_launches[name]
-                        + tp_launches[name] + engine_launches[name] + options_launches[name],
+                        + tp_launches[name] + engine_launches[name] + options_launches[name] + gap_launches[name],
                         "launches_serving": serve_launches[name], "launches_training": train_launches[name],
                         "launches_spatial": spatial_launches[name], "launches_train_tp": tp_launches[name],
+                        "launches_slab_gaps": gap_launches[name],
                         "launches_engine": engine_launches[name], "launches_options": options_launches[name],
                         "max_abs_err": max(results[name]["errs"]),
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,

@@ -22,7 +22,13 @@ padding, K3 where depthwise) and keeps its slab's rows.  The crop's backward
 pads the cotangent with zeros, so K3's weight gradient counts the slab's own
 outputs alone, and the halo's backward hands its rows' cotangent back to the
 slab they came from.  The filter update (``update_filter``) correlates over
-the whole volume and has no slab path.
+the whole volume: each of its two ``sconv`` terms is each slab's partial
+correlation (the first operand with a halo of ``k1 // 2`` rows from each
+neighbour, zeros beyond the volume, and no padding along S1; the second, the
+slab's own rows), summed over the slabs by ``slab_sum``, whose backward sums
+the cotangent over them too; its denominator's convolution takes the same halo
+and crop as the source update's.  The sum is the same on every process, so the
+filter stays equal on all of them, bit for bit.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ from torch import nn
 from ..layers.basic import _CONV, Linear, _uniform
 from ..ops.kernels import depthwise_conv
 from ..ops.math import relative_error
-from ..parallel.collectives import halo_exchange
+from ..parallel.collectives import halo_exchange, slab_sum
 from ..utils.helpers import to_ntuple
 
 __all__ = ["Deconv", "DeconvInit", "batched_conv", "sconv"]
@@ -93,12 +99,12 @@ def sconv(a: torch.Tensor, b: torch.Tensor, padding: Padding) -> torch.Tensor:
 
     The filter-gradient-like term of the deconvolution updates: ``a (B, *S, Ca)``
     is the input and ``b (B, *S, Cb)`` the kernel.  Returns ``(B, Ca, Cb, *out)``
-    with ``out_i = lo_i + hi_i + 1``.
+    with ``out_i = lo_i + hi_i + 1`` (where ``a`` and ``b`` have one size; a
+    larger ``a``, a slab and its halo, gives that many more).
     """
     n, ca, cb = a.shape[0], a.shape[-1], b.shape[-1]
-    spatial = a.shape[1:-1]
     x = a.movedim(-1, 0)  # (Ca, B, *S): the channels of a as the batch, the samples as groups
-    weight = b.movedim(-1, 1).reshape(n * cb, 1, *spatial)
+    weight = b.movedim(-1, 1).reshape(n * cb, 1, *b.shape[1:-1])
     y = _conv_padded(x, weight, padding, n)  # (Ca, B*Cb, *out)
     return y.reshape(ca, n, cb, *y.shape[2:]).movedim(0, 1)
 
@@ -189,15 +195,36 @@ class Deconv(nn.Module):
         s, h = self.init(x, dt)
         return x.to(dt), s, h
 
-    def _conv(self, s: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-        """``conv(s, h)`` at the layer's padding and groups (source -> signal, or with the adjoint filter back);
-        on slabs, on the slab and its halo, then cropped to the slab's rows."""
+    def slab_rows_missing(self, rows_in: int, rows_out: int) -> Optional[str]:
+        """Why the layer cannot run on slabs of these rows, or None: its halo of ``k1 // 2`` rows must come from one
+        neighbour."""
+        width = self.kernel_size[0] // 2
+        if width <= min(rows_in, rows_out):
+            return None
+        return (f"slabs: Deconv(k{self.kernel_size[0]}) takes a halo of {width} rows, wider than a slab of "
+                f"{min(rows_in, rows_out)}")
+
+    def _conv(self, s: torch.Tensor, h: torch.Tensor, groups: Optional[int] = None) -> torch.Tensor:
+        """``conv(s, h)`` at the layer's padding and ``groups`` (the layer's by default: source -> signal, or with the
+        adjoint filter back); on slabs, on the slab and its halo, then cropped to the slab's rows."""
+        groups = self.groups if groups is None else groups
         if self.slabs is None:
-            return batched_conv(s, h, self.padding, self.groups)
+            return batched_conv(s, h, self.padding, groups)
         width, rows = self.kernel_size[0] // 2, s.shape[1]
         if width:
             s = halo_exchange(s, self.slabs.mesh, self.slabs.axis, width, dim=1)
-        return batched_conv(s, h, self.padding, self.groups).narrow(1, width, rows)
+        return batched_conv(s, h, self.padding, groups).narrow(1, width, rows)
+
+    def _sconv(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """``sconv(a, b)`` over the whole volume; on slabs, each slab's partial correlation (``a`` with a halo of
+        ``k1 // 2`` rows and no padding along S1, ``b`` its own rows) summed over the slabs."""
+        if self.slabs is None:
+            return sconv(a, b, self.padding)
+        width = self.kernel_size[0] // 2
+        if width:
+            a = halo_exchange(a, self.slabs.mesh, self.slabs.axis, width, dim=1)
+        part = sconv(a, b, ((0, 0), *self.padding[1:]))
+        return slab_sum(part, self.slabs.mesh, self.slabs.axis)
 
     def _adjoint_h(self, h: torch.Tensor) -> torch.Tensor:
         """The adjoint filter: ``(B, C, sc, *k) -> (B, g*sc, C/g, *k)``, spatially flipped."""
@@ -221,8 +248,8 @@ class Deconv(nn.Module):
     def update_h(self, x: torch.Tensor, s: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         """The multiplicative update of the filter, on the group-split layout."""
         xs, ss, hs = self._split_x(x), self._split_x(s), self._split_h(h)
-        numerator = sconv(ss, xs, self.padding) + self.eps
-        denominator = sconv(ss, batched_conv(ss, hs, self.padding), self.padding) + self.eps
+        numerator = self._sconv(ss, xs) + self.eps
+        denominator = self._sconv(ss, self._conv(ss, hs, groups=1)) + self.eps
         return self._merge_h(hs * (numerator / denominator).transpose(1, 2))
 
     def _update(self, x, s, h):

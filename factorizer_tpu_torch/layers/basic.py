@@ -25,7 +25,9 @@ On slabs (``parallel.slabs.on_slabs`` sets ``slabs`` on the layers that have a
 slab path) the norms take their statistics over the whole volume through
 ``parallel.slab_sum``, a convolution exchanges a halo of its padding rows
 along the cut axis and pads none there, and a transposed convolution whose
-kernel equals its stride runs on its slab as it is.
+kernel equals its stride runs on its slab as it is.  ``Conv`` and
+``ConvTranspose`` state the rows they need (``slab_rows_missing``), which the
+models' route rules read before a forward (``parallel.slabs``).
 """
 
 from __future__ import annotations
@@ -430,19 +432,34 @@ class Conv(nn.Module):
     # This process's parallel.slabs.Slabs while the model runs on slabs, else None.
     slabs = None
 
-    def _on_slab(self, x: torch.Tensor) -> tuple[torch.Tensor, tuple]:
-        """This slab with a halo of ``padding[0]`` rows and the padding for the call: none along the cut axis.
+    def slab_rows_missing(self, rows_in: int, rows_out: int) -> Optional[str]:
+        """Why the convolution cannot run on slabs of ``rows_in`` input rows (``rows_out`` at the part's output), or None.
 
         The slabs' outputs join into the whole volume's where every slab's
         output starts on a multiple of the stride (a row count the stride
         divides) and holds ``rows / stride`` rows ("same" padding at stride 1,
-        k3 p1 at stride 2, or a kernel equal to the stride); else it raises.
+        k3 p1 at stride 2, or a kernel equal to the stride), and where the halo
+        of ``padding`` rows is no wider than the slab.  A stride-1 convolution
+        of a part is held to the fewer of the two row counts.
         """
-        rows, k, s, p, d = x.shape[1], self.weight.shape[2], self.stride[0], self.padding[0], self.dilation[0]
-        if rows % s or (rows + 2 * p - d * (k - 1) - 1) // s + 1 != rows // s:
-            layer = f"Conv({self.weight.shape[1] * self.groups} -> {self.weight.shape[0]}, k{k} s{s} p{p})"
-            raise ValueError(f"slabs: {layer} along the cut axis needs slabs of a row count that {s} divides and an "
-                             f"output of rows / {s} rows, got {rows} rows")
+        if self.pointwise:
+            return None
+        k, s, p, d = self.weight.shape[2], self.stride[0], self.padding[0], self.dilation[0]
+        rows = rows_in if s > 1 else min(rows_in, rows_out)
+        if rows >= 1 and rows % s == 0 and (rows + 2 * p - d * (k - 1) - 1) // s + 1 == rows // s and p <= rows:
+            return None
+        layer = f"Conv({self.weight.shape[1] * self.groups} -> {self.weight.shape[0]}, k{k} s{s} p{p})"
+        return (f"slabs: {layer} along the cut axis needs slabs of a row count that {s} divides, an output of rows / "
+                f"{s} rows and at least {max(p, 1)} rows, got {rows} rows")
+
+    def _on_slab(self, x: torch.Tensor) -> tuple[torch.Tensor, tuple]:
+        """This slab with a halo of ``padding[0]`` rows and the padding for the call: none along the cut axis; raises
+        where :meth:`slab_rows_missing` names a reason (the models' route rules keep such a slab from it)."""
+        rows = x.shape[1]
+        reason = self.slab_rows_missing(rows, rows // self.stride[0])
+        if reason is not None:
+            raise ValueError(reason)
+        p = self.padding[0]
         if p:
             x = halo_exchange(x, self.slabs.mesh, self.slabs.axis, p, dim=1)
         return x, (0, *self.padding[1:])
@@ -490,10 +507,19 @@ class ConvTranspose(nn.Module):
     # own ``stride`` output rows, which needs a kernel equal to the stride along the cut axis.
     slabs = None
 
+    def slab_rows_missing(self, rows_in: int, rows_out: int) -> Optional[str]:
+        """Why the transposed convolution cannot run on slabs, or None: only a kernel equal to the stride along the cut
+        axis runs on a slab as it is."""
+        if self.weight.shape[2] == self.stride[0]:
+            return None
+        return (f"slabs: ConvTranspose(k{self.weight.shape[2]} s{self.stride[0]}) along the cut axis: only a kernel "
+                "equal to the stride runs on a slab as it is")
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.slabs is not None and self.weight.shape[2] != self.stride[0]:
-            raise ValueError(f"slabs: ConvTranspose(k{self.weight.shape[2]} s{self.stride[0]}) along the cut axis: "
-                             "only a kernel equal to the stride runs on a slab as it is")
+        if self.slabs is not None:
+            reason = self.slab_rows_missing(x.shape[1], x.shape[1])
+            if reason is not None:
+                raise ValueError(reason)
         dt = _compute_dtype(self.dtype, x, self.weight)
         b = None if self.bias is None else self.bias.to(dt)
         y = _CONV_TRANSPOSE[self.spatial_dims](_to_channels_first(x.to(dt)), self.weight.to(dt), b, self.stride)

@@ -18,8 +18,9 @@ volumes and 2-D images.  Submodules carry the reference torch model's names
 (:class:`~factorizer_tpu_torch.models.unet.UNet`).  On slabs
 (``parallel.slabs.on_slabs``, the spatial step) the skeleton's convolutions
 and the norms take their slab paths (``layers.basic``), each of ``Deconv``'s
-three convolutions a step runs K3 on its slab and a halo, and the projections
-and tails are per voxel.  The JAX model's ``stem`` (the
+three convolutions a step runs K3 on its slab and a halo, the filter update
+(``update_filter``) sums its slabs' partial correlations, and the projections
+and tails are per voxel; the route is ``UNet.slab_route``'s.  The JAX model's ``stem`` (the
 patch-embedding :class:`Stem` among the specs), ``downsample``, ``upsample``,
 ``head``, ``num_deep_supr`` and ``data_format`` go to the
 :class:`~factorizer_tpu_torch.models.unet.UNet`; ``dropout`` follows each
@@ -116,11 +117,8 @@ class DeconverStage(nn.Module):
         self.blocks = nn.ModuleList(DeconverBlock(out_channels, **block_kwargs, **kw) for _ in range(depth))
 
     def slab_path_missing(self) -> Optional[str]:
-        """What keeps the stage from the spatial step (``parallel.slabs``), or None: the filter update, or an adapter
-        without a known slab path."""
-        for name, m in self.named_modules():
-            if isinstance(m, Deconv) and m.update_filter:
-                return f"the Deconver: the filter update over the whole volume ({name}: update_filter) has no slab path"
+        """What keeps the stage from running on slabs (``parallel.slabs``), or None (the model's route then gathers
+        it): an adapter without a known slab path.  The source and filter updates have slab paths (``Deconv``)."""
         return None if self.adapter is None else slab_path_missing_of(self.adapter, "adapter")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -8,21 +8,26 @@ inside; submodules carry the Flax module names (``enc{i}``, ``up{i}``,
 ``dec{i}``, ``head``, ``supr{j}``), so the weight bridge maps them by name.
 
 On slabs (``parallel.slabs.on_slabs``, the spatial step) every layer takes
-its slab path (``layers.basic``): the convolutions a halo of ``k // 2`` rows
-(a stride-2 one needs an even row count per slab), the InstanceNorms the whole
-volume's statistics; the transposed convolutions (kernel = stride) and the
-k1 heads, deep supervision's too, are local to the slab.
+its slab path (``layers.basic``): the convolutions a halo of ``k // 2`` rows,
+the InstanceNorms the whole volume's statistics; the transposed convolutions
+(kernel = stride) and the k1 heads, deep supervision's too, are local to the
+slab.  Levels whose slab holds too few rows (a stride that does not divide
+them, less than one row, a halo wider than the slab) run gathered with every
+deeper one (:meth:`DynUNet.slab_route`, ``parallel.slabs.run_ladder``).
 """
 
 from __future__ import annotations
 
+from fractions import Fraction
 from typing import Any, Optional, Sequence
 
 import torch
 from torch import nn
 
 from ..layers.basic import Conv, ConvTranspose, InstanceNorm, resolve_activation
+from ..parallel.slabs import Route, run_ladder, run_whole
 from ..utils.helpers import resolve_device, to_ntuple
+from .unet import first_gathered_level
 
 __all__ = ["DynUNet", "DynUNetBlock"]
 
@@ -45,6 +50,10 @@ class DynUNetBlock(nn.Module):
         self.conv2 = Conv(out_channels, out_channels, stride=1, **conv)
         self.norm2 = InstanceNorm(out_channels, affine=True, dtype=dtype, device=device)
 
+    def slab_path_missing(self) -> Optional[str]:
+        """None: its convolutions and norms have slab paths (``layers.basic``)."""
+        return None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.act(self.norm1(self.conv1(x)))
         return self.act(self.norm2(self.conv2(out)))
@@ -63,9 +72,26 @@ class DynUNet(nn.Module):
         data_format: ``"channels_first"`` takes and returns ``(B, C, *S)``.
     """
 
+    # This process's parallel.slabs.Slabs while the model runs on slabs, else None.
+    slabs = None
+
     def slab_path_missing(self) -> Optional[str]:
         """What keeps the model from the spatial step (``parallel.slabs``): nothing, its layers have slab paths."""
         return None
+
+    def slab_route(self, rows: int, n: int) -> Route:
+        """The route on ``n`` slabs of ``rows`` input rows: the first level whose block, upsampling (from it), decoder
+        block (at it) or head has too few rows, and every deeper level, run gathered."""
+        rs = [Fraction(rows)]
+        for i in range(self.n):
+            rs.append(rs[-1] / self.strides[i])
+        levels = []
+        for i in range(self.n):
+            names = [f"enc{i}", f"up{i}" if i else "head", f"dec{i + 1}" if i < self.n - 1 else None]
+            if self.deep_supervision and 1 <= i <= self.deep_supr_num:
+                names.append(f"supr{i - 1}")
+            levels.append([(name, getattr(self, name), rs[i], rs[i + 1]) for name in names if name])
+        return first_gathered_level(levels)
 
     def __init__(
         self,
@@ -90,6 +116,7 @@ class DynUNet(nn.Module):
         if deep_supervision and not 1 <= deep_supr_num <= n - 2:
             raise ValueError(f"deep_supr_num {deep_supr_num} needs 1 to {n - 2} coarser decoder outputs")
         self.n, self.data_format, self.deep_supervision, self.deep_supr_num = n, data_format, deep_supervision, deep_supr_num
+        self.strides = [to_ntuple(s, spatial_dims)[0] for s in strides]
         kw = dict(dtype=dtype, device=device, generator=generator, spatial_dims=spatial_dims)
         widths_in = [in_channels] + filters[:-1]
         for i in range(n):
@@ -108,18 +135,22 @@ class DynUNet(nn.Module):
         return y.movedim(-1, 1) if self.data_format == "channels_first" else y
 
     def forward(self, x: torch.Tensor):
+        slabs, level = self.slabs, None
+        dim = 2 if self.data_format == "channels_first" else 1
+        if slabs is not None:
+            level = self.slab_route(x.shape[dim], slabs.n).level
+            if level == 0:
+                return run_whole(self, x, slabs, dim)
         if self.data_format == "channels_first":
             x = x.movedim(1, -1).contiguous()
-        skips, out = [], x
-        for i in range(self.n):
-            out = getattr(self, f"enc{i}")(out)
-            skips.append(out)
-        ys = []  # decoder outputs, deepest first
-        for i in range(self.n - 1, 0, -1):
-            up = getattr(self, f"up{i}")(out)
-            out = getattr(self, f"dec{i}")(torch.cat([skips[i - 1], up], dim=-1))
-            ys.append(out)
-        head = self._out(self.head(out))
-        if not (self.deep_supervision and self.training):
+        down = [getattr(self, f"enc{i}") for i in range(self.n)]
+        up = {i - 1: getattr(self, f"up{i}") for i in range(1, self.n)}
+        merge = {i - 1: (lambda skip, u, i=i: getattr(self, f"dec{i}")(torch.cat([skip, u], dim=-1)))
+                 for i in range(1, self.n)}
+        supr = self.deep_supervision and self.training
+        keep = [j + 1 for j in range(self.deep_supr_num)] if supr else []
+        outs = run_ladder(x, down, up, merge, keep, level, slabs, [self])
+        head = self._out(self.head(outs[0]))
+        if not supr:
             return head
-        return [head] + [self._out(getattr(self, f"supr{j}")(ys[-2 - j])) for j in range(self.deep_supr_num)]
+        return [head] + [self._out(getattr(self, f"supr{j}")(outs[j + 1])) for j in range(self.deep_supr_num)]

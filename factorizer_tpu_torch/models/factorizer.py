@@ -56,8 +56,9 @@ mixer runs K5 on its slab, or gathers the stage's tensor, runs K1 on all of
 it and cuts its slab back out (:meth:`FactMixer.gathers`: where the slab holds
 no whole number of patches, or where gathering sends fewer bytes); a flat
 mixer (K4, the 2-D model's, the split route too) runs on the gathered tensor;
-and an
-``InstanceNorm`` or ``GroupNorm`` block norm sums its statistics over the slabs.
+a block norm of ``models.unet.SLAB_NORMS`` is per voxel or sums its statistics
+over the slabs, and a stage with any other norm runs gathered with every
+deeper level (``UNet.slab_route``), its mixers on K1.
 
 in_proj, out_proj, the stage adapter, the folds, the dropouts and the
 convolutions stay stock PyTorch.
@@ -73,8 +74,7 @@ from torch import nn
 from ..factorization.inits import RandomInit
 from ..factorization.nmf import NMF, MatrixFactorization, translate_mf_kwargs
 from ..layers.basic import (
-    ACTIVATIONS, Dropout, FlaxGroupNorm, GroupNorm, InstanceNorm, LayerNorm, Linear, MLP, NormSpec, build_norm,
-    prenorm_mlp_tail,
+    ACTIVATIONS, Dropout, LayerNorm, Linear, MLP, NormSpec, build_norm, prenorm_mlp_tail,
 )
 from ..layers.pos_embed import PositionalEmbedding
 from ..ops.kernels import windowed_nmf, windowed_nmf_multi_spatial
@@ -83,7 +83,7 @@ from ..ops.reshape import Matricize, SWMatricize
 from ..parallel.collectives import cut_slab, gather_slabs
 from ..parallel.slabs import Slabs
 from ..utils.helpers import build_spec, has_args, partialize, spec_accepts
-from .unet import CONV_STEM, UNet, build_block, slab_path_missing_of
+from .unet import CONV_STEM, SLAB_NORMS, UNet, build_block, slab_path_missing_of
 
 __all__ = ["FactMixer", "FactorizerBlock", "FactorizerStage", "Factorizer"]
 
@@ -388,12 +388,15 @@ class FactorizerStage(nn.Module):
         )
 
     def slab_path_missing(self) -> Optional[str]:
-        """What keeps the stage from running on slabs, or None: a block norm whose statistics are not summed over the
-        slabs, or an adapter without a known slab path."""
+        """What keeps the stage from running on slabs, or None (the model's route then gathers it): a block norm
+        outside ``SLAB_NORMS`` (per voxel, or statistics summed over the slabs), or an adapter without a known slab
+        path."""
         for i, blk in enumerate(self.blocks):
-            if not isinstance(blk.norm1, _SLAB_NORMS):
-                return (f"{type(blk.norm1).__name__} statistics across slabs (blocks.{i}); LayerNorm is per voxel, "
-                        "InstanceNorm and GroupNorm sum over the slabs")
+            for name in ("norm1", "norm2"):
+                norm = getattr(blk, name)
+                if not isinstance(norm, SLAB_NORMS):
+                    return (f"{type(norm).__name__} (blocks.{i}.{name}) is not one of the norms with a slab path "
+                            f"({', '.join(sorted({c.__name__ for c in SLAB_NORMS}))})")
         return None if self.adapter is None else slab_path_missing_of(self.adapter, "adapter")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -407,10 +410,6 @@ class FactorizerStage(nn.Module):
         for blk in self.blocks:
             x = blk(x)
         return x
-
-
-# The block norms that run on slabs: per voxel, or with their statistics summed over the slabs (layers.basic).
-_SLAB_NORMS = (LayerNorm, InstanceNorm, GroupNorm, FlaxGroupNorm)
 
 
 class Factorizer(UNet):

@@ -24,12 +24,15 @@ slab paths (``layers.basic``: the GroupNorms' statistics over the whole
 volume, the convolutions' halos, a stride-2 one on an even row count per
 slab), and the linear upsampling resizes the slab and a one-row halo whose
 rows beyond the volume repeat its edge (``halo_exchange(edge="replicate")``),
-then crops, which gives the whole volume's rows.  The model must be built
-before it runs on slabs: layers made inside ``on_slabs`` would not be on it.
+then crops, which gives the whole volume's rows.  Levels whose slab holds too
+few rows run gathered with every deeper one (:meth:`SegResNet.slab_route`,
+``parallel.slabs.run_ladder``).  The model must be built before it runs on
+slabs: layers made inside ``on_slabs`` would not be on it.
 """
 
 from __future__ import annotations
 
+from fractions import Fraction
 from typing import Any, Optional, Sequence
 
 import torch
@@ -38,7 +41,9 @@ from torch import nn
 
 from ..layers.basic import Conv, ConvTranspose, Dropout, FlaxGroupNorm, resolve_activation
 from ..parallel.collectives import halo_exchange
+from ..parallel.slabs import Route, run_ladder, run_whole
 from ..utils.helpers import resolve_device
+from .unet import first_gathered_level
 
 __all__ = ["SegResNet", "SegResBlock"]
 
@@ -72,6 +77,10 @@ class SegResBlock(nn.Module):
         self.norm2 = FlaxGroupNorm(norm_groups, channels, dtype=dtype, device=device)
         self.conv2 = Conv(channels, channels, **conv)
 
+    def slab_path_missing(self) -> Optional[str]:
+        """None: its convolutions and norms have slab paths (``layers.basic``)."""
+        return None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.conv1(self.act(self.norm1(x)))
         out = self.conv2(self.act(self.norm2(out)))
@@ -97,6 +106,24 @@ class SegResNet(nn.Module):
         if not self.materialized:
             return "SegResNet has not been built: utils.helpers.materialize(model, spatial_dims) before the spatial step"
         return None
+
+    def _parts(self, level: int) -> list[str]:
+        """The names of the layers at encoder level ``level``: its downsampling (or the stem) and blocks, the decoder's
+        blocks at it, its reduction and upsampling to the level above, and at level 0 the final norm and head."""
+        names = ["stem" if level == 0 else f"down{level}"] + [f"enc{level}_{j}" for j in range(self.blocks_down[level])]
+        for i, n_blocks in enumerate(self.blocks_up):
+            if len(self.blocks_down) - 2 - i == level:
+                names += [f"dec{i}_{j}" for j in range(n_blocks)]
+            if len(self.blocks_down) - 1 - i == level:
+                names += [f"reduce{i}"] + ([f"up{i}"] if self.upsample_mode == "deconv" else [])
+        return names + (["final_norm", "head"] if level == 0 else [])
+
+    def slab_route(self, rows: int, n: int) -> Route:
+        """The route on ``n`` slabs of ``rows`` input rows: the first level with a layer that has too few rows, and
+        every deeper level, run gathered."""
+        rs = [Fraction(rows)] + [Fraction(rows, 2**level) for level in range(len(self.blocks_down))]
+        return first_gathered_level([[(name, getattr(self, name), rs[level], rs[level + 1]) for name in self._parts(level)]
+                                     for level in range(len(self.blocks_down))])
 
     def __init__(
         self,
@@ -167,29 +194,44 @@ class SegResNet(nn.Module):
         self.head = Conv(width, self.out_channels, kernel_size=1, **kw)
         self.spatial_dims, self._generator = spatial_dims, None
 
+    def _down(self, level: int, out: torch.Tensor) -> torch.Tensor:
+        if level == 0:
+            out = self.stem(out)
+            if self.drop.p:
+                out = self.drop(out)
+        else:
+            out = getattr(self, f"down{level}")(out)
+        for j in range(self.blocks_down[level]):
+            out = getattr(self, f"enc{level}_{j}")(out)
+        return out
+
+    def _up(self, i: int, out: torch.Tensor) -> torch.Tensor:
+        out = getattr(self, f"reduce{i}")(out)
+        return getattr(self, f"up{i}")(out) if self.upsample_mode == "deconv" else _resize_linear(out, 2, self.slabs)
+
+    def _merge(self, i: int, skip: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+        out = out + skip
+        for j in range(self.blocks_up[i]):
+            out = getattr(self, f"dec{i}_{j}")(out)
+        return out
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.materialized:
             self.materialize(x.ndim - 2)
+        slabs, level = self.slabs, None
+        dim = 2 if self.data_format == "channels_first" else 1
+        if slabs is not None:
+            level = self.slab_route(x.shape[dim], slabs.n).level
+            if level == 0:
+                return run_whole(self, x, slabs, dim)
         if self.data_format == "channels_first":
             x = x.movedim(1, -1).contiguous()
-        out = self.stem(x)
-        if self.drop.p:
-            out = self.drop(out)
-        skips = []
-        for level, n_blocks in enumerate(self.blocks_down):
-            if level > 0:
-                out = getattr(self, f"down{level}")(out)
-            for j in range(n_blocks):
-                out = getattr(self, f"enc{level}_{j}")(out)
-            skips.append(out)
-        for i, n_blocks in enumerate(self.blocks_up):
-            level = len(self.blocks_down) - 1 - i
-            out = getattr(self, f"reduce{i}")(out)
-            out = getattr(self, f"up{i}")(out) if self.upsample_mode == "deconv" else _resize_linear(out, 2, self.slabs)
-            out = out + skips[level - 1]
-            for j in range(n_blocks):
-                out = getattr(self, f"dec{i}_{j}")(out)
-        out = self.head(self.act(self.final_norm(out)))
+        n_levels = len(self.blocks_down)
+        down = [lambda t, lv=lv: self._down(lv, t) for lv in range(n_levels)]
+        up = {n_levels - 2 - i: (lambda t, i=i: self._up(i, t)) for i in range(len(self.blocks_up))}
+        merge = {n_levels - 2 - i: (lambda skip, t, i=i: self._merge(i, skip, t)) for i in range(len(self.blocks_up))}
+        out = run_ladder(x, down, up, merge, (), level, slabs, [self])
+        out = self.head(self.act(self.final_norm(out[min(merge, default=n_levels - 1)])))
         if self.data_format == "channels_first":
             out = out.movedim(-1, 1)
         return out

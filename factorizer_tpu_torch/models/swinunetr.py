@@ -24,11 +24,15 @@ On slabs (``parallel.slabs.on_slabs``, the spatial step) the patch
 embedding (k2 stride 2), the conv blocks (halos, the InstanceNorms' whole-volume
 statistics), the up-blocks' k2 transposed convolutions and the head run on the
 slab; the Swin transformer, whose shifted windows of 7 span slabs, runs on the
-patch embedding gathered (``gather_slabs``) on every process, and each
-hidden state it returns is cut back to the slab (``cut_slab``).  Every process
-computes the transformer's whole parameter gradient, so the pair is
-``count_once``: the step's sum over the slabs counts it once.  The slab must
-hold a multiple of 32 rows, so that the deepest hidden state cuts evenly.
+patch embedding gathered on every process (``parallel.slabs.run_gathered``:
+V2's stage convolutions inside it run as on one process), and each hidden
+state it returns is cut back to the slab.  Every process computes the
+transformer's whole parameter gradient, so the pair is ``count_once``: the
+step's sum over the slabs counts it once.  The conv levels (level k at 1/2^k
+of the volume: the patch embedding's at 1/2, ``encoder10``'s at 1/32) run on
+slabs down to the first level whose slab holds no whole number of rows
+(:meth:`SwinUNETR.slab_route`); that level and the deeper ones run inside the
+gathered part, and the upsampling from it is cut back.
 """
 
 from __future__ import annotations
@@ -42,7 +46,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..layers.basic import Conv, ConvTranspose, Dense, FlaxLayerNorm, InstanceNorm, resolve_activation, truncated_normal
-from ..parallel.collectives import cut_slab, gather_slabs
+from ..parallel.collectives import cut_slab
+from ..parallel.slabs import Route, run_gathered
 from ..utils.helpers import resolve_device, to_ntuple
 
 __all__ = ["SwinUNETR", "WindowAttention", "SwinBlock", "PatchMerging"]
@@ -222,10 +227,21 @@ class SwinUNETR(nn.Module):
     slabs = None
 
     def slab_path_missing(self) -> Optional[str]:
-        """What keeps the model from the spatial step (``parallel.slabs``), or None (the transformer is gathered)."""
-        if self.use_v2:
-            return "SwinUNETR V2 (use_v2): the conv blocks inside the gathered transformer have no slab path"
+        """What keeps the model from the spatial step (``parallel.slabs``): nothing (the transformer is gathered)."""
         return None
+
+    # Each conv level's encoder (None: the hidden state enters as it is) and decoder, level k at 1/2^k of the volume.
+    _ENCODERS = ("encoder1", "encoder2", "encoder3", "encoder4", None, "encoder10")
+    _DECODERS = ("decoder1", "decoder2", "decoder3", "decoder4", "decoder5")
+
+    def slab_route(self, rows: int, n: int) -> Route:
+        """The route on ``n`` slabs of ``rows`` rows: the transformer gathered, and from the first conv level whose
+        slab holds no whole number of rows (level k holds ``rows / 2^k``) every deeper conv level with it."""
+        for level in range(1, len(self._ENCODERS)):
+            if rows % 2**level:
+                return Route(level, f"level {level} ({self._ENCODERS[level] or 'the skip of decoder5'}) holds "
+                                    f"{rows}/{2**level} rows a slab")
+        return Route(None, "the transformer gathered")
 
     def __init__(
         self,
@@ -277,29 +293,57 @@ class SwinUNETR(nn.Module):
         x = getattr(self, f"{name}_up")(x)
         return getattr(self, f"{name}_block")(torch.cat([x, skip], dim=-1))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.data_format == "channels_first":
-            x = x.movedim(1, -1).contiguous()
-        slabs = self.slabs
-        if slabs is not None and x.shape[1] % 32:
-            raise ValueError(f"slabs: SwinUNETR needs slabs of a multiple of 32 rows (its deepest hidden state is "
-                             f"1/32 of the volume), got {x.shape[1]} rows")
-        h = self.patch_embed(x)
-        skips = [h]  # as MONAI's SwinTransformer: the patch embedding, then every stage after its merge
-        if slabs is not None:  # the transformer on the whole volume, on every process
-            h = gather_slabs(h, slabs.mesh, slabs.axis, count_once=True)
+    def _transformer(self, h: torch.Tensor) -> list[torch.Tensor]:
+        """The patch embedding and every Swin stage's output after its merge, as MONAI's SwinTransformer returns them."""
+        hidden = [h]
         for s, depth in enumerate(self.depths):
             if self.use_v2:
                 h = getattr(self, f"stage{s}_conv")(h)
             for b in range(depth):
                 h = getattr(self, f"stage{s}_block{b}")(h)
             h = getattr(self, f"merge{s}")(h)
-            skips.append(h if slabs is None else cut_slab(h, slabs.mesh, slabs.axis, count_once=True))
-        x0, x1, x2, x3, x4 = skips
-        enc1, enc2, enc3, enc4 = self.encoder1(x), self.encoder2(x0), self.encoder3(x1), self.encoder4(x2)
-        d5 = self._up("decoder5", self.encoder10(x4), x3)  # x3 enters decoder5 without a conv block, as in MONAI
-        d4 = self._up("decoder4", d5, enc4)
-        d3 = self._up("decoder3", d4, enc3)
-        d2 = self._up("decoder2", d3, enc2)
-        out = self.head(self._up("decoder1", d2, enc1))
+            hidden.append(h)
+        return hidden
+
+    def _encode(self, level: int, x: torch.Tensor, hidden: list[torch.Tensor]) -> torch.Tensor:
+        source = x if level == 0 else hidden[level - 1]
+        name = self._ENCODERS[level]
+        return source if name is None else getattr(self, name)(source)
+
+    def _decode(self, d: torch.Tensor, hi: int, lo: int, x: torch.Tensor, hidden: list) -> torch.Tensor:
+        """The decoder from level ``hi + 1``'s output ``d`` down to level ``lo``'s."""
+        for level in range(hi, lo - 1, -1):
+            d = self._up(self._DECODERS[level], d, self._encode(level, x, hidden))
+        return d
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.data_format == "channels_first":
+            x = x.movedim(1, -1).contiguous()
+        slabs, deepest = self.slabs, len(self._ENCODERS) - 1
+        if slabs is None:
+            hidden = self._transformer(self.patch_embed(x))
+            out = self._decode(self._encode(deepest, x, hidden), deepest - 1, 0, x, hidden)
+        else:
+            level = self.slab_route(x.shape[1], slabs.n).level or deepest + 1
+
+            def part(t: torch.Tensor) -> list[torch.Tensor]:
+                """The transformer and the conv levels from ``level`` down, on whole tensors: the hidden states after
+                the patch embedding that the levels above read, and the upsampling into level ``level - 1``."""
+                hidden = self._transformer(self.patch_embed(t) if level == 1 else t)
+                out = hidden[1: level - 1]
+                if level <= deepest:
+                    d = self._decode(self._encode(deepest, None, hidden), deepest - 1, level, None, hidden)
+                    out.append(getattr(self, f"{self._DECODERS[level - 1]}_up")(d))
+                return out
+
+            h = None if level == 1 else self.patch_embed(x)
+            whole = run_gathered(part, [self], slabs, x if level == 1 else h)
+            hidden = ([] if level == 1 else [h]) + [cut_slab(t, slabs.mesh, slabs.axis, count_once=True) for t in whole]
+            if level <= deepest:
+                name = self._DECODERS[level - 1]
+                d = getattr(self, f"{name}_block")(torch.cat([hidden.pop(), self._encode(level - 1, x, hidden)], dim=-1))
+                out = self._decode(d, level - 2, 0, x, hidden)
+            else:
+                out = self._decode(self._encode(deepest, x, hidden), deepest - 1, 0, x, hidden)
+        out = self.head(out)
         return out.movedim(-1, 1) if self.data_format == "channels_first" else out

@@ -30,16 +30,20 @@ drawn again from the same random state (``preserve_rng_state``).
 On slabs (``parallel.slabs.on_slabs``) the skeleton's layers take their slab
 paths (``layers.basic``): a convolution runs on its slab and a halo of
 ``padding`` rows from each neighbour, with valid padding along the cut axis;
-each stride-s downsampling needs a row count per slab that s divides (else the
-:class:`Conv` raises, naming itself); the rest is local to the slab.  A stem,
-resampling layer, head or stage block built of other layers than
-:data:`SLAB_LAYERS` has no known slab path and is named by
-``slab_path_missing``; the Factorizer's and the Deconver's stages and the
-patch stem judge themselves (their own ``slab_path_missing``).
+the rest is local to the slab.  :meth:`UNet.slab_route` is the one rule for
+the rest: the levels run on slabs down to the first level ℓ with a part built
+of other layers than :data:`SLAB_LAYERS` (the Factorizer's and the Deconver's
+stages and the patch stem judge themselves, through their own
+``slab_path_missing``) or a layer whose slab holds too few rows for it (a
+stride that does not divide them, fewer than one row, a halo wider than the
+slab), and levels ℓ and deeper run gathered (``parallel.slabs.run_ladder``); a
+stem or a head that fails makes it the whole model (ℓ = 0).
 """
 
 from __future__ import annotations
 
+import math
+from fractions import Fraction
 from typing import Any, Optional, Sequence
 
 import torch
@@ -62,9 +66,11 @@ from ..layers.basic import (
     _Affine,
 )
 from ..layers.conv_blocks import BasicBlock, DoubleConv, PreActivationBlock, SepConv
+from ..parallel.slabs import Route, as_now, run_ladder, run_whole
 from ..utils.helpers import has_args, partialize, spec_accepts
 
-__all__ = ["UNet", "Same", "build_block", "dtype_kwargs", "SLAB_LAYERS", "slab_path_missing_of"]
+__all__ = ["UNet", "Same", "build_block", "dtype_kwargs", "SLAB_LAYERS", "SLAB_NORMS", "slab_path_missing_of",
+           "slab_part_missing", "first_gathered_level"]
 
 CHANNELS_FIRST = "channels_first"
 CHANNELS_LAST = "channels_last"
@@ -110,9 +116,10 @@ def build_block(spec: Any, *args: Any, context: Optional[dict] = None, **kwargs:
 
 
 def _run_block(block: nn.Module, remat: bool, x: torch.Tensor) -> torch.Tensor:
-    """``block(x)``; under ``remat``, while autograd records a graph, checkpointed (recomputed in the backward)."""
+    """``block(x)``; under ``remat``, while autograd records a graph, checkpointed (recomputed in the backward, with
+    the slabs its layers hold now: ``parallel.slabs.as_now``)."""
     if remat and torch.is_grad_enabled():
-        return checkpoint(block, x, use_reentrant=False)
+        return checkpoint(as_now(block), x, use_reentrant=False)
     return block(x)
 
 
@@ -134,8 +141,12 @@ class _DecoderStage(nn.Module):
         self.block = block
         self.remat = remat
 
+    def merge(self, skip: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+        """The block on the skip and the upsampled deeper output, joined along the channels."""
+        return _run_block(self.block, self.remat, torch.cat([skip, up], dim=-1))
+
     def forward(self, skip: torch.Tensor, deep: torch.Tensor) -> torch.Tensor:
-        return _run_block(self.block, self.remat, torch.cat([skip, self.upsample(deep)], dim=-1))
+        return self.merge(skip, self.upsample(deep))
 
 
 class _Blocks(nn.Module):
@@ -144,13 +155,16 @@ class _Blocks(nn.Module):
         self.blocks = nn.ModuleList(blocks)
 
 
+# The norms that run on slabs: per voxel, or with their statistics summed over the slabs (layers.basic).
+SLAB_NORMS = (LayerNorm, FlaxLayerNorm, nn.LayerNorm, InstanceNorm, GroupNorm, FlaxGroupNorm)
+
 # The layers whose forward runs on a slab as it is, or through its own slab path (layers.basic): per-voxel layers,
 # the convolutions and the norms, and the blocks made of nothing else.  A module of any other class has no known
 # slab path.
 SLAB_LAYERS = (
-    Conv, ConvTranspose, Linear, Dense, nn.Linear, LayerNorm, FlaxLayerNorm, nn.LayerNorm, GroupNorm, FlaxGroupNorm,
-    InstanceNorm, _Affine, Dropout, nn.Dropout, Identity, MLP, nn.Sequential, nn.ModuleList, DoubleConv, BasicBlock,
-    PreActivationBlock, SepConv, nn.GELU, nn.ReLU, nn.LeakyReLU, nn.SiLU, nn.Sigmoid, nn.Tanh,
+    *SLAB_NORMS, Conv, ConvTranspose, Linear, Dense, nn.Linear, _Affine, Dropout, nn.Dropout, Identity, MLP,
+    nn.Sequential, nn.ModuleList, DoubleConv, BasicBlock, PreActivationBlock, SepConv, nn.GELU, nn.ReLU, nn.LeakyReLU,
+    nn.SiLU, nn.Sigmoid, nn.Tanh,
 )
 
 
@@ -172,6 +186,35 @@ def slab_path_missing_of(module: nn.Module, name: str) -> Optional[str]:
         if reason is not None:
             return reason
     return None
+
+
+def slab_part_missing(module: nn.Module, name: str, rows_in: Fraction, rows_out: Fraction) -> Optional[str]:
+    """What keeps a part of a model (``module`` at ``name``) from running on slabs of ``rows_in`` rows at its input
+    and ``rows_out`` at its output, or None: a row count that is no whole number of at least one, no known slab path
+    (:func:`slab_path_missing_of`), or a layer whose ``slab_rows_missing`` names a reason."""
+    if min(rows_in, rows_out) < 1 or rows_in.denominator != 1 or rows_out.denominator != 1:
+        return f"{name} on slabs of {rows_in} rows in, {rows_out} out: a slab holds less than one row"
+    reason = slab_path_missing_of(module, name)
+    if reason is not None:
+        return reason
+    for sub, m in module.named_modules():
+        check = getattr(m, "slab_rows_missing", None)
+        if check is not None:
+            reason = check(int(rows_in), int(rows_out))
+            if reason is not None:
+                return f"{reason} (in {name}{'.' + sub if sub else ''})"
+    return None
+
+
+def first_gathered_level(levels: Sequence[Sequence[tuple]]) -> Route:
+    """The route of a U-shaped model: the first level with a part that :func:`slab_part_missing` names, where
+    ``levels[l]`` lists level ``l``'s parts as ``(name, module, rows_in, rows_out)``; every level on slabs if none."""
+    for level, parts in enumerate(levels):
+        for name, module, rows_in, rows_out in parts:
+            reason = slab_part_missing(module, name, rows_in, rows_out)
+            if reason is not None:
+                return Route(level, reason)
+    return Route()
 
 
 class UNet(nn.Module):
@@ -224,6 +267,7 @@ class UNet(nn.Module):
             raise ValueError(f"data_format must be {CHANNELS_FIRST!r} or {CHANNELS_LAST!r}, got {data_format!r}")
         self.data_format = data_format
         n_enc, n_dec = len(encoder_depth), len(decoder_depth)
+        self.strides = tuple(strides[:n_enc])
         ctx = dict(device=device, generator=generator, spatial_dims=spatial_dims)
 
         # Per-stage block specs, encoder stages first, then the decoder's.
@@ -292,36 +336,67 @@ class UNet(nn.Module):
         return [f"head{j}" for j in range(self.num_deep_supr)] if self.num_deep_supr else ["head"]
 
     def slab_path_missing(self) -> Optional[str]:
-        """What keeps the model from running on slabs, or None: the stem, each stage's resampling layer and block,
-        the heads (:func:`slab_path_missing_of`)."""
-        parts = [("stem", self.stem)]
-        for part, stages in (("encoder", self.encoder), ("decoder", self.decoder)):
-            for i, stage in enumerate(stages.blocks):
-                parts += [(f"{part}.blocks.{i}.{name}", m) for name, m in stage.named_children()]
-        parts += [(name, getattr(self, name)) for name in self.head_names()]
-        for name, part in parts:
-            reason = slab_path_missing_of(part, name)
-            if reason is not None:
-                return reason
+        """None: every part runs on slabs or, where it has no slab path, gathered (:meth:`slab_route`)."""
         return None
 
-    def forward_features(self, x: torch.Tensor) -> list[torch.Tensor]:
-        """Channels-last feature pass; returns the decoder pyramid, finest first."""
-        out = self.stem(x)
-        ys = []
-        for stage in self.encoder.blocks:
-            out = stage(out)
-            ys.append(out)
-        for i, stage in enumerate(self.decoder.blocks):
-            ys[-2 - i] = stage(ys[-2 - i], ys[-1 - i])
-        return ys
+    def _level_rows(self, rows: int) -> list[Fraction]:
+        """The slab's rows at the stem's output (its convolutions' strides along the cut axis fold them) and at each
+        encoder level, from ``rows`` at the input."""
+        out = [Fraction(rows, math.prod(m.stride[0] for m in self.stem.modules() if isinstance(m, Conv)))]
+        for stride in self.strides:
+            out.append(out[-1] / stride)
+        return out
+
+    def slab_route(self, rows: int, n: int) -> Route:
+        """The route on ``n`` slabs of ``rows`` input rows (``parallel.slabs``): the first level with a part that has no
+        slab path or too few rows for one of its layers, and all deeper levels, run gathered.  Level ``l``'s parts:
+        encoder stage ``l`` (its resampling layer and block), the decoder block at level ``l`` and the upsampling from
+        it; level 0 also the stem and every head (a head runs on its level's slab either way)."""
+        rs = self._level_rows(rows)
+        n_enc = len(self.encoder.blocks)
+        levels = [[] for _ in range(n_enc)]
+        levels[0] += [("stem", self.stem, Fraction(rows), rs[0])]
+        levels[0] += [(name, getattr(self, name), rs[1], rs[1]) for name in self.head_names()]
+        for i, stage in enumerate(self.encoder.blocks):
+            levels[i] += [(f"encoder.blocks.{i}.{name}", m, rs[i], rs[i + 1]) for name, m in stage.named_children()]
+        for k, stage in enumerate(self.decoder.blocks):
+            lv = n_enc - 2 - k  # the level this stage's block runs at; its upsampling comes from the level below
+            levels[lv] += [(f"decoder.blocks.{k}.block", stage.block, rs[lv], rs[lv + 1])]
+            levels[lv + 1] += [(f"decoder.blocks.{k}.upsample", stage.upsample, rs[lv + 1], rs[lv + 2])]
+        return first_gathered_level(levels)
+
+    def _heads(self) -> list[int]:
+        """The levels the heads read, finest first."""
+        return list(range(max(self.num_deep_supr, 1)))
+
+    def forward_features(self, x: torch.Tensor, level: Optional[int] = None) -> list[torch.Tensor]:
+        """Channels-last feature pass; returns the outputs the heads read, finest first: the decoder's at each level it
+        reaches, else the encoder's.  ``level``: on slabs, the first level that runs gathered (:meth:`slab_route`)."""
+        n_enc = len(self.encoder.blocks)
+        up, merge = {}, {}
+        for k, stage in enumerate(self.decoder.blocks):
+            up[n_enc - 2 - k], merge[n_enc - 2 - k] = stage.upsample, stage.merge
+        keep = self._heads()
+        outs = run_ladder(self.stem(x), list(self.encoder.blocks), up, merge, keep, level, self.slabs, [self])
+        return [outs[j] for j in keep]
 
     def forward(self, x: torch.Tensor):
         """``(B, C_in, *S) -> (B, C_out, *S)`` (channels-last under ``data_format="channels_last"``), or the list of
-        the deep-supervision heads' outputs, finest first."""
+        the deep-supervision heads' outputs, finest first.  On slabs, by the route of :meth:`slab_route`."""
+        level, slabs = None, self.slabs
+        dim = 2 if self.data_format == CHANNELS_FIRST else 1
+        if slabs is not None:
+            level = self.slab_route(x.shape[dim], slabs.n).level
+            if level == 0:
+                return run_whole(self, x, slabs, dim)
+            rs = self._level_rows(x.shape[dim])
+            for name, j in zip(self.head_names(), self._heads()):
+                if rs[j + 1].denominator != 1:
+                    raise ValueError(f"slabs: {name} reads a level of {rs[j + 1] * slabs.n} rows, which do not cut "
+                                     f"into {slabs.n} slabs")
         if self.data_format == CHANNELS_FIRST:
             x = x.movedim(1, -1).contiguous()
-        ys = self.forward_features(x)
+        ys = self.forward_features(x, level)
         outs = [getattr(self, name)(y) for name, y in zip(self.head_names(), ys)]
         if self.data_format == CHANNELS_FIRST:
             outs = [y.movedim(-1, 1) for y in outs]

@@ -14,11 +14,13 @@ dtype.  Submodules carry the Flax module names (``vit{i}``, ``vit_norm``,
 
 On slabs (``parallel.slabs.on_slabs``, the spatial step) the patch embedding
 (kernel = stride = patch), the conv branches and the head run on the slab; the
-ViT, whose attention spans every patch, runs on the patch grid gathered
-(``gather_slabs``) on every process, and each hidden state the decoder reads
-is cut back to the slab (``cut_slab``), ``count_once`` as the SwinUNETR's
-transformer.  The slab must hold whole patches and the patch grid's first axis
-must cut evenly.
+ViT, whose attention spans every patch, runs on the patch grid gathered on
+every process (``parallel.slabs.run_gathered``), and each hidden state the
+decoder reads is cut back to the slab (``cut_slab``), ``count_once`` as the
+SwinUNETR's transformer.  A slab that holds no whole number of patches
+(:meth:`UNETR.slab_route`) runs everything but the finest level gathered
+(``parallel.slabs.run_gathered``: the branches climb from the patch grid
+through every level), and the upsampling into the finest level is cut back.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..layers.basic import Conv, ConvTranspose, Dense, FlaxLayerNorm, truncated_normal
-from ..parallel.collectives import cut_slab, gather_slabs
+from ..parallel.collectives import cut_slab
+from ..parallel.slabs import Route, run_gathered
 from ..utils.helpers import resolve_device, to_ntuple
 from .swinunetr import _ConvBlock as _ResBlock  # MONAI's UnetResBlock: the same layers and names
 
@@ -117,6 +120,13 @@ class UNETR(nn.Module):
         """What keeps the model from the spatial step (``parallel.slabs``): nothing (the ViT is gathered)."""
         return None
 
+    def slab_route(self, rows: int, n: int) -> Route:
+        """The route on ``n`` slabs of ``rows`` rows: the ViT gathered; where the slab holds no whole number of
+        patches, levels 1 and deeper with it (the patch embedding and the branches above the finest level)."""
+        if rows % self.patch_size:
+            return Route(1, f"a slab of {rows} rows holds no whole number of patches of {self.patch_size}")
+        return Route(None, "the ViT gathered")
+
     def __init__(
         self,
         in_channels: int,
@@ -138,6 +148,7 @@ class UNETR(nn.Module):
         kw = dict(dtype=dtype, device=device, generator=generator)
         fs, hid = feature_size, hidden_size
         self.feat = tuple(s // patch_size for s in to_ntuple(tuple(img_size), 3))
+        self.patch_size = patch_size
         self.num_layers, self.hidden, self.data_format = num_layers, hid, data_format
         # The hidden states kept: after layers 3/6/9/12 of the canonical 12.
         self.taps = [max(1, round(num_layers * k / 4)) for k in (1, 2, 3, 4)]
@@ -160,30 +171,39 @@ class UNETR(nn.Module):
         h = getattr(self, f"{name}_up")(h)
         return getattr(self, f"{name}_block")(torch.cat([h, skip], dim=-1))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.data_format == "channels_first":
-            x = x.movedim(1, -1).contiguous()
-        B, slabs = x.shape[0], self.slabs
-        z = self.patch_embed(x)
-        if slabs is not None:  # the ViT on the whole patch grid, on every process
-            z = gather_slabs(z, slabs.mesh, slabs.axis, count_once=True)
+    def _states(self, z: torch.Tensor) -> list[torch.Tensor]:
+        """The ViT on the whole patch grid ``z``: the four hidden states the branches read, as grids."""
+        B = z.shape[0]
         z = z.reshape(B, -1, self.hidden) + self.pos_embed.to(z.dtype)
         states = {}
         for i in range(self.num_layers):
             z = getattr(self, f"vit{i}")(z)
             if i + 1 in self.taps:
                 states[i + 1] = z
+        states[self.taps[3]] = self.vit_norm(states[self.taps[3]])
+        return [states[t].reshape(B, *self.feat, self.hidden) for t in self.taps]
 
-        def volume(t: torch.Tensor) -> torch.Tensor:
-            t = t.reshape(B, *self.feat, self.hidden)
-            return t if slabs is None else cut_slab(t, slabs.mesh, slabs.axis, count_once=True)
+    def _branches(self, grids: list[torch.Tensor]) -> torch.Tensor:
+        """The conv branches from the hidden states' grids up to ``decoder2``'s output."""
+        enc2, enc3, enc4 = self.encoder2(grids[0]), self.encoder3(grids[1]), self.encoder4(grids[2])
+        d3 = self._up("decoder3", self._up("decoder4", grids[3], enc4), enc3)
+        return self._up("decoder2", d3, enc2)
 
-        enc1 = self.encoder1(x)
-        enc2 = self.encoder2(volume(states[self.taps[0]]))
-        enc3 = self.encoder3(volume(states[self.taps[1]]))
-        enc4 = self.encoder4(volume(states[self.taps[2]]))
-        d4 = self._up("decoder4", volume(self.vit_norm(states[self.taps[3]])), enc4)
-        d3 = self._up("decoder3", d4, enc3)
-        d2 = self._up("decoder2", d3, enc2)
-        out = self.head(self._up("decoder1", d2, enc1))
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.data_format == "channels_first":
+            x = x.movedim(1, -1).contiguous()
+        slabs = self.slabs
+        if slabs is None:
+            up = self.decoder1_up(self._branches(self._states(self.patch_embed(x))))
+        else:
+            def cut(t: torch.Tensor) -> torch.Tensor:
+                return cut_slab(t, slabs.mesh, slabs.axis, count_once=True)
+
+            if self.slab_route(x.shape[1], slabs.n).level == 1:  # all but the finest level gathered
+                up = cut(run_gathered(lambda t: self.decoder1_up(self._branches(self._states(self.patch_embed(t)))),
+                                      [self], slabs, x))
+            else:  # the ViT on the whole patch grid, on every process
+                grids = run_gathered(self._states, [self], slabs, self.patch_embed(x))
+                up = self.decoder1_up(self._branches([cut(g) for g in grids]))
+        out = self.head(self.decoder1_block(torch.cat([up, self.encoder1(x)], dim=-1)))
         return out.movedim(-1, 1) if self.data_format == "channels_first" else out

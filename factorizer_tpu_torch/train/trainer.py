@@ -43,7 +43,7 @@ from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 from ..parallel.collectives import all_gather_cat, broadcast_from_first
 from ..parallel.mesh import Mesh
 from ..parallel.sharding import data_parallel, shard_batch
-from ..parallel.slabs import Slabs, on_slabs, require_slab_path
+from ..parallel.slabs import Slabs, on_slabs, require_slab_path, slab_route
 from ..utils.helpers import materialize, resolve_device
 from .losses import deep_supervision_loss, dice_ce_loss
 from .schedules import Schedule, clip_by_global_norm, global_norm, make_adamw
@@ -137,9 +137,10 @@ def make_train_step(model: nn.Module, loss_fn: Optional[Callable] = None, accum_
     each process runs its slab.  ``loss_fn`` is called with ``slabs=`` (the
     default, DiceCE or its deep-supervision form, sums over the slabs).  The
     model must have a slab path (``parallel.slabs.require_slab_path``, checked
-    here whatever the axis's size): a Factorizer block norm other than
-    LayerNorm, InstanceNorm and GroupNorm, a Deconver with ``update_filter``,
-    SwinUNETR V2 and an unbuilt SegResNet raise by name.
+    here whatever the axis's size): every model the port builds has one (an
+    unbuilt SegResNet raises by name); the parts without their own run gathered
+    by the model's rule (``parallel.slabs.slab_route``), which the first step
+    prints on the first process.
     """
     loss_fn = loss_fn or _default_loss
     if spatial_axis is not None:
@@ -172,9 +173,16 @@ def make_train_step(model: nn.Module, loss_fn: Optional[Callable] = None, accum_
             batch = shard_batch(batch, mesh, data_axis=None, spatial_axis=spatial_axis)
         return batch
 
+    printed = []
+
     def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         batch = prepare(batch)
         images, labels = batch["image"], batch["label"]
+        if spatial and not printed:
+            printed.append(slab_route(model, images.shape[2], slabs.n))
+            if dist.get_rank() == 0:
+                print(f"spatial step: {type(model).__name__} on {slabs.n} slabs of {images.shape[2]} rows: {printed[0]}",
+                      flush=True)
         b = images.shape[0]
         if b % accum_steps:
             raise ValueError(f"batch {b} not divisible by accum_steps {accum_steps}")

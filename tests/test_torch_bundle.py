@@ -156,9 +156,9 @@ def test_baseline_network_def_matches_jax(bundle):
 
 def test_jax_only_targets_raise_by_name():
     """``train_tp.yaml``'s ``model_parallel_mesh`` resolves to the port's (a mesh of one in one process); its spatial
-    step is taken for ``factorizer_brats23`` and ``deconver_brats23`` and raises by name for a model option without
-    a slab path (``update_filter``: the Deconver's filter update over the whole volume); a ``_target_`` in JAX's
-    own packages is refused before any import."""
+    step is taken for ``factorizer_brats23`` and ``deconver_brats23``, and for the Deconver with ``update_filter``
+    (its filter update sums the slabs' correlations, every level on slabs); a ``_target_`` in JAX's own packages is
+    refused before any import."""
     from factorizer_tpu_torch.parallel.mesh import model_parallel_mesh
 
     cfg = bundle_config("factorizer_brats23", "train_tp.yaml", **TINY_FACTORIZER, **ON_CPU)
@@ -172,8 +172,9 @@ def test_jax_only_targets_raise_by_name():
     ftt.make_train_step(deconver["network_def"], mesh=deconver["mesh"], spatial_axis=axis)
     filters = ConfigParser(bundle_config("deconver_brats23", "train_tp.yaml", **TINY_DECONVER, **ON_CPU,
                                          **{"network_def#update_filter": True}))
-    with pytest.raises(NotImplementedError, match="the Deconver: the filter update"):
-        ftt.make_train_step(filters["network_def"], mesh=filters["mesh"], spatial_axis=axis)
+    assert filters["network_def"].slab_path_missing() is None
+    assert filters["network_def"].slab_route(16, 2).level is None
+    ftt.make_train_step(filters["network_def"], mesh=filters["mesh"], spatial_axis=axis)
     with pytest.raises(KeyError, match="optax.adamw"):
         ConfigParser({"x": {"_target_": "optax.adamw"}})["x"]
 

@@ -83,8 +83,6 @@ SMALL = {
     "swinunetr_isles22": SWINUNETR_SMALL,
 }
 BUNDLES = sorted(SMALL)
-# train_tp.yaml's roi where the reduced one does not cut into 2 slabs: SwinUNETR's slabs hold a multiple of 32 rows.
-TP_OVERRIDES = {"swinunetr_isles22": {"roi_size": [64, 32, 32]}}
 
 
 def _config(bundle: str, *overlays: str, **overrides) -> dict:
@@ -429,7 +427,7 @@ def _families_worker(rank, world, init_method):
             losses.append(metrics["loss"].item())
         report["ddp"][bundle] = (losses, sum(p.detach().double().sum().item() for p in model.parameters()))
     for bundle in BUNDLES:
-        parser = ConfigParser(_config(bundle, "train_tp.yaml", **TP_OVERRIDES.get(bundle, {})))
+        parser = ConfigParser(_config(bundle, "train_tp.yaml"))
         try:
             t = parser["trainer"]
         except NotImplementedError as exc:
@@ -468,7 +466,7 @@ def test_every_model_family_steps_under_ddp(families, bundle):
 def test_train_tp_on_two_processes(families, bundle):
     """``train.yaml`` + ``train_tp.yaml`` on 2 processes (a model axis of 2): every bundle's model has a slab path,
     so each of the 12 builds the spatial step and steps on one batch alike on both processes, none raising
-    ``NotImplementedError`` (SwinUNETR at a roi of 64 x 32^2, whose slabs hold 32 rows)."""
+    ``NotImplementedError`` (SwinUNETR at its reduced roi of 32^3: slabs of 16 rows, its level 5 gathered)."""
     got = [r["tp"][bundle] for r in families]
     assert not any(isinstance(g, str) for g in got), got
     assert got[0][0] == got[1][0] == "model" and got[0][1] == got[1][1] and np.isfinite(got[0][1])

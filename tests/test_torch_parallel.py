@@ -298,19 +298,22 @@ class _BatchStatisticsNorm(torch.nn.Module):
 
 
 def test_train_step_refuses_spatial_axis_by_name():
-    """``make_train_step(spatial_axis=)`` takes only a model with a slab path, whatever the axis's size: a Factorizer
-    whose block norm has no slab path (``BatchNorm``-like: statistics this port does not sum over slabs) and a module
-    without ``slab_path_missing`` raise by name, the flat NMF route (``use_windowed: False``, gathered) is taken, in
-    one process (a mesh of one, no group); the axis needs a mesh, and one the mesh has.
-    (``tests/test_torch_multidevice.py`` and ``tests/test_torch_slabs.py`` run the step on processes.)"""
+    """``make_train_step(spatial_axis=)`` takes only a model with a slab path, whatever the axis's size: a module
+    without ``slab_path_missing`` raises by name; a Factorizer whose block norm has no slab path (``BatchNorm``-like:
+    statistics this port does not sum over slabs) is taken, its route the whole model gathered (the rule names the
+    norm), and so is the flat NMF route (``use_windowed: False``, gathered), in one process (a mesh of one, no group);
+    the axis needs a mesh, and one the mesh has.  (``tests/test_torch_multidevice.py``, ``tests/test_torch_slabs.py``
+    and ``tests/test_torch_slab_gaps.py`` run the step on processes.)"""
     mesh = ftt.model_parallel_mesh()
     assert mesh.size == 1 and dict(mesh.shape) == {"data": 1, "model": 1} and not dist.is_initialized()
     flat = ftt.Factorizer(**CONFIG, reshape=(ftt.SWMatricize, SW), factorize_options={"use_windowed": False},
                           device="cpu")
     trainer.make_train_step(flat, mesh=mesh, spatial_axis="model")
     other_norm = ftt.Factorizer(**CONFIG, reshape=(ftt.SWMatricize, SW), norm=_BatchStatisticsNorm, device="cpu")
-    with pytest.raises(NotImplementedError, match="_BatchStatisticsNorm statistics across slabs"):
-        trainer.make_train_step(other_norm, mesh=mesh, spatial_axis="model")
+    assert other_norm.slab_path_missing() is None
+    route = other_norm.slab_route(16, 2)
+    assert route.level == 0 and "_BatchStatisticsNorm (blocks.0.norm1)" in route.reason
+    trainer.make_train_step(other_norm, mesh=mesh, spatial_axis="model")
     with pytest.raises(NotImplementedError, match="Linear has no slab path"):
         trainer.make_train_step(torch.nn.Linear(2, 2), mesh=mesh, spatial_axis="model")
     with pytest.raises(ValueError, match="needs a mesh"):

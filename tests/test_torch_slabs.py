@@ -23,8 +23,9 @@ after the update equal one process's forward and step on the whole volume to
   slab, the heads' targets pooled per slab) and ``dropout: 0``.
 
 Unit cases: ``slab_sum``'s backward against ``all_reduce_sum``'s, the
-replicate-edged halo, ``_group_norm`` on slabs, the stride-2 refusal, an
-overridden stem without a slab path refused by name.  One
+replicate-edged halo, ``_group_norm`` on slabs, the stride-2 refusal of the
+layer itself; an overridden stem without a slab path gathers the whole model
+(``tests/test_torch_slab_gaps.py`` covers the rest of the gathered route).  One
 case holds the reduced Deconver's one-process forward against JAX's
 ``model.apply``.  The workers are module-level functions run by
 ``parallel.run_processes``; this module imports jax only inside a test.
@@ -86,6 +87,7 @@ FAMILIES = {
     "factorizer_flat": (lambda: _factorizer((32, 8, 8), factorize_options={"use_windowed": False}), (4, 3, (32, 8, 8))),
     "factorizer_2d": (lambda: _factorizer((32, 16), in_channels=3, out_channels=1), (3, 1, (32, 16))),
     "factorizer_deep_supervision": (lambda: _factorizer((32, 8, 8), num_deep_supr=2, dropout=0.0), (4, 3, (32, 8, 8))),
+    "factorizer_whole_axis_stem": (lambda: _factorizer((32, 8, 8), stem=_WholeAxisStem), (4, 3, (32, 8, 8))),
 }
 
 
@@ -345,15 +347,22 @@ class _WholeAxisStem(torch.nn.Module):
         return self.proj(x - x.mean(1, keepdim=True))
 
 
-def test_an_overridden_stem_without_a_slab_path_is_refused_by_name():
-    """A stem override of a class without a known slab path is named by ``slab_path_missing`` and refused before a
-    spatial step; a DoubleConv stem, a k3 downsampling and the deep-supervision heads have slab paths."""
-    from factorizer_tpu_torch.parallel.slabs import require_slab_path
+def test_an_overridden_stem_without_a_slab_path_is_refused_by_name(two_slabs):
+    """A stem override of a class without a known slab path is named by the route rule, which gathers the whole model
+    (route level 0, printed as saving no memory) instead of refusing it: ``slab_path_missing`` is None and the spatial
+    step is built; on 2 slabs its logits, loss, gradients and parameters equal one process's to 1e-10.  A DoubleConv
+    stem, a k3 downsampling and the deep-supervision heads have slab paths: every level runs on slabs."""
+    from factorizer_tpu_torch.parallel.slabs import require_slab_path, slab_route
 
     model = _factorizer((32, 8, 8), stem=_WholeAxisStem)
-    assert model.slab_path_missing() == "_WholeAxisStem (stem) has no known slab path"
-    with pytest.raises(NotImplementedError, match=r"_WholeAxisStem \(stem\)"):
-        require_slab_path(model)
+    assert model.slab_path_missing() is None
+    require_slab_path(model)
+    route = slab_route(model, 16, 2)
+    assert route.level == 0 and route.reason == "_WholeAxisStem (stem) has no known slab path"
+    assert str(route).startswith("whole model gathered, no memory saving")
+    want = _reference("factorizer_whole_axis_stem")
+    for r in two_slabs:
+        _assert_equal_to_one_process(r["factorizer_whole_axis_stem"], want)
     known = _factorizer((32, 8, 8), stem=(ftt.DoubleConv, {}), downsample=(Conv, {"kernel_size": 3, "padding": 1}),
                         num_deep_supr=2)
-    assert known.slab_path_missing() is None
+    assert known.slab_path_missing() is None and slab_route(known, 16, 2).level is None
