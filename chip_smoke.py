@@ -3,7 +3,9 @@
 Run from the repository root:
 
     python3 chip_smoke.py             # one card: every phase below
-    python3 chip_smoke.py --cards 4   # a host with 4 cards: phases 1, 2, 20, 21 and 25 alone, one process per card (NCCL)
+    python3 chip_smoke.py --cards 4   # a host with 4 cards: phases 1, 2, 31 (on 3 of them), 20, 21 and 25 alone, one
+                                      # process per card (NCCL)
+    python3 chip_smoke.py --cards 3   # 3 cards: phases 1, 2, 31 and 21 (20 and 25 need a count that divides 128)
 
 Phases, one or more result lines each:
   1. environment: the card (name, power limit), torch / CUDA / nvcc versions; TF32 off.
@@ -110,13 +112,14 @@ Phases, one or more result lines each:
      validation's s/volume, checkpoint seconds (blocking, background) and restore seconds, peak memory.  The launch
      counters are set to 0 before and after it, so the kernels line leaves it out.
  23. the bundles' YAML programs, unedited, through the port's config parser and CLI: 5 synthetic BraTS-native cases
-     (4 train, 1 validation; 2 in the test section); factorizer_brats23's train.yaml for 2 epochs and evaluate.yaml as
-     `python -m factorizer_tpu_torch.bundle run` subprocesses (exit 0, step_2.pt, finite losses, Dice in [0, 1]; the
-     metrics files, a native-shape prediction, and Dice equal to Evaluator's in this process on the same weights),
+     (4 train, 1 validation; 2 in the test section); factorizer_brats23's train.yaml for 2 epochs as a
+     `python -m factorizer_tpu_torch.bundle run` subprocess (exit 0, step_2.pt, finite losses, Dice in [0, 1]) and
+     evaluate.yaml in this process (the metrics files, a native-shape prediction, and Dice equal to Evaluator's on the
+     same weights),
      then inference.yaml and inference_aot.yaml in this process over 2 folds: the CUDA graph's files equal the eager
      run's voxel for voxel, eager launches and graph replays asserted, s/volume file to file; deconver_brats23's
      train.yaml for 1 epoch, then the same two inference programs, equal; nnunet_brats23's train.yaml for 1 epoch
-     through the CLI, then its inference.yaml in this process (native-shape files, no kernel launch).  Left out of
+     and its inference.yaml in this process (native-shape files, no kernel launch).  Left out of
      the kernels line too.
  24. the baselines, stock PyTorch (cuDNN, cuBLAS): the seven baseline bundles' network_def (nnunet_*: DynUNet,
      segresnet_*: SegResNet, swinunetr_isles22: SwinUNETR), built from the unedited train.yaml through the port's
@@ -129,12 +132,12 @@ Phases, one or more result lines each:
      UNETR's.  s/volume, s/step, peak memory; every launch counter stays 0.
  25. (run after 21) the spatial train step, train_tp.yaml's: two processes on the one card, make_train_step(model,
      mesh=model_parallel_mesh(), spatial_axis="model"): factorizer_brats23's network at batch 2 x 128^3 on slabs of 64
-     rows (1 warm-up and 3 steps) and factorizer_isles22's at 8 x 64^3 on slabs of 32 (1 warm-up and 2 steps), f32;
+     rows and factorizer_isles22's at 8 x 64^3 on slabs of 32 (1 warm-up and 2 steps each), f32;
      launches per step and process by kernel (K5 on the mixers on slabs, K1 on the gathered ones, K2 in every tail;
      K5's tails), loss, gradient norm and parameters against the one-process steps on the whole volume as in 21;
      one more step with each exchange timed; then a forward's loss under each gather rule from the same weights (the
-     rule, and the slabs thinner than a patch alone gathered) and 3 steps of each in turns, timed.  Then the other
-     families' bundles at full width from their unedited network_def, f32, 1 warm-up and 2 steps each:
+     rule, and the slabs thinner than a patch alone gathered) and a step of each, timed.  Then the other
+     families' bundles at full width from their unedited network_def, f32, 1 warm-up and 1 step each:
      deconver_brats23, nnunet_brats23 and segresnet_brats23 at 2 x 128^3, swinunetr_isles22 at 8 x 64^3 (cuDNN's
      timing search) and deconver_fives at 16 x 512^2 (slabs of H): loss and gradient norm against the one-process
      step on the same batch, s/step and peak memory per process beside the one-process step's, launches per step and
@@ -152,7 +155,7 @@ Phases, one or more result lines each:
      train.yaml network_def through the port's ConfigParser with the bundle's seed (full width, 128^3, f32) under one
      override set at a time: (a) init_method: nndsvd, (b) solver: nnls, (c) solver: [hals-0, mu-1], (d) factorize:
      $ftx.SVD, (e) rank: null and compression: 10 (rank 1 at 8 x 512), (f) pos_embed: each of the sinusoidal, rotary
-     and axial embeddings, (g) factorize_options: {eps: 1e-8}.  Each serves 2 BraTS-native volumes through
+     and axial embeddings, (g) factorize_options: {eps: 1e-8}.  Each serves 1 BraTS-native volume through
      ensemble_predict after a warm-up (one sliding-window batch instead where a volume would take over 30 s) and takes
      1 warm-up and 2 steps at 2 x 128^3: s/volume, s/step, peak memory; launches per forward and per step asserted
      ((a)-(d) the flat route on stock torch: 9 K2 forward, 9 K2 backward, no K1 and no K4; (e)-(g) the default's
@@ -173,8 +176,8 @@ Phases, one or more result lines each:
      launch of the port); deconver_brats23's network_def with num_deep_supr: 2 and dropout: 0.1 (54 + 27 K3 a step).
      Its launches are in the kernels line; chip_smoke.options_slice(chip_smoke.kernel_counters()) runs it alone.
  30. (run after 25) the spatial step where the slab paths stop, each cell's processes sharing the one card over gloo,
-     the bundle's unedited network_def (with the one override named) at full width, batch and roi, f32, 1 warm-up and 2
-     steps: deconver_brats23 with update_filter: true at 2 x 128^3 on 2 processes (the filter update's correlations
+     the bundle's unedited network_def (with the one override named) at full width, batch and roi, f32, 1 warm-up and 1
+     step: deconver_brats23 with update_filter: true at 2 x 128^3 on 2 processes (the filter update's correlations
      summed over the slabs), swinunetr_isles22 with use_v2: true at 8 x 64^3 on 2, swinunetr_isles22 at 8 x 64^3 on 4
      (slabs of 16 rows: its level 5 gathered), factorizer_isles22 at 8 x 64^3 on 8 (slabs of 8 rows: the deepest level
      gathered, K1 on its mixers; an 8-card node's layout).  Each prints the route (parallel.slabs.slab_route), s/step
@@ -183,6 +186,16 @@ Phases, one or more result lines each:
      the first stage's filter fitted on slabs, equal bit for bit on every process.  Then K2 forward and backward at
      the slab shape (2, 64 x 128^2, 32) with their bounds.  Its launches are in the kernels line;
      chip_smoke.slab_gaps_slice() runs it alone after build.library().
+ 31. (run after 30) the spatial step on slabs of unequal rows: 3 processes sharing the one card over gloo (with
+     --cards N, a process a card over NCCL: N of them where N does not divide 128, else 3), the unedited network_def of factorizer_brats23 and of
+     deconver_brats23 at 2 x 128^3, f32, 1 warm-up and 2 steps each, on slabs of 48 / 48 / 32 rows (parallel.slabs'
+     cut: a grid of 16 rows, its bottleneck's 8).  Each prints the route and the slab rows, s/step and peak memory per
+     process by slab rows beside the one-process step's, launches per step and process (K5, K1, K2 for the Factorizer;
+     K3 and K3 dw for the Deconver, as in one process), loss and gradient norm against the one-process step on the
+     same batch (the f32 band of 30).  Then K5 on a ring of (2,128^3,32) cut 48 / 48 / 32 against K1 on the whole
+     volume bit for bit, forward and dx, K2 forward and backward at the slab shapes (2,48x128^2,32) and
+     (2,32x128^2,32), and K3 and K3 dw at the thinnest haloed slab (2,34x128^2,32), each against its plain version.  Its launches are in the kernels line (launches_uneven); chip_smoke.uneven_slabs_slice() runs it
+     alone after build.library(), under a __main__ guard (it spawns processes).
 The float16 instance of every kernel is checked beside f32 and bf16 at one stage shape each (K1, K1 bwd with and
 without all-zero windows, K2, K2 bwd, K3, K3 dw, K4, K4 bwd, K5), with one float16 forward of brats23_network
 (`[slice f16]`); MatrixFactorization serves a float16 tensor through K4, and a float64 one raises.
@@ -527,6 +540,31 @@ def brats23_stage0(factorize_options=None):
     )
 
 
+# The multi-process phases fork their workers from a server that imported torch and the port once: a spawned
+# worker would import them itself, ~9 s a process on the card's host.
+WORKERS_START = "forkserver"
+FORKSERVER_PRELOAD = ["torch", "factorizer_tpu_torch", "factorizer_tpu_torch.config", "factorizer_tpu_torch.parallel",
+                      "factorizer_tpu_torch.train.trainer", "factorizer_tpu_torch.zoo_scripts"]
+
+
+def start_forkserver() -> None:
+    """Start the server that forks the workers of ``run_processes``: it imports ``FORKSERVER_PRELOAD`` (and never
+    touches the card, so its children may) while this process builds the kernels."""
+    import multiprocessing
+    from multiprocessing import forkserver
+
+    multiprocessing.set_forkserver_preload(FORKSERVER_PRELOAD)
+    forkserver.ensure_running()
+
+
+def stop_forkserver() -> None:
+    """Stop the fork server and the resource tracker that it started beside it."""
+    from multiprocessing import forkserver, resource_tracker
+
+    forkserver._forkserver._stop()
+    resource_tracker._resource_tracker._stop()
+
+
 def join_group_on_the_card(rank: int, world: int, init_method: str) -> str:
     """A worker's start: its card, TF32 off, and the process group.  With a card per process each takes its own
     and the group is NCCL's; else all share card 0 and the group is gloo's."""
@@ -652,7 +690,7 @@ def spatial_slice(world: int) -> dict:
           "spatial: the stage built here is not stage 0 of brats23_network()")
     del stage_ref, bundle_stage
     t0 = time.perf_counter()
-    reports = run_processes(spatial_worker, world, timeout=300)
+    reports = run_processes(spatial_worker, world, timeout=300, start_method=WORKERS_START)
     expected = {"windowed_nmf_slab": N_SHIFTS, "windowed_nmf_slab_bwd": N_SHIFTS, "prenorm_mlp": 1, "prenorm_mlp_bwd": 1}
     halo_rows = sum(s for s in BRATS_SHIFTS if s)
     sent = halo_rows * 2 * 128 * 128 * 32 * 4 * 5  # per process: forward a halo and rows back, backward two halos and rows back
@@ -690,7 +728,8 @@ def train_dp_slice(world: int, settings: dict, n_steps: int) -> dict:
     dev = torch.device("cuda", torch.cuda.current_device())
     global_batch = max(2, world)
     t0 = time.perf_counter()
-    reports = run_processes(train_dp_worker, world, settings, n_steps, global_batch, timeout=400)
+    reports = run_processes(train_dp_worker, world, settings, n_steps, global_batch, timeout=400,
+                            start_method=WORKERS_START)
     started = time.perf_counter() - t0
     state = create_train_state(brats23_network(generator=torch.Generator().manual_seed(0)), **settings)
     step = make_train_step(state.model)
@@ -744,14 +783,14 @@ def train_dp_slice(world: int, settings: dict, n_steps: int) -> dict:
 
 # The spatial step's cases (`[train tp]`): name -> (network factory, global batch, input channels, output channels,
 # volume side, patch, rows its shifts move along the first axis (the sum of their s1), steps after the warm-up).
-TP_CASES = {"factorizer_brats23": ("brats23_network", 2, 4, 3, 128, 8, 2 + 4 + 6, 3),
+TP_CASES = {"factorizer_brats23": ("brats23_network", 2, 4, 3, 128, 8, 2 + 4 + 6, 2),
             "factorizer_isles22": ("factorizer_isles22_network", 8, 2, 1, 64, 4, 1 + 2 + 3, 2)}
 # The other model families' spatial step: bundle -> (its batch, its roi, steps after the warm-up, cuDNN's
 # timing search), each bundle's unedited network_def at full width in f32.  The CNNs take cuDNN's heuristics (its
 # search takes minutes for full-width 3-D f32 convolutions with TF32 off), SwinUNETR its search, as in [baselines].
-TP_BUNDLES = {"deconver_brats23": (2, (128, 128, 128), 2, False), "nnunet_brats23": (2, (128, 128, 128), 2, False),
-              "segresnet_brats23": (2, (128, 128, 128), 2, False), "swinunetr_isles22": (8, (64, 64, 64), 2, True),
-              "deconver_fives": (16, (512, 512), 2, False)}
+TP_BUNDLES = {"deconver_brats23": (2, (128, 128, 128), 1, False), "nnunet_brats23": (2, (128, 128, 128), 1, False),
+              "segresnet_brats23": (2, (128, 128, 128), 1, False), "swinunetr_isles22": (8, (64, 64, 64), 1, True),
+              "deconver_fives": (16, (512, 512), 1, False)}
 
 
 def tp_routes(side: int, patch: int, moved: int, world: int, itemsize: int = 4) -> dict:
@@ -824,7 +863,7 @@ def train_tp_worker(rank: int, world: int, init_method: str, settings: dict) -> 
     """The spatial step (``make_train_step(model, mesh=model_parallel_mesh(), spatial_axis="model")``) on this
     process's slabs: ``TP_CASES`` in turn, 1 warm-up and the case's steps each; launches per step, losses, norms,
     seconds, peak memory.  After factorizer_brats23's steps: one more step with its exchanges timed, the loss of a
-    forward under each gather rule, and six steps in turns under the rule and :func:`gather_thinner_than_patch`.
+    forward under each gather rule, and a step under each, :func:`gather_thinner_than_patch` then the rule.
     Then ``TP_BUNDLES`` the same way, each with one more step with its exchanges timed."""
     import torch
 
@@ -885,7 +924,7 @@ def train_tp_worker(rank: int, world: int, init_method: str, settings: dict) -> 
                     with torch.no_grad(), on_slabs(state.model, Slabs(mesh, "model")) as model:
                         loss = dice_ce_loss(model(mine["image"]), mine["label"], slabs=Slabs(mesh, "model"))
                     run["rule_losses"][label] = loss.item()
-                for label in ("other", "rule", "rule", "other", "other", "rule"):
+                for label in ("other", "rule"):
                     FactMixer.gathers = rules[label]
                     state, _, seconds, counts, _ = timed_step(state, step, batch)
                     run["turns"][label].append((seconds, torch.cuda.max_memory_allocated(), counts))
@@ -940,7 +979,7 @@ def train_tp_slice(world: int, settings: dict) -> dict:
 
     dev = torch.device("cuda", torch.cuda.current_device())
     t0 = time.perf_counter()
-    reports = run_processes(train_tp_worker, world, settings, timeout=900)
+    reports = run_processes(train_tp_worker, world, settings, timeout=900, start_method=WORKERS_START)
     started = time.perf_counter() - t0
     launches = dict.fromkeys(kernel_counters(), 0)
     lr = settings["lr"]
@@ -1010,9 +1049,9 @@ def train_tp_slice(world: int, settings: dict) -> dict:
     def mean_s(label: str) -> str:
         return " / ".join(f"{statistics.mean(t[0] for t in q['factorizer_brats23']['turns'][label]):.4f}" for q in reports)
 
-    print(f"[train tp] gather rule, factorizer_brats23 on {world} slabs, 3 steps each in turns (other, rule, rule, "
-          f"other, other, rule): gathered where the slab holds no whole number of patches or the all-gather sends fewer "
-          f"bytes than K5 (the rule) {mean_s('rule')} s/step, peak {max(t[1] for t in turns['rule']) / 2**30:.2f} GiB; "
+    print(f"[train tp] gather rule, factorizer_brats23 on {world} slabs, a step each (other, then rule): gathered "
+          f"where the slab holds no whole number of patches or the all-gather sends fewer bytes than K5 (the rule) "
+          f"{mean_s('rule')} s/step, peak {max(t[1] for t in turns['rule']) / 2**30:.2f} GiB; "
           f"gathered only where the slab holds no whole number of patches {mean_s('other')} s/step, peak "
           f"{max(t[1] for t in turns['other']) / 2**30:.2f} GiB, launches per step "
           f"{ {k: v for k, v in turns['other'][-1][2].items() if v} }; a forward's loss under each from the same "
@@ -1090,7 +1129,7 @@ SLAB_GAP_CELLS = (
     ("swinunetr_isles22", "swinunetr_isles22", {}, 4, 8, (64, 64, 64), True),
     ("factorizer_isles22", "factorizer_isles22", {}, 8, 8, (64, 64, 64), True),
 )
-SLAB_GAP_STEPS = 2  # timed steps after one warm-up step
+SLAB_GAP_STEPS = 1  # timed steps after one warm-up step
 
 
 def slab_gaps_worker(rank: int, world: int, init_method: str, labels: list) -> dict:
@@ -1171,7 +1210,7 @@ def slab_gaps_slice() -> dict:
     reports, started = {}, {}
     for world, labels in worlds.items():
         t0 = time.perf_counter()
-        reports[world] = run_processes(slab_gaps_worker, world, labels, timeout=600)
+        reports[world] = run_processes(slab_gaps_worker, world, labels, timeout=600, start_method=WORKERS_START)
         started[world] = time.perf_counter() - t0
     counters = kernel_counters()
     tol = TRAIN_RTOL["float32"]
@@ -1266,6 +1305,212 @@ def slab_gaps_slice() -> dict:
           f"(64,128^3,1) with (64,128^3,1) -> (64,1,1,3,3,3) float32: {whole_ms:.3f} ms, bound {bound[0]:.3f} ms "
           f"({bound[1]}); on a slab, (64,66x128^2,1) with (64,64x128^2,1): {slab_ms:.3f} ms; two a block and iteration")
     del a, b_
+    torch.cuda.empty_cache()
+    return launches
+
+
+# Phase 31's cells: (label, bundle, batch, roi); each on UNEVEN_WORLD slabs, whose count does not divide the rows.
+UNEVEN_CELLS = (
+    ("factorizer_brats23", "factorizer_brats23", 2, (128, 128, 128)),
+    ("deconver_brats23", "deconver_brats23", 2, (128, 128, 128)),
+)
+UNEVEN_WORLD = 3
+UNEVEN_STEPS = 2  # timed steps after one warm-up step
+
+
+def uneven_slabs_worker(rank: int, world: int, init_method: str) -> dict:
+    """The spatial step on this process's slab of the line's cut for each of ``UNEVEN_CELLS``: the cut and the route,
+    1 warm-up and ``UNEVEN_STEPS`` steps with their seconds, launches, losses, norms and peak memory."""
+    import torch
+
+    from factorizer_tpu_torch.parallel import model_parallel_mesh
+    from factorizer_tpu_torch.parallel.slabs import slab_cut, slab_route
+    from factorizer_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    backend = join_group_on_the_card(rank, world, init_method)
+    mesh = model_parallel_mesh()
+    counters = kernel_counters()
+    report = {"backend": backend}
+    torch.backends.cudnn.benchmark = False
+    for label, bundle, b, roi in UNEVEN_CELLS:
+        model, cfg = bundle_network(bundle)
+        state = create_train_state(model, lr=cfg["learning_rate"], weight_decay=cfg["weight_decay"])
+        step = make_train_step(state.model, mesh=mesh, spatial_axis="model")
+        net = cfg["network_def"]
+        batch = roi_batch(b, net["in_channels"], net["out_channels"], roi, seed=7)
+        cut = slab_cut(model, roi[0], world)
+        run = {"route": str(slab_route(model, cut)), "rows": cut.sizes(roi[0]), "losses": [], "norms": [],
+               "seconds": [], "counts": [], "peak_memory": 0}
+        for i in range(1 + UNEVEN_STEPS):
+            reset_counters(counters)
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            run["seconds"].append(time.perf_counter() - t0)
+            run["counts"].append({k: v for k, v in read_counters(counters).items() if v})
+            run["losses"].append(metrics["loss"].item())
+            run["norms"].append(metrics["grad_norm"].item())
+            if i:
+                run["peak_memory"] = max(run["peak_memory"], torch.cuda.max_memory_allocated())
+        run["param_sum"] = sum(p.detach().double().sum().item() for p in state.model.parameters())
+        report[label] = run
+        del model, state, step, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return report
+
+
+def uneven_slabs_slice(world: int = UNEVEN_WORLD) -> dict:
+    """Phase 31: the spatial step on slabs of unequal rows (``UNEVEN_CELLS`` on ``world`` processes, sharing the card
+    over gloo or one card each over NCCL), held against the one-process step on the same batch; then K5 on an unequal
+    ring against K1 bit for bit, K2 and K2 bwd at the two slab shapes and K3 and K3 dw at the thinnest haloed slab
+    against their plain versions.  Returns the launches of all processes' steps, by kernel."""
+    import torch
+
+    from factorizer_tpu_torch.ops.kernels import (
+        depthwise_conv, depthwise_conv_dw, depthwise_conv_dw_plain, depthwise_conv_plain, prenorm_mlp,
+        prenorm_mlp_backward, prenorm_mlp_backward_plain, prenorm_mlp_plain, windowed_nmf, windowed_nmf_backward,
+        windowed_nmf_multi_spatial_local,
+    )
+    from factorizer_tpu_torch.parallel import run_processes
+    from factorizer_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(kernel_counters(), 0)
+    t0 = time.perf_counter()
+    reports = run_processes(uneven_slabs_worker, world, timeout=600, start_method=WORKERS_START)
+    started = time.perf_counter() - t0
+    counters = kernel_counters()
+    tol = TRAIN_RTOL["float32"]
+    torch.backends.cudnn.benchmark = False
+    for label, bundle, b, roi in UNEVEN_CELLS:
+        model, cfg = bundle_network(bundle)
+        state = create_train_state(model, lr=cfg["learning_rate"], weight_decay=cfg["weight_decay"])
+        step = make_train_step(state.model)
+        net = cfg["network_def"]
+        batch = roi_batch(b, net["in_channels"], net["out_channels"], roi, seed=7)
+        ref = {"losses": [], "norms": [], "seconds": [], "counts": []}
+        for i in range(1 + UNEVEN_STEPS):
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+            reset_counters(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            ref["seconds"].append(time.perf_counter() - t0)
+            ref["counts"].append({k: v for k, v in read_counters(counters).items() if v})
+            ref["losses"].append(metrics["loss"].item())
+            ref["norms"].append(metrics["grad_norm"].item())
+        ref_peak = torch.cuda.max_memory_allocated()
+        runs = [rep[label] for rep in reports]
+        r = runs[0]
+        check(len(set(r["rows"])) > 1 and sum(r["rows"]) == roi[0], f"uneven slabs {label}: the cut {r['rows']} is not uneven")
+        for rank, q in enumerate(runs):
+            check(q["losses"] == r["losses"] and q["norms"] == r["norms"] and q["route"] == r["route"]
+                  and abs(q["param_sum"] - r["param_sum"]) <= 1e-9 * abs(r["param_sum"]),
+                  f"uneven slabs {label}: the processes report different metrics or parameters: {q['losses']} / {r['losses']}")
+            check(q["counts"] == r["counts"], f"uneven slabs {label} rank {rank}: launches {q['counts']} / {r['counts']}")
+            for counts in q["counts"]:
+                for k, v in counts.items():
+                    launches[k] += v
+        check(all(map(math.isfinite, r["losses"] + r["norms"])), f"uneven slabs {label}: {r['losses']}, {r['norms']}")
+        loss_rel = max(abs(a - c) / abs(c) for a, c in zip(r["losses"], ref["losses"]))
+        norm_rel = max(abs(a - c) / c for a, c in zip(r["norms"], ref["norms"]))
+        check(loss_rel <= tol["loss"] and norm_rel <= tol["grad"],
+              f"uneven slabs {label}: loss {r['losses']} / {ref['losses']}, grad norm {r['norms']} / {ref['norms']}")
+        wanted = (("windowed_nmf_slab", "windowed_nmf_slab_bwd", "windowed_nmf_factors", "windowed_nmf_bwd",
+                   "prenorm_mlp", "prenorm_mlp_bwd") if bundle.startswith("factorizer")
+                  else ("depthwise_conv", "depthwise_conv_dw"))
+        check(all(r["counts"][-1].get(k) for k in wanted), f"uneven slabs {label}: a kernel of {wanted} did not launch: "
+                                                             f"{r['counts'][-1]}")
+        if bundle.startswith("deconver"):  # no gather: the same K3 launches a process as in one process
+            check(r["counts"] == ref["counts"], f"uneven slabs {label}: launches {r['counts']}, one process {ref['counts']}")
+        side = "x".join(map(str, roi))
+        print(f"[uneven slabs] {label}: the unedited network_def through make_train_step(mesh=model_parallel_mesh(), "
+              f"spatial_axis='model') ({reports[0]['backend']}), batch {b} x {side} on {world} slabs of "
+              f"{' / '.join(map(str, r['rows']))} rows, float32, cuDNN's heuristics; route: {r['route']}; s/step per "
+              f"process (by slab rows) {' / '.join(f'{statistics.mean(q['seconds'][1:]):.4f}' for q in runs)}, "
+              f"one-process step {statistics.mean(ref['seconds'][1:]):.4f} s (warm-up {r['seconds'][0]:.2f} s / "
+              f"{ref['seconds'][0]:.2f} s); peak memory per process {' / '.join(f'{q['peak_memory'] / 2**30:.2f}' for q in runs)} "
+              f"GiB, one process {ref_peak / 2**30:.2f} GiB; loss {' -> '.join(f'{v:.6f}' for v in r['losses'])}; launches "
+              f"per step and process {r['counts'][-1]} (one process {ref['counts'][-1]}); against the one-process steps: loss "
+              f"rel {loss_rel:.2e} (tol {tol['loss']:.0e}), grad norm rel {norm_rel:.2e} (tol {tol['grad']:.0e}). "
+              + shared_card_note(world))
+        del model, state, step, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # K5 on a ring of unequal slabs: (2,128^3,32) cut 48 / 48 / 32, as [uneven slabs]' Factorizer stage 0, against K1 on
+    # the whole volume bit for bit, forward and backward.
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(31)
+    u0, v0 = torch.rand(8, 1, device=dev, generator=gen), torch.rand(512, 1, device=dev, generator=gen)
+    rows = (48, 48, 32)
+    x = torch.relu(torch.randn(2, 128, 128, 128, 32, device=dev, generator=gen))
+    g = torch.randn(x.shape, device=dev, generator=gen)
+    args = (u0, v0, 8, 8, BRATS_SHIFTS, "hals", NUM_ITERS)
+    leaves = [t.contiguous().requires_grad_(True) for t in x.split(rows, 1)]
+    ys = windowed_nmf_multi_spatial_local(leaves, *args)
+    dxs = torch.autograd.grad(ys, leaves, list(g.split(rows, 1)))
+    y, dx = torch.cat([t.detach() for t in ys], 1), torch.cat(dxs, 1)
+    with torch.inference_mode():
+        whole, whole_dx = windowed_nmf(x, *args), windowed_nmf_backward(x, g, *args)
+    torch.cuda.synchronize()
+    check(torch.equal(y, whole), f"uneven slabs: K5 on 48 / 48 / 32 differs from K1 by {compare(y, whole)[0]:.3e}")
+    check(torch.equal(dx, whole_dx), f"uneven slabs: K5 bwd on 48 / 48 / 32 differs from K1 bwd by {compare(dx, whole_dx)[0]:.3e}")
+    ring_ms = cuda_time_ms(lambda: windowed_nmf_multi_spatial_local([t.detach() for t in leaves], *args), warmup=1, runs=5)
+    k1_ms = cuda_time_ms(lambda: windowed_nmf(x, *args), warmup=1, runs=5)
+    print(f"[uneven slabs] K5 on a ring of 3 slabs of 48 / 48 / 32 rows of (2,128^3,32) float32, {len(BRATS_SHIFTS)} "
+          f"shifts: forward and dx equal to K1 on the whole volume bit for bit; ring {ring_ms:.3f} ms, K1 {k1_ms:.3f} ms")
+    del x, g, leaves, ys, dxs, y, dx, whole, whole_dx
+    # K2 forward and backward at the block tails' slab shapes of the Factorizer's stage 0 on 48 / 48 / 32: (2,48x128^2,32)
+    # and (2,32x128^2,32), H = 128, against their plain versions (dx at K2's f32 tolerance, the parameter gradients,
+    # sums over every token, at K2_PARAM_RTOL as in phase 7).
+    c = 32
+    mlp = (1 + 0.1 * torch.randn(c, device=dev, generator=gen), 0.1 * torch.randn(c, device=dev, generator=gen),
+           torch.randn(4 * c, c, device=dev, generator=gen) / c**0.5, 0.1 * torch.randn(4 * c, device=dev, generator=gen),
+           torch.randn(c, 4 * c, device=dev, generator=gen) / (4 * c)**0.5, 0.1 * torch.randn(c, device=dev, generator=gen))
+    k2_lines = []
+    for slab_rows in sorted(set(rows), reverse=True):
+        xm = torch.randn(2, slab_rows, 128, 128, c, device=dev, generator=gen)
+        gm = torch.randn(xm.shape, device=dev, generator=gen)
+        before = (prenorm_mlp.launches, prenorm_mlp_backward.launches)
+        with torch.inference_mode():
+            err, rel = compare(prenorm_mlp(xm, *mlp), prenorm_mlp_plain(xm, *mlp))
+            outs = prenorm_mlp_backward(xm, gm, *mlp)
+        rels = [compare(out, ref)[1] for out, ref in zip(outs, prenorm_mlp_backward_plain(xm, gm, *mlp))]
+        label = f"(2,{slab_rows}x128^2,32)"
+        check((prenorm_mlp.launches - before[0], prenorm_mlp_backward.launches - before[1]) == (1, 1),
+              f"uneven slabs: K2 or K2 bwd did not launch at {label}")
+        check(rel <= KERNEL_RTOL["float32"] and rels[0] <= KERNEL_RTOL["float32"] and max(rels[1:]) <= K2_PARAM_RTOL,
+              f"uneven slabs: K2 at {label} max_rel {rel:.3e}, K2 bwd dx {rels[0]:.3e}, parameters {max(rels[1:]):.3e}")
+        k2_lines.append(f"{label} forward max_abs={err:.3e} max_rel={rel:.3e}, backward dx max_rel={rels[0]:.3e} "
+                        f"parameters max_rel={max(rels[1:]):.1e}")
+        del xm, gm, outs
+        torch.cuda.empty_cache()
+    print(f"[uneven slabs] K2 at the block tails' slab shapes, H=128 float32: {'; '.join(k2_lines)} (tol "
+          f"{KERNEL_RTOL['float32']:.1e}, parameters {K2_PARAM_RTOL:.1e})")
+    # K3 and K3 dw at the thinnest slab with its halo: deconver_brats23's stage 0, 32 + 2 rows.
+    shape, ks = (2, 34, 128, 128, 32), (3, 3, 3)
+    xk = torch.randn(shape, device=dev, generator=gen)
+    gk = torch.randn(shape, device=dev, generator=gen)
+    wk = torch.randn(shape[0], math.prod(ks), shape[-1], device=dev, generator=gen)
+    before = (depthwise_conv.launches, depthwise_conv_dw.launches)
+    with torch.inference_mode():
+        err, rel = compare(depthwise_conv(xk, wk, ks), depthwise_conv_plain(xk, wk, ks))
+        dw = depthwise_conv_dw(xk, gk, ks)
+    err_dw, rel_dw = compare(dw, depthwise_conv_dw_plain(xk, gk, ks))  # the plain version runs autograd
+    check((depthwise_conv.launches - before[0], depthwise_conv_dw.launches - before[1]) == (1, 1),
+          "uneven slabs: K3 or K3 dw did not launch at (2,34x128^2,32)")
+    check(rel <= KERNEL_RTOL["float32"] and rel_dw <= K3_DW_RTOL,
+          f"uneven slabs: K3 at (2,34x128^2,32) max_rel {rel:.3e}, K3 dw max_rel {rel_dw:.3e}")
+    print(f"[uneven slabs] K3 at the thinnest haloed slab (2,34x128^2,32) k3 float32: max_abs={err:.3e} max_rel={rel:.3e} "
+          f"(tol {KERNEL_RTOL['float32']:.1e}); K3 dw max_abs={err_dw:.3e} max_rel={rel_dw:.3e} (tol {K3_DW_RTOL:.1e}); "
+          f"phase {time.perf_counter() - t_phase:.1f} s ({world} processes {started:.1f} s with start-up)")
+    del xk, gk, wk, dw
     torch.cuda.empty_cache()
     return launches
 
@@ -1559,13 +1804,15 @@ def bundle_slice(counters: dict, seed: int = 123, shape=WORKFLOW_SHAPE, roi=(128
     """Phase 23: the bundles' YAML programs, unedited, through the port's config parser and CLI.  5 synthetic
     BraTS-native cases (4 training, 1 validation; the first 2 also the inference datalist's ``test`` section) are
     written to a temporary directory.  ``factorizer_brats23``: ``train.yaml`` for 2 epochs with a validation as a
-    ``python -m factorizer_tpu_torch.bundle run`` subprocess, ``evaluate.yaml`` over its checkpoint as another, its
-    Dice against ``Evaluator`` in this process on the same weights; then ``inference.yaml`` and ``inference_aot.yaml``
+    ``python -m factorizer_tpu_torch.bundle run`` subprocess, ``evaluate.yaml`` over its checkpoint in this process, its
+    Dice against ``Evaluator`` on the same weights; then ``inference.yaml`` and ``inference_aot.yaml``
     in this process (``config.bundle.run``), over 2 folds (the trained checkpoint and one of other weights): the two
     runs' NIfTI files equal voxel for voxel, eager launches per forward and CUDA-graph replays asserted.
     ``deconver_brats23``: ``train.yaml`` for 1 epoch without validation, then ``inference.yaml`` and
-    ``inference_aot.yaml``, their files equal.  The launch counters are set to 0 before and after, so the kernels
+    ``inference_aot.yaml``, their files equal.  ``nnunet_brats23``: ``train.yaml`` for 1 epoch and ``inference.yaml``,
+    in this process.  The launch counters are set to 0 before and after, so the kernels
     line's counts leave this phase out."""
+    import io
     import logging
     import os
     import tempfile
@@ -1704,11 +1951,18 @@ def bundle_slice(counters: dict, seed: int = 123, shape=WORKFLOW_SHAPE, roi=(128
               + ", ".join(f"{h['time_s']:.3f} s (loss {h['loss']:.6f})" for h in history)
               + f"; validation mean Dice {dice:.4f}; checkpoint step_2.pt (numbered by epoch); 2 x 2 steps")
 
-        # evaluate.yaml over the trainer's ckpt_dir, through the CLI.
+        # evaluate.yaml over the trainer's ckpt_dir, in this process with the CLI's default TF32 setting for cuDNN.
         ev = root / "evaluate"
-        eval_s, stdout = cli([fz / "train.yaml", fz / "evaluate.yaml"],
-                             {**data, "output_dir": str(ev), "ckpt_path": str(ckpt_dir)}, "evaluate")
-        metrics = json.loads(stdout.strip().splitlines()[-1])
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        t0 = time.perf_counter()
+        try:  # the program prints its metrics as the CLI's last line; here they go into this phase's line
+            with contextlib.redirect_stdout(io.StringIO()):
+                metrics = bundle_run([str(fz / "train.yaml"), str(fz / "evaluate.yaml")], **data, output_dir=str(ev),
+                                     ckpt_path=str(ckpt_dir))["evaluator"]
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        eval_s = time.perf_counter() - t0
         cases = json.loads((ev / "case_metrics.json").read_text())["cases"]
         csvs = sorted(p.name for p in (ev / "metrics").iterdir())
         preds = sorted((ev / "preds").glob("*.nii.gz"))
@@ -1716,7 +1970,7 @@ def bundle_slice(counters: dict, seed: int = 123, shape=WORKFLOW_SHAPE, roi=(128
               f"bundle evaluate: cases {cases}, CSVs {csvs}, predictions {preds}")
         pred_shape = load_nifti(preds[0]).data.shape
         check(tuple(pred_shape[-3:]) == tuple(shape), f"bundle evaluate: prediction of shape {pred_shape}")
-        # The same weights through Evaluator in this process, with the subprocess's default TF32 setting for cuDNN.
+        # The same weights through Evaluator, with the same TF32 setting.
         model = zoo_scripts.brats23_network(generator=torch.Generator().manual_seed(0))
         variables = zoo_scripts.load_model_checkpoint(model, ckpt_dir)
         val_items = load_decathlon_datalist(datalist, "validation", fold=0, base_dir=root)
@@ -1729,9 +1983,9 @@ def bundle_slice(counters: dict, seed: int = 123, shape=WORKFLOW_SHAPE, roi=(128
         finally:
             torch.backends.cudnn.allow_tf32 = tf32
         dice_in = float(np.nanmean(np.asarray(dice_metric(preds_in, np.asarray(batch["label"])))))
-        check(dice_in == metrics["mean_dice"], f"bundle evaluate: mean Dice {metrics['mean_dice']!r}, Evaluator in this "
-                                               f"process {dice_in!r}")
-        print(f"[bundle] factorizer_brats23 evaluate.yaml (CLI, subprocess): {eval_s:.1f} s end to end for 1 case; metrics "
+        check(dice_in == metrics["mean_dice"], f"bundle evaluate: mean Dice {metrics['mean_dice']!r}, Evaluator "
+                                               f"{dice_in!r}")
+        print(f"[bundle] factorizer_brats23 evaluate.yaml (in this process): {eval_s:.1f} s end to end for 1 case; metrics "
               f"{metrics}; case_metrics.json, {csvs}, {preds[0].name} {pred_shape}; mean Dice equal to Evaluator's in this "
               f"process on the same weights ({dice_in!r})")
         del model, variables, batch, preds_in
@@ -1787,18 +2041,24 @@ def bundle_slice(counters: dict, seed: int = 123, shape=WORKFLOW_SHAPE, roi=(128
               + f"{', '.join(f'{t:.3f}' for t in druns[True][4])} s; graph {druns[True][2]} replays x {3 * N_BLOCKS} K3 per "
               + f"captured forward, eager {druns[False][1]['depthwise_conv']} K3 launches")
 
-        # nnunet_brats23 (a baseline, stock PyTorch): train.yaml for 1 epoch through the CLI, then inference.yaml here.
+        # nnunet_brats23 (a baseline, stock PyTorch): train.yaml for 1 epoch in this process (the CLI's own start-up is
+        # factorizer_brats23's above), then inference.yaml here.
         del druns
         gc.collect()
         torch.cuda.empty_cache()
         nz = repo / "zoo" / "nnunet_brats23" / "configs"
         nout = root / "nnunet"
-        n_train_s, _ = cli([nz / "train.yaml"], {**data, "output_dir": str(nout), "max_epochs": 1, "val_interval": 0},
-                           "nnunet train")
+        t0 = time.perf_counter()
+        trainer = bundle_run(str(nz / "train.yaml"), **data, output_dir=str(nout), max_epochs=1, val_interval=0)["trainer"]
+        torch.backends.cudnn.benchmark = False  # the trainer turned it on
+        n_train_s = time.perf_counter() - t0
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
         history = [json.loads(line) for line in (nout / "history.jsonl").read_text().splitlines()]
         check(len(history) == 1 and math.isfinite(history[0]["loss"]) and (nout / "ckpt" / "step_1.pt").is_file(),
               f"bundle nnunet train: history {history}, checkpoints {sorted(p.name for p in (nout / 'ckpt').iterdir())}")
-        print(f"[bundle] nnunet_brats23 train.yaml (CLI, subprocess): {n_train_s:.1f} s end to end, 1 epoch of 2 steps "
+        print(f"[bundle] nnunet_brats23 train.yaml (in this process): {n_train_s:.1f} s, 1 epoch of 2 steps "
               f"{history[0]['time_s']:.3f} s, loss {history[0]['loss']:.6f}, checkpoint step_1.pt, no validation")
         npaths, nmade, _, nper_volume, npredict_s = infer("nnunet_brats23", {**data, "ckpt_paths": [str(nout / "ckpt")],
                                                                              "output_dir": str(root / "ninfer")}, False, {}, 2, 1)
@@ -1832,60 +2092,94 @@ def free_port() -> int:
 
 def multidevice_programs(repo, root, data: dict, train_epoch_s: float) -> None:
     """Phases 26 and 27, on ``[bundle]``'s cases: ``train.yaml`` + ``train_multidevice.yaml`` of factorizer_brats23
-    and deconver_brats23, then ``train.yaml`` + ``train_tp.yaml`` of both, 1 epoch each, through
+    and deconver_brats23, then ``train.yaml`` + ``train_tp.yaml`` of both at the same time, 1 epoch each, through
     ``python -m torch.distributed.run --nproc_per_node 2 -m factorizer_tpu_torch.bundle run``: exit 0, each
     process's epoch losses equal, one checkpoint, written by the primary; s/epoch beside ``train.yaml``'s."""
     from pathlib import Path
 
-    def torchrun(bundle: str, overlay: str, overrides: dict) -> tuple:
+    started: list = []  # the launchers, stopped on the way out if a check fails
+
+    def torchrun(bundle: str, overlay: str, overrides: dict, port: int):
+        """Start the program; returns a function that waits for it, checks it and returns its seconds, its epoch's
+        record, each process's losses and the backend it printed."""
         configs = repo / "zoo" / bundle / "configs"
         cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2", "--master_addr", "127.0.0.1",
-               "--master_port", str(free_port()), "-m", "factorizer_tpu_torch.bundle", "run",
+               "--master_port", str(port), "-m", "factorizer_tpu_torch.bundle", "run",
                "--config_file", str(configs / "train.yaml"), "--config_file", str(configs / overlay),
                "--run_id", "run", "--run_id", "report_losses", "--report_losses", REPORT_LOSSES]
         for k, v in overrides.items():
             cmd += [f"--{k}", json.dumps(v) if not isinstance(v, str) else v]
-        t0 = time.perf_counter()
-        done = subprocess.run(cmd, cwd=repo, capture_output=True, text=True, timeout=600)
-        seconds = time.perf_counter() - t0
-        tag = f"{bundle} {overlay}"
-        check(done.returncode == 0, f"bundle {tag}: exit code {done.returncode}\n{done.stdout[-3000:]}\n{done.stderr[-3000:]}")
-        losses = {int(rank): json.loads(values) for rank, values in re.findall(r"\[losses\] (\d+) (\[[^\]]*\])", done.stdout)}
         out = Path(overrides["output_dir"])
-        history = [json.loads(line) for line in (out / "history.jsonl").read_text().splitlines()]
-        saved = sorted(p.name for p in (out / "ckpt").glob("*.pt"))
-        check(sorted(losses) == [0, 1] and losses[0] == losses[1] and all(map(math.isfinite, losses[0])),
-              f"bundle {tag}: the processes' epoch losses {losses}\n{done.stdout[-3000:]}")
-        check(saved == ["step_1.pt"] and len(history) == 1 and history[0]["loss"] == losses[0][0],
-              f"bundle {tag}: checkpoints {saved}, history {history}")
-        backend = re.search(r"\[distributed\] (backend \w+)", done.stdout)
-        return seconds, history[0], losses, backend.group(1) if backend else "backend not printed"
+        logs = root / f"{out.name}.stdout.txt", root / f"{out.name}.stderr.txt"
+        t0 = time.perf_counter()
+        with open(logs[0], "w") as stdout, open(logs[1], "w") as stderr:
+            proc = subprocess.Popen(cmd, cwd=repo, stdout=stdout, stderr=stderr, text=True)
+        started.append(proc)
 
+        def finish() -> tuple:
+            try:
+                code = proc.wait(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                code = proc.wait()
+            seconds = time.perf_counter() - t0
+            printed, errors = logs[0].read_text(), logs[1].read_text()
+            tag = f"{bundle} {overlay}"
+            check(code == 0, f"bundle {tag}: exit code {code}\n{printed[-3000:]}\n{errors[-3000:]}")
+            losses = {int(rank): json.loads(values)
+                      for rank, values in re.findall(r"\[losses\] (\d+) (\[[^\]]*\])", printed)}
+            history = [json.loads(line) for line in (out / "history.jsonl").read_text().splitlines()]
+            saved = sorted(p.name for p in (out / "ckpt").glob("*.pt"))
+            check(sorted(losses) == [0, 1] and losses[0] == losses[1] and all(map(math.isfinite, losses[0])),
+                  f"bundle {tag}: the processes' epoch losses {losses}\n{printed[-3000:]}")
+            check(saved == ["step_1.pt"] and len(history) == 1 and history[0]["loss"] == losses[0][0],
+                  f"bundle {tag}: checkpoints {saved}, history {history}")
+            backend = re.search(r"\[distributed\] (backend \w+)", printed)
+            return seconds, history[0], losses, backend.group(1) if backend else "backend not printed"
+
+        return finish
+
+    try:
+        bundle_programs(root, data, train_epoch_s, torchrun)
+    finally:
+        for proc in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def bundle_programs(root, data: dict, train_epoch_s: float, torchrun) -> None:
+    """The body of :func:`multidevice_programs`: the two data-parallel programs one after the other, then the two
+    spatial ones at the same time, 4 processes on the card (the data-parallel deconver_brats23 alone takes most of
+    it)."""
     for bundle in ("factorizer_brats23", "deconver_brats23"):
         seconds, record, losses, backend = torchrun(
             bundle, "train_multidevice.yaml", {**data, "output_dir": str(root / f"{bundle}_multidevice"), "max_epochs": 1,
-                                               "val_interval": 0})
+                                               "val_interval": 0}, free_port())()
         print(f"[bundle multidevice] {bundle} train.yaml + train_multidevice.yaml (torchrun, 2 processes, {backend}, "
               f"one card): {seconds:.1f} s end to end, epoch {record['time_s']:.3f} s of 1 step a process on its 2 cases "
               f"(train.yaml's first epoch in one process, 2 steps on 4 cases: {train_epoch_s:.3f} s), loss "
               f"{losses[0][0]:.6f} on both processes, one checkpoint step_1.pt written by the primary. "
               + shared_card_note(2))
-    seconds, record, losses, backend = torchrun(
-        "factorizer_brats23", "train_tp.yaml", {**data, "output_dir": str(root / "factorizer_tp"), "max_epochs": 1,
-                                                "val_interval": 1})
+    ports = free_port(), free_port()
+    while ports[1] == ports[0]:
+        ports = ports[0], free_port()
+    factorizer_tp = torchrun("factorizer_brats23", "train_tp.yaml", {**data, "output_dir": str(root / "factorizer_tp"),
+                                                                    "max_epochs": 1, "val_interval": 1}, ports[0])
+    deconver_tp = torchrun("deconver_brats23", "train_tp.yaml", {**data, "output_dir": str(root / "deconver_tp"),
+                                                                "max_epochs": 1, "val_interval": 0}, ports[1])
+    seconds, record, losses, backend = factorizer_tp()
     print(f"[bundle tp] factorizer_brats23 train.yaml + train_tp.yaml (torchrun, 2 processes, {backend}, one card, a "
-          f"model axis of 2): {seconds:.1f} s end to end, epoch {record['time_s']:.3f} s of 2 spatial steps on 4 cases "
-          f"(train.yaml's first epoch in one process: {train_epoch_s:.3f} s), loss {losses[0][0]:.6f} on both "
-          f"processes, validation of whole volumes on each process, mean Dice {record['mean_dice']:.4f}; one checkpoint "
-          f"step_1.pt written by the primary. " + shared_card_note(2))
+          f"model axis of 2, run beside deconver_brats23's): {seconds:.1f} s end to end, epoch {record['time_s']:.3f} s "
+          f"of 2 spatial steps on 4 cases (train.yaml's first epoch in one process: {train_epoch_s:.3f} s), loss "
+          f"{losses[0][0]:.6f} on both processes, validation of whole volumes on each process, mean Dice "
+          f"{record['mean_dice']:.4f}; one checkpoint step_1.pt written by the primary. " + shared_card_note(2))
     check(0.0 <= record["mean_dice"] <= 1.0, f"bundle tp: mean Dice {record['mean_dice']}")
-    seconds, record, losses, backend = torchrun(
-        "deconver_brats23", "train_tp.yaml", {**data, "output_dir": str(root / "deconver_tp"), "max_epochs": 1,
-                                              "val_interval": 0})
+    seconds, record, losses, backend = deconver_tp()
     print(f"[bundle tp] deconver_brats23 train.yaml + train_tp.yaml (torchrun, 2 processes, {backend}, one card, a "
-          f"model axis of 2): {seconds:.1f} s end to end, epoch {record['time_s']:.3f} s of 2 spatial steps on 4 cases, "
-          f"K3 on haloed slabs (the epoch of train.yaml in one process: [bundle]'s line), loss {losses[0][0]:.6f} on "
-          f"both processes; one checkpoint step_1.pt written by the primary. " + shared_card_note(2))
+          f"model axis of 2, run beside factorizer_brats23's): {seconds:.1f} s end to end, epoch {record['time_s']:.3f} s "
+          f"of 2 spatial steps on 4 cases, K3 on haloed slabs (the epoch of train.yaml in one process: [bundle]'s line), "
+          f"loss {losses[0][0]:.6f} on both processes; one checkpoint step_1.pt written by the primary. " + shared_card_note(2))
 
 
 # The baseline bundles on the card (`[baselines]`): name -> (served input, roi, the training batch), from their
@@ -2093,7 +2387,7 @@ def engine_slice(counters: dict) -> dict:
     """Phase 28: the rest of the factorization engine (stock torch) on the card, selected by ``network_def`` keys.
 
     For each set of ``ENGINE_SETS`` the network is built from ``zoo/factorizer_brats23/configs/train.yaml`` with the
-    keys merged in, through the port's ``ConfigParser`` with the bundle's seed; it serves 2 BraTS-native volumes
+    keys merged in, through the port's ``ConfigParser`` with the bundle's seed; it serves 1 BraTS-native volume
     through ``ensemble_predict`` after a warm-up (one sliding-window batch where a volume would take over
     ``ENGINE_VOLUME_S``), takes 1 warm-up and 2 steps of ``make_train_step`` at 2 x 128^3, and its launches per
     forward and per step are asserted (the flat sets: K2 alone; the K1 sets: the default's).  Logits: the K1 sets
@@ -2148,7 +2442,7 @@ def engine_slice(counters: dict) -> dict:
             made_total[k] += v
         reset_counters(counters)
 
-    requests = [torch.randn(volume, device=dev, generator=gen.manual_seed(700 + i)) for i in range(3)]
+    requests = [torch.randn(volume, device=dev, generator=gen.manual_seed(700 + i)) for i in range(2)]
     window = torch.randn((1, 4, *roi), generator=torch.Generator().manual_seed(710))
     batch = synthetic_batch(2, 4, 3, roi[0], seed=720)
     for name, keys in ENGINE_SETS.items():
@@ -2562,17 +2856,20 @@ def options_slice(counters: dict) -> dict:
 
 
 def main() -> None:
+    t_run = time.perf_counter()
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--cards", type=int, default=1,
-                        help="above 1: run the two multi-process phases alone, one process per card over NCCL")
+                        help="above 1: run the multi-process phases alone (31, 20, 21, 25 as the count allows), "
+                             "one process per card over NCCL")
     cards = parser.parse_args().cards
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         sys.exit(1)
     if not 1 <= cards <= torch.cuda.device_count():
         fail(f"--cards {cards}, but the host has {torch.cuda.device_count()} CUDA device(s)")
+    start_forkserver()
 
     # The port: imported only once a card is known to be there.
     import torch.nn.functional as F
@@ -2613,6 +2910,11 @@ def main() -> None:
     def read_counts() -> dict:
         return read_counters(wrappers)
 
+    phase_seconds: list = []  # (phases, wall seconds) since the previous mark; printed before the last lines
+
+    def phase_done(name: str) -> None:
+        phase_seconds.append((name, time.perf_counter() - t_run - sum(s for _, s in phase_seconds)))
+
     # 1. environment
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2652,10 +2954,16 @@ def main() -> None:
 
     if cards > 1:  # the multi-process phases across cards, and nothing else
         settings = brats23_optimizer_settings(steps_per_epoch=1)
-        spatial_slice(cards)
+        equal = 128 % cards == 0  # phases 20 and 25 hold equal slabs to their own expectations
+        if cards >= UNEVEN_WORLD:  # phase 31 on a count that does not divide 128: the cards', else 3 of them
+            uneven_slabs_slice(UNEVEN_WORLD if equal else cards)
+        if equal:
+            spatial_slice(cards)
         torch.backends.cudnn.benchmark = True
         train_dp_slice(cards, {k: settings[k] for k in ("lr", "weight_decay")}, 4)
-        train_tp_slice(cards, {k: settings[k] for k in ("lr", "weight_decay")})
+        if equal:
+            train_tp_slice(cards, {k: settings[k] for k in ("lr", "weight_decay")})
+        stop_forkserver()
         last_lines()
         return
 
@@ -2676,6 +2984,7 @@ def main() -> None:
     # factorizer_isles22 at batch 8, roi 64^3: patches of 4^3, so K1's run-time-size instance; stages 0 and 3.
     isles_shapes = [(8, 64, 32), (8, 8, 256)]
 
+    phase_done("1-2 env, build")
     # 3. K1 against its plain version
     u0 = torch.rand(8, 1, device=dev, generator=gen.manual_seed(1))
     v0 = {8: torch.rand(512, 1, device=dev, generator=gen), 4: torch.rand(64, 1, device=dev, generator=gen)}
@@ -2724,6 +3033,7 @@ def main() -> None:
             record("windowed_nmf_reconstruct", err_b, label, ms_b, plain_b, bound_b)
             del x, out, ref, U, V, U_ref, V_ref, y_b, y_b_ref
 
+    phase_done("3 K1")
     # 4. K2 against its plain version
     def mlp_params(c: int) -> tuple:
         h = 4 * c
@@ -2760,6 +3070,7 @@ def main() -> None:
                 record("prenorm_mlp", err, label, ms, plain_ms, bound)
                 del x, out, again, ref
 
+    phase_done("4 K2")
     # 5. the serving slice
     sw_batch, overlap, n_requests = 2, 0.5, 2
     n_blocks, n_shifts = N_BLOCKS, N_SHIFTS
@@ -2869,6 +3180,7 @@ def main() -> None:
                   torch.randn((2, 4, 128, 128, 128), device=dev, generator=gen.manual_seed(7)),
                   {**k1_forward, "prenorm_mlp": n_blocks}, (2, 3, 128, 128, 128), "a window pair of brats23_network(dtype=torch.float16)")
 
+    phase_done("5 slice")
     # 6. K1 backward against autograd through the plain version
     # MU runs on a strictly positive input: where a whole row of a window is zero its factor decays to
     # ~eps and 1 / (v b + eps) ~ 1e16 makes the gradient so ill-conditioned that f32 keeps no digit of it,
@@ -2912,6 +3224,7 @@ def main() -> None:
         del x, g, args
         torch.cuda.empty_cache()  # the plain version's graph holds several GB at 128^3 x 32
 
+    phase_done("6 K1 bwd")
     # 7. K2 backward against autograd through the plain version
     grad_names = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
     for s, c in STAGES:
@@ -2945,6 +3258,7 @@ def main() -> None:
             del x, g, args
             torch.cuda.empty_cache()
 
+    phase_done("7 K2 bwd")
     # 8. the training slice.  The optimiser is the bundle's AdamW (lr 1e-4, weight decay 1e-5) at a
     # constant lr: the bundle's warm-up-cosine schedule starts at lr 0, so its first steps would not move.
     # cuDNN times its algorithms per shape from here on, as a training run with fixed shapes would have it:
@@ -3073,6 +3387,7 @@ def main() -> None:
     print(f"[train remat] float32: {s_remat:.4f} s/step and {mem_remat:.2f} GiB peak beside {s_plain:.4f} s/step and "
           f"{mem_plain:.2f} GiB without remat ({s_remat / s_plain:.3f}x the time, {mem_remat / mem_plain:.3f}x the memory)")
 
+    phase_done("8 train")
     # 9. K3 against its plain version, and beside it the one library call that computes the same function:
     # F.conv{2,3}d with groups = B * C on tensors already laid out as (1, B*C, *S), so that the call is timed
     # without the plain version's two layout transposes.  cuDNN's benchmark mode is off in this phase and the
@@ -3194,6 +3509,7 @@ def main() -> None:
             del x, w, out, ref, xc, wc
             torch.cuda.empty_cache()
 
+    phase_done("9 K3")
     # 10. K3 dw against autograd through the plain version; the library call is the grouped convolution's
     # weight gradient alone (aten::convolution_backward with only that output asked for).
     for i, (shape, ks, dt, zero_quarter, routes) in enumerate(k3_cases):
@@ -3302,6 +3618,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase_done("10 K3 dw")
     # 11. the Deconver serving slice: three depthwise convolutions in each of nine blocks.
     k3_per_forward = 3 * n_blocks
     serve_slice("slice deconver", deconver_brats23_network, {"depthwise_conv": k3_per_forward})
@@ -3326,6 +3643,7 @@ def main() -> None:
          "encoder.blocks.4.block.blocks.0.dcm.out_proj.linear.weight": "bottleneck.out_proj"},
     )
 
+    phase_done("11-13 Deconver, FIVES")
     # 14. K4 against its plain version.  No single library call computes it: the plain version is a chain of
     # batched products and elementwise passes.  Every case asserts the route that nmf_plan gives it (and that the
     # library's ftt_nmf_plan_query agrees with the Python mirror), runs twice bit for bit, and is timed per call and
@@ -3440,6 +3758,7 @@ def main() -> None:
         print("[K4] (2,32^3,32) f32 folded into (2048,8,512): K4 equals K1's single-shift windowed_nmf bit for bit")
         del x, y_k1, y_k4, folded
 
+    phase_done("14 K4")
     # 15. K4 backward, rank 1, against autograd through the plain version.  MU runs on a strictly positive
     # input, as K1's backward does (its gradient at all-zero rows keeps no digit in f32 on either side).  The same
     # checks as phase 14: the plan, two runs bit for bit, device time, the register cases also through the
@@ -3558,6 +3877,7 @@ def main() -> None:
     del layer, big, xb, xg, dx, served
     torch.cuda.empty_cache()
 
+    phase_done("15 K4 bwd")
     # 16. the flat-route serving slices.
     def brats23_flat_network(**kw):
         return brats23_network(factorize_options={"use_windowed": False}, **kw)
@@ -3596,6 +3916,7 @@ def main() -> None:
                 dtypes=f32_only, **isles)
     serve_slice("slice isles deconver", deconver_isles22_network, {"depthwise_conv": k3_per_forward}, dtypes=f32_only, **isles)
 
+    phase_done("16 flat serving")
     # 17. the flat-route training slices.
     torch.backends.cudnn.benchmark = True
     factorizer_leaves = {"stem.weight": "stem", "encoder.blocks.0.block.blocks.0.mlp.block.0.linear.weight": "enc0.fc1",
@@ -3626,12 +3947,15 @@ def main() -> None:
 
     # 28. the rest of the factorization engine, selected by network_def keys: the flat sets on stock torch, the K1
     # sets on the kernels; its launches are in the kernels line.
+    phase_done("17 flat training")
     engine_launches = engine_slice(wrappers)
+    phase_done("engine")
     # 29. the models' remaining options (deep supervision, dropout, split_shifts, the generic UNet); in the kernels
     # line too.
     options_launches = options_slice(wrappers)
     torch.backends.cudnn.benchmark = True
 
+    phase_done("29 options")
     # 18. K5 in one process: every slab of a ring held as a list, the halos wired by hand.  The plain version is
     # the whole ring in torch operations; K1 on the gathered volume is the second reference, bit for bit: the slab
     # kernel runs K1's block, the routed rows are f32 and the passes sum in K1's order.
@@ -3722,6 +4046,7 @@ def main() -> None:
         check(False, "K5: a slab of rows that the patch does not divide did not raise")
     del bad
 
+    phase_done("18 K5")
     # 19. K5 backward: autograd through the slab kernels against autograd through the plain version, and against
     # K1's backward kernel on the whole volume, bit for bit.
     for case in k5_cases:
@@ -3762,6 +4087,7 @@ def main() -> None:
         del x, g, xs, gs, leaves, ys, args
         torch.cuda.empty_cache()
 
+    phase_done("19 K5 bwd")
     # 20., 21. the two multi-process slices, on this one card: gloo, device tensors staged through the host.
     spatial_launches = spatial_slice(2)
     torch.backends.cudnn.benchmark = True
@@ -3769,22 +4095,36 @@ def main() -> None:
         train_launches[k] += v
     gc.collect()
     torch.cuda.empty_cache()
+    phase_done("20-21 spatial, train dp")
     # 25. the spatial train step (train_tp.yaml's), two processes on this card; its launches are in the kernels line.
     tp_launches = train_tp_slice(2, settings)
     gc.collect()
     torch.cuda.empty_cache()
+    phase_done("25 train tp")
     # 30. the spatial step's former refusals; its launches are in the kernels line.
     gap_launches = slab_gaps_slice()
     torch.backends.cudnn.benchmark = True
     gc.collect()
     torch.cuda.empty_cache()
-
+    phase_done("30 slab gaps")
+    # 31. the spatial step on slabs of unequal rows; its launches are in the kernels line.
+    uneven_launches = uneven_slabs_slice()
+    stop_forkserver()  # the last phase of run_processes' workers
+    torch.backends.cudnn.benchmark = True
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("31 uneven slabs")
     # 22. the training workflow from NIfTI files; its launches are checked there and left out of the kernels line.
     workflow_slice(wrappers)
+    phase_done("22 workflow")
     # 23. the bundles' YAML programs through the config parser and the CLI; left out of the kernels line too.
     bundle_slice(wrappers)
+    phase_done("23 bundle")
     # 24. the baseline bundles and UNETR, stock PyTorch: no kernel of the port launches.
     baselines_slice(wrappers)
+    phase_done("24 baselines")
+    print(f"[time] wall seconds by phase: {', '.join(f'{n} {t:.1f}' for n, t in phase_seconds)}; "
+          f"{sum(t for _, t in phase_seconds):.1f} s in all")
 
     sources = {
         "windowed_nmf_factors": ("factorizer_tpu_torch/csrc/windowed_nmf.cu",
@@ -3811,10 +4151,11 @@ def main() -> None:
         label, ms, plain_ms, b_ms, b_by, library_ms = results[name]["times"]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": serve_launches[name] + train_launches[name] + spatial_launches[name]
-                        + tp_launches[name] + engine_launches[name] + options_launches[name] + gap_launches[name],
+                        + tp_launches[name] + engine_launches[name] + options_launches[name] + gap_launches[name]
+                        + uneven_launches[name],
                         "launches_serving": serve_launches[name], "launches_training": train_launches[name],
                         "launches_spatial": spatial_launches[name], "launches_train_tp": tp_launches[name],
-                        "launches_slab_gaps": gap_launches[name],
+                        "launches_slab_gaps": gap_launches[name], "launches_uneven": uneven_launches[name],
                         "launches_engine": engine_launches[name], "launches_options": options_launches[name],
                         "max_abs_err": max(results[name]["errs"]),
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,

@@ -10,7 +10,9 @@
 // of it back to the left neighbour (`_roll_back_dim1` :57).  The transport
 // stays outside the kernel there and here (torch.distributed).
 //
-// A slab holds L = S1 / n rows, a multiple of the patch.  For the shift
+// A slab holds its own L rows, a multiple of the patch (S1 / n on equal slabs;
+// the slabs of a ring may hold unequal L, and every exchange moves s1 rows
+// whatever the L on either side).  For the shift
 // (s1, s2, s3) the first window row of the slab covers the rows [-s1, p - s1):
 // its elements with a negative row lie in the left neighbour.  This kernel is
 // K1's (the same solve: `rank1_group_solve`, or `rank1_smem_solve` at sizes

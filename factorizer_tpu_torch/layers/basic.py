@@ -199,7 +199,8 @@ def _group_norm(x: torch.Tensor, groups: int, weight, bias, eps: float, dtype, s
     Reduces over the channels-last tensor directly (no transposes); statistics
     and arithmetic in float32 (float64 stays float64), output in ``dtype``.
     With ``slabs`` (a ``parallel.slabs.Slabs``), ``x`` is this process's slab
-    of equal slabs and the statistics are the whole volume's: the slabs' sums
+    (of equal rows or not) and the statistics are the whole volume's, over its
+    whole count of voxels: the slabs' sums
     through :func:`~..parallel.collectives.slab_sum`, the mean first and then
     the centred sum of squares, as the one-process form centres before it squares.
     """
@@ -210,7 +211,7 @@ def _group_norm(x: torch.Tensor, groups: int, weight, bias, eps: float, dtype, s
         var, mean = torch.var_mean(xg, dim=(1, 3), correction=0, keepdim=True)
         centred = xg - mean
     else:
-        count = xg.shape[1] * xg.shape[3] * slabs.n
+        count = xg.shape[1] // x.shape[1] * slabs.whole_rows(x.shape[1]) * xg.shape[3]
         mean = slab_sum(xg.sum((1, 3), keepdim=True), slabs.mesh, slabs.axis) / count
         centred = xg - mean
         var = slab_sum(centred.square().sum((1, 3), keepdim=True), slabs.mesh, slabs.axis) / count

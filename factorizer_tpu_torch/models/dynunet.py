@@ -19,13 +19,13 @@ deeper one (:meth:`DynUNet.slab_route`, ``parallel.slabs.run_ladder``).
 from __future__ import annotations
 
 from fractions import Fraction
-from typing import Any, Optional, Sequence
+from typing import Any, Optional, Sequence, Union
 
 import torch
 from torch import nn
 
 from ..layers.basic import Conv, ConvTranspose, InstanceNorm, resolve_activation
-from ..parallel.slabs import Route, run_ladder, run_whole
+from ..parallel.slabs import Cut, Route, as_cut, run_ladder, run_whole
 from ..utils.helpers import resolve_device, to_ntuple
 from .unet import first_gathered_level
 
@@ -79,10 +79,16 @@ class DynUNet(nn.Module):
         """What keeps the model from the spatial step (``parallel.slabs``): nothing, its layers have slab paths."""
         return None
 
-    def slab_route(self, rows: int, n: int) -> Route:
-        """The route on ``n`` slabs of ``rows`` input rows: the first level whose block, upsampling (from it), decoder
-        block (at it) or head has too few rows, and every deeper level, run gathered."""
-        rs = [Fraction(rows)]
+    def slab_strides(self) -> list[int]:
+        """Each encoder stage's stride along the cut axis (``parallel.slabs.choose_cut``)."""
+        return list(self.strides)
+
+    def slab_route(self, rows: Union[int, Cut], n: Optional[int] = None) -> Route:
+        """The route on the cut ``rows`` (``parallel.slabs.Cut``), or on ``n`` equal slabs of ``rows`` input rows: the
+        first level whose block, upsampling (from it), decoder block (at it) or head has too few rows on some slab, and
+        every deeper level, run gathered."""
+        cut = as_cut(rows, n)
+        rs = [Fraction(cut.rows)]
         for i in range(self.n):
             rs.append(rs[-1] / self.strides[i])
         levels = []
@@ -91,7 +97,7 @@ class DynUNet(nn.Module):
             if self.deep_supervision and 1 <= i <= self.deep_supr_num:
                 names.append(f"supr{i - 1}")
             levels.append([(name, getattr(self, name), rs[i], rs[i + 1]) for name in names if name])
-        return first_gathered_level(levels)
+        return first_gathered_level(levels, cut)
 
     def __init__(
         self,
@@ -138,7 +144,7 @@ class DynUNet(nn.Module):
         slabs, level = self.slabs, None
         dim = 2 if self.data_format == "channels_first" else 1
         if slabs is not None:
-            level = self.slab_route(x.shape[dim], slabs.n).level
+            level = self.slab_route(slabs.line_cut(x.shape[dim])).level
             if level == 0:
                 return run_whole(self, x, slabs, dim)
         if self.data_format == "channels_first":

@@ -80,7 +80,6 @@ from ..layers.pos_embed import PositionalEmbedding
 from ..ops.kernels import windowed_nmf, windowed_nmf_multi_spatial
 from ..ops.kernels.windowed_nmf import _norm_shift
 from ..ops.reshape import Matricize, SWMatricize
-from ..parallel.collectives import cut_slab, gather_slabs
 from ..parallel.slabs import Slabs
 from ..utils.helpers import build_spec, has_args, partialize, spec_accepts
 from .unet import CONV_STEM, SLAB_NORMS, UNet, build_block, slab_path_missing_of
@@ -136,11 +135,13 @@ class FactMixer(nn.Module):
     every shift), so no single-card deployment should set it.
     ``factorize_options={"spatial_mesh": mesh, "spatial_axis": "model"}``:
     ``forward`` takes this process's slab ``(B, S1 / n, S2, S3, C)`` of the
-    volume and mixes it through K5; only a mixer that K1 computes can, and
-    each slab must hold whole windows.  Under ``parallel.slabs.on_slabs``
-    (``slabs`` set) ``forward`` takes a slab too, of any row count, and
-    :meth:`gathers` chooses K5 or K1 on the gathered tensor; the flat route
-    runs on the gathered tensor (K4 on the whole, on every process).
+    volume, one of equal slabs, and mixes it through K5; only a mixer that K1
+    computes can, and each slab must hold whole windows.  Under
+    ``parallel.slabs.on_slabs`` (``slabs`` set) ``forward`` takes a slab of
+    the line's cut, of any row count and equal to the others' or not, and
+    :meth:`gathers` chooses K5 or K1 on the gathered tensor from every slab's
+    rows; the flat route runs on the gathered tensor (K4 on the whole, on
+    every process).
     """
 
     # This process's parallel.slabs.Slabs while the model runs on slabs, else None.
@@ -262,24 +263,26 @@ class FactMixer(nn.Module):
     def gathers(self, x: torch.Tensor) -> bool:
         """Whether this process's slab ``x`` is gathered around K1 instead of running K5 (the spatial step's one rule).
 
-        Gathered where the slab holds no whole number of patches, or where the
-        all-gather and its backward send fewer bytes than K5's exchanges would.
-        Per process K5 sends, for each shift that moves ``s1`` rows, ``s1``
-        rows of the slab in the forward and two sets in the backward (x and its
-        cotangent, in the slab's dtype), and ``s1`` routed rows back in each
-        direction (f32); the gather sends the slab to each of the ``n - 1``
+        Judged from the line's slabs, never from this one alone, so that no
+        process enters K5's ring while another gathers.  Gathered where some
+        slab holds no whole number of patches, or where the all-gather and its
+        backward send fewer bytes than K5's exchanges would.  Per process K5
+        sends, for each shift that moves ``s1`` rows, ``s1`` rows of the slab
+        in the forward and two sets in the backward (x and its cotangent, in
+        the slab's dtype), and ``s1`` routed rows back in each direction (f32);
+        the gather sends a slab of the mean rows to each of the ``n - 1``
         others, forward and backward.  On 2 slabs that gathers every stage of
         side 32 or less in ``factorizer_brats23`` (16 or less in
-        ``factorizer_isles22``).  Both routes give the same
-        values (K5 equals K1 bit for bit on the card): the rule moves time and
-        memory only.
+        ``factorizer_isles22``).  Both routes give the same values (K5 equals
+        K1 bit for bit on the card): the rule moves time and memory only.
         """
         patch, shifts = self.windowed[1:]
-        rows, n, item = x.shape[1], self.slabs.n, x.element_size()
-        if rows % patch:
+        slabs, item = self.slabs, x.element_size()
+        whole = slabs.whole_rows(x.shape[1])
+        if any(rows % patch for rows in slabs.cut.sizes(whole)):
             return True
         moved = sum(_norm_shift(shift, patch)[0] for shift in shifts)
-        return 2 * (n - 1) * rows * item < moved * (3 * item + 2 * max(item, 4))
+        return 2 * (slabs.n - 1) * whole * item < slabs.n * moved * (3 * item + 2 * max(item, 4))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.act(self.in_proj(x))  # elementwise, so it commutes with the fold
@@ -291,16 +294,14 @@ class FactMixer(nn.Module):
             if slabs is None:
                 out = windowed_nmf(out, *config)
             elif self.slabs is not None and self.gathers(out):
-                whole = gather_slabs(out, slabs.mesh, slabs.axis, dim=1)
-                out = cut_slab(windowed_nmf(whole, *config), slabs.mesh, slabs.axis, dim=1)
+                out = slabs.cut_slab(windowed_nmf(slabs.gather_slabs(out), *config))
             else:
                 if self.slabs is None and out.shape[1] != self.slab_rows:
                     raise ValueError(f"spatial_mesh: expected a slab of {self.slab_rows} rows, got shape {tuple(out.shape)}")
                 out = windowed_nmf_multi_spatial(out, *config, mesh=slabs.mesh, axis_name=slabs.axis)
         elif self.slabs is not None:  # the flat route on the gathered tensor, on every process
-            mesh, axis, once = self.slabs.mesh, self.slabs.axis, next(self.factorize.parameters(), None) is not None
-            whole = gather_slabs(out, mesh, axis, dim=1, count_once=once)
-            out = cut_slab(self._flat(whole), mesh, axis, dim=1, count_once=once)
+            once = next(self.factorize.parameters(), None) is not None
+            out = self.slabs.cut_slab(self._flat(self.slabs.gather_slabs(out, count_once=once)), count_once=once)
         else:
             out = self._flat(out)
         return self.drop(self.out_proj(out))
@@ -405,7 +406,8 @@ class FactorizerStage(nn.Module):
         if self.pos_embed is not None:
             rows, slabs = None, _slabs(self)
             if slabs is not None:  # x is this process's slab of the volume
-                rows = slice(slabs.index * x.shape[1], (slabs.index + 1) * x.shape[1])
+                first = slabs.offset(x.shape[1])
+                rows = slice(first, first + x.shape[1])
             x = self.pos_drop(self.pos_embed(x, rows))
         for blk in self.blocks:
             x = blk(x)

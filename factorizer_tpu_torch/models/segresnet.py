@@ -33,7 +33,7 @@ slabs: layers made inside ``on_slabs`` would not be on it.
 from __future__ import annotations
 
 from fractions import Fraction
-from typing import Any, Optional, Sequence
+from typing import Any, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -41,7 +41,7 @@ from torch import nn
 
 from ..layers.basic import Conv, ConvTranspose, Dropout, FlaxGroupNorm, resolve_activation
 from ..parallel.collectives import halo_exchange
-from ..parallel.slabs import Route, run_ladder, run_whole
+from ..parallel.slabs import Cut, Route, as_cut, run_ladder, run_whole
 from ..utils.helpers import resolve_device
 from .unet import first_gathered_level
 
@@ -118,12 +118,18 @@ class SegResNet(nn.Module):
                 names += [f"reduce{i}"] + ([f"up{i}"] if self.upsample_mode == "deconv" else [])
         return names + (["final_norm", "head"] if level == 0 else [])
 
-    def slab_route(self, rows: int, n: int) -> Route:
-        """The route on ``n`` slabs of ``rows`` input rows: the first level with a layer that has too few rows, and
-        every deeper level, run gathered."""
-        rs = [Fraction(rows)] + [Fraction(rows, 2**level) for level in range(len(self.blocks_down))]
+    def slab_strides(self) -> list[int]:
+        """Each level's stride along the cut axis: the stem's 1, then each downsampling's 2
+        (``parallel.slabs.choose_cut``)."""
+        return [1] + [2] * (len(self.blocks_down) - 1)
+
+    def slab_route(self, rows: Union[int, Cut], n: Optional[int] = None) -> Route:
+        """The route on the cut ``rows`` (``parallel.slabs.Cut``), or on ``n`` equal slabs of ``rows`` input rows: the
+        first level with a layer that has too few rows on some slab, and every deeper level, run gathered."""
+        cut = as_cut(rows, n)
+        rs = [Fraction(cut.rows)] + [Fraction(cut.rows, 2**level) for level in range(len(self.blocks_down))]
         return first_gathered_level([[(name, getattr(self, name), rs[level], rs[level + 1]) for name in self._parts(level)]
-                                     for level in range(len(self.blocks_down))])
+                                     for level in range(len(self.blocks_down))], cut)
 
     def __init__(
         self,
@@ -221,7 +227,7 @@ class SegResNet(nn.Module):
         slabs, level = self.slabs, None
         dim = 2 if self.data_format == "channels_first" else 1
         if slabs is not None:
-            level = self.slab_route(x.shape[dim], slabs.n).level
+            level = self.slab_route(slabs.line_cut(x.shape[dim])).level
             if level == 0:
                 return run_whole(self, x, slabs, dim)
         if self.data_format == "channels_first":

@@ -38,7 +38,7 @@ gathered part, and the upsampling from it is cut back.
 from __future__ import annotations
 
 import math
-from typing import Any, Optional, Sequence
+from typing import Any, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -46,8 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..layers.basic import Conv, ConvTranspose, Dense, FlaxLayerNorm, InstanceNorm, resolve_activation, truncated_normal
-from ..parallel.collectives import cut_slab
-from ..parallel.slabs import Route, run_gathered
+from ..parallel.slabs import Cut, Route, as_cut, run_gathered
 from ..utils.helpers import resolve_device, to_ntuple
 
 __all__ = ["SwinUNETR", "WindowAttention", "SwinBlock", "PatchMerging"]
@@ -234,13 +233,21 @@ class SwinUNETR(nn.Module):
     _ENCODERS = ("encoder1", "encoder2", "encoder3", "encoder4", None, "encoder10")
     _DECODERS = ("decoder1", "decoder2", "decoder3", "decoder4", "decoder5")
 
-    def slab_route(self, rows: int, n: int) -> Route:
-        """The route on ``n`` slabs of ``rows`` rows: the transformer gathered, and from the first conv level whose
-        slab holds no whole number of rows (level k holds ``rows / 2^k``) every deeper conv level with it."""
+    def slab_strides(self) -> list[int]:
+        """The conv levels' strides along the cut axis: level k holds ``1 / 2^k`` of the rows
+        (``parallel.slabs.choose_cut``)."""
+        return [2] * (len(self._ENCODERS) - 1)
+
+    def slab_route(self, rows: Union[int, Cut], n: Optional[int] = None) -> Route:
+        """The route on the cut ``rows`` (``parallel.slabs.Cut``), or on ``n`` equal slabs of ``rows`` rows: the
+        transformer gathered, and from the first conv level where some slab holds no whole number of rows (level k
+        holds ``rows / 2^k``) every deeper conv level with it."""
+        cut = as_cut(rows, n)
         for level in range(1, len(self._ENCODERS)):
-            if rows % 2**level:
-                return Route(level, f"level {level} ({self._ENCODERS[level] or 'the skip of decoder5'}) holds "
-                                    f"{rows}/{2**level} rows a slab")
+            for size in sorted(set(cut.sizes(cut.rows))):
+                if size % 2**level:
+                    return Route(level, f"level {level} ({self._ENCODERS[level] or 'the skip of decoder5'}) holds "
+                                        f"{size}/{2**level} rows a slab")
         return Route(None, "the transformer gathered")
 
     def __init__(
@@ -324,7 +331,7 @@ class SwinUNETR(nn.Module):
             hidden = self._transformer(self.patch_embed(x))
             out = self._decode(self._encode(deepest, x, hidden), deepest - 1, 0, x, hidden)
         else:
-            level = self.slab_route(x.shape[1], slabs.n).level or deepest + 1
+            level = self.slab_route(slabs.line_cut(x.shape[1])).level or deepest + 1
 
             def part(t: torch.Tensor) -> list[torch.Tensor]:
                 """The transformer and the conv levels from ``level`` down, on whole tensors: the hidden states after
@@ -338,7 +345,7 @@ class SwinUNETR(nn.Module):
 
             h = None if level == 1 else self.patch_embed(x)
             whole = run_gathered(part, [self], slabs, x if level == 1 else h)
-            hidden = ([] if level == 1 else [h]) + [cut_slab(t, slabs.mesh, slabs.axis, count_once=True) for t in whole]
+            hidden = ([] if level == 1 else [h]) + [slabs.cut_slab(t, count_once=True) for t in whole]
             if level <= deepest:
                 name = self._DECODERS[level - 1]
                 d = getattr(self, f"{name}_block")(torch.cat([hidden.pop(), self._encode(level - 1, x, hidden)], dim=-1))

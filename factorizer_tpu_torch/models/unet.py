@@ -44,7 +44,7 @@ from __future__ import annotations
 
 import math
 from fractions import Fraction
-from typing import Any, Optional, Sequence
+from typing import Any, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -66,7 +66,7 @@ from ..layers.basic import (
     _Affine,
 )
 from ..layers.conv_blocks import BasicBlock, DoubleConv, PreActivationBlock, SepConv
-from ..parallel.slabs import Route, as_now, run_ladder, run_whole
+from ..parallel.slabs import Cut, Route, as_cut, as_now, run_ladder, run_whole
 from ..utils.helpers import has_args, partialize, spec_accepts
 
 __all__ = ["UNet", "Same", "build_block", "dtype_kwargs", "SLAB_LAYERS", "SLAB_NORMS", "slab_path_missing_of",
@@ -206,14 +206,19 @@ def slab_part_missing(module: nn.Module, name: str, rows_in: Fraction, rows_out:
     return None
 
 
-def first_gathered_level(levels: Sequence[Sequence[tuple]]) -> Route:
-    """The route of a U-shaped model: the first level with a part that :func:`slab_part_missing` names, where
-    ``levels[l]`` lists level ``l``'s parts as ``(name, module, rows_in, rows_out)``; every level on slabs if none."""
+def first_gathered_level(levels: Sequence[Sequence[tuple]], cut: Cut) -> Route:
+    """The route of a U-shaped model on ``cut``: the first level with a part that :func:`slab_part_missing` names on
+    any slab of the cut (the thinnest first), where ``levels[l]`` lists level ``l``'s parts as ``(name, module,
+    rows_in, rows_out)``, the whole volume's rows; every level on slabs if none.  Every process judges every slab's
+    rows, so the line takes one route."""
+    total = sum(cut.parts)
+    shares = [Fraction(p, total) for p in sorted(set(cut.parts))]
     for level, parts in enumerate(levels):
         for name, module, rows_in, rows_out in parts:
-            reason = slab_part_missing(module, name, rows_in, rows_out)
-            if reason is not None:
-                return Route(level, reason)
+            for share in shares:
+                reason = slab_part_missing(module, name, rows_in * share, rows_out * share)
+                if reason is not None:
+                    return Route(level, reason)
     return Route()
 
 
@@ -339,23 +344,29 @@ class UNet(nn.Module):
         """None: every part runs on slabs or, where it has no slab path, gathered (:meth:`slab_route`)."""
         return None
 
-    def _level_rows(self, rows: int) -> list[Fraction]:
-        """The slab's rows at the stem's output (its convolutions' strides along the cut axis fold them) and at each
-        encoder level, from ``rows`` at the input."""
-        out = [Fraction(rows, math.prod(m.stride[0] for m in self.stem.modules() if isinstance(m, Conv)))]
-        for stride in self.strides:
-            out.append(out[-1] / stride)
-        return out
+    def slab_strides(self) -> list[int]:
+        """The strides along the cut axis from the input: the stem's (its convolutions' strides folded) and each
+        encoder stage's (``parallel.slabs.choose_cut``)."""
+        return [math.prod(m.stride[0] for m in self.stem.modules() if isinstance(m, Conv)), *self.strides]
 
-    def slab_route(self, rows: int, n: int) -> Route:
-        """The route on ``n`` slabs of ``rows`` input rows (``parallel.slabs``): the first level with a part that has no
-        slab path or too few rows for one of its layers, and all deeper levels, run gathered.  Level ``l``'s parts:
-        encoder stage ``l`` (its resampling layer and block), the decoder block at level ``l`` and the upsampling from
-        it; level 0 also the stem and every head (a head runs on its level's slab either way)."""
-        rs = self._level_rows(rows)
+    def _level_rows(self, rows: int) -> list[Fraction]:
+        """The whole volume's rows at the stem's output and at each encoder level, from ``rows`` at the input."""
+        out = [Fraction(rows)]
+        for stride in self.slab_strides():
+            out.append(out[-1] / stride)
+        return out[1:]
+
+    def slab_route(self, rows: Union[int, Cut], n: Optional[int] = None) -> Route:
+        """The route on the cut ``rows`` (``parallel.slabs.Cut``), or on ``n`` equal slabs of ``rows`` input rows: the
+        first level with a part that has no slab path or too few rows on some slab for one of its layers, and all
+        deeper levels, run gathered.  Level ``l``'s parts: encoder stage ``l`` (its resampling layer and block), the
+        decoder block at level ``l`` and the upsampling from it; level 0 also the stem and every head (a head runs on
+        its level's slab either way)."""
+        cut = as_cut(rows, n)
+        rs = self._level_rows(cut.rows)
         n_enc = len(self.encoder.blocks)
         levels = [[] for _ in range(n_enc)]
-        levels[0] += [("stem", self.stem, Fraction(rows), rs[0])]
+        levels[0] += [("stem", self.stem, Fraction(cut.rows), rs[0])]
         levels[0] += [(name, getattr(self, name), rs[1], rs[1]) for name in self.head_names()]
         for i, stage in enumerate(self.encoder.blocks):
             levels[i] += [(f"encoder.blocks.{i}.{name}", m, rs[i], rs[i + 1]) for name, m in stage.named_children()]
@@ -363,7 +374,7 @@ class UNet(nn.Module):
             lv = n_enc - 2 - k  # the level this stage's block runs at; its upsampling comes from the level below
             levels[lv] += [(f"decoder.blocks.{k}.block", stage.block, rs[lv], rs[lv + 1])]
             levels[lv + 1] += [(f"decoder.blocks.{k}.upsample", stage.upsample, rs[lv + 1], rs[lv + 2])]
-        return first_gathered_level(levels)
+        return first_gathered_level(levels, cut)
 
     def _heads(self) -> list[int]:
         """The levels the heads read, finest first."""
@@ -386,14 +397,15 @@ class UNet(nn.Module):
         level, slabs = None, self.slabs
         dim = 2 if self.data_format == CHANNELS_FIRST else 1
         if slabs is not None:
-            level = self.slab_route(x.shape[dim], slabs.n).level
+            cut = slabs.line_cut(x.shape[dim])
+            level = self.slab_route(cut).level
             if level == 0:
                 return run_whole(self, x, slabs, dim)
-            rs = self._level_rows(x.shape[dim])
+            rs = self._level_rows(cut.rows)
             for name, j in zip(self.head_names(), self._heads()):
-                if rs[j + 1].denominator != 1:
-                    raise ValueError(f"slabs: {name} reads a level of {rs[j + 1] * slabs.n} rows, which do not cut "
-                                     f"into {slabs.n} slabs")
+                if any(r.denominator != 1 for r in cut.shares(rs[j + 1])):
+                    raise ValueError(f"slabs: {name} reads a level of {rs[j + 1]} rows, which the cut "
+                                     f"{cut.describe()} does not keep whole on every slab")
         if self.data_format == CHANNELS_FIRST:
             x = x.movedim(1, -1).contiguous()
         ys = self.forward_features(x, level)

@@ -26,15 +26,14 @@ through every level), and the upsampling into the finest level is cut back.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..layers.basic import Conv, ConvTranspose, Dense, FlaxLayerNorm, truncated_normal
-from ..parallel.collectives import cut_slab
-from ..parallel.slabs import Route, run_gathered
+from ..parallel.slabs import Cut, Route, as_cut, run_gathered
 from ..utils.helpers import resolve_device, to_ntuple
 from .swinunetr import _ConvBlock as _ResBlock  # MONAI's UnetResBlock: the same layers and names
 
@@ -120,11 +119,18 @@ class UNETR(nn.Module):
         """What keeps the model from the spatial step (``parallel.slabs``): nothing (the ViT is gathered)."""
         return None
 
-    def slab_route(self, rows: int, n: int) -> Route:
-        """The route on ``n`` slabs of ``rows`` rows: the ViT gathered; where the slab holds no whole number of
-        patches, levels 1 and deeper with it (the patch embedding and the branches above the finest level)."""
-        if rows % self.patch_size:
-            return Route(1, f"a slab of {rows} rows holds no whole number of patches of {self.patch_size}")
+    def slab_strides(self) -> list[int]:
+        """The patch embedding's stride along the cut axis (``parallel.slabs.choose_cut``)."""
+        return [self.patch_size]
+
+    def slab_route(self, rows: Union[int, Cut], n: Optional[int] = None) -> Route:
+        """The route on the cut ``rows`` (``parallel.slabs.Cut``), or on ``n`` equal slabs of ``rows`` rows: the ViT
+        gathered; where some slab holds no whole number of patches, levels 1 and deeper with it (the patch embedding
+        and the branches above the finest level)."""
+        cut = as_cut(rows, n)
+        for size in sorted(set(cut.sizes(cut.rows))):
+            if size % self.patch_size:
+                return Route(1, f"a slab of {size} rows holds no whole number of patches of {self.patch_size}")
         return Route(None, "the ViT gathered")
 
     def __init__(
@@ -197,9 +203,9 @@ class UNETR(nn.Module):
             up = self.decoder1_up(self._branches(self._states(self.patch_embed(x))))
         else:
             def cut(t: torch.Tensor) -> torch.Tensor:
-                return cut_slab(t, slabs.mesh, slabs.axis, count_once=True)
+                return slabs.cut_slab(t, count_once=True)
 
-            if self.slab_route(x.shape[1], slabs.n).level == 1:  # all but the finest level gathered
+            if self.slab_route(slabs.line_cut(x.shape[1])).level == 1:  # all but the finest level gathered
                 up = cut(run_gathered(lambda t: self.decoder1_up(self._branches(self._states(self.patch_embed(t)))),
                                       [self], slabs, x))
             else:  # the ViT on the whole patch grid, on every process

@@ -4,9 +4,11 @@
 Counterpart of ``windowed_nmf_multi_spatial`` in
 ``factorizer_tpu/ops/pallas/windowed_sharded.py``: K1's function
 (:mod:`.windowed_nmf`) on ``(B, S1, S2, S3, C)`` where S1 is cut into ``n``
-equal slabs of ``L = S1 / n`` rows, a multiple of the patch, over a ring of
-processes.  Per shift ``(s1, s2, s3)`` a slab's first window row covers the
-rows ``[-s1, p - s1)``, so
+slabs over a ring of processes, each of its own ``L`` rows, a multiple of the
+patch (equal slabs, ``L = S1 / n``, or unequal ones, ``parallel.slabs.Cut``:
+every exchange moves ``s1`` rows, whatever the slabs' ``L``).  Per shift
+``(s1, s2, s3)`` a slab's first window row covers the rows ``[-s1, p - s1)``,
+so
 
 1. the left neighbour's last ``s1`` rows arrive as a *halo* (one exchange
    forward along the ring);
@@ -217,8 +219,8 @@ def windowed_nmf_slab_tail(total: SlabSum, recv: Optional[torch.Tensor], s1: int
 
 def _passes(xs, gs, exchange: Exchange, u0, v0, head_dim, patch, shifts, solver, num_iters, eps, grad_steps):
     """Every shift pass on the slabs this process holds (``gs`` None: the forward; else ``dx`` for the cotangents)."""
-    if len({(x.shape, x.dtype, x.device) for x in xs}) != 1:
-        raise ValueError("the slabs of a ring must share one shape, dtype and device")
+    if len({(x.shape[0], *x.shape[2:], x.dtype, x.device) for x in xs}) != 1:
+        raise ValueError("the slabs of a ring must share one shape but for their rows, one dtype and one device")
 
     def travel(tensors: list, forward: bool) -> list:
         windowed_nmf_multi_spatial.bytes_sent += sum(t.numel() * t.element_size() for t in tensors)
@@ -297,8 +299,9 @@ def windowed_nmf_multi_spatial_local(
 ) -> list[torch.Tensor]:
     """K5 on all slabs of a ring held in one process, halos wired by hand; differentiable in the slabs.
 
-    ``slabs[i]`` is ``x[:, i * L:(i + 1) * L]`` of the volume, contiguous.
-    Every line but the exchange is that of :func:`windowed_nmf_multi_spatial`.
+    ``slabs[i]`` is the ``i``-th slab of the volume along dim 1, contiguous;
+    the slabs may hold unequal rows, each a multiple of the patch.  Every line
+    but the exchange is that of :func:`windowed_nmf_multi_spatial`.
     """
     config = (head_dim, patch, tuple(shifts), solver, num_iters, eps, num_grad_steps)
     return list(_SpatialNMF.apply(_local_ring, config, u0, v0, *slabs))
@@ -353,7 +356,8 @@ def windowed_nmf_multi_spatial_plain(
     eps: float = EPS,
     num_grad_steps: Optional[int] = None,
 ) -> list[torch.Tensor]:
-    """The plain PyTorch version of the whole ring in one process, which autograd differentiates.
+    """The plain PyTorch version of the whole ring in one process, which autograd differentiates; the slabs as
+    :func:`windowed_nmf_multi_spatial_local` takes them (unequal rows too).
 
     Per shift and slab: concatenate the left neighbour's rows, fold and solve
     the padded slab, keep the rows ``[0, L - s1)`` and take the last ``s1``

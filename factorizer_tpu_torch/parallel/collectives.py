@@ -25,12 +25,17 @@ function with its own backward:
 * :func:`gather_slabs` / :func:`cut_slab`: a slab joined into the whole
   tensor on every process, and cut back out; each one's backward is the
   other, so between the two every process holds the same tensor and the same
-  cotangent.  With ``count_once=True`` the layers between the two hold
-  parameters: every process computes their whole gradient, so the cotangent
-  between is scaled by ``1 / n`` and the sum over the axis counts it once.
+  cotangent.  The slabs may hold unequal rows (``sizes``, each slab's rows
+  in axis order, from ``parallel.slabs.Cut``): the gather pads each to the
+  largest and trims it, the cut takes each slab's offset.  With ``count_once=True``
+  the layers between the two hold parameters: every process computes their
+  whole gradient, whatever its slab's rows, so the cotangent between is
+  scaled by ``1 / n`` and the sum over the axis counts it once.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -75,17 +80,35 @@ def ring_exchange(tensor: torch.Tensor, mesh: Mesh, axis: str, forward: bool = T
     return recv.to(tensor.device) if staged else recv
 
 
-def all_gather_cat(tensor: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.Tensor:
-    """The shards of all processes of ``axis``, in axis order, joined along ``dim``; equal shapes on every process."""
-    if mesh.axis_size(axis) == 1:
+def all_gather_cat(tensor: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0,
+                   sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """The shards of all processes of ``axis``, in axis order, joined along ``dim``.
+
+    Equal shapes on every process, or with ``sizes`` (each process's rows
+    along ``dim``, in axis order) shapes that differ along ``dim`` alone:
+    ``dist.all_gather`` takes one shape, so each shard travels padded to the
+    largest and is trimmed after.
+    """
+    n = mesh.axis_size(axis)
+    if n == 1:
         return tensor
     group = mesh.group(axis)
     staged = _staged(tensor, group)
     mine = tensor.contiguous()
     if staged:
         mine = mine.cpu()
-    parts = [torch.empty_like(mine) for _ in range(mesh.axis_size(axis))]
+    if sizes is not None:
+        if len(sizes) != n or sizes[mesh.axis_index(axis)] != tensor.shape[dim]:
+            raise ValueError(f"all_gather_cat: a shard of {tensor.shape[dim]} rows as shard "
+                             f"{mesh.axis_index(axis)} of the sizes {list(sizes)}")
+        if max(sizes) > mine.shape[dim]:
+            pad = list(mine.shape)
+            pad[dim] = max(sizes) - mine.shape[dim]
+            mine = torch.cat([mine, mine.new_zeros(pad)], dim)
+    parts = [torch.empty_like(mine) for _ in range(n)]
     dist.all_gather(parts, mine, group=group)
+    if sizes is not None:
+        parts = [p.narrow(dim, 0, rows) for p, rows in zip(parts, sizes)]
     return torch.cat(parts, dim).to(tensor.device)
 
 
@@ -235,58 +258,70 @@ class _ScaleGrad(torch.autograd.Function):
         return g * ctx.scale, None
 
 
-def _cut(t: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor:
-    return t.chunk(mesh.axis_size(axis), dim)[mesh.axis_index(axis)].contiguous()
+def _narrow(t: torch.Tensor, mesh: Mesh, axis: str, dim: int, sizes: tuple) -> torch.Tensor:
+    i = mesh.axis_index(axis)
+    return t.narrow(dim, sum(sizes[:i]), sizes[i]).contiguous()
 
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axis, dim):
-        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
-        return all_gather_cat(x, mesh, axis, dim)
+    def forward(ctx, x, mesh, axis, dim, sizes):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.sizes = mesh, axis, dim, sizes
+        return all_gather_cat(x, mesh, axis, dim, sizes=sizes)
 
     @staticmethod
     def backward(ctx, g):
-        return _cut(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+        return _narrow(g, ctx.mesh, ctx.axis, ctx.dim, ctx.sizes), None, None, None, None
 
 
 class _Cut(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axis, dim):
-        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
-        return _cut(x, mesh, axis, dim)
+    def forward(ctx, x, mesh, axis, dim, sizes):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.sizes = mesh, axis, dim, sizes
+        return _narrow(x, mesh, axis, dim, sizes)
 
     @staticmethod
     def backward(ctx, g):
-        return all_gather_cat(g.contiguous(), ctx.mesh, ctx.axis, ctx.dim), None, None, None
+        return all_gather_cat(g.contiguous(), ctx.mesh, ctx.axis, ctx.dim, sizes=ctx.sizes), None, None, None, None
 
 
-def gather_slabs(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = 1, count_once: bool = False) -> torch.Tensor:
+def gather_slabs(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = 1, count_once: bool = False,
+                 sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
     """The whole tensor from the slabs of ``axis``, on every process; the backward cuts this slab's rows back out.
 
-    The cotangent that reaches it must be the whole one, alike on every
-    process: what :func:`cut_slab`'s backward hands on.  ``count_once``: see
-    :func:`cut_slab`; the backward multiplies the cotangent by ``n`` again.
+    ``sizes``: each slab's rows along ``dim``, in axis order (None: every
+    slab holds as many as ``x``).  The cotangent that reaches it must be the
+    whole one, alike on every process: what :func:`cut_slab`'s backward hands
+    on.  ``count_once``: see :func:`cut_slab`; the backward multiplies the
+    cotangent by ``n`` again.
     """
     n = mesh.axis_size(axis)
     if n == 1:
         return x
-    whole = _Gather.apply(x, mesh, axis, dim)
+    whole = _Gather.apply(x, mesh, axis, dim, (x.shape[dim],) * n if sizes is None else tuple(sizes))
     return _ScaleGrad.apply(whole, float(n)) if count_once else whole
 
 
-def cut_slab(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = 1, count_once: bool = False) -> torch.Tensor:
+def cut_slab(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = 1, count_once: bool = False,
+             sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
     """This process's slab of a tensor that every process of ``axis`` holds whole; the backward gathers the cotangent.
 
+    ``sizes``: each slab's rows along ``dim``, in axis order, summing to
+    ``x``'s (None: equal slabs); rows that do not cut so raise.
     ``count_once=True`` (with the matching :func:`gather_slabs`): the layers
     between the two have parameters, whose gradient every process computes
     whole and the spatial step then sums over the axis.  The backward scales
-    the cotangent that enters them by ``1 / n`` (exact for a power of two), so
-    that the sum counts their gradient once.
+    the cotangent that enters them by ``1 / n``, whatever the slabs' rows, so
+    that the sum counts their gradient once: exactly for a power of two, to
+    the last bits otherwise.
     """
-    n = mesh.axis_size(axis)
+    n, rows = mesh.axis_size(axis), x.shape[dim]
     if n == 1:
         return x
-    if x.shape[dim] % n:
-        raise ValueError(f"cut_slab: {x.shape[dim]} rows do not cut into {n} equal slabs")
-    return _Cut.apply(_ScaleGrad.apply(x, 1.0 / n) if count_once else x, mesh, axis, dim)
+    if sizes is None:
+        if rows % n:
+            raise ValueError(f"cut_slab: {rows} rows do not cut into {n} equal slabs")
+        sizes = (rows // n,) * n
+    elif len(sizes) != n or sum(sizes) != rows:
+        raise ValueError(f"cut_slab: {rows} rows do not cut into the slabs {list(sizes)}")
+    return _Cut.apply(_ScaleGrad.apply(x, 1.0 / n) if count_once else x, mesh, axis, dim, tuple(sizes))

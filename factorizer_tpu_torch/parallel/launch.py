@@ -3,8 +3,10 @@
 PyTorch drives one device per process, where one JAX controller addresses
 all devices of a host; this is the port's ``torchrun`` for a test, a smoke
 run or a single-host job.  The processes are spawned (a fresh interpreter
-each, which imports the worker's module), meet through a file in a temporary
-directory, and are watched: when one dies the others are stopped, since they
+each, which imports the worker's module) or, where the caller asks, forked
+from Python's fork server, which imported its preloaded modules once
+(``multiprocessing.set_forkserver_preload``).  They meet through a file in a
+temporary directory, and are watched: when one dies the others are stopped, since they
 would wait for it in their next collective.  Python starts a helper of its own
 beside spawned processes, the resource tracker, which would live as long as
 the caller and a moment longer; when it was started here it is stopped here.
@@ -49,8 +51,9 @@ def child_processes() -> dict[int, str]:
     return children
 
 
-def run_processes(worker: Callable, world_size: int, *args: Any, timeout: float = 600.0) -> list:
-    """Run ``worker(rank, world_size, init_method, *args)`` in ``world_size`` spawned processes.
+def run_processes(worker: Callable, world_size: int, *args: Any, timeout: float = 600.0,
+                  start_method: str = "spawn") -> list:
+    """Run ``worker(rank, world_size, init_method, *args)`` in ``world_size`` new processes.
 
     ``worker`` is a module-level function (it is pickled by name) that joins
     the group itself (``initialize_distributed(init_method, world_size, rank,
@@ -58,9 +61,10 @@ def run_processes(worker: Callable, world_size: int, *args: Any, timeout: float 
     the workers' return values in rank order (anything ``torch.save`` takes).
     Raises ``RuntimeError`` when a process exits with an error and
     ``TimeoutError`` after ``timeout`` seconds; either way no process is left
-    running.
+    running.  ``start_method`` is ``"spawn"`` or ``"forkserver"``; a fork
+    server, once started, lives until its caller stops or exits.
     """
-    ctx = mp.get_context("spawn")
+    ctx = mp.get_context(start_method)
     # The tracker of a caller that had one may hold its semaphores and shared memory, and stays.
     tracker = resource_tracker._resource_tracker
     tracker_is_ours = getattr(tracker, "_pid", None) is None

@@ -43,23 +43,67 @@ part's whole parameter gradient, so the step's sum over the slabs counts it
 once).  A dropout inside draws one mask on every process (a seed broadcast
 from the line's first process), and a rematerialised block recomputes as it
 ran (:func:`as_now`).  Each model chooses by one rule before its forward,
-``slab_route(rows, n)`` (a :class:`Route`): the U-shaped models run their
+``slab_route(cut)`` (a :class:`Route`): the U-shaped models run their
 levels on slabs down to the first level ℓ whose part has no slab path or whose
 slab rows do not suffice, and the levels from ℓ down to the bottleneck and back
 up to ℓ gathered (:func:`run_ladder`); ℓ = 0 is the whole model gathered,
 which saves no memory.  The transformers' trunk is always gathered.
 
-What stays refused: an input whose rows do not cut into equal slabs
-(``cut_slab``), and a deep-supervision head whose level's rows do not cut into
-the slabs.  A model tells what it lacks through ``slab_path_missing()`` (a
-reason, or None); a model without the method has no slab path.
+**The cut.**  One rule (:func:`choose_cut`) chooses the line's cut before the
+forward, from three things only: the input's rows R, the slab count n and the
+model's strides along the cut axis (its ``slab_strides``, input first).  So
+every process of the line holds the same :class:`Cut`, and every route rule
+judges every slab's rows from it, never from its own slab alone: with slabs
+of unequal rows, two processes that chose apart would wait in different
+collectives.
+
+* Where n divides R, the slabs are equal, R / n rows each.
+* Otherwise they lie on a grid of U rows, U the longest product of the
+  strides (from the input's) that divides R into at least n grid rows: every
+  slab then stays whole at each level whose strides U holds, and the levels
+  below it run gathered by the model's route (:func:`run_ladder`).  The R / U
+  grid rows go round near-equal, the first ``(R / U) mod n`` slabs one more.
+  A longer product keeps more levels on slabs, and a gathered level costs
+  every process the whole level, so one more level outweighs a few rows of
+  balance.
+* Every slab holds at least one row: n > R raises by name, before the step.
+
+For ``factorizer_brats23`` (128 rows, strides 1, 1, 2, 2, 2, 2 with the stem's,
+so U = 16):
+
+=====  ==========================
+n      slab rows at the input
+=====  ==========================
+2, 4   64 / 64; 32 each (equal)
+3      48 / 48 / 32
+5      32 / 32 / 32 / 16 / 16
+6      32 / 32 / 16 / 16 / 16 / 16
+7      32 / 16 x 6
+=====  ==========================
+
+A tensor of W rows at any level cuts in the input's proportion (slab i holds
+``W * parts[i] / sum(parts)`` of them, :meth:`Cut.sizes`): the gathers pad
+each slab to the largest and trim it (:meth:`Slabs.gather_slabs`, through
+:func:`~.collectives.all_gather_cat` with ``sizes``), the cuts take each
+slab's offset (:meth:`Slabs.cut_slab`), and a norm's or the loss's count
+takes the whole volume's rows.  Equal slabs are the cut whose parts are all 1,
+and take the same code.  ``count_once`` stays ``1 / n``: every process computes the
+gathered part's whole gradient, whatever its slab's rows.
+
+What stays refused: n > R, and a deep-supervision head whose level the cut
+does not keep whole on every slab (below the grid).  A model tells what it
+lacks through ``slab_path_missing()`` (a reason, or None); a model without the
+method has no slab path.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
+import operator
 from dataclasses import dataclass
-from typing import Any, Callable, Iterator, Optional, Sequence
+from fractions import Fraction
+from typing import Any, Callable, Iterator, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -67,16 +111,97 @@ from torch import nn
 from .collectives import broadcast_from_first, cut_slab, gather_slabs
 from .mesh import Mesh
 
-__all__ = ["Slabs", "Route", "on_slabs", "off_slabs", "require_slab_path", "slab_route", "run_gathered", "run_whole",
-           "run_ladder", "as_now"]
+__all__ = ["Cut", "choose_cut", "as_cut", "Slabs", "Route", "on_slabs", "off_slabs", "require_slab_path", "slab_cut",
+           "slab_route", "run_gathered", "run_whole", "run_ladder", "as_now"]
+
+
+@dataclass(frozen=True)
+class Cut:
+    """The line's cut of an input of ``rows`` rows along its first spatial axis: slab ``i`` (in axis order) holds the
+    share ``parts[i] / sum(parts)`` of them, ``parts[i]`` grid rows (:func:`choose_cut`).
+
+    A tensor of ``whole`` rows along the cut axis, at any level, cuts in the
+    same proportion (:meth:`shares`, :meth:`sizes`, :meth:`offsets`).  The
+    equal cut has every part 1.
+    """
+
+    rows: int
+    parts: tuple[int, ...]
+
+    @classmethod
+    def equal(cls, rows: int, n: int) -> "Cut":
+        """``n`` equal slabs of ``rows / n`` rows (``n`` must divide ``rows``)."""
+        if n < 1 or rows % n:
+            raise ValueError(f"slabs: {rows} rows do not cut into {n} equal slabs")
+        return cls(rows, (1,) * n)
+
+    @property
+    def n(self) -> int:
+        return len(self.parts)
+
+    @property
+    def is_equal(self) -> bool:
+        return len(set(self.parts)) == 1
+
+    def shares(self, whole: Union[int, Fraction]) -> list[Fraction]:
+        """Each slab's rows of a tensor of ``whole`` rows along the cut axis, in axis order (a fraction where the cut
+        does not keep the tensor whole on that slab)."""
+        total = sum(self.parts)
+        return [Fraction(whole) * p / total for p in self.parts]
+
+    def sizes(self, whole: int) -> list[int]:
+        """Each slab's rows of a tensor of ``whole`` rows; raises where a slab would hold no whole number of them."""
+        shares = self.shares(whole)
+        if any(r.denominator != 1 for r in shares):
+            raise ValueError(f"slabs: a tensor of {whole} rows does not cut into the slabs {self.describe()}")
+        return [int(r) for r in shares]
+
+    def offsets(self, whole: int) -> list[int]:
+        """Each slab's first row in a tensor of ``whole`` rows."""
+        return list(itertools.accumulate(self.sizes(whole)[:-1], initial=0))
+
+    def describe(self) -> str:
+        """The slab rows at the input: ``48 / 48 / 32``, or ``64`` for equal slabs."""
+        sizes = self.sizes(self.rows)
+        return str(sizes[0]) if self.is_equal else " / ".join(map(str, sizes))
+
+
+def choose_cut(rows: int, n: int, strides: Sequence[int] = ()) -> Cut:
+    """The cut of ``rows`` input rows into ``n`` slabs for a model of ``strides`` along the cut axis (the module's
+    rule): equal where ``n`` divides ``rows``; else near-equal on the grid of the longest product of ``strides`` that
+    leaves at least ``n`` grid rows.  Raises ``ValueError`` where a slab would hold no row (``n > rows``)."""
+    if n < 1 or n > rows:
+        raise ValueError(f"slabs: {n} slabs of an input of {rows} rows: every slab must hold at least one row")
+    if rows % n == 0:
+        return Cut.equal(rows, n)
+    grid = 1
+    for product in itertools.accumulate((int(s) for s in strides), operator.mul):
+        if rows % product or rows // product < n:
+            break
+        grid = product
+    q, r = divmod(rows // grid, n)
+    return Cut(rows, (q + 1,) * r + (q,) * (n - r))
+
+
+def as_cut(rows: Union[int, Cut], n: Optional[int] = None) -> Cut:
+    """``rows`` itself where it is a :class:`Cut`, else the equal cut of ``n`` slabs of ``rows`` rows each."""
+    return rows if isinstance(rows, Cut) else Cut.equal(rows * n, n)
 
 
 @dataclass(frozen=True)
 class Slabs:
-    """This process's slab: the ``index``-th of ``n`` equal parts of the first spatial axis, over ``axis`` of ``mesh``."""
+    """This process's slab: the ``index``-th of the ``n`` parts of the first spatial axis, over ``axis`` of ``mesh``,
+    as ``cut`` cuts it (given as None: equal parts)."""
 
     mesh: Mesh
     axis: str = "model"
+    cut: Optional[Cut] = None
+
+    def __post_init__(self) -> None:
+        if self.cut is None:  # equal parts; each tensor brings its rows (line_cut)
+            object.__setattr__(self, "cut", Cut.equal(self.n, self.n))
+        elif self.cut.n != self.n:
+            raise ValueError(f"slabs: a cut into {self.cut.n} slabs on an axis of {self.n} processes")
 
     @property
     def n(self) -> int:
@@ -85,6 +210,30 @@ class Slabs:
     @property
     def index(self) -> int:
         return self.mesh.axis_index(self.axis)
+
+    def whole_rows(self, rows: int) -> int:
+        """The whole tensor's rows along the cut axis, where this slab holds ``rows`` of them."""
+        parts = self.cut.parts
+        return rows * sum(parts) // parts[self.index]
+
+    def offset(self, rows: int) -> int:
+        """This slab's first row in the whole tensor, where it holds ``rows`` rows."""
+        return self.cut.offsets(self.whole_rows(rows))[self.index]
+
+    def line_cut(self, rows: int) -> Cut:
+        """The line's cut of an input of which this slab holds ``rows`` rows."""
+        cut = Cut(self.whole_rows(rows), self.cut.parts)
+        if cut.shares(cut.rows)[self.index] != rows:
+            raise ValueError(f"slabs: slab {self.index} of the cut {self.cut.describe()} does not hold {rows} rows")
+        return cut
+
+    def gather_slabs(self, x: torch.Tensor, dim: int = 1, count_once: bool = False) -> torch.Tensor:
+        """:func:`~.collectives.gather_slabs` of this slab ``x`` over the line's cut."""
+        return gather_slabs(x, self.mesh, self.axis, dim, count_once, self.cut.sizes(self.whole_rows(x.shape[dim])))
+
+    def cut_slab(self, t: torch.Tensor, dim: int = 1, count_once: bool = False) -> torch.Tensor:
+        """:func:`~.collectives.cut_slab` of the whole tensor ``t`` over the line's cut."""
+        return cut_slab(t, self.mesh, self.axis, dim, count_once, self.cut.sizes(t.shape[dim]))
 
 
 @dataclass(frozen=True)
@@ -111,16 +260,24 @@ def require_slab_path(model: nn.Module) -> None:
         raise NotImplementedError(f"the spatial step (spatial_axis, shard_spatial) is not ported for this model: {reason}")
 
 
-def slab_route(model: nn.Module, rows: int, n: int) -> Route:
-    """The route ``model`` takes on ``n`` slabs of ``rows`` rows (its ``slab_route``; a model without one runs every
-    layer on its slab)."""
+def slab_cut(model: nn.Module, rows: int, n: int) -> Cut:
+    """The cut of an input of ``rows`` rows into ``n`` slabs for ``model`` (:func:`choose_cut` with its
+    ``slab_strides``; a model without them is cut on a grid of one row)."""
+    strides = getattr(model, "slab_strides", None)
+    return choose_cut(rows, n, () if strides is None else strides())
+
+
+def slab_route(model: nn.Module, rows: Union[int, Cut], n: Optional[int] = None) -> Route:
+    """The route ``model`` takes on the cut ``rows`` (a :class:`Cut`), or on ``n`` equal slabs of ``rows`` rows (its
+    ``slab_route``; a model without one runs every layer on its slab)."""
     rule = getattr(model, "slab_route", None)
-    return Route() if rule is None else rule(rows, n)
+    return Route() if rule is None else rule(as_cut(rows, n))
 
 
 @contextlib.contextmanager
 def on_slabs(model: nn.Module, slabs: Slabs) -> Iterator[nn.Module]:
-    """Within the block, ``model`` takes and returns this process's slab ``(B, C, S1 / n, S2, S3)`` of its input.
+    """Within the block, ``model`` takes and returns this process's slab ``(B, C, rows, S2, S3)`` of its input, cut as
+    ``slabs.cut`` cuts it (equal slabs without a cut).
 
     Run the backward inside the block too: a rematerialised stage runs its
     forward again there.  Raises first if the model has no slab path.
@@ -186,13 +343,13 @@ def run_gathered(fn: Callable, modules: Sequence[nn.Module], slabs: Slabs, *xs: 
     """``fn`` on the whole tensors of the slabs ``xs`` (cut along ``dim``), on every process of the line alike, with
     ``slabs`` cleared on the layers of ``modules``; returns ``fn``'s whole outputs, which the caller cuts back with
     ``cut_slab(..., count_once=True)``.  Collective over the line."""
-    whole = [gather_slabs(x, slabs.mesh, slabs.axis, dim=dim, count_once=True) for x in xs]
+    whole = [slabs.gather_slabs(x, dim, count_once=True) for x in xs]
     with off_slabs(*modules), _same_draws(modules, slabs, whole[0]):
         return fn(*whole)
 
 
 def _cutter(slabs: Slabs, dim: int = 1) -> Callable:
-    return lambda t: cut_slab(t, slabs.mesh, slabs.axis, dim, count_once=True)
+    return lambda t: slabs.cut_slab(t, dim, count_once=True)
 
 
 def run_whole(model: nn.Module, x: torch.Tensor, slabs: Slabs, dim: int) -> Any:

@@ -6,9 +6,10 @@ loss.  Plain functions on tensors; the loss math runs in at least float32
 whatever the logits' dtype, and float64 inputs stay float64.
 
 With ``slabs`` (a ``parallel.slabs.Slabs``) the tensors are this process's
-slab of the volume, cut along the first spatial axis: Dice's per-(sample,
-class) sums are summed over the slabs before the quotient, and the BCE is the
-slab's sum over the whole volume's voxel count, summed over the slabs.  Every
+slab of the volume, cut along the first spatial axis (slabs of equal rows or
+not): Dice's per-(sample, class) sums are summed over the slabs before the
+quotient, and the BCE is the slab's sum over the whole volume's voxel count
+(the whole volume's rows, ``Slabs.whole_rows``), summed over the slabs.  Every
 process then holds the whole volume's loss, and its backward gives the
 gradient with respect to its own slab (``parallel.all_reduce_sum``).
 """
@@ -77,7 +78,8 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor, slabs=None) -> 
     terms = logits.clamp_min(0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
     if slabs is None:
         return terms.mean()
-    return all_reduce_sum(terms.sum() / (terms.numel() * slabs.n), slabs.mesh, slabs.axis)
+    count = terms.numel() // terms.shape[2] * slabs.whole_rows(terms.shape[2])
+    return all_reduce_sum(terms.sum() / count, slabs.mesh, slabs.axis)
 
 
 def dice_ce_loss(

@@ -17,7 +17,9 @@ With ``spatial_axis=`` as well the step is the whole-model spatial step
 (JAX's ``spatial_axis``, which GSPMD partitions): the processes of one
 ``spatial_axis`` line take one batch, the first process's, and each runs the
 model and the loss on its slab of the volume's first spatial axis
-(``parallel.slabs``).  The parameters stay whole on every process (weight
+(``parallel.slabs``): equal slabs where the process count divides its rows,
+else slabs of unequal rows, one cut for the line (``parallel.slabs.choose_cut``),
+as GSPMD pads such a cut.  The parameters stay whole on every process (weight
 sharding is GSPMD's layout, not ported); their gradients are summed over
 ``spatial_axis``, where each slab gives a part, and averaged over
 ``data_axis``.
@@ -43,7 +45,7 @@ from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 from ..parallel.collectives import all_gather_cat, broadcast_from_first
 from ..parallel.mesh import Mesh
 from ..parallel.sharding import data_parallel, shard_batch
-from ..parallel.slabs import Slabs, on_slabs, require_slab_path, slab_route
+from ..parallel.slabs import Slabs, on_slabs, require_slab_path, slab_cut, slab_route
 from ..utils.helpers import materialize, resolve_device
 from .losses import deep_supervision_loss, dice_ce_loss
 from .schedules import Schedule, clip_by_global_norm, global_norm, make_adamw
@@ -153,7 +155,6 @@ def make_train_step(model: nn.Module, loss_fn: Optional[Callable] = None, accum_
     spatial = spatial_axis is not None
     data_size = 1 if mesh is None or data_axis not in mesh.shape else mesh.axis_size(data_axis)
     if spatial:
-        slabs = Slabs(mesh, spatial_axis)
         params = list(model.parameters())
         with torch.no_grad():  # one model on every process, as DistributedDataParallel makes it
             for t in [*params, *model.buffers()]:
@@ -162,27 +163,30 @@ def make_train_step(model: nn.Module, loss_fn: Optional[Callable] = None, accum_
     else:
         net = model if mesh is None or data_size == 1 else data_parallel(model, mesh, data_axis)
 
-    def prepare(batch: dict) -> dict:
+    def prepare(batch: dict) -> tuple[dict, Optional[Slabs]]:
         if mesh is None:
-            return batch
-        if spatial:  # the line's one batch: its first process's
+            return batch, None
+        slabs = None
+        if spatial:  # the line's cut, alike on every process and before any collective; its one batch, the first's
+            slabs = Slabs(mesh, spatial_axis, slab_cut(model, batch["image"].shape[2], mesh.axis_size(spatial_axis)))
             batch = {k: broadcast_from_first(batch[k].contiguous(), mesh, spatial_axis) for k in ("image", "label")}
         if not local_batch:
             batch = shard_batch(batch, mesh, data_axis)
         if spatial:
-            batch = shard_batch(batch, mesh, data_axis=None, spatial_axis=spatial_axis)
-        return batch
+            batch = shard_batch(batch, mesh, data_axis=None, spatial_axis=spatial_axis,
+                                sizes=slabs.cut.sizes(slabs.cut.rows))
+        return batch, slabs
 
     printed = []
 
     def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
-        batch = prepare(batch)
+        batch, slabs = prepare(batch)
         images, labels = batch["image"], batch["label"]
         if spatial and not printed:
-            printed.append(slab_route(model, images.shape[2], slabs.n))
+            printed.append(slab_route(model, slabs.cut))
             if dist.get_rank() == 0:
-                print(f"spatial step: {type(model).__name__} on {slabs.n} slabs of {images.shape[2]} rows: {printed[0]}",
-                      flush=True)
+                print(f"spatial step: {type(model).__name__} on {slabs.n} slabs of {slabs.cut.describe()} rows: "
+                      f"{printed[0]}", flush=True)
         b = images.shape[0]
         if b % accum_steps:
             raise ValueError(f"batch {b} not divisible by accum_steps {accum_steps}")

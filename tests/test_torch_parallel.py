@@ -181,6 +181,26 @@ def test_run_processes_leaves_no_process():
     assert {pid: cmd for pid, cmd in child_processes().items() if pid not in before} == {}
 
 
+def test_run_processes_forks_from_the_fork_server():
+    """``start_method="forkserver"``: the same results, the workers forked from a server that preloaded torch; once
+    the server and its resource tracker are stopped, nothing started here is left."""
+    import multiprocessing
+    from multiprocessing import forkserver, resource_tracker
+
+    before = child_processes()
+    multiprocessing.set_forkserver_preload(["torch"])
+    try:
+        assert run_processes(_ring_of_three_worker, 3, timeout=120, start_method="forkserver") == [
+            (2.0, 1.0), (0.0, 2.0), (1.0, 0.0)]
+        new = {pid: cmd for pid, cmd in child_processes().items() if pid not in before}
+        assert any("forkserver" in cmd for cmd in new.values())
+    finally:
+        forkserver._forkserver._stop()
+        resource_tracker._resource_tracker._stop()
+        multiprocessing.set_forkserver_preload([])
+    assert {pid: cmd for pid, cmd in child_processes().items() if pid not in before} == {}
+
+
 def _failing_worker(rank, world, init_method, how):
     """The second process dies or hangs; the first waits for it in a collective."""
     import time

@@ -183,7 +183,8 @@ def test_passes_on_cpu_are_plain_and_count_nothing():
 
 
 def test_errors_by_name():
-    """A slab whose rows the patch does not divide, slabs of unequal shape, a non-contiguous slab."""
+    """A slab whose rows the patch does not divide, slabs of unequal shape but for their rows (unequal rows are a
+    ring's unequal slabs), a non-contiguous slab."""
     x, u0, v0 = _data()
     u0, v0 = torch.from_numpy(u0), torch.from_numpy(v0)
     meta = torch.empty(1, 6, 16, 16, 8, device="meta")  # the check that the kernel path makes, without a card
@@ -197,7 +198,7 @@ def test_errors_by_name():
         _check_slab(torch.empty(1, 8, 16, 16, 8), (), (None,), u0, v0, D, P, 2, "hals")
     a, b = _slabs(x, 2)
     with pytest.raises(ValueError, match="share one shape"):
-        windowed_nmf_multi_spatial_local([a, b[:, :8].contiguous()], u0, v0, D, P, (1,))
+        windowed_nmf_multi_spatial_local([a, b[:, :, :8].contiguous()], u0, v0, D, P, (1,))
 
 
 # --- the distributed form: one gloo process per slab ---------------------------------------------------------------
