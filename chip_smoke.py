@@ -3,9 +3,10 @@
 Run from the repository root:
 
     python3 chip_smoke.py             # one card: every phase below
-    python3 chip_smoke.py --cards 4   # a host with 4 cards: phases 1, 2, 31 (on 3 of them), 20, 21 and 25 alone, one
-                                      # process per card (NCCL)
+    python3 chip_smoke.py --cards 4   # a host with 4 cards: phases 1, 2, 31 (on 3 of them), 20, 21, 25 and 32 alone,
+                                      # one process per card (NCCL)
     python3 chip_smoke.py --cards 3   # 3 cards: phases 1, 2, 31 and 21 (20 and 25 need a count that divides 128)
+    python3 chip_smoke.py --cards 4 --phases spatial,dp,tp --start spawn   # some of them, their workers spawned
 
 Phases, one or more result lines each:
   1. environment: the card (name, power limit), torch / CUDA / nvcc versions; TF32 off.
@@ -148,9 +149,9 @@ Phases, one or more result lines each:
      for 1 epoch each through `python -m torch.distributed.run --nproc_per_node 2 -m factorizer_tpu_torch.bundle run`
      on phase 23's cases (each process its 2 of the 4 training cases): exit 0, each process's epoch loss equal, one
      checkpoint, written by the primary; s/epoch beside train.yaml's first epoch in one process.
- 27. the spatial bundle programs: factorizer_brats23's train.yaml + train_tp.yaml for 1 epoch the same way (2 spatial
-     steps on the 4 cases, a validation of whole volumes on each process), then deconver_brats23's (no validation).  26 and 27 run inside 23's directory and
-     are left out of the kernels line.
+ 27. the spatial bundle programs: deconver_brats23's train.yaml + train_tp.yaml for 1 epoch the same way (2 spatial
+     steps on the 4 cases, no validation), beside factorizer_brats23's, which runs as phase 32.  26 and 27 run inside
+     23's directory and are left out of the kernels line.
  28. (run after 17) the rest of the factorization engine, selected by network_def keys: factorizer_brats23's unedited
      train.yaml network_def through the port's ConfigParser with the bundle's seed (full width, 128^3, f32) under one
      override set at a time: (a) init_method: nndsvd, (b) solver: nnls, (c) solver: [hals-0, mu-1], (d) factorize:
@@ -196,6 +197,16 @@ Phases, one or more result lines each:
      volume bit for bit, forward and dx, K2 forward and backward at the slab shapes (2,48x128^2,32) and
      (2,32x128^2,32), and K3 and K3 dw at the thinnest haloed slab (2,34x128^2,32), each against its plain version.  Its launches are in the kernels line (launches_uneven); chip_smoke.uneven_slabs_slice() runs it
      alone after build.library(), under a __main__ guard (it spawns processes).
+ 32. (inside 23, beside 27) [hosts]: factorizer_brats23's train.yaml + train_tp.yaml for 1 epoch under two
+     `torch.distributed.run --nnodes 2 --node_rank 0|1 --nproc_per_node 1` agents, two simulated hosts of one process
+     sharing the one card: the processes agree on gloo (each host alone has a card for its process), which the
+     primary's [distributed] line names with the 2 hosts; exit 0, equal epoch losses, one checkpoint from the primary,
+     mean Dice in [0, 1] after a validation of whole volumes on each process; each process's launches, checked per step
+     (K5 forward and backward, K1 backward, K2 backward as in 25) and in the kernels line (launches_hosts).  With
+     --cards N (N even, dividing 128): 25's factorizer_brats23 and deconver_brats23 cells on 2 simulated hosts of N / 2
+     cards (run_processes(hosts=2), each host seeing its own cards) over NCCL, with its default transports and with
+     NCCL_P2P_DISABLE=1 NCCL_SHM_DISABLE=1 (the sockets a link between hosts takes): s/step, peak memory and one
+     instrumented step's exchanges per process beside 25's one-host numbers of the same run.
 The float16 instance of every kernel is checked beside f32 and bf16 at one stage shape each (K1, K1 bwd with and
 without all-zero windows, K2, K2 bwd, K3, K3 dw, K4, K4 bwd, K5), with one float16 forward of brats23_network
 (`[slice f16]`); MatrixFactorization serves a float16 tensor through K4, and a float64 one raises.
@@ -541,10 +552,20 @@ def brats23_stage0(factorize_options=None):
 
 
 # The multi-process phases fork their workers from a server that imported torch and the port once: a spawned
-# worker would import them itself, ~9 s a process on the card's host.
+# worker would import them itself, ~9 s a process on the card's host.  `--start spawn` spawns them instead.
 WORKERS_START = "forkserver"
+# The phases that `--cards N` runs, by name: 31, 20, 21, 25, 32.
+CARDS_PHASES = ("uneven", "spatial", "dp", "tp", "hosts")
 FORKSERVER_PRELOAD = ["torch", "factorizer_tpu_torch", "factorizer_tpu_torch.config", "factorizer_tpu_torch.parallel",
                       "factorizer_tpu_torch.train.trainer", "factorizer_tpu_torch.zoo_scripts"]
+
+
+def set_workers_start(method: str) -> None:
+    """How ``run_processes`` starts the multi-process phases' workers; ``"forkserver"`` starts the server."""
+    global WORKERS_START
+    WORKERS_START = method
+    if method == "forkserver":
+        start_forkserver()
 
 
 def start_forkserver() -> None:
@@ -558,26 +579,32 @@ def start_forkserver() -> None:
 
 
 def stop_forkserver() -> None:
-    """Stop the fork server and the resource tracker that it started beside it."""
+    """Stop the fork server and the resource tracker that it started beside it (none where the workers spawn)."""
     from multiprocessing import forkserver, resource_tracker
 
-    forkserver._forkserver._stop()
-    resource_tracker._resource_tracker._stop()
+    if WORKERS_START == "forkserver":
+        forkserver._forkserver._stop()
+        resource_tracker._resource_tracker._stop()
 
 
 def join_group_on_the_card(rank: int, world: int, init_method: str) -> str:
-    """A worker's start: its card, TF32 off, and the process group.  With a card per process each takes its own
-    and the group is NCCL's; else all share card 0 and the group is gloo's."""
+    """A worker's start: TF32 off, and the process group with this process's place on its (simulated) host from
+    ``run_processes``.  Where its host has a card for each of its processes each takes its own and the group is
+    NCCL's; else all share card 0 and the group is gloo's."""
+    import os
+
     import torch
 
     from factorizer_tpu_torch.parallel import initialize_distributed
 
-    own_card = torch.cuda.device_count() >= world
-    torch.cuda.set_device(rank if own_card else 0)
+    local_rank, local_world = int(os.environ["LOCAL_RANK"]), int(os.environ["LOCAL_WORLD_SIZE"])
+    own_card = torch.cuda.device_count() >= local_world
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    backend = initialize_distributed(init_method, world, rank)
-    check(backend == ("nccl" if own_card else "gloo"), f"{world} processes on {torch.cuda.device_count()} card(s) took {backend}")
+    backend = initialize_distributed(init_method, world, rank, local_rank=local_rank, local_world_size=local_world)
+    check(backend == ("nccl" if own_card else "gloo") and torch.cuda.current_device() == (local_rank if own_card else 0),
+          f"{world} processes, {local_world} a host, on {torch.cuda.device_count()} card(s) a host took {backend} on card "
+          f"{torch.cuda.current_device()}")
     return f"{backend}, {'a card per process' if own_card else 'halos and shards staged through the host'}"
 
 
@@ -859,12 +886,15 @@ def exchange_timer(spent: dict):
             setattr(owner, name, raw)
 
 
-def train_tp_worker(rank: int, world: int, init_method: str, settings: dict) -> dict:
+def train_tp_worker(rank: int, world: int, init_method: str, settings: dict, cells=None, environ=None) -> dict:
     """The spatial step (``make_train_step(model, mesh=model_parallel_mesh(), spatial_axis="model")``) on this
     process's slabs: ``TP_CASES`` in turn, 1 warm-up and the case's steps each; launches per step, losses, norms,
     seconds, peak memory.  After factorizer_brats23's steps: one more step with its exchanges timed, the loss of a
     forward under each gather rule, and a step under each, :func:`gather_thinner_than_patch` then the rule.
-    Then ``TP_BUNDLES`` the same way, each with one more step with its exchanges timed."""
+    Then ``TP_BUNDLES`` the same way, each with one more step with its exchanges timed.  ``cells``: only the cases
+    and bundles named, without the gather rules; ``environ``: set before the join (NCCL reads it then)."""
+    import os
+
     import torch
 
     from factorizer_tpu_torch import zoo_scripts
@@ -874,6 +904,7 @@ def train_tp_worker(rank: int, world: int, init_method: str, settings: dict) -> 
     from factorizer_tpu_torch.train.losses import dice_ce_loss
     from factorizer_tpu_torch.train.trainer import create_train_state, make_train_step
 
+    os.environ.update(environ or {})
     backend = join_group_on_the_card(rank, world, init_method)
     torch.backends.cudnn.benchmark = True
     mesh = model_parallel_mesh()
@@ -892,6 +923,8 @@ def train_tp_worker(rank: int, world: int, init_method: str, settings: dict) -> 
         return state, metrics, time.perf_counter() - t0, read_counters(counters), windowed_nmf_multi_spatial.tail_launches
 
     for name, (factory, b, c_in, c_out, side, _, _, n_steps) in TP_CASES.items():
+        if cells is not None and name not in cells:
+            continue
         state = create_train_state(getattr(zoo_scripts, factory)(generator=torch.Generator().manual_seed(0)), **settings)
         step = make_train_step(state.model, mesh=mesh, spatial_axis="model")
         batch = synthetic_batch(b, c_in, c_out, side, seed=7)
@@ -915,6 +948,7 @@ def train_tp_worker(rank: int, world: int, init_method: str, settings: dict) -> 
                 state, _ = step(state, batch)
             torch.cuda.synchronize()
             run["instrumented"] = (time.perf_counter() - t0, spent)
+        if name == "factorizer_brats23" and cells is None:
             # The two gather rules: one forward's loss each from the same weights, then steps in turns.
             mine = shard_batch(batch, mesh, data_axis=None, spatial_axis="model")
             run["rule_losses"], run["turns"] = {}, {label: [] for label in rules}
@@ -935,6 +969,8 @@ def train_tp_worker(rank: int, world: int, init_method: str, settings: dict) -> 
         gc.collect()
         torch.cuda.empty_cache()
     for bundle, (b, roi, n_steps, search) in TP_BUNDLES.items():
+        if cells is not None and bundle not in cells:
+            continue
         torch.backends.cudnn.benchmark = search
         model, cfg = bundle_network(bundle)
         state = create_train_state(model, lr=cfg["learning_rate"], weight_decay=cfg["weight_decay"])
@@ -965,12 +1001,14 @@ def train_tp_worker(rank: int, world: int, init_method: str, settings: dict) -> 
     return report
 
 
-def train_tp_slice(world: int, settings: dict) -> dict:
+def train_tp_slice(world: int, settings: dict, keep: dict | None = None) -> dict:
     """Phase 25: ``world`` processes take the spatial step of factorizer_brats23 (2 x 128^3) and factorizer_isles22
     (8 x 64^3) on slabs of the volumes' first axis, held against the one-process steps on the whole volumes as
     ``[train dp]`` is; then the two gather rules in turns; then ``TP_BUNDLES`` (the Deconver, DynUNet, SegResNet and
     SwinUNETR bundles), each held against the one-process step on the same batch: loss and gradient norm, the same
-    launches per step on every process as in one.  Returns the launches of all processes, by kernel."""
+    launches per step on every process as in one.  Returns the launches of all processes, by kernel; ``keep``
+    receives the processes' reports (``keep["reports"]``) and the one-process steps' losses, seconds and peak
+    memory by cell (``keep["one_process"]``)."""
     import torch
 
     from factorizer_tpu_torch import zoo_scripts
@@ -981,6 +1019,8 @@ def train_tp_slice(world: int, settings: dict) -> dict:
     t0 = time.perf_counter()
     reports = run_processes(train_tp_worker, world, settings, timeout=900, start_method=WORKERS_START)
     started = time.perf_counter() - t0
+    keep = {} if keep is None else keep
+    keep["reports"], keep["one_process"] = reports, {}
     launches = dict.fromkeys(kernel_counters(), 0)
     lr = settings["lr"]
     for name, (factory, b, c_in, c_out, side, patch, moved, n_steps) in TP_CASES.items():
@@ -999,6 +1039,7 @@ def train_tp_slice(world: int, settings: dict) -> dict:
             ref_losses.append(metrics["loss"].item())
             ref_norms.append(metrics["grad_norm"].item())
         ref_peak = torch.cuda.max_memory_allocated()
+        keep["one_process"][name] = {"losses": ref_losses, "seconds": ref_seconds[1:], "peak": ref_peak}
         per_step = tp_routes(side, patch, moved, world)
         for rank, report in enumerate(reports):
             r = report[name]
@@ -1082,6 +1123,7 @@ def train_tp_slice(world: int, settings: dict) -> dict:
             ref_losses.append(metrics["loss"].item())
             ref_norms.append(metrics["grad_norm"].item())
         ref_peak = torch.cuda.max_memory_allocated()
+        keep["one_process"][bundle] = {"losses": ref_losses, "seconds": ref_seconds[1:], "peak": ref_peak}
         for rank, report in enumerate(reports):
             r = report[bundle]
             for counts, want in zip(r["counts"], ref_counts):
@@ -1122,6 +1164,58 @@ def train_tp_slice(world: int, settings: dict) -> dict:
     return launches
 
 
+# `--cards N` ([hosts] across cards): the `[train tp]` cells run on 2 simulated hosts of N / 2 cards, under NCCL's
+# default transports (NVLink and shared memory inside this host) and under the sockets that a link between hosts
+# takes (peer-to-peer and shared-memory transports off).
+HOSTS_CELLS = ("factorizer_brats23", "deconver_brats23")
+HOSTS_TRANSPORTS = {"default transports": {},
+                    "sockets (NCCL_P2P_DISABLE=1 NCCL_SHM_DISABLE=1)": {"NCCL_P2P_DISABLE": "1", "NCCL_SHM_DISABLE": "1"}}
+
+
+def hosts_cards_slice(world: int, settings: dict, one_host: dict | None = None) -> None:
+    """Phase 32 across cards: ``HOSTS_CELLS`` of ``[train tp]`` on ``world`` cards as 2 hosts of ``world / 2``
+    (``run_processes(hosts=2)``: each host sees its own cards), over NCCL under each of ``HOSTS_TRANSPORTS``: s/step,
+    peak GiB and one instrumented step's exchanges per process, equal losses and gradient norms on every process, and
+    the loss against the one-process step of ``[train tp]`` in this run (``one_host``, from :func:`train_tp_slice`),
+    beside its one-host numbers."""
+    from factorizer_tpu_torch.parallel import run_processes
+
+    for label, environ in HOSTS_TRANSPORTS.items():
+        t0 = time.perf_counter()
+        reports = run_processes(train_tp_worker, world, settings, HOSTS_CELLS, environ, hosts=2, timeout=600,
+                                start_method=WORKERS_START)
+        started = time.perf_counter() - t0
+        for name in HOSTS_CELLS:
+            runs = [q[name] for q in reports]
+            r = runs[0]
+            check(all(q["losses"] == r["losses"] and q["norms"] == r["norms"] for q in runs)
+                  and all(map(math.isfinite, r["losses"] + r["norms"])),
+                  f"hosts {name} ({label}): the processes report {[q['losses'] for q in runs]}")
+            total, spent = r["instrumented"]
+            against = ""
+            if one_host:
+                ref = one_host["one_process"][name]
+                loss_rel = max(abs(a - c) / abs(c) for a, c in zip(r["losses"], ref["losses"]))
+                check(loss_rel <= TRAIN_RTOL["float32"]["loss"], f"hosts {name} ({label}): loss {r['losses']} / {ref['losses']}")
+                mine = [q[name] for q in one_host["reports"]]
+                against = (f"; one host of {world} cards in this run ([train tp]) "
+                           f"{' / '.join(f'{statistics.mean(q['seconds'][1:]):.4f}' for q in mine)} s/step, peak "
+                           f"{' / '.join(f'{q['peak_memory'] / 2**30:.2f}' for q in mine)} GiB, one process "
+                           f"{statistics.mean(ref['seconds']):.4f} s/step, {ref['peak'] / 2**30:.2f} GiB; loss against "
+                           f"the one-process step rel {loss_rel:.2e} (tol {TRAIN_RTOL['float32']['loss']:.0e})")
+            print(f"[hosts] {name}: the [train tp] step on {world} cards as 2 hosts of {world // 2} "
+                  f"(run_processes(hosts=2), {reports[0]['backend']}, {label}): "
+                  f"{' / '.join(f'{statistics.mean(q['seconds'][1:]):.4f}' for q in runs)} s/step per process "
+                  f"(warm-up {r['seconds'][0]:.2f} s), peak {' / '.join(f'{q['peak_memory'] / 2**30:.2f}' for q in runs)} "
+                  f"GiB; loss {' -> '.join(f'{v:.6f}' for v in r['losses'])} on every process; one more step on process "
+                  f"0, {total:.4f} s with a synchronize around each exchange: "
+                  + ", ".join(f"{k} {v[0]:.4f} s ({v[1]} calls)" for k, v in spent.items() if v[1])
+                  + f", the rest {total - sum(v[0] for v in spent.values()):.4f} s" + against
+                  + f" ({started:.1f} s with start-up)")
+        del reports
+        gc.collect()
+
+
 # Phase 30's cells: (label, bundle, network_def overrides, processes, batch, roi, cuDNN's timing search).
 SLAB_GAP_CELLS = (
     ("deconver_brats23 update_filter", "deconver_brats23", {"update_filter": True}, 2, 2, (128, 128, 128), False),
@@ -1140,7 +1234,7 @@ def slab_gaps_worker(rank: int, world: int, init_method: str, labels: list) -> d
 
     from factorizer_tpu_torch.factorization.deconv import Deconv
     from factorizer_tpu_torch.parallel import Slabs, model_parallel_mesh, on_slabs
-    from factorizer_tpu_torch.parallel.slabs import slab_route
+    from factorizer_tpu_torch.parallel.slabs import Cut, slab_route
     from factorizer_tpu_torch.train.trainer import create_train_state, make_train_step
 
     backend = join_group_on_the_card(rank, world, init_method)
@@ -1164,7 +1258,7 @@ def slab_gaps_worker(rank: int, world: int, init_method: str, labels: list) -> d
             seen[:] = [args[0].detach()]
 
         hook = None if deconv is None else deconv.register_forward_pre_hook(keep)
-        run = {"route": str(slab_route(model, roi[0] // world, world)), "losses": [], "norms": [], "seconds": [],
+        run = {"route": str(slab_route(model, Cut.equal(roi[0], world))), "losses": [], "norms": [], "seconds": [],
                "counts": [], "peak_memory": 0}
         for i in range(1 + SLAB_GAP_STEPS):
             reset_counters(counters)
@@ -1800,7 +1894,7 @@ print(json.dumps({"steps": [b - a for a, b in zip(t, t[1:])], "tensorboard": ten
 """
 
 
-def bundle_slice(counters: dict, seed: int = 123, shape=WORKFLOW_SHAPE, roi=(128, 128, 128)) -> None:
+def bundle_slice(counters: dict, seed: int = 123, shape=WORKFLOW_SHAPE, roi=(128, 128, 128)) -> dict:
     """Phase 23: the bundles' YAML programs, unedited, through the port's config parser and CLI.  5 synthetic
     BraTS-native cases (4 training, 1 validation; the first 2 also the inference datalist's ``test`` section) are
     written to a temporary directory.  ``factorizer_brats23``: ``train.yaml`` for 2 epochs with a validation as a
@@ -1811,7 +1905,8 @@ def bundle_slice(counters: dict, seed: int = 123, shape=WORKFLOW_SHAPE, roi=(128
     ``deconver_brats23``: ``train.yaml`` for 1 epoch without validation, then ``inference.yaml`` and
     ``inference_aot.yaml``, their files equal.  ``nnunet_brats23``: ``train.yaml`` for 1 epoch and ``inference.yaml``,
     in this process.  The launch counters are set to 0 before and after, so the kernels
-    line's counts leave this phase out."""
+    line's counts leave this phase out, but for ``[hosts]``' processes, whose launches it returns with their
+    seconds (:func:`multidevice_programs`)."""
     import io
     import logging
     import os
@@ -2069,17 +2164,27 @@ def bundle_slice(counters: dict, seed: int = 123, shape=WORKFLOW_SHAPE, roi=(128
               + "; sliding window per volume " + ", ".join(f"{t:.3f}" for t in npredict_s)
               + f" s; launches of the port's kernels {sum(nmade.values())}")
 
-        # 26., 27. the multi-device programs under torchrun: two processes on this card (gloo).
-        multidevice_programs(repo, root, {**data, "num_workers": max(1, workers // 2)}, train_epoch_s)
+        # 26., 27., 32. the multi-device programs under torchrun: two processes on this card (gloo).
+        hosts = multidevice_programs(repo, root, {**data, "num_workers": max(1, workers // 2)}, train_epoch_s)
     left = child_processes()
     check(not left, f"bundle: processes still alive: {left}")
     reset_counters(counters)
     gc.collect()
     torch.cuda.empty_cache()
+    return hosts
 
 
-# A program the bundle CLI runs after `run` in `[bundle multidevice]` / `[bundle tp]`: each process prints its epoch losses.
+# A program the bundle CLI runs after `run` in `[bundle multidevice]` / `[bundle tp]` / `[hosts]`: each process prints its
+# epoch losses.
 REPORT_LOSSES = "$print('[losses] %d %s' % (jax.process_index(), [h['loss'] for h in @trainer.history]), flush=True)"
+
+
+def report_launches() -> str:
+    """The program that the bundle CLI runs after ``REPORT_LOSSES``: each process prints the train steps it took and
+    its launches since it started, by kernel in :func:`kernel_counters`' order."""
+    pairs = [(wrapper.__name__, attr) for wrapper, attr in kernel_counters().values()]
+    return ("$print('[launches] %d %d %s' % (jax.process_index(), sum(t['steps'] for t in @trainer.timings), "
+            f"[getattr(getattr(ftx.ops.kernels, w), a) for w, a in {pairs!r}]), flush=True)")
 
 
 def free_port() -> int:
@@ -2090,57 +2195,74 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def multidevice_programs(repo, root, data: dict, train_epoch_s: float) -> None:
-    """Phases 26 and 27, on ``[bundle]``'s cases: ``train.yaml`` + ``train_multidevice.yaml`` of factorizer_brats23
-    and deconver_brats23, then ``train.yaml`` + ``train_tp.yaml`` of both at the same time, 1 epoch each, through
-    ``python -m torch.distributed.run --nproc_per_node 2 -m factorizer_tpu_torch.bundle run``: exit 0, each
-    process's epoch losses equal, one checkpoint, written by the primary; s/epoch beside ``train.yaml``'s."""
+def multidevice_programs(repo, root, data: dict, train_epoch_s: float) -> dict:
+    """Phases 26, 27 and 32, on ``[bundle]``'s cases: ``train.yaml`` + ``train_multidevice.yaml`` of
+    factorizer_brats23 and deconver_brats23, then ``train.yaml`` + ``train_tp.yaml`` of both at the same time, 1
+    epoch each, through ``python -m torch.distributed.run ... -m factorizer_tpu_torch.bundle run``: 2 processes under
+    one agent (``--nproc_per_node 2``), factorizer_brats23's ``train_tp.yaml`` under two node agents of one process
+    each (``--nnodes 2``, ``[hosts]``).  Exit 0, each process's epoch losses equal, one checkpoint, written by the
+    primary; s/epoch beside ``train.yaml``'s.  Returns ``[hosts]``' seconds and launches (both processes, by
+    kernel)."""
     from pathlib import Path
 
     started: list = []  # the launchers, stopped on the way out if a check fails
 
-    def torchrun(bundle: str, overlay: str, overrides: dict, port: int):
-        """Start the program; returns a function that waits for it, checks it and returns its seconds, its epoch's
-        record, each process's losses and the backend it printed."""
+    def torchrun(bundle: str, overlay: str, overrides: dict, port: int, nodes: int = 1):
+        """Start the program, 2 processes under one agent or one under each of ``nodes`` agents; returns a function
+        that waits for it, checks it and returns its seconds, its epoch's record, each process's losses and
+        ``(steps, launches by kernel)``, and the ``[distributed]`` line it printed."""
         configs = repo / "zoo" / bundle / "configs"
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2", "--master_addr", "127.0.0.1",
-               "--master_port", str(port), "-m", "factorizer_tpu_torch.bundle", "run",
-               "--config_file", str(configs / "train.yaml"), "--config_file", str(configs / overlay),
-               "--run_id", "run", "--run_id", "report_losses", "--report_losses", REPORT_LOSSES]
+        program = ["--master_addr", "127.0.0.1", "--master_port", str(port), "-m", "factorizer_tpu_torch.bundle", "run",
+                   "--config_file", str(configs / "train.yaml"), "--config_file", str(configs / overlay),
+                   "--run_id", "run", "--run_id", "report_losses", "--run_id", "report_launches",
+                   "--report_losses", REPORT_LOSSES, "--report_launches", report_launches()]
         for k, v in overrides.items():
-            cmd += [f"--{k}", json.dumps(v) if not isinstance(v, str) else v]
+            program += [f"--{k}", json.dumps(v) if not isinstance(v, str) else v]
         out = Path(overrides["output_dir"])
-        logs = root / f"{out.name}.stdout.txt", root / f"{out.name}.stderr.txt"
         t0 = time.perf_counter()
-        with open(logs[0], "w") as stdout, open(logs[1], "w") as stderr:
-            proc = subprocess.Popen(cmd, cwd=repo, stdout=stdout, stderr=stderr, text=True)
-        started.append(proc)
+        agents = []
+        for node in range(nodes):
+            layout = (["--nproc_per_node", "2"] if nodes == 1 else
+                      ["--nnodes", str(nodes), "--node_rank", str(node), "--nproc_per_node", "1"])
+            logs = root / f"{out.name}.{node}.stdout.txt", root / f"{out.name}.{node}.stderr.txt"
+            with open(logs[0], "w") as stdout, open(logs[1], "w") as stderr:
+                proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", *layout, *program], cwd=repo,
+                                        stdout=stdout, stderr=stderr, text=True)
+            started.append(proc)
+            agents.append((proc, logs))
 
-        def finish() -> tuple:
-            try:
-                code = proc.wait(timeout=600)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                code = proc.wait()
+        def finish() -> dict:
+            codes = []
+            for proc, _ in agents:
+                try:
+                    codes.append(proc.wait(timeout=max(1.0, t0 + 600 - time.perf_counter())))
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    codes.append(proc.wait())
             seconds = time.perf_counter() - t0
-            printed, errors = logs[0].read_text(), logs[1].read_text()
-            tag = f"{bundle} {overlay}"
-            check(code == 0, f"bundle {tag}: exit code {code}\n{printed[-3000:]}\n{errors[-3000:]}")
+            printed = "".join(logs[0].read_text() for _, logs in agents)
+            errors = "".join(logs[1].read_text() for _, logs in agents)
+            tag = f"{bundle} {overlay}" + (f" ({nodes} node agents)" if nodes > 1 else "")
+            check(codes == [0] * nodes, f"bundle {tag}: exit codes {codes}\n{printed[-3000:]}\n{errors[-3000:]}")
             losses = {int(rank): json.loads(values)
                       for rank, values in re.findall(r"\[losses\] (\d+) (\[[^\]]*\])", printed)}
+            launches = {int(rank): (int(steps), dict(zip(kernel_counters(), json.loads(counts))))
+                        for rank, steps, counts in re.findall(r"\[launches\] (\d+) (\d+) (\[[^\]]*\])", printed)}
             history = [json.loads(line) for line in (out / "history.jsonl").read_text().splitlines()]
             saved = sorted(p.name for p in (out / "ckpt").glob("*.pt"))
-            check(sorted(losses) == [0, 1] and losses[0] == losses[1] and all(map(math.isfinite, losses[0])),
-                  f"bundle {tag}: the processes' epoch losses {losses}\n{printed[-3000:]}")
+            check(sorted(losses) == [0, 1] and losses[0] == losses[1] and all(map(math.isfinite, losses[0]))
+                  and sorted(launches) == [0, 1],
+                  f"bundle {tag}: the processes' epoch losses {losses}, launches {launches}\n{printed[-3000:]}")
             check(saved == ["step_1.pt"] and len(history) == 1 and history[0]["loss"] == losses[0][0],
                   f"bundle {tag}: checkpoints {saved}, history {history}")
-            backend = re.search(r"\[distributed\] (backend \w+)", printed)
-            return seconds, history[0], losses, backend.group(1) if backend else "backend not printed"
+            joined = re.search(r"\[distributed\] (.*)", printed)
+            return {"seconds": seconds, "record": history[0], "losses": losses, "launches": launches,
+                    "distributed": joined.group(1) if joined else "backend not printed"}
 
         return finish
 
     try:
-        bundle_programs(root, data, train_epoch_s, torchrun)
+        return bundle_programs(root, data, train_epoch_s, torchrun)
     finally:
         for proc in started:
             if proc.poll() is None:
@@ -2148,38 +2270,66 @@ def multidevice_programs(repo, root, data: dict, train_epoch_s: float) -> None:
                 proc.wait()
 
 
-def bundle_programs(root, data: dict, train_epoch_s: float, torchrun) -> None:
+def backend_of(run: dict) -> str:
+    """``backend <name>`` from a program's ``[distributed]`` line."""
+    return run["distributed"].split(" (")[0]
+
+
+def bundle_programs(root, data: dict, train_epoch_s: float, torchrun) -> dict:
     """The body of :func:`multidevice_programs`: the two data-parallel programs one after the other, then the two
     spatial ones at the same time, 4 processes on the card (the data-parallel deconver_brats23 alone takes most of
-    it)."""
+    it); factorizer_brats23's spatial program under two node agents.  Returns ``[hosts]``' seconds and launches."""
     for bundle in ("factorizer_brats23", "deconver_brats23"):
-        seconds, record, losses, backend = torchrun(
-            bundle, "train_multidevice.yaml", {**data, "output_dir": str(root / f"{bundle}_multidevice"), "max_epochs": 1,
-                                               "val_interval": 0}, free_port())()
-        print(f"[bundle multidevice] {bundle} train.yaml + train_multidevice.yaml (torchrun, 2 processes, {backend}, "
-              f"one card): {seconds:.1f} s end to end, epoch {record['time_s']:.3f} s of 1 step a process on its 2 cases "
-              f"(train.yaml's first epoch in one process, 2 steps on 4 cases: {train_epoch_s:.3f} s), loss "
-              f"{losses[0][0]:.6f} on both processes, one checkpoint step_1.pt written by the primary. "
-              + shared_card_note(2))
+        r = torchrun(bundle, "train_multidevice.yaml", {**data, "output_dir": str(root / f"{bundle}_multidevice"),
+                                                         "max_epochs": 1, "val_interval": 0}, free_port())()
+        print(f"[bundle multidevice] {bundle} train.yaml + train_multidevice.yaml (torchrun, 2 processes, "
+              f"{backend_of(r)}, one card): {r['seconds']:.1f} s end to end, epoch {r['record']['time_s']:.3f} s of 1 "
+              f"step a process on its 2 cases (train.yaml's first epoch in one process, 2 steps on 4 cases: "
+              f"{train_epoch_s:.3f} s), loss {r['losses'][0][0]:.6f} on both processes, one checkpoint step_1.pt "
+              "written by the primary. " + shared_card_note(2))
     ports = free_port(), free_port()
     while ports[1] == ports[0]:
         ports = ports[0], free_port()
+    # 32. [hosts]: two node agents of one process each stand in for two hosts; they share this card, so every process
+    # must take gloo (a host alone, with a card for its one process, would take NCCL, which refuses two ranks on one
+    # device).
     factorizer_tp = torchrun("factorizer_brats23", "train_tp.yaml", {**data, "output_dir": str(root / "factorizer_tp"),
-                                                                    "max_epochs": 1, "val_interval": 1}, ports[0])
+                                                                    "max_epochs": 1, "val_interval": 1}, ports[0], nodes=2)
     deconver_tp = torchrun("deconver_brats23", "train_tp.yaml", {**data, "output_dir": str(root / "deconver_tp"),
                                                                 "max_epochs": 1, "val_interval": 0}, ports[1])
-    seconds, record, losses, backend = factorizer_tp()
-    print(f"[bundle tp] factorizer_brats23 train.yaml + train_tp.yaml (torchrun, 2 processes, {backend}, one card, a "
-          f"model axis of 2, run beside deconver_brats23's): {seconds:.1f} s end to end, epoch {record['time_s']:.3f} s "
-          f"of 2 spatial steps on 4 cases (train.yaml's first epoch in one process: {train_epoch_s:.3f} s), loss "
-          f"{losses[0][0]:.6f} on both processes, validation of whole volumes on each process, mean Dice "
-          f"{record['mean_dice']:.4f}; one checkpoint step_1.pt written by the primary. " + shared_card_note(2))
-    check(0.0 <= record["mean_dice"] <= 1.0, f"bundle tp: mean Dice {record['mean_dice']}")
-    seconds, record, losses, backend = deconver_tp()
-    print(f"[bundle tp] deconver_brats23 train.yaml + train_tp.yaml (torchrun, 2 processes, {backend}, one card, a "
-          f"model axis of 2, run beside factorizer_brats23's): {seconds:.1f} s end to end, epoch {record['time_s']:.3f} s "
-          f"of 2 spatial steps on 4 cases, K3 on haloed slabs (the epoch of train.yaml in one process: [bundle]'s line), "
-          f"loss {losses[0][0]:.6f} on both processes; one checkpoint step_1.pt written by the primary. " + shared_card_note(2))
+    hosts = factorizer_tp()
+    record, per_step = hosts["record"], tp_routes(128, 8, 2 + 4 + 6, 2)
+    check(re.fullmatch(r"backend gloo \(1 CUDA device\(s\) for 2 process\(es\)\), world size 2, 2 host\(s\): "
+                       r"\S+/node 0 1 process\(es\), \S+/node 1 1 process\(es\)", hosts["distributed"]) is not None,
+          f"hosts: the processes joined as {hosts['distributed']!r}")
+    launches = dict.fromkeys(kernel_counters(), 0)
+    for rank, (steps, made) in hosts["launches"].items():
+        # Training runs on slabs (K5, K1 on the gathered levels, K2), validation on whole volumes (K1 and K2 forward).
+        check(steps == 2 and all(made[k] == steps * per_step[k] for k in ("windowed_nmf_slab", "windowed_nmf_slab_bwd",
+                                                                          "windowed_nmf_bwd", "prenorm_mlp_bwd"))
+              and all(made[k] > steps * per_step[k] for k in ("windowed_nmf_factors", "windowed_nmf_reconstruct",
+                                                               "prenorm_mlp")),
+              f"hosts rank {rank}: {steps} steps, launches {made}, per step on slabs {per_step}")
+        for k, v in made.items():
+            launches[k] += v
+    made = hosts["launches"][0][1]
+    print(f"[hosts] factorizer_brats23 train.yaml + train_tp.yaml under two torchrun node agents (--nnodes 2, "
+          f"--node_rank 0 / 1, one process each: two hosts on this card, run beside deconver_brats23's [bundle tp]): "
+          f"[distributed] {hosts['distributed']}; {hosts['seconds']:.1f} s end to end, epoch {record['time_s']:.3f} s of 2 "
+          f"spatial steps on 4 cases (train.yaml's first epoch in one process: {train_epoch_s:.3f} s), loss "
+          f"{hosts['losses'][0][0]:.6f} on both processes, validation of whole volumes on each process, mean Dice "
+          f"{record['mean_dice']:.4f}; one checkpoint step_1.pt written by the primary; per step and process K5 "
+          f"{per_step['windowed_nmf_slab']} + {per_step['windowed_nmf_slab_bwd']} bwd, K1 bwd "
+          f"{per_step['windowed_nmf_bwd']}, K2 bwd {per_step['prenorm_mlp_bwd']}; process 0 in all (training and "
+          f"validation) {({k: v for k, v in made.items() if v})}. " + shared_card_note(2))
+    check(0.0 <= record["mean_dice"] <= 1.0, f"hosts: mean Dice {record['mean_dice']}")
+    r = deconver_tp()
+    print(f"[bundle tp] deconver_brats23 train.yaml + train_tp.yaml (torchrun, 2 processes, {backend_of(r)}, one card, "
+          f"a model axis of 2, run beside factorizer_brats23's [hosts]): {r['seconds']:.1f} s end to end, epoch "
+          f"{r['record']['time_s']:.3f} s of 2 spatial steps on 4 cases, K3 on haloed slabs (the epoch of train.yaml "
+          f"in one process: [bundle]'s line), loss {r['losses'][0][0]:.6f} on both processes; one checkpoint step_1.pt "
+          "written by the primary. " + shared_card_note(2))
+    return {"seconds": hosts["seconds"], "launches": launches}
 
 
 # The baseline bundles on the card (`[baselines]`): name -> (served input, roi, the training batch), from their
@@ -2861,15 +3011,22 @@ def main() -> None:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--cards", type=int, default=1,
-                        help="above 1: run the multi-process phases alone (31, 20, 21, 25 as the count allows), "
-                             "one process per card over NCCL")
-    cards = parser.parse_args().cards
+                        help="above 1: run the multi-process phases alone (31, 20, 21, 25 and 32 as the count "
+                             "allows), one process per card over NCCL")
+    parser.add_argument("--phases", default=",".join(CARDS_PHASES),
+                        help=f"with --cards: the phases to run, a comma-separated subset of {','.join(CARDS_PHASES)}")
+    parser.add_argument("--start", choices=("forkserver", "spawn"), default=WORKERS_START,
+                        help="how run_processes starts the multi-process phases' workers")
+    args = parser.parse_args()
+    cards, phases = args.cards, args.phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         sys.exit(1)
     if not 1 <= cards <= torch.cuda.device_count():
         fail(f"--cards {cards}, but the host has {torch.cuda.device_count()} CUDA device(s)")
-    start_forkserver()
+    if not set(phases) <= set(CARDS_PHASES):
+        fail(f"--phases {args.phases}: not a subset of {','.join(CARDS_PHASES)}")
+    set_workers_start(args.start)
 
     # The port: imported only once a card is known to be there.
     import torch.nn.functional as F
@@ -2953,16 +3110,22 @@ def main() -> None:
                                                  "count": torch.cuda.device_count()}}))
 
     if cards > 1:  # the multi-process phases across cards, and nothing else
+        print(f"[cards] {cards} cards, phases {','.join(phases)}, workers started by {WORKERS_START}")
         settings = brats23_optimizer_settings(steps_per_epoch=1)
+        settings = {k: settings[k] for k in ("lr", "weight_decay")}
         equal = 128 % cards == 0  # phases 20 and 25 hold equal slabs to their own expectations
-        if cards >= UNEVEN_WORLD:  # phase 31 on a count that does not divide 128: the cards', else 3 of them
+        if cards >= UNEVEN_WORLD and "uneven" in phases:  # phase 31 where the count does not divide 128, else on 3
             uneven_slabs_slice(UNEVEN_WORLD if equal else cards)
-        if equal:
+        if equal and "spatial" in phases:
             spatial_slice(cards)
         torch.backends.cudnn.benchmark = True
-        train_dp_slice(cards, {k: settings[k] for k in ("lr", "weight_decay")}, 4)
-        if equal:
-            train_tp_slice(cards, {k: settings[k] for k in ("lr", "weight_decay")})
+        if "dp" in phases:
+            train_dp_slice(cards, settings, 4)
+        one_host = {}
+        if equal and "tp" in phases:
+            train_tp_slice(cards, settings, one_host)
+        if equal and cards % 2 == 0 and "hosts" in phases:  # 2 hosts of cards / 2
+            hosts_cards_slice(cards, settings, one_host)
         stop_forkserver()
         last_lines()
         return
@@ -4117,14 +4280,16 @@ def main() -> None:
     # 22. the training workflow from NIfTI files; its launches are checked there and left out of the kernels line.
     workflow_slice(wrappers)
     phase_done("22 workflow")
-    # 23. the bundles' YAML programs through the config parser and the CLI; left out of the kernels line too.
-    bundle_slice(wrappers)
+    # 23. the bundles' YAML programs through the config parser and the CLI; left out of the kernels line too, but for
+    # 32. [hosts]' processes (launches_hosts).
+    hosts = bundle_slice(wrappers)
     phase_done("23 bundle")
     # 24. the baseline bundles and UNETR, stock PyTorch: no kernel of the port launches.
     baselines_slice(wrappers)
     phase_done("24 baselines")
     print(f"[time] wall seconds by phase: {', '.join(f'{n} {t:.1f}' for n, t in phase_seconds)}; "
-          f"{sum(t for _, t in phase_seconds):.1f} s in all")
+          f"{sum(t for _, t in phase_seconds):.1f} s in all; of 23 bundle, 32 [hosts] {hosts['seconds']:.1f} s end to "
+          f"end beside [bundle tp]'s deconver_brats23")
 
     sources = {
         "windowed_nmf_factors": ("factorizer_tpu_torch/csrc/windowed_nmf.cu",
@@ -4152,10 +4317,11 @@ def main() -> None:
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": serve_launches[name] + train_launches[name] + spatial_launches[name]
                         + tp_launches[name] + engine_launches[name] + options_launches[name] + gap_launches[name]
-                        + uneven_launches[name],
+                        + uneven_launches[name] + hosts["launches"][name],
                         "launches_serving": serve_launches[name], "launches_training": train_launches[name],
                         "launches_spatial": spatial_launches[name], "launches_train_tp": tp_launches[name],
                         "launches_slab_gaps": gap_launches[name], "launches_uneven": uneven_launches[name],
+                        "launches_hosts": hosts["launches"][name],
                         "launches_engine": engine_launches[name], "launches_options": options_launches[name],
                         "max_abs_err": max(results[name]["errs"]),
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,

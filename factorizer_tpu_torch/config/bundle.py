@@ -132,7 +132,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
 
 def _join_torchrun_group() -> bool:
-    """Join the group that ``torchrun``'s environment describes (more than one process); False when there is none."""
+    """Join the group that ``torchrun``'s environment describes (more than one process, on one node or several); False
+    when there is none."""
     if int(os.environ.get("WORLD_SIZE", "1")) <= 1 or dist.is_initialized():
         return False
     from ..parallel.mesh import initialize_distributed

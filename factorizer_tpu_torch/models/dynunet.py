@@ -19,13 +19,13 @@ deeper one (:meth:`DynUNet.slab_route`, ``parallel.slabs.run_ladder``).
 from __future__ import annotations
 
 from fractions import Fraction
-from typing import Any, Optional, Sequence, Union
+from typing import Any, Optional, Sequence
 
 import torch
 from torch import nn
 
 from ..layers.basic import Conv, ConvTranspose, InstanceNorm, resolve_activation
-from ..parallel.slabs import Cut, Route, as_cut, run_ladder, run_whole
+from ..parallel.slabs import Cut, Route, run_ladder, run_whole
 from ..utils.helpers import resolve_device, to_ntuple
 from .unet import first_gathered_level
 
@@ -83,11 +83,10 @@ class DynUNet(nn.Module):
         """Each encoder stage's stride along the cut axis (``parallel.slabs.choose_cut``)."""
         return list(self.strides)
 
-    def slab_route(self, rows: Union[int, Cut], n: Optional[int] = None) -> Route:
-        """The route on the cut ``rows`` (``parallel.slabs.Cut``), or on ``n`` equal slabs of ``rows`` input rows: the
+    def slab_route(self, cut: Cut) -> Route:
+        """The route on the cut ``cut`` (``parallel.slabs.Cut``) of the input's rows: the
         first level whose block, upsampling (from it), decoder block (at it) or head has too few rows on some slab, and
         every deeper level, run gathered."""
-        cut = as_cut(rows, n)
         rs = [Fraction(cut.rows)]
         for i in range(self.n):
             rs.append(rs[-1] / self.strides[i])

@@ -33,7 +33,7 @@ slabs: layers made inside ``on_slabs`` would not be on it.
 from __future__ import annotations
 
 from fractions import Fraction
-from typing import Any, Optional, Sequence, Union
+from typing import Any, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -41,7 +41,7 @@ from torch import nn
 
 from ..layers.basic import Conv, ConvTranspose, Dropout, FlaxGroupNorm, resolve_activation
 from ..parallel.collectives import halo_exchange
-from ..parallel.slabs import Cut, Route, as_cut, run_ladder, run_whole
+from ..parallel.slabs import Cut, Route, run_ladder, run_whole
 from ..utils.helpers import resolve_device
 from .unet import first_gathered_level
 
@@ -123,10 +123,9 @@ class SegResNet(nn.Module):
         (``parallel.slabs.choose_cut``)."""
         return [1] + [2] * (len(self.blocks_down) - 1)
 
-    def slab_route(self, rows: Union[int, Cut], n: Optional[int] = None) -> Route:
-        """The route on the cut ``rows`` (``parallel.slabs.Cut``), or on ``n`` equal slabs of ``rows`` input rows: the
+    def slab_route(self, cut: Cut) -> Route:
+        """The route on the cut ``cut`` (``parallel.slabs.Cut``) of the input's rows: the
         first level with a layer that has too few rows on some slab, and every deeper level, run gathered."""
-        cut = as_cut(rows, n)
         rs = [Fraction(cut.rows)] + [Fraction(cut.rows, 2**level) for level in range(len(self.blocks_down))]
         return first_gathered_level([[(name, getattr(self, name), rs[level], rs[level + 1]) for name in self._parts(level)]
                                      for level in range(len(self.blocks_down))], cut)

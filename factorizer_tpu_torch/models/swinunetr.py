@@ -38,7 +38,7 @@ gathered part, and the upsampling from it is cut back.
 from __future__ import annotations
 
 import math
-from typing import Any, Optional, Sequence, Union
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
@@ -46,7 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..layers.basic import Conv, ConvTranspose, Dense, FlaxLayerNorm, InstanceNorm, resolve_activation, truncated_normal
-from ..parallel.slabs import Cut, Route, as_cut, run_gathered
+from ..parallel.slabs import Cut, Route, run_gathered
 from ..utils.helpers import resolve_device, to_ntuple
 
 __all__ = ["SwinUNETR", "WindowAttention", "SwinBlock", "PatchMerging"]
@@ -238,11 +238,10 @@ class SwinUNETR(nn.Module):
         (``parallel.slabs.choose_cut``)."""
         return [2] * (len(self._ENCODERS) - 1)
 
-    def slab_route(self, rows: Union[int, Cut], n: Optional[int] = None) -> Route:
-        """The route on the cut ``rows`` (``parallel.slabs.Cut``), or on ``n`` equal slabs of ``rows`` rows: the
+    def slab_route(self, cut: Cut) -> Route:
+        """The route on the cut ``cut`` (``parallel.slabs.Cut``) of the input's rows: the
         transformer gathered, and from the first conv level where some slab holds no whole number of rows (level k
         holds ``rows / 2^k``) every deeper conv level with it."""
-        cut = as_cut(rows, n)
         for level in range(1, len(self._ENCODERS)):
             for size in sorted(set(cut.sizes(cut.rows))):
                 if size % 2**level:

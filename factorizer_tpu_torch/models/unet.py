@@ -44,7 +44,7 @@ from __future__ import annotations
 
 import math
 from fractions import Fraction
-from typing import Any, Optional, Sequence, Union
+from typing import Any, Optional, Sequence
 
 import torch
 from torch import nn
@@ -66,7 +66,7 @@ from ..layers.basic import (
     _Affine,
 )
 from ..layers.conv_blocks import BasicBlock, DoubleConv, PreActivationBlock, SepConv
-from ..parallel.slabs import Cut, Route, as_cut, as_now, run_ladder, run_whole
+from ..parallel.slabs import Cut, Route, as_now, run_ladder, run_whole
 from ..utils.helpers import has_args, partialize, spec_accepts
 
 __all__ = ["UNet", "Same", "build_block", "dtype_kwargs", "SLAB_LAYERS", "SLAB_NORMS", "slab_path_missing_of",
@@ -356,13 +356,12 @@ class UNet(nn.Module):
             out.append(out[-1] / stride)
         return out[1:]
 
-    def slab_route(self, rows: Union[int, Cut], n: Optional[int] = None) -> Route:
-        """The route on the cut ``rows`` (``parallel.slabs.Cut``), or on ``n`` equal slabs of ``rows`` input rows: the
+    def slab_route(self, cut: Cut) -> Route:
+        """The route on the cut ``cut`` (``parallel.slabs.Cut``) of the input's rows: the
         first level with a part that has no slab path or too few rows on some slab for one of its layers, and all
         deeper levels, run gathered.  Level ``l``'s parts: encoder stage ``l`` (its resampling layer and block), the
         decoder block at level ``l`` and the upsampling from it; level 0 also the stem and every head (a head runs on
         its level's slab either way)."""
-        cut = as_cut(rows, n)
         rs = self._level_rows(cut.rows)
         n_enc = len(self.encoder.blocks)
         levels = [[] for _ in range(n_enc)]

@@ -26,14 +26,14 @@ through every level), and the upsampling into the finest level is cut back.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..layers.basic import Conv, ConvTranspose, Dense, FlaxLayerNorm, truncated_normal
-from ..parallel.slabs import Cut, Route, as_cut, run_gathered
+from ..parallel.slabs import Cut, Route, run_gathered
 from ..utils.helpers import resolve_device, to_ntuple
 from .swinunetr import _ConvBlock as _ResBlock  # MONAI's UnetResBlock: the same layers and names
 
@@ -123,11 +123,10 @@ class UNETR(nn.Module):
         """The patch embedding's stride along the cut axis (``parallel.slabs.choose_cut``)."""
         return [self.patch_size]
 
-    def slab_route(self, rows: Union[int, Cut], n: Optional[int] = None) -> Route:
-        """The route on the cut ``rows`` (``parallel.slabs.Cut``), or on ``n`` equal slabs of ``rows`` rows: the ViT
+    def slab_route(self, cut: Cut) -> Route:
+        """The route on the cut ``cut`` (``parallel.slabs.Cut``) of the input's rows: the ViT
         gathered; where some slab holds no whole number of patches, levels 1 and deeper with it (the patch embedding
         and the branches above the finest level)."""
-        cut = as_cut(rows, n)
         for size in sorted(set(cut.sizes(cut.rows))):
             if size % self.patch_size:
                 return Route(1, f"a slab of {size} rows holds no whole number of patches of {self.patch_size}")

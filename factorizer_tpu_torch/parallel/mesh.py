@@ -21,14 +21,17 @@ from __future__ import annotations
 
 import math
 import os
+import socket
 from dataclasses import dataclass
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+from torch.distributed.constants import default_pg_timeout
 
 __all__ = ["Mesh", "make_mesh", "data_parallel_mesh", "model_parallel_mesh", "data_process_groups",
-           "initialize_distributed", "process_is_primary", "process_count", "process_index"]
+           "initialize_distributed", "agree_backend", "describe_hosts", "local_device_count", "process_is_primary",
+           "process_count", "process_index"]
 
 
 @dataclass(frozen=True)
@@ -72,48 +75,121 @@ class Mesh:
         return self.groups[self._known(name)]
 
 
+CPU = "cpu"  # what a process without a card publishes as its device (agree_backend)
+
+
+def agree_backend(devices: Sequence[str], backend: Optional[str] = None) -> tuple[str, str]:
+    """The backend that every process takes, and why, from the device each one would run on.
+
+    ``devices`` holds, in rank order, each process's card (its UUID) or
+    ``CPU``.  NCCL where every process has a card and no two share one (NCCL
+    refuses two ranks on one device), else gloo.  A caller's ``backend`` is
+    taken as it is, except ``"nccl"`` where a process has no card or shares
+    one, which raises ``RuntimeError`` naming the processes.  A pure function
+    of what all processes published, so each process reaches the same answer.
+    """
+    holders: dict[str, list[int]] = {}
+    for rank, device in enumerate(devices):
+        if device != CPU:
+            holders.setdefault(device, []).append(rank)
+    shared = [ranks for ranks in holders.values() if len(ranks) > 1]
+    own_card = CPU not in devices and not shared
+    if backend is None:
+        return ("nccl" if own_card else "gloo"), f"{len(holders)} CUDA device(s) for {len(devices)} process(es)"
+    if backend == "nccl" and not own_card:
+        why = ([f"processes {' and '.join(map(str, ranks))} share card {devices[ranks[0]]}" for ranks in shared]
+               + [f"process {r} has no card" for r, d in enumerate(devices) if d == CPU])
+        raise RuntimeError(f"torch.distributed backend 'nccl' needs a card of its own for each process: {'; '.join(why)}"
+                           " (take gloo, or start no more processes on a host than it has cards)")
+    return backend, "the caller's choice"
+
+
+def describe_hosts(hosts: Sequence[str], local_ranks: Sequence[int], local_world_sizes: Sequence[int]) -> str:
+    """The hosts and their processes, from what every process published in rank order (its host, local rank and
+    local world size); raises ``ValueError`` where a host's processes were told another count or other local
+    ranks than the host runs, as an explicit join of several hosts without ``local_rank`` /
+    ``local_world_size`` would give them."""
+    by_host: dict[str, list[int]] = {}
+    for rank, host in enumerate(hosts):
+        by_host.setdefault(host, []).append(rank)
+    for host, ranks in by_host.items():
+        if (sorted(local_ranks[r] for r in ranks) != list(range(len(ranks)))
+                or any(local_world_sizes[r] != len(ranks) for r in ranks)):
+            raise ValueError(f"initialize_distributed: host {host} runs processes {ranks}, told local ranks "
+                             f"{[local_ranks[r] for r in ranks]} of {[local_world_sizes[r] for r in ranks]}: give each "
+                             "process its local_rank and local_world_size on its host")
+    return f"{len(by_host)} host(s): " + ", ".join(f"{host} {len(ranks)} process(es)" for host, ranks in by_host.items())
+
+
 def initialize_distributed(init_method: str = "env://", world_size: Optional[int] = None, rank: Optional[int] = None,
-                           backend: Optional[str] = None) -> str:
-    """Join the default process group and return the backend taken.
+                           backend: Optional[str] = None, local_rank: Optional[int] = None,
+                           local_world_size: Optional[int] = None) -> str:
+    """Join the default process group and return the backend taken, the same on every process.
 
     Two forms.  Explicit: ``init_method`` is the meeting point
-    (``tcp://host:port`` or ``file://path``) and ``world_size`` and ``rank``
-    are given; the processes are taken to share one host.  ``"env://"``, the
-    default: ``torchrun``'s environment names them (``RANK``, ``WORLD_SIZE``,
-    ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``).
+    (``tcp://host:port`` or ``file://path``), ``world_size`` and ``rank`` are
+    given, and ``local_rank`` / ``local_world_size`` place the process on its
+    host (default: one host, ``rank`` of ``world_size``; JAX's
+    ``local_device_ids``).  ``"env://"``, the default: ``torchrun``'s
+    environment names them (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``), on one node or
+    several (``--nnodes``).
 
-    The backend is the caller's, else the device count decides: ``nccl`` when
-    this host has a card for each of its processes, ``gloo`` on the CPU and
-    where processes have to share a card (NCCL refuses two ranks on one
-    device).  With cards, the process takes its own (its local rank) when
-    there is one for each, else card 0, before it joins.  A backend this build
-    of PyTorch lacks raises.  The primary process prints the choice.
+    With cards, a process runs on card ``local_rank`` where its host has a
+    card for each of its processes, else on card 0.  The processes meet at
+    the rendezvous store first and each publishes that card (its UUID, or
+    ``CPU``), its host and its place there; every process then takes the
+    backend :func:`agree_backend` gives for the whole table (the caller's
+    ``backend`` if any) and joins through the same store.  A backend this
+    build of PyTorch lacks, ``"nccl"`` on a shared card and a host whose
+    processes were told another count than it runs raise, on every process
+    before any collective.  The primary process prints the choice and the hosts.
     """
     if init_method == "env://":
         world_size = int(os.environ["WORLD_SIZE"]) if world_size is None else world_size
         rank = int(os.environ["RANK"]) if rank is None else rank
-        local_rank = int(os.environ.get("LOCAL_RANK", rank))
-        local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world_size))
+        local_rank = int(os.environ.get("LOCAL_RANK", rank)) if local_rank is None else local_rank
+        local_world_size = (int(os.environ.get("LOCAL_WORLD_SIZE", world_size)) if local_world_size is None
+                            else local_world_size)
     elif world_size is None or rank is None:
         raise ValueError(f"initialize_distributed({init_method!r}) needs world_size and rank")
     else:
-        local_rank, local_world = rank, world_size
-    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    own_card = cards >= local_world
-    if backend is None:
-        backend = "nccl" if own_card else "gloo"
-        reason = f"{cards} CUDA device(s) for {local_world} process(es)"
-    else:
-        reason = "the caller's choice"
+        local_rank = rank if local_rank is None else local_rank
+        local_world_size = world_size if local_world_size is None else local_world_size
+    if not 0 <= local_rank < local_world_size <= world_size:
+        raise ValueError(f"initialize_distributed: local rank {local_rank} of {local_world_size} in a world of {world_size}")
     available = {"nccl": dist.is_nccl_available, "gloo": dist.is_gloo_available}
-    if backend not in available or not available[backend]():
+    if backend is not None and (backend not in available or not available[backend]()):
         raise RuntimeError(f"torch.distributed backend {backend!r} is not available in this build of PyTorch")
-    if cards:
-        torch.cuda.set_device(local_rank % cards if own_card else 0)
-    dist.init_process_group(backend, init_method=init_method, world_size=world_size, rank=rank)
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    card = (local_rank if cards >= local_world_size else 0) if cards else None
+    device = CPU if card is None else str(torch.cuda.get_device_properties(card).uuid)
+    host = socket.gethostname() + (f"/node {os.environ['GROUP_RANK']}" if "GROUP_RANK" in os.environ else "")
+
+    store, rank, world_size = next(dist.rendezvous(init_method, rank, world_size))
+    store.set_timeout(default_pg_timeout)
+    table = dist.PrefixStore("factorizer_tpu_torch/processes", store)
+    table.set(str(rank), "\t".join((device, host, str(local_rank), str(local_world_size))))
+    rows = [table.get(str(r)).decode().split("\t") for r in range(world_size)]
+    # Every process has read the table before any goes on: a process that raises below may take the store with it.
+    table.set(f"read/{rank}", "")
+    table.wait([f"read/{r}" for r in range(world_size)])
+    hosts = describe_hosts([row[1] for row in rows], [int(row[2]) for row in rows], [int(row[3]) for row in rows])
+    backend, reason = agree_backend([row[0] for row in rows], backend)
+    if card is not None:
+        torch.cuda.set_device(card)
+    dist.init_process_group(backend, store=dist.PrefixStore("default_pg", store), world_size=world_size, rank=rank)
     if rank == 0:
-        print(f"[distributed] backend {backend} ({reason}), world size {world_size}", flush=True)
+        print(f"[distributed] backend {backend} ({reason}), world size {world_size}, {hosts}", flush=True)
     return backend
+
+
+def local_device_count() -> int:
+    """The processes on this host, each one device (JAX's ``jax.local_device_count()``): ``LOCAL_WORLD_SIZE`` (as
+    ``torchrun`` and ``run_processes`` set it), else the world size, else 1."""
+    if "LOCAL_WORLD_SIZE" in os.environ:
+        return int(os.environ["LOCAL_WORLD_SIZE"])
+    return process_count()
 
 
 def process_count() -> int:

@@ -111,7 +111,7 @@ from torch import nn
 from .collectives import broadcast_from_first, cut_slab, gather_slabs
 from .mesh import Mesh
 
-__all__ = ["Cut", "choose_cut", "as_cut", "Slabs", "Route", "on_slabs", "off_slabs", "require_slab_path", "slab_cut",
+__all__ = ["Cut", "choose_cut", "Slabs", "Route", "on_slabs", "off_slabs", "require_slab_path", "slab_cut",
            "slab_route", "run_gathered", "run_whole", "run_ladder", "as_now"]
 
 
@@ -181,11 +181,6 @@ def choose_cut(rows: int, n: int, strides: Sequence[int] = ()) -> Cut:
         grid = product
     q, r = divmod(rows // grid, n)
     return Cut(rows, (q + 1,) * r + (q,) * (n - r))
-
-
-def as_cut(rows: Union[int, Cut], n: Optional[int] = None) -> Cut:
-    """``rows`` itself where it is a :class:`Cut`, else the equal cut of ``n`` slabs of ``rows`` rows each."""
-    return rows if isinstance(rows, Cut) else Cut.equal(rows * n, n)
 
 
 @dataclass(frozen=True)
@@ -267,11 +262,10 @@ def slab_cut(model: nn.Module, rows: int, n: int) -> Cut:
     return choose_cut(rows, n, () if strides is None else strides())
 
 
-def slab_route(model: nn.Module, rows: Union[int, Cut], n: Optional[int] = None) -> Route:
-    """The route ``model`` takes on the cut ``rows`` (a :class:`Cut`), or on ``n`` equal slabs of ``rows`` rows (its
-    ``slab_route``; a model without one runs every layer on its slab)."""
+def slab_route(model: nn.Module, cut: Cut) -> Route:
+    """The route ``model`` takes on ``cut`` (its ``slab_route``; a model without one runs every layer on its slab)."""
     rule = getattr(model, "slab_route", None)
-    return Route() if rule is None else rule(as_cut(rows, n))
+    return Route() if rule is None else rule(cut)
 
 
 @contextlib.contextmanager

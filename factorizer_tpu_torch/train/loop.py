@@ -137,7 +137,12 @@ class SegmentationTrainer:
             cases and in batches an epoch, or the constructor raises: a
             process with a step more would wait in the gradient all-reduce for
             a partner that has none.  The first process's parameters go to the
-            others; a resume reads the same directory on every process.
+            others; a resume reads the same directory on every process, and
+            every host must see it (a shared file system; the primary alone
+            writes it, as JAX's one writer does): where the processes would
+            resume from different steps, :meth:`initialize` raises on every
+            process before the first step, which they would otherwise take
+            apart and then wait for each other in.
         model_axis, shard_spatial: as the JAX trainer takes them: with
             ``model_axis`` in ``mesh`` at a size above 1 and ``shard_spatial``,
             the step is the spatial step over that axis (``make_train_step``'s
@@ -216,6 +221,7 @@ class SegmentationTrainer:
 
         self._ckpt_best = bool(ckpt_best and val_loader is not None)
         # The other processes only read the directory (to resume), and only one that is there: making it is a write.
+        self._ckpt_dir = ckpt_dir
         self.ckpt = (
             CheckpointManager(ckpt_dir, max_to_keep=max_to_keep,
                               best_metric_key="mean_dice" if self._ckpt_best else None)
@@ -250,6 +256,14 @@ class SegmentationTrainer:
                 self.best_metric = saved_best
             if self._primary:
                 logger.info("resumed from checkpoint step %s (best mean_dice %s)", self.state.step, saved_best)
+        if self.mesh is not None:
+            steps = [None] * dist.get_world_size()
+            dist.all_gather_object(steps, int(self.state.step))
+            if len(set(steps)) > 1:
+                raise RuntimeError(
+                    f"SegmentationTrainer: the processes would resume from different steps of the checkpoint "
+                    f"directory {self._ckpt_dir!r}, by rank {steps}: every host must see that directory (a shared "
+                    "file system), since the primary process alone writes it")
         return self.state
 
     def _device_batch(self, batch: dict) -> dict:

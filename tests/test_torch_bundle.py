@@ -37,6 +37,7 @@ import factorizer_tpu_torch as ftt
 from factorizer_tpu_torch import zoo_scripts
 from factorizer_tpu_torch.config import ConfigParser, run
 from factorizer_tpu_torch.config.bundle import _normalize_cli_overrides, main
+from factorizer_tpu_torch.parallel.slabs import Cut
 from torch_bundle_cases import (
     NNUNET_SMALL, ON_CPU, REPO, SEGRESNET_SMALL, SWINUNETR_SMALL, TINY_DECONVER, TINY_FACTORIZER, ZOO, bundle_config,
 )
@@ -173,7 +174,7 @@ def test_jax_only_targets_raise_by_name():
     filters = ConfigParser(bundle_config("deconver_brats23", "train_tp.yaml", **TINY_DECONVER, **ON_CPU,
                                          **{"network_def#update_filter": True}))
     assert filters["network_def"].slab_path_missing() is None
-    assert filters["network_def"].slab_route(16, 2).level is None
+    assert filters["network_def"].slab_route(Cut.equal(32, 2)).level is None
     ftt.make_train_step(filters["network_def"], mesh=filters["mesh"], spatial_axis=axis)
     with pytest.raises(KeyError, match="optax.adamw"):
         ConfigParser({"x": {"_target_": "optax.adamw"}})["x"]

@@ -25,6 +25,7 @@ from factorizer_tpu_torch.parallel import (
     run_processes,
     shard_batch,
 )
+from factorizer_tpu_torch.parallel.slabs import Cut
 from factorizer_tpu_torch.train import trainer
 
 torch.set_num_threads(1)
@@ -331,7 +332,7 @@ def test_train_step_refuses_spatial_axis_by_name():
     trainer.make_train_step(flat, mesh=mesh, spatial_axis="model")
     other_norm = ftt.Factorizer(**CONFIG, reshape=(ftt.SWMatricize, SW), norm=_BatchStatisticsNorm, device="cpu")
     assert other_norm.slab_path_missing() is None
-    route = other_norm.slab_route(16, 2)
+    route = other_norm.slab_route(Cut.equal(32, 2))
     assert route.level == 0 and "_BatchStatisticsNorm (blocks.0.norm1)" in route.reason
     trainer.make_train_step(other_norm, mesh=mesh, spatial_axis="model")
     with pytest.raises(NotImplementedError, match="Linear has no slab path"):

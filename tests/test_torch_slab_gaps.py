@@ -40,7 +40,7 @@ from factorizer_tpu_torch.parallel import (
     Slabs, all_gather_cat, initialize_distributed, model_parallel_mesh, on_slabs, run_processes,
 )
 from factorizer_tpu_torch.parallel import collectives
-from factorizer_tpu_torch.parallel.slabs import slab_route
+from factorizer_tpu_torch.parallel.slabs import Cut, slab_route
 from factorizer_tpu_torch.train import trainer
 
 torch.set_num_threads(1)
@@ -150,7 +150,7 @@ def _run(name: str, mesh=None) -> dict:
             logits = model(batch["image"])
         else:
             x = batch["image"].chunk(slabs.n, 2)[slabs.index].contiguous()
-            report["route"] = slab_route(model, x.shape[2], slabs.n)
+            report["route"] = slab_route(model, Cut.equal(x.shape[2] * slabs.n, slabs.n))
             with on_slabs(model, slabs):
                 out = model(x)
                 logits = ([all_gather_cat(y, mesh, "model", 2) for y in out] if isinstance(out, list)

@@ -352,12 +352,12 @@ def test_an_overridden_stem_without_a_slab_path_is_refused_by_name(two_slabs):
     (route level 0, printed as saving no memory) instead of refusing it: ``slab_path_missing`` is None and the spatial
     step is built; on 2 slabs its logits, loss, gradients and parameters equal one process's to 1e-10.  A DoubleConv
     stem, a k3 downsampling and the deep-supervision heads have slab paths: every level runs on slabs."""
-    from factorizer_tpu_torch.parallel.slabs import require_slab_path, slab_route
+    from factorizer_tpu_torch.parallel.slabs import Cut, require_slab_path, slab_route
 
     model = _factorizer((32, 8, 8), stem=_WholeAxisStem)
     assert model.slab_path_missing() is None
     require_slab_path(model)
-    route = slab_route(model, 16, 2)
+    route = slab_route(model, Cut.equal(32, 2))
     assert route.level == 0 and route.reason == "_WholeAxisStem (stem) has no known slab path"
     assert str(route).startswith("whole model gathered, no memory saving")
     want = _reference("factorizer_whole_axis_stem")
@@ -365,4 +365,4 @@ def test_an_overridden_stem_without_a_slab_path_is_refused_by_name(two_slabs):
         _assert_equal_to_one_process(r["factorizer_whole_axis_stem"], want)
     known = _factorizer((32, 8, 8), stem=(ftt.DoubleConv, {}), downsample=(Conv, {"kernel_size": 3, "padding": 1}),
                         num_deep_supr=2)
-    assert known.slab_path_missing() is None and slab_route(known, 16, 2).level is None
+    assert known.slab_path_missing() is None and slab_route(known, Cut.equal(32, 2)).level is None
