@@ -85,12 +85,13 @@ Phases, one or more result lines each:
      forward and 9 K4 backward launches per step beside K2's, all on the register route), the 2-D step, the
      rank-2 step (9 K4 backward recomputes in torch operations) and the factorizer_isles22 step at batch
      8 x 64^3, f32; each first step against the plain versions.
- 18. K5 (K1 on a volume cut into slabs along S1: the slab kernels and a halo exchange) in one process, all
-     slabs of a ring held as a list: (2,128^3,32) f32 and bf16 as 4 slabs of 32 rows and as 2 of 64, the stage
-     shapes (2,64^3,64) and (2,32^3,128) and the factorizer_isles22 shape (8,64^3,32) with patches of 4^3 in 4
-     slabs, MU, a shift list whose first entry moves rows, one that moves none (no byte sent), a ring of one;
-     the joined output against the plain version and, bit for bit, against K1 on the whole volume; a slab of
-     rows that the patch does not divide must raise.
+ 18. K5 (K1's two passes on a volume cut into slabs along S1: a halo and the routed factors exchanged) in one
+     process, all slabs of a ring held as a list: (2,128^3,32) f32 and bf16 as 4 slabs of 32 rows and as 2 of
+     64, the stage shapes (2,64^3,64) and (2,32^3,128), the factorizer_isles22 shape (8,64^3,32) with patches of
+     4^3 in 4 slabs, head_dim 4 (the shared-memory solve), MU, a shift list whose first entry moves rows, one that
+     moves none (no byte sent), ten shifts, a ring of one, f16; the joined output against the plain version and,
+     bit for bit, against K1 on the whole volume; launches, exchanges and bytes sent per ring; a slab of rows that
+     the patch does not divide must raise.
  19. K5 backward at the same cases and with num_grad_steps=2: autograd through the slab kernels against
      autograd through the plain version and, bit for bit, against K1's backward on the whole volume.
  20. the spatial slice: two processes on the one card (gloo, halos staged through the host) run stage 0 of
@@ -135,7 +136,7 @@ Phases, one or more result lines each:
      mesh=model_parallel_mesh(), spatial_axis="model"): factorizer_brats23's network at batch 2 x 128^3 on slabs of 64
      rows and factorizer_isles22's at 8 x 64^3 on slabs of 32 (1 warm-up and 2 steps each), f32;
      launches per step and process by kernel (K5 on the mixers on slabs, K1 on the gathered ones, K2 in every tail;
-     K5's tails), loss, gradient norm and parameters against the one-process steps on the whole volume as in 21;
+     K5's tails, exchanges and bytes sent), loss, gradient norm and parameters against the one-process steps on the whole volume as in 21;
      one more step with each exchange timed; then a forward's loss under each gather rule from the same weights (the
      rule, and the slabs thinner than a patch alone gathered) and a step of each, timed.  Then the other
      families' bundles at full width from their unedited network_def, f32, 1 warm-up and 1 step each:
@@ -319,7 +320,7 @@ def kernel_label(mangled: str) -> str:
     if not targs:
         return name
     dtype = "bf16" if "bfloat16" in targs else "f16" if "__half" in targs else "f32"
-    return f"{name}<{','.join([dtype, *re.findall(r'Li(\d+)', targs)])}>"
+    return f"{name}<{','.join([dtype, *re.findall(r'L[ib](\d+)', targs)])}>"
 
 
 def dname(dtype) -> str:
@@ -628,6 +629,7 @@ def spatial_worker(rank: int, world: int, init_method: str) -> dict:
         mine.grad = None
         reset_counters(counters)
         windowed_nmf_multi_spatial.tail_launches = windowed_nmf_multi_spatial.bytes_sent = 0
+        windowed_nmf_multi_spatial.exchanges = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         y = stage(mine)
@@ -636,6 +638,7 @@ def spatial_worker(rank: int, world: int, init_method: str) -> dict:
         seconds.append(time.perf_counter() - t0)
     report = {"backend": backend, "seconds": seconds[1], "warmup_seconds": seconds[0], "counts": read_counters(counters),
               "tail_launches": windowed_nmf_multi_spatial.tail_launches, "bytes_sent": windowed_nmf_multi_spatial.bytes_sent,
+              "exchanges": windowed_nmf_multi_spatial.exchanges,
               "finite": bool(torch.isfinite(y).all()) and bool(torch.isfinite(mine.grad).all())}
     # Every process takes part in the gathers; the first one alone compares.
     y_all, dx_all = all_gather_cat(y.detach(), mesh, "model", 1), all_gather_cat(mine.grad, mesh, "model", 1)
@@ -708,6 +711,7 @@ def spatial_slice(world: int) -> dict:
     all processes, by kernel."""
     import torch
 
+    from factorizer_tpu_torch.ops.kernels.windowed_sharded import exchange_bytes
     from factorizer_tpu_torch.parallel import run_processes
     from factorizer_tpu_torch.zoo_scripts import brats23_network
 
@@ -718,14 +722,16 @@ def spatial_slice(world: int) -> dict:
     del stage_ref, bundle_stage
     t0 = time.perf_counter()
     reports = run_processes(spatial_worker, world, timeout=300, start_method=WORKERS_START)
-    expected = {"windowed_nmf_slab": N_SHIFTS, "windowed_nmf_slab_bwd": N_SHIFTS, "prenorm_mlp": 1, "prenorm_mlp_bwd": 1}
-    halo_rows = sum(s for s in BRATS_SHIFTS if s)
-    sent = halo_rows * 2 * 128 * 128 * 32 * 4 * 5  # per process: forward a halo and rows back, backward two halos and rows back
+    # per process and mixer: pass A and pass B, a backward pass per shift and one tail; 4 exchanges (forward a halo
+    # and the routed factors back, backward two halos and the routed rows back)
+    expected = {"windowed_nmf_slab": 2, "windowed_nmf_slab_bwd": N_SHIFTS, "prenorm_mlp": 1, "prenorm_mlp_bwd": 1}
+    sent = exchange_bytes((2, 128 // world, 128, 128, 32), 4, 8, 8, BRATS_SHIFTS)
     launches = dict.fromkeys(kernel_counters(), 0)
     for rank, r in enumerate(reports):
         made = {k: v for k, v in r["counts"].items() if v}
         check(r["finite"], f"spatial rank {rank}: non-finite output or gradient")
-        check(made == expected and r["tail_launches"] == 6, f"spatial rank {rank}: launches {made}, tails {r['tail_launches']}")
+        check(made == expected and r["tail_launches"] == 1 and r["exchanges"] == 4,
+              f"spatial rank {rank}: launches {made}, tails {r['tail_launches']}, exchanges {r['exchanges']}")
         check(r["bytes_sent"] == sent, f"spatial rank {rank}: {r['bytes_sent']} bytes sent, expected {sent}")
         for k, v in r["counts"].items():
             launches[k] += v
@@ -734,7 +740,7 @@ def spatial_slice(world: int) -> dict:
     print(f"[spatial] stage 0 of brats23_network() on {world} slabs of {128 // world} rows ({r['backend']}), float32: forward+backward "
           f"{' / '.join(f'{q['seconds']:.4f}' for q in reports)} s per process, one-process stage on the whole volume "
           f"{r['whole_seconds']:.4f} s (warm-up {r['warmup_seconds']:.2f} s; {time.perf_counter() - t0:.1f} s with start-up), "
-          f"{sent / 1e6:.1f} MB sent per process, launches per process {expected} + 6 tails; gathered against the one-process stage: "
+          f"{sent / 1e6:.1f} MB sent per process in 4 exchanges, launches per process {expected} + 1 tail; gathered against the one-process stage: "
           f"y max_rel={r['y'][1]:.3e} (tol {KERNEL_RTOL['float32']:.1e}) dx max_rel={r['dx'][1]:.3e} (tol {K1_BWD_RTOL['float32']:.1e}) "
           f"parameter gradients summed over processes max_rel={r['params'][worst]:.3e} at {worst} (tol {K2_PARAM_RTOL:.1e}). "
           + shared_card_note(world))
@@ -809,9 +815,12 @@ def train_dp_slice(world: int, settings: dict, n_steps: int) -> dict:
 
 
 # The spatial step's cases (`[train tp]`): name -> (network factory, global batch, input channels, output channels,
-# volume side, patch, rows its shifts move along the first axis (the sum of their s1), steps after the warm-up).
-TP_CASES = {"factorizer_brats23": ("brats23_network", 2, 4, 3, 128, 8, 2 + 4 + 6, 2),
-            "factorizer_isles22": ("factorizer_isles22_network", 8, 2, 1, 64, 4, 1 + 2 + 3, 2)}
+# volume side, patch, shifts, steps after the warm-up).
+TP_CASES = {"factorizer_brats23": ("brats23_network", 2, 4, 3, 128, 8, BRATS_SHIFTS, 2),
+            "factorizer_isles22": ("factorizer_isles22_network", 8, 2, 1, 64, 4, (None, 1, 2, 3), 2)}
+FACTORIZER_WIDTHS = (32, 64, 128, 256, 512)  # encoder_width of both Factorizer bundles, stage by stage
+# K5's counters besides its launches, read per step.
+K5_IO = ("tail_launches", "exchanges", "bytes_sent")
 # The other model families' spatial step: bundle -> (its batch, its roi, steps after the warm-up, cuDNN's
 # timing search), each bundle's unedited network_def at full width in f32.  The CNNs take cuDNN's heuristics (its
 # search takes minutes for full-width 3-D f32 convolutions with TF32 off), SwinUNETR its search, as in [baselines].
@@ -820,22 +829,29 @@ TP_BUNDLES = {"deconver_brats23": (2, (128, 128, 128), 1, False), "nnunet_brats2
               "deconver_fives": (16, (512, 512), 1, False)}
 
 
-def tp_routes(side: int, patch: int, moved: int, world: int, itemsize: int = 4) -> dict:
-    """Per train step and process, the launches of the spatial step of a bundle's Factorizer on ``world`` slabs:
-    each of the 9 mixers (stages of side 1, 1/2 ... 1/16 and back up) runs K5, or K1 on the gathered tensor where its
-    slab of ``L`` rows holds no whole number of patches or where the all-gather sends fewer bytes, 2 (world - 1) L
-    rows, than K5's halos and routed rows, moved (3 + 2) rows in f32 (``FactMixer.gathers``); K2 in every block
-    tail either way."""
-    sides = [side >> i for i in range(5)] + [side >> i for i in range(3, -1, -1)]
+def tp_routes(batch: int, side: int, patch: int, shifts, world: int, itemsize: int = 4) -> tuple[dict, dict]:
+    """Per train step and process, the launches of the spatial step of a bundle's Factorizer on ``world`` slabs and
+    K5's other counters (``K5_IO``).  Each of the 9 mixers (stages of side 1, 1/2 ... 1/16 and back up, widths
+    ``FACTORIZER_WIDTHS``) runs K5, or K1 on the gathered tensor where its slab of ``L`` rows holds no whole number
+    of patches or where the all-gather sends fewer bytes, 2 (world - 1) L rows, than K5's exchanges would
+    (``exchange_bytes``, the rule of ``FactMixer.gathers``); K2 in every block tail either way.  A K5 mixer launches
+    pass A and pass B, a backward pass per shift and one tail, and enters 4 exchanges."""
+    from factorizer_tpu_torch.ops.kernels.windowed_sharded import exchange_bytes
 
-    def gathered(rows: int) -> bool:
-        return rows % patch != 0 or 2 * (world - 1) * rows * itemsize < moved * (3 * itemsize + 2 * max(itemsize, 4))
-
-    k1 = sum(gathered(s // world) for s in sides)
-    k5 = len(sides) - k1
-    return {"windowed_nmf_factors": k1, "windowed_nmf_reconstruct": k1, "windowed_nmf_bwd": k1 * N_SHIFTS,
-            "prenorm_mlp": N_BLOCKS, "prenorm_mlp_bwd": N_BLOCKS, "windowed_nmf_slab": k5 * N_SHIFTS,
-            "windowed_nmf_slab_bwd": k5 * N_SHIFTS}
+    levels = [(side >> i, FACTORIZER_WIDTHS[i]) for i in range(5)]
+    levels += [(side >> i, FACTORIZER_WIDTHS[i]) for i in range(3, -1, -1)]
+    k5 = sent = 0
+    for s, c in levels:
+        slab = (batch, s // world, s, s, c)
+        k5_bytes = exchange_bytes(slab, itemsize, 8, patch, shifts)
+        if slab[1] % patch == 0 and 2 * (world - 1) * s * batch * s * s * c * itemsize >= world * k5_bytes:
+            k5 += 1
+            sent += k5_bytes
+    k1 = len(levels) - k5
+    return ({"windowed_nmf_factors": k1, "windowed_nmf_reconstruct": k1, "windowed_nmf_bwd": k1 * N_SHIFTS,
+             "prenorm_mlp": N_BLOCKS, "prenorm_mlp_bwd": N_BLOCKS, "windowed_nmf_slab": 2 * k5,
+             "windowed_nmf_slab_bwd": k5 * N_SHIFTS},
+            {"tail_launches": k5, "exchanges": 4 * k5, "bytes_sent": sent})
 
 
 def gather_thinner_than_patch(self, x) -> bool:
@@ -847,9 +863,9 @@ def gather_thinner_than_patch(self, x) -> bool:
 @contextlib.contextmanager
 def exchange_timer(spent: dict):
     """Within the block, each exchange of the spatial step is timed (a synchronize before and after it) into
-    ``spent[label] = [seconds, calls]``: K5's halos and routed rows, the convolutions' halos (the stem's, every
-    k3's, Deconv's, the resize's), the norms' statistics (``slab_sum``, forward and backward), the gathered stages,
-    the loss's sums, the gradient all-reduce and the batch broadcast."""
+    ``spent[label] = [seconds, calls]``: K5's exchanges (halos, routed factors and rows), the convolutions' halos
+    (the stem's, every k3's, Deconv's, the resize's), the norms' statistics (``slab_sum``, forward and backward),
+    the gathered stages, the loss's sums, the gradient all-reduce and the batch broadcast."""
     import inspect
 
     import torch
@@ -859,7 +875,7 @@ def exchange_timer(spent: dict):
     import factorizer_tpu_torch.train.losses as losses
     import factorizer_tpu_torch.train.trainer as trainer
 
-    targets = [(k5, "ring_exchange", "K5 halos and routed rows"), (collectives, "_line_shift", "conv halos"),
+    targets = [(k5, "ring_exchange", "K5 exchanges"), (collectives, "_line_shift", "conv halos"),
                (collectives._SlabSum, "forward", "norm sums"), (collectives._SlabSum, "backward", "norm sums"),
                (collectives, "all_gather_cat", "gathers"), (losses, "all_reduce_sum", "loss sums"),
                (trainer, "_sum_grads", "gradient all-reduce"), (trainer, "broadcast_from_first", "batch broadcast")]
@@ -914,13 +930,15 @@ def train_tp_worker(rank: int, world: int, init_method: str, settings: dict, cel
 
     def timed_step(state, step, batch):
         reset_counters(counters)
-        windowed_nmf_multi_spatial.tail_launches = 0
+        for attr in K5_IO:
+            setattr(windowed_nmf_multi_spatial, attr, 0)
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         torch.cuda.synchronize()
-        return state, metrics, time.perf_counter() - t0, read_counters(counters), windowed_nmf_multi_spatial.tail_launches
+        return (state, metrics, time.perf_counter() - t0, read_counters(counters),
+                {attr: getattr(windowed_nmf_multi_spatial, attr) for attr in K5_IO})
 
     for name, (factory, b, c_in, c_out, side, _, _, n_steps) in TP_CASES.items():
         if cells is not None and name not in cells:
@@ -928,11 +946,11 @@ def train_tp_worker(rank: int, world: int, init_method: str, settings: dict, cel
         state = create_train_state(getattr(zoo_scripts, factory)(generator=torch.Generator().manual_seed(0)), **settings)
         step = make_train_step(state.model, mesh=mesh, spatial_axis="model")
         batch = synthetic_batch(b, c_in, c_out, side, seed=7)
-        run = {"losses": [], "norms": [], "seconds": [], "counts": [], "tails": [], "peak_memory": 0}
+        run = {"losses": [], "norms": [], "seconds": [], "counts": [], "k5_io": [], "peak_memory": 0}
         for i in range(1 + n_steps):
-            state, metrics, seconds, counts, tails = timed_step(state, step, batch)
-            for key, value in zip(("seconds", "counts", "tails", "losses", "norms"),
-                                  (seconds, counts, tails, metrics["loss"].item(), metrics["grad_norm"].item())):
+            state, metrics, seconds, counts, k5_io = timed_step(state, step, batch)
+            for key, value in zip(("seconds", "counts", "k5_io", "losses", "norms"),
+                                  (seconds, counts, k5_io, metrics["loss"].item(), metrics["grad_norm"].item())):
                 run[key].append(value)
             if i:
                 run["peak_memory"] = max(run["peak_memory"], torch.cuda.max_memory_allocated())
@@ -1023,7 +1041,7 @@ def train_tp_slice(world: int, settings: dict, keep: dict | None = None) -> dict
     keep["reports"], keep["one_process"] = reports, {}
     launches = dict.fromkeys(kernel_counters(), 0)
     lr = settings["lr"]
-    for name, (factory, b, c_in, c_out, side, patch, moved, n_steps) in TP_CASES.items():
+    for name, (factory, b, c_in, c_out, side, patch, shifts, n_steps) in TP_CASES.items():
         state = create_train_state(getattr(zoo_scripts, factory)(generator=torch.Generator().manual_seed(0)), **settings)
         step = make_train_step(state.model)
         batch = synthetic_batch(b, c_in, c_out, side, seed=7)
@@ -1040,7 +1058,7 @@ def train_tp_slice(world: int, settings: dict, keep: dict | None = None) -> dict
             ref_norms.append(metrics["grad_norm"].item())
         ref_peak = torch.cuda.max_memory_allocated()
         keep["one_process"][name] = {"losses": ref_losses, "seconds": ref_seconds[1:], "peak": ref_peak}
-        per_step = tp_routes(side, patch, moved, world)
+        per_step, k5_io = tp_routes(b, side, patch, shifts, world)
         for rank, report in enumerate(reports):
             r = report[name]
             for counts in r["counts"]:
@@ -1048,9 +1066,8 @@ def train_tp_slice(world: int, settings: dict, keep: dict | None = None) -> dict
                       f"train tp {name} rank {rank}: launches {counts}, expected {per_step}")
                 for k, v in counts.items():
                     launches[k] += v
-            # per K5 mixer and step: a forward and a backward tail for each shift that moves rows (all but the first)
-            check(all(t == 2 * (N_SHIFTS - 1) * per_step["windowed_nmf_slab"] // N_SHIFTS for t in r["tails"]),
-                  f"train tp {name} rank {rank}: K5 tail launches {r['tails']}")
+            # per K5 mixer and step: one tail, 4 exchanges and exchange_bytes of its slab
+            check(all(io == k5_io for io in r["k5_io"]), f"train tp {name} rank {rank}: K5 {r['k5_io']}, expected {k5_io}")
             check(r["losses"] == reports[0][name]["losses"] and r["norms"] == reports[0][name]["norms"],
                   f"train tp {name}: the processes report different metrics: {r['losses']} / {reports[0][name]['losses']}")
         r = reports[0][name]
@@ -1067,7 +1084,8 @@ def train_tp_slice(world: int, settings: dict, keep: dict | None = None) -> dict
               f"process, one-process step {statistics.mean(ref_seconds[1:]):.4f} s (after a {r['seconds'][0]:.2f} s warm-up "
               f"step); peak memory per process {' / '.join(f'{q[name]['peak_memory'] / 2**30:.2f}' for q in reports)} GiB, "
               f"one process {ref_peak / 2**30:.2f} GiB; loss {' -> '.join(f'{v:.6f}' for v in r['losses'])}; launches per "
-              f"step and process { {k: v for k, v in per_step.items() if v} } + {r['tails'][-1]} K5 tails; against the "
+              f"step and process { {k: v for k, v in per_step.items() if v} } + {k5_io['tail_launches']} K5 tails, "
+              f"{k5_io['exchanges']} K5 exchanges handed {k5_io['bytes_sent'] / 1e6:.1f} MB; against the "
               f"one-process steps: loss rel {loss_rel:.2e} (tol {TRAIN_RTOL['float32']['loss']:.0e}), grad norm rel "
               f"{norm_rel:.2e} (tol {TRAIN_RTOL['float32']['grad']:.0e}), parameters after {n_timed + 1} steps max |diff| "
               f"{diffs[worst].max().item():.2e} at {worst} (tol 2 lr per step = {2 * lr * (n_timed + 1):.1e}), share of "
@@ -1192,6 +1210,13 @@ def hosts_cards_slice(world: int, settings: dict, one_host: dict | None = None) 
                   and all(map(math.isfinite, r["losses"] + r["norms"])),
                   f"hosts {name} ({label}): the processes report {[q['losses'] for q in runs]}")
             total, spent = r["instrumented"]
+            k5_line = ""
+            if name in TP_CASES:
+                _, b, _, _, side, patch, shifts, _ = TP_CASES[name]
+                io = r["k5_io"][-1]
+                check(all(q["k5_io"][-1] == tp_routes(b, side, patch, shifts, world)[1] for q in runs),
+                      f"hosts {name} ({label}): K5 {[q['k5_io'][-1] for q in runs]}")
+                k5_line = f"K5 per step and process {io['exchanges']} exchanges handed {io['bytes_sent'] / 1e6:.1f} MB; "
             against = ""
             if one_host:
                 ref = one_host["one_process"][name]
@@ -1207,7 +1232,7 @@ def hosts_cards_slice(world: int, settings: dict, one_host: dict | None = None) 
                   f"(run_processes(hosts=2), {reports[0]['backend']}, {label}): "
                   f"{' / '.join(f'{statistics.mean(q['seconds'][1:]):.4f}' for q in runs)} s/step per process "
                   f"(warm-up {r['seconds'][0]:.2f} s), peak {' / '.join(f'{q['peak_memory'] / 2**30:.2f}' for q in runs)} "
-                  f"GiB; loss {' -> '.join(f'{v:.6f}' for v in r['losses'])} on every process; one more step on process "
+                  f"GiB; loss {' -> '.join(f'{v:.6f}' for v in r['losses'])} on every process; {k5_line}one more step on process "
                   f"0, {total:.4f} s with a synchronize around each exchange: "
                   + ", ".join(f"{k} {v[0]:.4f} s ({v[1]} calls)" for k, v in spent.items() if v[1])
                   + f", the rest {total - sum(v[0] for v in spent.values()):.4f} s" + against
@@ -1466,8 +1491,9 @@ def uneven_slabs_slice(world: int = UNEVEN_WORLD) -> dict:
     from factorizer_tpu_torch.ops.kernels import (
         depthwise_conv, depthwise_conv_dw, depthwise_conv_dw_plain, depthwise_conv_plain, prenorm_mlp,
         prenorm_mlp_backward, prenorm_mlp_backward_plain, prenorm_mlp_plain, windowed_nmf, windowed_nmf_backward,
-        windowed_nmf_multi_spatial_local,
+        windowed_nmf_multi_spatial, windowed_nmf_multi_spatial_local,
     )
+    from factorizer_tpu_torch.ops.kernels.windowed_sharded import exchange_bytes
     from factorizer_tpu_torch.parallel import run_processes
     from factorizer_tpu_torch.train.trainer import create_train_state, make_train_step
 
@@ -1520,6 +1546,8 @@ def uneven_slabs_slice(world: int = UNEVEN_WORLD) -> dict:
                   else ("depthwise_conv", "depthwise_conv_dw"))
         check(all(r["counts"][-1].get(k) for k in wanted), f"uneven slabs {label}: a kernel of {wanted} did not launch: "
                                                              f"{r['counts'][-1]}")
+        check(all(N_SHIFTS * c.get("windowed_nmf_slab", 0) == 2 * c.get("windowed_nmf_slab_bwd", 0) for c in r["counts"]),
+              f"uneven slabs {label}: K5 launches {r['counts']} are not pass A and pass B and a backward pass per shift")
         if bundle.startswith("deconver"):  # no gather: the same K3 launches a process as in one process
             check(r["counts"] == ref["counts"], f"uneven slabs {label}: launches {r['counts']}, one process {ref['counts']}")
         side = "x".join(map(str, roi))
@@ -1547,8 +1575,15 @@ def uneven_slabs_slice(world: int = UNEVEN_WORLD) -> dict:
     g = torch.randn(x.shape, device=dev, generator=gen)
     args = (u0, v0, 8, 8, BRATS_SHIFTS, "hals", NUM_ITERS)
     leaves = [t.contiguous().requires_grad_(True) for t in x.split(rows, 1)]
+    k5 = windowed_nmf_multi_spatial
+    before = (k5.launches, k5.backward_launches, k5.tail_launches, k5.exchanges, k5.bytes_sent)
     ys = windowed_nmf_multi_spatial_local(leaves, *args)
     dxs = torch.autograd.grad(ys, leaves, list(g.split(rows, 1)))
+    made = tuple(now - then for now, then in zip((k5.launches, k5.backward_launches, k5.tail_launches, k5.exchanges,
+                                                  k5.bytes_sent), before))
+    want = (2 * len(rows), len(BRATS_SHIFTS) * len(rows), len(rows), 4,
+            len(rows) * exchange_bytes((2, 32, 128, 128, 32), 4, 8, 8, BRATS_SHIFTS))
+    check(made == want, f"uneven slabs: K5 launches, backward launches, tails, exchanges, bytes {made}, expected {want}")
     y, dx = torch.cat([t.detach() for t in ys], 1), torch.cat(dxs, 1)
     with torch.inference_mode():
         whole, whole_dx = windowed_nmf(x, *args), windowed_nmf_backward(x, g, *args)
@@ -1558,7 +1593,8 @@ def uneven_slabs_slice(world: int = UNEVEN_WORLD) -> dict:
     ring_ms = cuda_time_ms(lambda: windowed_nmf_multi_spatial_local([t.detach() for t in leaves], *args), warmup=1, runs=5)
     k1_ms = cuda_time_ms(lambda: windowed_nmf(x, *args), warmup=1, runs=5)
     print(f"[uneven slabs] K5 on a ring of 3 slabs of 48 / 48 / 32 rows of (2,128^3,32) float32, {len(BRATS_SHIFTS)} "
-          f"shifts: forward and dx equal to K1 on the whole volume bit for bit; ring {ring_ms:.3f} ms, K1 {k1_ms:.3f} ms")
+          f"shifts: forward and dx equal to K1 on the whole volume bit for bit; ring {ring_ms:.3f} ms, K1 {k1_ms:.3f} ms; "
+          f"launches (pass A and B, backward, tails) {made[:3]}, {made[3]} exchanges handed {made[4] / 1e6:.1f} MB")
     del x, g, leaves, ys, dxs, y, dx, whole, whole_dx
     # K2 forward and backward at the block tails' slab shapes of the Factorizer's stage 0 on 48 / 48 / 32: (2,48x128^2,32)
     # and (2,32x128^2,32), H = 128, against their plain versions (dx at K2's f32 tolerance, the parameter gradients,
@@ -2298,7 +2334,7 @@ def bundle_programs(root, data: dict, train_epoch_s: float, torchrun) -> dict:
     deconver_tp = torchrun("deconver_brats23", "train_tp.yaml", {**data, "output_dir": str(root / "deconver_tp"),
                                                                 "max_epochs": 1, "val_interval": 0}, ports[1])
     hosts = factorizer_tp()
-    record, per_step = hosts["record"], tp_routes(128, 8, 2 + 4 + 6, 2)
+    record, per_step = hosts["record"], tp_routes(2, 128, 8, BRATS_SHIFTS, 2)[0]
     check(re.fullmatch(r"backend gloo \(1 CUDA device\(s\) for 2 process\(es\)\), world size 2, 2 host\(s\): "
                        r"\S+/node 0 1 process\(es\), \S+/node 1 1 process\(es\)", hosts["distributed"]) is not None,
           f"hosts: the processes joined as {hosts['distributed']!r}")
@@ -3041,6 +3077,7 @@ def main() -> None:
         windowed_nmf_multi_spatial_plain, windowed_nmf_plain, windowed_nmf_reconstruct, windowed_nmf_reconstruct_plain,
     )
     from factorizer_tpu_torch.models.factorizer import Factorizer
+    from factorizer_tpu_torch.ops.kernels.windowed_sharded import exchange_sizes
     from factorizer_tpu_torch.ops.kernels.depthwise_conv import (
         ROUTES, TILE, _launch_dw, _launch_forward, conv_plan, tile_min_blocks,
     )
@@ -4119,24 +4156,27 @@ def main() -> None:
     torch.backends.cudnn.benchmark = True
 
     phase_done("29 options")
-    # 18. K5 in one process: every slab of a ring held as a list, the halos wired by hand.  The plain version is
+    # 18. K5 in one process: every slab of a ring held as a list, the exchanges wired by hand.  The plain version is
     # the whole ring in torch operations; K1 on the gathered volume is the second reference, bit for bit: the slab
-    # kernel runs K1's block, the routed rows are f32 and the passes sum in K1's order.
+    # passes are K1's passes on the slab, the routed factors and rows are f32 and the passes sum in K1's order.
     torch.backends.cudnn.benchmark = False
     s1_first, s1_none = ((2, 3, 1), None, 6), ((0, 2, 4), (0, 6, 2))
-    k5_cases = [(2, 128, 32, 8, dt, "hals", four, n, None) for dt in (torch.float32, torch.bfloat16) for n in (4, 2)]
+    k5_cases = [(2, 128, 32, 8, dt, "hals", four, n, None, 8) for dt in (torch.float32, torch.bfloat16) for n in (4, 2)]
     k5_cases += [
-        (2, 64, 64, 8, torch.float32, "hals", four, 4, None),
-        (2, 32, 128, 8, torch.float32, "hals", four, 4, None),
-        (8, 64, 32, 4, torch.float32, "hals", isles_shifts, 4, None),  # factorizer_isles22: the run-time-size instance
-        (2, 32, 128, 8, torch.float32, "mu", four, 4, None),
-        (2, 32, 128, 8, torch.float32, "hals", s1_first, 4, None),     # the first pass already routes rows
-        (2, 32, 128, 8, torch.float32, "hals", s1_none, 4, None),      # dims 2 and 3 alone: no byte leaves a slab
-        (2, 32, 128, 8, torch.float32, "hals", four, 1, None),         # a ring of one
-        (2, 32, 128, 8, torch.float32, "hals", four, 4, 2),            # num_grad_steps: the backward alone differs
-        (2, 64, 64, 8, torch.float16, "hals", four, 4, None),          # the f16 instance, one ring
+        (2, 64, 64, 8, torch.float32, "hals", four, 4, None, 8),
+        (2, 32, 128, 8, torch.float32, "hals", four, 4, None, 8),
+        (8, 64, 32, 4, torch.float32, "hals", isles_shifts, 4, None, 8),  # factorizer_isles22: the (8, 4) instance
+        (2, 32, 64, 4, torch.float32, "hals", isles_shifts, 4, None, 4),  # head_dim 4: the shared-memory solve
+        (2, 32, 128, 8, torch.float32, "mu", four, 4, None, 8),
+        (2, 32, 128, 8, torch.float32, "hals", s1_first, 4, None, 8),     # the first pass already routes rows
+        (2, 32, 128, 8, torch.float32, "hals", s1_none, 4, None, 8),      # dims 2 and 3 alone: no byte leaves a slab
+        (2, 32, 128, 8, torch.float32, "hals", ten, 2, None, 8),          # more shifts than one launch takes
+        (2, 32, 128, 8, torch.float32, "hals", four, 1, None, 8),         # a ring of one
+        (2, 32, 128, 8, torch.float32, "hals", four, 4, 2, 8),            # num_grad_steps: the backward alone differs
+        (2, 64, 64, 8, torch.float16, "hals", four, 4, None, 8),          # the f16 instance, one ring
     ]
     k5 = windowed_nmf_multi_spatial
+    u0_by_d = {8: u0, 4: torch.rand(4, 1, device=dev, generator=gen.manual_seed(4))}
 
     def k5_inputs(b, s, c, p, dt, solver, n):
         x = torch.relu(torch.randn(b, s, s, s, c, device=dev, generator=gen.manual_seed(s + c + n)))
@@ -4146,55 +4186,56 @@ def main() -> None:
         g = torch.randn(x.shape, device=dev, generator=gen).to(dt)
         return x, g, [t.contiguous() for t in x.chunk(n, 1)], [t.contiguous() for t in g.chunk(n, 1)]
 
-    def k5_label(b, s, c, p, dt, solver, shifts, n, grad_steps) -> str:
-        return (f"({b},{s}^3,{c}){'' if p == 8 else f' p={p}'} {dname(dt)} {solver} shifts={list(shifts)} as {n} slab(s) of "
-                f"{s // n} rows" + (f" num_grad_steps={grad_steps}" if grad_steps is not None else ""))
+    def k5_label(b, s, c, p, dt, solver, shifts, n, grad_steps, d) -> str:
+        return (f"({b},{s}^3,{c}){'' if p == 8 else f' p={p}'}{'' if d == 8 else f' d={d}'} {dname(dt)} {solver} "
+                f"shifts={list(shifts)} as {n} slab(s) of {s // n} rows"
+                + (f" num_grad_steps={grad_steps}" if grad_steps is not None else ""))
 
-    def rows_moved(shifts, p) -> list:
-        """Per shift that moves rows between slabs, how many: its first component modulo the patch, where not 0."""
-        firsts = [0 if sh is None else (sh if isinstance(sh, int) else sh[0]) % p for sh in shifts]
-        return [s1 for s1 in firsts if s1]
+    def k5_io(x, n, d, p, shifts, backward) -> tuple[int, int, int]:
+        """Per ring: the exchanges, the bytes handed to them (exchange_sizes per slab: the forward's halo and routed
+        factors, or the backward's two halos and routed rows) and the f32 words of the routed data."""
+        halo, factors, rows = exchange_sizes(x.shape, d, p, shifts)
+        routed = rows if backward else factors
+        return 2 * bool(halo), n * ((2 if backward else 1) * halo * x.element_size() + 4 * routed), n * routed
 
-    def k5_work(x, shifts, p, backward, grad_steps=NUM_ITERS, mu=False):
-        """K1's work on the whole volume, and per row that moves: the halo read (x's dtype; the backward reads
-        two), the routed row written in f32 and read again by the neighbour."""
+    def k5_work(x, n, d, p, shifts, backward, grad_steps=NUM_ITERS, mu=False):
+        """K1's work on the whole volume, and per slab the halo read (x's dtype; the backward reads two) and the
+        routed factors or rows written in f32 and read again by the neighbour."""
         n_bytes, flops = k1_work(x, len(shifts), backward, grad_steps, mu)
-        row_elems = x.numel() // x.shape[1]
-        return n_bytes + sum(rows_moved(shifts, p)) * row_elems * ((2 if backward else 1) * x.element_size() + 8), flops
+        halo = exchange_sizes(x.shape, d, p, shifts)[0]
+        return n_bytes + n * (2 if backward else 1) * halo * x.element_size() + 8 * k5_io(x, n, d, p, shifts, backward)[2], flops
 
     with torch.inference_mode():
-        for case in (c for c in k5_cases if c[-1] is None):
-            b, s, c, p, dt, solver, shifts, n, _ = case
+        for case in (c for c in k5_cases if c[-2] is None):
+            b, s, c, p, dt, solver, shifts, n, _, d = case
             x, _, xs, _ = k5_inputs(b, s, c, p, dt, solver, n)
-            args = (u0, v0[p], 8, p, shifts, solver, NUM_ITERS)
-            before = (k5.launches, k5.tail_launches, k5.bytes_sent)
+            args = (u0_by_d[d], v0[p], d, p, shifts, solver, NUM_ITERS)
+            before = (k5.launches, k5.tail_launches, k5.exchanges, k5.bytes_sent)
             out = torch.cat(windowed_nmf_multi_spatial_local(xs, *args), 1)
-            made = (k5.launches - before[0], k5.tail_launches - before[1], k5.bytes_sent - before[2])
+            made = (k5.launches - before[0], k5.tail_launches - before[1], k5.exchanges - before[2],
+                    k5.bytes_sent - before[3])
             ref = torch.cat(windowed_nmf_multi_spatial_plain(xs, *args), 1)
             whole = windowed_nmf(x, *args)
             torch.cuda.synchronize()
             err, rel = compare(out, ref)
             tol = KERNEL_RTOL[dname(dt)]
             label = k5_label(*case)
-            moving = rows_moved(shifts, p)
-            sent = n * sum(moving) * (x.numel() // x.shape[1]) * (x.element_size() + 4)
+            exchanges, sent, _ = k5_io(x, n, d, p, shifts, backward=False)
             check(out.dtype == dt and out.shape == x.shape, f"K5 {label}: wrong output")
             check(rel <= tol, f"K5 {label}: max_abs {err:.3e} max_rel {rel:.3e} above {tol:.1e}")
             check(torch.equal(out, whole), f"K5 {label}: differs from K1 on the whole volume by {compare(out, whole)[0]:.3e}")
-            check(made == (n * len(shifts), n * len(moving), sent),
-                  f"K5 {label}: launches, tail launches, bytes sent {made}, expected {(n * len(shifts), n * len(moving), sent)}")
+            check(made == (2 * n, 0, exchanges, sent),
+                  f"K5 {label}: launches, tail launches, exchanges, bytes sent {made}, expected {(2 * n, 0, exchanges, sent)}")
             ms = cuda_time_ms(lambda: windowed_nmf_multi_spatial_local(xs, *args))
             k1_ms = cuda_time_ms(lambda: windowed_nmf(x, *args))
             plain_ms = cuda_time_ms(lambda: windowed_nmf_multi_spatial_plain(xs, *args), warmup=1, runs=5)
-            n_bytes, flops = k5_work(x, shifts, p, backward=False)
+            n_bytes, flops = k5_work(x, n, d, p, shifts, backward=False)
             bound = bound_ms(n_bytes, flops, dt, "float32")
-            passes = n * len(shifts)
-            per_shift = sent / n / max(len(moving), 1)
             print(f"[K5] {label}: max_abs={err:.3e} max_rel={rel:.3e} (tol {tol:.1e}), equal to K1 on the whole volume bit for bit; "
-                  f"ring {ms:.3f} ms = {ms / passes:.4f} ms per slab pass (K1 {k1_ms:.3f} ms = {k1_ms / passes:.4f} per pass and slab's "
-                  f"share) plain {plain_ms:.3f} ms bound {bound[0]:.3f} ms ({bound[1]}; {bound[0] / passes:.4f} ms per slab pass); "
-                  f"sent per slab {sent / n / 1e6:.2f} MB, {per_shift / 1e6:.2f} MB per moving shift "
-                  f"(= {1e3 * per_shift / NVLINK_BYTES:.4f} ms at NVLink's published 450 GB/s each way, not measured)")
+                  f"ring {ms:.3f} ms = {ms / k1_ms:.2f}x K1's {k1_ms:.3f} ms, {made[0]} launches (pass A and pass B a slab), "
+                  f"plain {plain_ms:.3f} ms bound {bound[0]:.3f} ms ({bound[1]}); sent per slab {sent / n / 1e6:.3f} MB in "
+                  f"{exchanges} exchanges (= {1e3 * sent / n / NVLINK_BYTES:.4f} ms at NVLink's published 450 GB/s each way, "
+                  f"not measured)")
             record("windowed_nmf_slab", err, label, ms, plain_ms, bound)
             del x, xs, out, ref, whole
             torch.cuda.empty_cache()
@@ -4213,15 +4254,19 @@ def main() -> None:
     # 19. K5 backward: autograd through the slab kernels against autograd through the plain version, and against
     # K1's backward kernel on the whole volume, bit for bit.
     for case in k5_cases:
-        b, s, c, p, dt, solver, shifts, n, grad_steps = case
+        b, s, c, p, dt, solver, shifts, n, grad_steps, d = case
         x, g, xs, gs = k5_inputs(b, s, c, p, dt, solver, n)
-        args = (u0, v0[p], 8, p, shifts, solver, NUM_ITERS, 1e-16, grad_steps)
+        args = (u0_by_d[d], v0[p], d, p, shifts, solver, NUM_ITERS, 1e-16, grad_steps)
         leaves = [t.requires_grad_(True) for t in xs]
-        before = (k5.backward_launches, k5.tail_launches)
-        out = torch.cat(torch.autograd.grad(windowed_nmf_multi_spatial_local(leaves, *args), leaves, gs), 1)
-        moving = rows_moved(shifts, p)
-        made = (k5.backward_launches - before[0], k5.tail_launches - before[1])
-        check(made == (n * len(shifts), 2 * n * len(moving)), f"K5 bwd {k5_label(*case)}: launches {made}")
+        ys = windowed_nmf_multi_spatial_local(leaves, *args)
+        before = (k5.backward_launches, k5.tail_launches, k5.exchanges, k5.bytes_sent)
+        out = torch.cat(torch.autograd.grad(ys, leaves, gs, retain_graph=True), 1)
+        made = (k5.backward_launches - before[0], k5.tail_launches - before[1], k5.exchanges - before[2],
+                k5.bytes_sent - before[3])
+        exchanges, sent, _ = k5_io(x, n, d, p, shifts, backward=True)
+        want = (n * len(shifts), n * (exchanges > 0), exchanges, sent)
+        check(made == want, f"K5 bwd {k5_label(*case)}: launches, tail launches, exchanges, bytes sent {made}, "
+                            f"expected {want}")
         ref = torch.cat(torch.autograd.grad(windowed_nmf_multi_spatial_plain(leaves, *args), leaves, gs), 1)
         whole = windowed_nmf_backward(x, g, *args)
         torch.cuda.synchronize()
@@ -4232,7 +4277,6 @@ def main() -> None:
         check(rel <= tol, f"K5 bwd {label}: max_abs {err:.3e} max_rel {rel:.3e} above {tol:.1e}")
         check(torch.equal(out, whole), f"K5 bwd {label}: differs from K1 bwd on the whole volume by {compare(out, whole)[0]:.3e}")
         del out, ref, whole
-        ys = windowed_nmf_multi_spatial_local(leaves, *args)
         ms = cuda_time_ms(lambda: torch.autograd.grad(ys, leaves, gs, retain_graph=True))
         k1_ms = cuda_time_ms(lambda: windowed_nmf_backward(x, g, *args))
 
@@ -4240,12 +4284,12 @@ def main() -> None:
             torch.autograd.grad(windowed_nmf_multi_spatial_plain(leaves, *args), leaves, gs)
 
         plain_ms = cuda_time_ms(plain_forward_backward, warmup=1, runs=3)
-        n_bytes, flops = k5_work(x, shifts, p, True, grad_steps or NUM_ITERS, solver == "mu")
+        n_bytes, flops = k5_work(x, n, d, p, shifts, True, grad_steps or NUM_ITERS, solver == "mu")
         bound = bound_ms(n_bytes, flops, dt, "float32")
-        passes = n * len(shifts)
         print(f"[K5 bwd] {label}: max_abs={err:.3e} max_rel={rel:.3e} (tol {tol:.1e}), equal to K1 bwd on the whole volume bit for "
-              f"bit; ring {ms:.3f} ms = {ms / passes:.4f} ms per slab pass (K1 bwd {k1_ms:.3f} ms = {k1_ms / passes:.4f}) "
-              f"plain forward+backward {plain_ms:.3f} ms bound {bound[0]:.3f} ms ({bound[1]}; {bound[0] / passes:.4f} ms per slab pass)")
+              f"bit; ring {ms:.3f} ms = {ms / k1_ms:.2f}x K1 bwd's {k1_ms:.3f} ms, {made[0]} pass and {made[1]} tail launches, "
+              f"plain forward+backward {plain_ms:.3f} ms bound {bound[0]:.3f} ms ({bound[1]}); sent per slab "
+              f"{sent / n / 1e6:.3f} MB in {exchanges} exchanges")
         record("windowed_nmf_slab_bwd", err, label, ms, plain_ms, bound)
         del x, g, xs, gs, leaves, ys, args
         torch.cuda.empty_cache()

@@ -40,8 +40,8 @@ nmf_reconstruct_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, T* 
                            int mu, int num_iters, int grad_steps, float eps) {
   const ftt::FlatMatrix mat(M, N, blockIdx.x);
   extern __shared__ float smem[];
-  ftt::rank1_nmf_bwd_block<T, ftt::FlatMatrix, kThreads>(mat, x, g, nullptr, nullptr, nullptr, dx, nullptr, u0, v0,
-                                                         mu, num_iters, grad_steps, eps, /*first=*/1, /*last=*/1,
+  ftt::rank1_nmf_bwd_block<T, ftt::FlatMatrix, kThreads>(mat, x, g, nullptr, nullptr, nullptr, dx, nullptr, nullptr,
+                                                         u0, v0, mu, num_iters, grad_steps, eps, /*first=*/1, /*last=*/1,
                                                          /*scale=*/1.f, smem);
 }
 
@@ -58,8 +58,8 @@ nmf_reconstruct_bwd_group_kernel(const T* __restrict__ x, const T* __restrict__ 
   if (m >= n_mats) return;  // a whole group leaves together
   const ftt::FlatMatrix mat(8, G::kP3, m);
   float* sm = smem + group * ftt::rank1_group_bwd_smem_floats(G::kP3, 8, num_iters, G::kWarps);
-  ftt::rank1_group_bwd<T, ftt::FlatMatrix, 8, kP>(mat, x, g, nullptr, nullptr, nullptr, dx, nullptr, u0, v0, mu,
-                                                  num_iters, grad_steps, eps, /*first=*/1, /*last=*/1, /*scale=*/1.f,
+  ftt::rank1_group_bwd<T, ftt::FlatMatrix, 8, kP>(mat, x, g, nullptr, nullptr, nullptr, dx, nullptr, nullptr, u0, v0,
+                                                  mu, num_iters, grad_steps, eps, /*first=*/1, /*last=*/1, /*scale=*/1.f,
                                                   sm, lane_g);
 }
 

@@ -4,8 +4,9 @@
 // batch, `FlatMatrix`).  The two differ only in where element e of the
 // matrix lies in device memory, which the `Addr` argument answers.  K5's backward
 // (windowed_nmf_slab_bwd.cu) is K1's on a slab: a third addressing, under
-// which some elements are read from halo buffers and written to a send
-// buffer (`load_at`, `store_at` in windowed_nmf.cuh).
+// which some elements are read from halo buffers (`load_at`) and the values
+// for the left neighbour's rows and for the slab's last rows go to the
+// pass's send and edge slots (`Window::store_place`, `slab_store`).
 //
 // With X the P3 x d matrix of the block (row q, column di), G the cotangent
 // at the same places, and the solve u in R^d, v in R^P3:
@@ -36,6 +37,20 @@
 
 namespace ftt {
 
+// A slab pass's value `y` for row q's channel `di` (K5's backward): into the
+// sum over passes in the slab, or into the pass's send or edge slot.
+template <typename Addr, typename T>
+__device__ __forceinline__ void slab_store(const Addr& win, int q, int di, float y, float* acc, T* out, float* send,
+                                           float* own, int first, int last, float scale) {
+  int where;
+  const int64_t o = win.store_place(q, where) + di;
+  if (where == 0) {
+    store_pass(acc, out, o, y, first, last, scale);
+  } else {
+    (where == 1 ? send : own)[o] = y;
+  }
+}
+
 // Shared-memory floats of one thread group of the register-resident backward
 // (rank1_group_bwd): the iterates v_t (P3 each) and u_t, a_u and b_u per
 // iteration, and group_sum9's buffer.
@@ -62,8 +77,8 @@ template <typename T, typename Addr, int kD, int kP>
 __device__ __forceinline__ void rank1_group_bwd(
     const Addr& win, const T* __restrict__ x, const T* __restrict__ g, const T* __restrict__ x_halo,
     const T* __restrict__ g_halo, float* __restrict__ acc, T* __restrict__ out, float* __restrict__ send,
-    const float* __restrict__ u0, const float* __restrict__ v0, int mu, int num_iters, int grad_steps, float eps,
-    int first, int last, float scale, float* sm, int lane_g) {
+    float* __restrict__ own, const float* __restrict__ u0, const float* __restrict__ v0, int mu, int num_iters,
+    int grad_steps, float eps, int first, int last, float scale, float* sm, int lane_g) {
   using G = Group<kD, kP>;
   constexpr int R = G::kRows, P3 = G::kP3;
   const int nT = num_iters;
@@ -257,17 +272,24 @@ __device__ __forceinline__ void rank1_group_bwd(
     }
   }
 
-  // dX rows into the sum over shift passes (a slab's halo rows into `send`, in f32).  A flat matrix is a
-  // pass of its own (first = last, scale 1), whose rows go straight to `out`.
+  // dX rows into the sum over shift passes (on a slab, the left neighbour's rows into `send` and the slab's
+  // last H rows into `own`, in f32).  A flat matrix is a pass of its own (first = last, scale 1), whose rows go
+  // straight to `out`.
 #pragma unroll
   for (int k = 0; k < R; ++k) {
-    const int64_t o = win.row_offset(lane_g + G::kThreads * k);
+    const int q = lane_g + G::kThreads * k;
     if constexpr (Addr::kStrided) {
-      store8_strided(out + o, win.stride, D[k]);
-    } else if (Addr::kHalo && o < 0) {
-      store8(send + (-1 - o), D[k]);
+      store8_strided(out + win.row_offset(q), win.stride, D[k]);
+    } else if constexpr (Addr::kHalo) {
+      int where;
+      const int64_t o = win.store_place(q, where);
+      if (where == 0) {
+        store_pass8(acc, out, o, D[k], first, last, scale);
+      } else {
+        store8((where == 1 ? send : own) + o, D[k]);
+      }
     } else {
-      store_pass8(acc, out, o, D[k], first, last, scale);
+      store_pass8(acc, out, win.row_offset(q), D[k], first, last, scale);
     }
   }
 }
@@ -285,14 +307,15 @@ inline size_t rank1_bwd_smem_floats(int P3, int d, int T, int threads) {
 // `win` gives d, P3 and locate(e, q, di) -> offset for e in [0, P3 * d);
 // consecutive e should be consecutive addresses.  The block has kThreads
 // threads, kThreads >= d.  `smem` holds rank1_bwd_smem_floats(...) floats.
-// The result goes through store_at (windowed_nmf.cuh); `x_halo`, `g_halo`
-// and `send` are read and written only under a slab addressing.
+// The result goes through store_pass (windowed_nmf.cuh), on a slab through
+// slab_store; `x_halo`, `g_halo`, `send` and `own` are read and written only
+// under a slab addressing.
 template <typename T, typename Addr, int kThreads>
 __device__ __forceinline__ void rank1_nmf_bwd_block(
     const Addr& win, const T* __restrict__ x, const T* __restrict__ g, const T* __restrict__ x_halo,
     const T* __restrict__ g_halo, float* __restrict__ acc, T* __restrict__ out, float* __restrict__ send,
-    const float* __restrict__ u0, const float* __restrict__ v0, int mu, int num_iters, int grad_steps,
-    float eps, int first, int last, float scale, float* smem) {
+    float* __restrict__ own, const float* __restrict__ u0, const float* __restrict__ v0, int mu, int num_iters,
+    int grad_steps, float eps, int first, int last, float scale, float* smem) {
   const int d = win.d, P3 = win.P3, nT = num_iters;
   const int ld = d + 1;
   float* X = smem;                  // [P3][ld]
@@ -445,7 +468,11 @@ __device__ __forceinline__ void rank1_nmf_bwd_block(
   for (int e = tid; e < n_elem; e += kThreads) {
     int q, di;
     const int64_t o = win.locate(e, q, di);
-    store_at<Addr>(acc, out, send, o, D[q * ld + di], first, last, scale);
+    if constexpr (Addr::kHalo) {
+      slab_store(win, q, di, D[q * ld + di], acc, out, send, own, first, last, scale);
+    } else {
+      store_pass(acc, out, o, D[q * ld + di], first, last, scale);
+    }
   }
 }
 

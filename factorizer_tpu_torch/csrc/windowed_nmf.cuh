@@ -27,21 +27,22 @@ struct Shifts {
 // shifts and masks; 0 takes the runtime d / p.
 //
 // kSlab: the tensor is one slab of S1 rows of a volume cut along its first
-// spatial axis.  A window row that starts at -sh1 then reaches into the left
-// neighbour's last sh1 rows, which the caller holds in a halo buffer
-// (B, sh1, S2, S3, C): `offset` returns -1 - (offset in that buffer) for such
-// an element, and the pass's value for it goes to a send buffer of the same
-// shape (`load_at`, `store_at`).  Dims 2 and 3 are whole and wrap in place.
+// spatial axis (K5).  A window row that starts at -sh1 then reaches into the
+// left neighbour's last sh1 rows, which the caller holds in a halo buffer of
+// the neighbour's last H rows (B, H, S2, S3, C), H >= sh1 the largest shift
+// of the call: `row_offset` returns -1 - (offset in that buffer) for such a
+// row (`load_at`, `group_load_rows`).  K5's backward places its values by
+// `store_place`.  Dims 2 and 3 are whole and wrap in place.
 template <int kD, int kP, bool kSlab = false>
 struct Window {
   static constexpr bool kHalo = kSlab;
   static constexpr bool kStrided = false;  // a row's channels are consecutive
-  int d, p, P3, S1, S2, S3, C, c0, o1, o2, o3, h1;
+  int d, p, P3, S1, S2, S3, C, c0, o1, o2, o3, h1, H;
   int64_t b;
 
   __device__ Window(int d_rt, int p_rt, int S1_, int S2_, int S3_, int C_, int sh1, int sh2, int sh3,
-                    int64_t m = -1)
-      : d(kD > 0 ? kD : d_rt), p(kP > 0 ? kP : p_rt), S1(S1_), S2(S2_), S3(S3_), C(C_), h1(sh1) {
+                    int64_t m = -1, int halo_rows = 0)
+      : d(kD > 0 ? kD : d_rt), p(kP > 0 ? kP : p_rt), S1(S1_), S2(S2_), S3(S3_), C(C_), h1(sh1), H(halo_rows) {
     P3 = p * p * p;
     const int heads = C / d;
     const int G1 = S1 / p, G2 = S2 / p, G3 = S3 / p;
@@ -53,20 +54,50 @@ struct Window {
     b = blk;
   }
 
-  // Where channel 0 of row q = (a1, a2, a3), a1-major, lies.  The rolled
+  // The volume coordinates of row q = (a1, a2, a3), a1-major.  The rolled
   // coordinate i maps to the volume coordinate (i - s) mod S for both the
   // read and the write; i - s > -p >= -S, so one conditional add wraps it.
-  __device__ int64_t row_offset(int q) const {
+  // On a slab, c1 stays below 0 for a row of the left neighbour.
+  __device__ void coords(int q, int& c1, int& c2, int& c3) const {
     const int a1 = q / (p * p), a2 = (q / p) % p, a3 = q % p;
-    int c1 = o1 + a1, c2 = o2 + a2, c3 = o3 + a3;
+    c1 = o1 + a1;
+    c2 = o2 + a2;
+    c3 = o3 + a3;
     c2 += c2 < 0 ? S2 : 0;
     c3 += c3 < 0 ? S3 : 0;
-    if (kSlab) {
-      if (c1 < 0) return -1 - ((((b * h1 + c1 + h1) * S2 + c2) * S3 + c3) * C + c0);
-    } else {
-      c1 += c1 < 0 ? S1 : 0;
+    if (!kSlab) c1 += c1 < 0 ? S1 : 0;
+  }
+
+  // Channel 0 of row r, dims 2 and 3 at (c2, c3), in a buffer of `rows` rows a sample.
+  __device__ int64_t at(int rows, int r, int c2, int c3) const {
+    return (((b * rows + r) * S2 + c2) * S3 + c3) * C + c0;
+  }
+
+  // Where channel 0 of row q lies (a slab's halo places count down from -1).
+  __device__ int64_t row_offset(int q) const {
+    int c1, c2, c3;
+    coords(q, c1, c2, c3);
+    if (kSlab && c1 < 0) return -1 - at(H, c1 + H, c2, c3);
+    return at(S1, c1, c2, c3);
+  }
+
+  // K5's backward: where a pass's value for row q goes.  `where` 0: the
+  // slab's rows [0, S1 - H), in the slab; 1: a row of the left neighbour, in
+  // the pass's send slot (B, sh1, S2, S3, C); 2: one of the slab's last H rows,
+  // in the pass's edge slot (B, H, S2, S3, C), which the ordered tail sums.
+  __device__ int64_t store_place(int q, int& where) const {
+    int c1, c2, c3;
+    coords(q, c1, c2, c3);
+    if (c1 < 0) {
+      where = 1;
+      return at(h1, c1 + h1, c2, c3);
     }
-    return (((b * S1 + c1) * S2 + c2) * S3 + c3) * C + c0;
+    if (c1 >= S1 - H) {
+      where = 2;
+      return at(H, c1 - (S1 - H), c2, c3);
+    }
+    where = 0;
+    return at(S1, c1, c2, c3);
   }
 
   // Element e of the window is (q, di) with di fastest.  Only a slab's
@@ -112,9 +143,8 @@ struct FlatMatrix {
 // One shift pass's value `y` for the element at `o`: the first pass starts
 // the f32 scratch `acc`, the middle ones add to it, the last scales the sum
 // and casts it into `out`.  The passes are separate launches on one stream,
-// so the sum has a fixed order and needs no atomics.  The forward's callers
-// (K5's slab pass) hand in a product already rounded by __fmul_rn, which no
-// FMA can absorb, so the chain rounds as K1's reconstruct pass does.
+// so the sum has a fixed order and needs no atomics.  K5's ordered tail
+// (windowed_nmf_slab_bwd.cu) repeats this chain for a slab's last rows.
 template <typename T>
 __device__ __forceinline__ void store_pass(float* acc, T* out, int64_t o, float y, int first, int last,
                                            float scale) {
@@ -137,21 +167,6 @@ __device__ __forceinline__ float load_at(const T* __restrict__ x, const T* __res
     if (o < 0) return to_float(halo[-1 - o]);
   }
   return to_float(x[o]);
-}
-
-// One shift pass's value for the place `o`: into the sum over passes, or,
-// where the element belongs to the left neighbour, into `send` in f32 (the
-// neighbour takes it through `store_pass` itself, see windowed_nmf_slab.cu).
-template <typename Addr, typename T>
-__device__ __forceinline__ void store_at(float* acc, T* out, float* send, int64_t o, float y, int first, int last,
-                                         float scale) {
-  if constexpr (Addr::kHalo) {
-    if (o < 0) {
-      send[-1 - o] = y;
-      return;
-    }
-  }
-  store_pass(acc, out, o, y, first, last, scale);
 }
 
 // Eight consecutive values as f32: 32 bytes of f32 or 16 of bf16 or f16, in
@@ -403,8 +418,8 @@ __device__ __forceinline__ void group_load_rows(const Addr& win, const T* __rest
 // rows X[k], v[k] of its own rows q = lane + kThreads * k.  X v reduces across
 // the group (group_sum9, one barrier an iteration); X^T u needs no reduction.
 // Every product and sum is an explicit fmaf / add, so the solve gives the
-// same bits wherever it is inlined (K1's factors pass, K5's slab pass, K4's
-// rank-1 forward).
+// same bits wherever it is inlined (K1's factors pass, on a volume or on a
+// slab, and K4's rank-1 forward).
 template <typename T, typename Addr, int kD, int kP>
 __device__ __forceinline__ void rank1_group_solve(const Addr& win, const T* __restrict__ x,
                                                   const T* __restrict__ halo, const float* __restrict__ u0,

@@ -47,8 +47,9 @@ windowed_nmf_shift_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, 
                               int grad_steps, float eps, int first, int last, float scale) {
   const ftt::Window<0, 0> win(d_rt, p_rt, S1, S2, S3, C, sh1, sh2, sh3);
   extern __shared__ float smem[];
-  ftt::rank1_nmf_bwd_block<T, ftt::Window<0, 0>, kThreads>(win, x, g, nullptr, nullptr, acc, out, nullptr, u0, v0,
-                                                             mu, num_iters, grad_steps, eps, first, last, scale, smem);
+  ftt::rank1_nmf_bwd_block<T, ftt::Window<0, 0>, kThreads>(win, x, g, nullptr, nullptr, acc, out, nullptr, nullptr,
+                                                             u0, v0, mu, num_iters, grad_steps, eps, first, last,
+                                                             scale, smem);
 }
 
 // The compile-time sizes: a thread group per matrix (Group<kD, kP>), kGroups to a block.
@@ -65,8 +66,9 @@ windowed_nmf_shift_bwd_group_kernel(const T* __restrict__ x, const T* __restrict
   if (m >= n_mats) return;  // a whole group leaves together
   const ftt::Window<kD, kP> win(kD, kP, S1, S2, S3, C, sh1, sh2, sh3, m);
   float* sm = smem + group * ftt::rank1_group_bwd_smem_floats(G::kP3, kD, num_iters, G::kWarps);
-  ftt::rank1_group_bwd<T, ftt::Window<kD, kP>, kD, kP>(win, x, g, nullptr, nullptr, acc, out, nullptr, u0, v0, mu,
-                                                       num_iters, grad_steps, eps, first, last, scale, sm, lane_g);
+  ftt::rank1_group_bwd<T, ftt::Window<kD, kP>, kD, kP>(win, x, g, nullptr, nullptr, acc, out, nullptr, nullptr, u0,
+                                                       v0, mu, num_iters, grad_steps, eps, first, last, scale, sm,
+                                                       lane_g);
 }
 
 template <typename T, int kD, int kP>

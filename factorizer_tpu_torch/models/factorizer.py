@@ -47,8 +47,8 @@ JAX package's, filtered by the keywords its class accepts.
 With ``factorize_options={"spatial_mesh": mesh, "spatial_axis": name}`` a
 windowed mixer runs on a slab of the volume, cut along the first spatial axis
 over that axis of the process mesh, through K5
-(``ops.kernels.windowed_nmf_multi_spatial``: the slab kernels and a halo
-exchange); ``spatial_size`` stays the whole volume's.  Everything else in a
+(``ops.kernels.windowed_nmf_multi_spatial``: the slab kernels, a halo and
+the routed factors); ``spatial_size`` stays the whole volume's.  Everything else in a
 block is per voxel and needs nothing; a stage's positional embedding is cut
 to the slab's rows.  The whole model runs on slabs under
 ``parallel.slabs.on_slabs`` (the spatial train step): there each windowed
@@ -78,7 +78,7 @@ from ..layers.basic import (
 )
 from ..layers.pos_embed import PositionalEmbedding
 from ..ops.kernels import windowed_nmf, windowed_nmf_multi_spatial
-from ..ops.kernels.windowed_nmf import _norm_shift
+from ..ops.kernels.windowed_sharded import exchange_bytes
 from ..ops.reshape import Matricize, SWMatricize
 from ..parallel.slabs import Slabs
 from ..utils.helpers import build_spec, has_args, partialize, spec_accepts
@@ -267,22 +267,26 @@ class FactMixer(nn.Module):
         process enters K5's ring while another gathers.  Gathered where some
         slab holds no whole number of patches, or where the all-gather and its
         backward send fewer bytes than K5's exchanges would.  Per process K5
-        sends, for each shift that moves ``s1`` rows, ``s1`` rows of the slab
-        in the forward and two sets in the backward (x and its cotangent, in
-        the slab's dtype), and ``s1`` routed rows back in each direction (f32);
-        the gather sends a slab of the mean rows to each of the ``n - 1``
-        others, forward and backward.  On 2 slabs that gathers every stage of
-        side 32 or less in ``factorizer_brats23`` (16 or less in
-        ``factorizer_isles22``).  Both routes give the same values (K5 equals
-        K1 bit for bit on the card): the rule moves time and memory only.
+        sends, in a forward and its backward, the last ``H`` rows of its slab
+        three times (``H`` the largest ``s1``: x in the forward, x and its
+        cotangent in the backward, in the slab's dtype), the forward's routed
+        factors and the backward's routed rows (``s1`` rows a shift), both in
+        f32 (``ops.kernels.windowed_sharded.exchange_bytes``); the gather sends
+        a slab of the mean rows to each of the ``n - 1`` others, forward and
+        backward.  In f32 on 2 and 4 slabs that runs K5 on the stages of side
+        32 and more in ``factorizer_brats23`` and of side 16 and more in
+        ``factorizer_isles22``, and gathers the others.  Both routes give the
+        same values (K5 equals K1 bit for bit on the card): the rule moves
+        time and memory only.
         """
-        patch, shifts = self.windowed[1:]
-        slabs, item = self.slabs, x.element_size()
+        head_dim, patch, shifts = self.windowed
+        slabs = self.slabs
         whole = slabs.whole_rows(x.shape[1])
         if any(rows % patch for rows in slabs.cut.sizes(whole)):
             return True
-        moved = sum(_norm_shift(shift, patch)[0] for shift in shifts)
-        return 2 * (slabs.n - 1) * whole * item < slabs.n * moved * (3 * item + 2 * max(item, 4))
+        row_bytes = x.numel() // x.shape[1] * x.element_size()
+        k5 = exchange_bytes(x.shape, x.element_size(), head_dim, patch, shifts)
+        return 2 * (slabs.n - 1) * whole * row_bytes < slabs.n * k5
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.act(self.in_proj(x))  # elementwise, so it commutes with the fold

@@ -23,7 +23,9 @@ from .windowed_sharded import (
     windowed_nmf_multi_spatial_local,
     windowed_nmf_multi_spatial_plain,
     windowed_nmf_slab_backward_pass,
-    windowed_nmf_slab_pass,
+    windowed_nmf_slab_factors,
+    windowed_nmf_slab_reconstruct,
+    windowed_nmf_slab_tail,
 )
 
 __all__ = [
@@ -34,5 +36,6 @@ __all__ = [
     "windowed_nmf", "windowed_nmf_plain", "windowed_nmf_backward", "windowed_nmf_backward_plain",
     "windowed_nmf_factors", "windowed_nmf_factors_plain", "windowed_nmf_reconstruct", "windowed_nmf_reconstruct_plain",
     "windowed_nmf_multi_spatial", "windowed_nmf_multi_spatial_local", "windowed_nmf_multi_spatial_plain",
-    "windowed_nmf_slab_pass", "windowed_nmf_slab_backward_pass",
+    "windowed_nmf_slab_factors", "windowed_nmf_slab_reconstruct", "windowed_nmf_slab_backward_pass",
+    "windowed_nmf_slab_tail",
 ]

@@ -76,14 +76,15 @@ _SIGNATURES = {
     "ftt_nmf_reconstruct_bwd": [_P] * 5 + [_I, _L] + [_I] * 5 + [_F, _I, _P],
     # rank, M, N, elt, num_iters, n_mats, backward, route, out (8 long longs)
     "ftt_nmf_plan_query": [_I] * 5 + [_L, _I, _I, ctypes.POINTER(ctypes.c_longlong)],
-    # x, halo, acc, out, send, u0, v0, dtype, B, L, S2, S3, C, d, p, sh1, sh2, sh3, mu, num_iters, eps, first,
-    # last, scale, stream
-    "ftt_windowed_nmf_slab_shift": [_P] * 7 + [_I] * 13 + [_F, _I, _I, _F, _P],
-    # x, g, x_halo, g_halo, acc, out, send, u0, v0, dtype, B, L, S2, S3, C, d, p, sh1, sh2, sh3, mu, num_iters,
-    # grad_steps, eps, first, last, scale, stream
-    "ftt_windowed_nmf_slab_shift_bwd": [_P] * 9 + [_I] * 14 + [_F, _I, _I, _F, _P],
-    # recv, acc, out, dtype, B, L, R, sh1, first, last, scale, stream
-    "ftt_windowed_nmf_slab_tail": [_P] * 3 + [_I, _I, _I, _L, _I, _I, _I, _F, _P],
+    # x, halo, U, V, route, u0, v0, dtype, B, L, S2, S3, C, d, p, H, n_shifts, shifts, mu, num_iters, eps, stream
+    "ftt_windowed_nmf_slab_factors": [_P] * 7 + [_I] * 10 + [_P, _I, _I, _F, _P],
+    # U, V, route, acc, out, dtype, B, L, S2, S3, C, d, p, n_shifts, shifts, stream
+    "ftt_windowed_nmf_slab_reconstruct": [_P] * 5 + [_I] * 9 + [_P, _P],
+    # x, g, x_halo, g_halo, acc, out, send, own, u0, v0, dtype, B, L, S2, S3, C, d, p, H, sh1, sh2, sh3, mu,
+    # num_iters, grad_steps, eps, first, last, scale, stream
+    "ftt_windowed_nmf_slab_shift_bwd": [_P] * 10 + [_I] * 15 + [_F, _I, _I, _F, _P],
+    # own, recv, out, dtype, B, L, R, H, n_shifts, s1, scale, stream
+    "ftt_windowed_nmf_slab_tail": [_P] * 3 + [_I, _I, _I, _L, _I, _I, _P, _F, _P],
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # csrc/common.cuh's DType

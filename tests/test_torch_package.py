@@ -148,7 +148,7 @@ def test_slab_kernels_stay_off_torch_arithmetic():
         for node in ast.walk(fn)
         if isinstance(node, ast.Attribute) and node.attr in ("cat", "roll", "matmul", "einsum", "stack", "reshape", "permute")
     }
-    assert users == {("_padded", "cat"), ("windowed_nmf_multi_spatial_plain", "cat"), ("_launch", "reshape")}
+    assert users == {("_padded", "cat"), ("windowed_nmf_multi_spatial_plain", "cat")}
     import setuptools
 
     found = setuptools.find_packages(str(PACKAGE.parent), include=["factorizer_tpu*", "factorizer_tpu_torch*"])

@@ -19,8 +19,16 @@ from factorizer_tpu_torch.ops.kernels import (
     windowed_nmf_multi_spatial_plain,
     windowed_nmf_plain,
 )
-from factorizer_tpu_torch.ops.kernels.windowed_sharded import SlabSum, windowed_nmf_slab_pass, windowed_nmf_slab_tail
-from factorizer_tpu_torch.parallel import initialize_distributed, make_mesh, run_processes
+from factorizer_tpu_torch.ops.kernels import windowed_sharded
+from factorizer_tpu_torch.ops.kernels.windowed_sharded import (
+    SlabSum,
+    exchange_bytes,
+    windowed_nmf_slab_backward_pass,
+    windowed_nmf_slab_factors,
+    windowed_nmf_slab_reconstruct,
+    windowed_nmf_slab_tail,
+)
+from factorizer_tpu_torch.parallel import Slabs, initialize_distributed, make_mesh, run_processes
 from factorizer_tpu_torch.utils.weights import flax_path
 
 torch.set_num_threads(1)
@@ -55,6 +63,21 @@ def _data(dtype=np.float32):
 def _slabs(x: np.ndarray, n: int, dtype=None, grad: bool = False) -> list:
     t = torch.from_numpy(x) if dtype is None else torch.from_numpy(x).to(dtype)
     return [c.contiguous().requires_grad_(grad) for c in t.chunk(n, 1)]
+
+
+def _firsts(shifts) -> list:
+    """Each shift's rows moved between slabs, its first component modulo the patch."""
+    return [0 if s is None else (s if isinstance(s, int) else s[0]) % P for s in shifts]
+
+
+def _sent(shifts, forward: bool, backward: bool, item: int = 4) -> int:
+    """Bytes one slab of ``SHAPE`` / 4 hands to K5's exchanges: a halo of the largest s1 rows (the backward's of x
+    and g), the routed factors (u and v's entries on the s1 rows of each first-row window) and the routed rows, f32."""
+    row = int(np.prod(SHAPE[2:]))
+    firsts = _firsts(shifts)
+    factors = (SHAPE[2] // P) * (SHAPE[3] // P) * (SHAPE[4] // D) * sum(D + s1 * P**2 for s1 in firsts if s1)
+    return (forward * (max(firsts) * row * item + 4 * factors)
+            + backward * (2 * max(firsts) * row * item + 4 * sum(firsts) * row))
 
 
 def _jax_sharded(x, u0, v0, shifts, solver="hals", num_grad_steps=None, cotangent=None):
@@ -131,20 +154,121 @@ def test_local_ring_f64_equals_k1_on_the_gathered_volume(ring, solver, num_grad_
 
 @pytest.mark.parametrize("shifts", list(SHIFT_LISTS))
 def test_shift_lists_and_bytes_sent(shifts):
-    """Every shift list: the local ring equals K1's plain version on the whole volume bit for bit in f32, the plain
-    ring too; rows travel only for shifts with s1 != 0, s1 halo rows in x's dtype out and s1 rows in f32 back."""
+    """Every shift list: the local ring equals K1's plain version on the whole volume bit for bit in f32, output and
+    dx, the plain ring too; bytes travel only where a shift has s1 != 0: the forward one halo of the largest s1 rows
+    out and the routed factors back, the backward the halos of x and g out and the routed f32 rows back."""
     x, u0, v0 = _data()
     u0, v0 = torch.from_numpy(u0), torch.from_numpy(v0)
     sh = SHIFT_LISTS[shifts]
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal(SHAPE).astype(np.float32))
+    xs = _slabs(x, 4, grad=True)
     before = windowed_nmf_multi_spatial.bytes_sent
-    y = torch.cat(windowed_nmf_multi_spatial_local(_slabs(x, 4), u0, v0, D, P, sh, "hals", ITERS), 1)
-    sent = windowed_nmf_multi_spatial.bytes_sent - before
-    rows = sum((s if isinstance(s, int) else s[0]) % P for s in sh if s is not None)
-    assert sent == 4 * 2 * rows * 4 * np.prod(SHAPE[2:])  # 4 slabs x (halo + routed rows) x rows x 4 bytes x (S2 S3 C)
-    ref = windowed_nmf_plain(torch.from_numpy(x), u0, v0, D, P, sh, "hals", ITERS)
-    np.testing.assert_array_equal(y.numpy(), ref.numpy())
+    y = torch.cat(windowed_nmf_multi_spatial_local(xs, u0, v0, D, P, sh, "hals", ITERS), 1)
+    forward = windowed_nmf_multi_spatial.bytes_sent - before
+    y.backward(g)
+    backward = windowed_nmf_multi_spatial.bytes_sent - before - forward
+    assert (forward, backward) == (4 * _sent(sh, True, False), 4 * _sent(sh, False, True))
+    whole = torch.from_numpy(x).requires_grad_(True)
+    ref = windowed_nmf_plain(whole, u0, v0, D, P, sh, "hals", ITERS)
+    ref.backward(g)
+    np.testing.assert_array_equal(y.detach().numpy(), ref.detach().numpy())
+    np.testing.assert_array_equal(torch.cat([t.grad for t in xs], 1).numpy(), whole.grad.numpy())
     plain = torch.cat(windowed_nmf_multi_spatial_plain(_slabs(x, 4), u0, v0, D, P, sh, "hals", ITERS), 1)
-    np.testing.assert_array_equal(plain.numpy(), ref.numpy())
+    np.testing.assert_array_equal(plain.numpy(), ref.detach().numpy())
+
+
+@pytest.mark.parametrize("shifts", list(SHIFT_LISTS))
+def test_bf16_ring_equals_k1_bit_for_bit(shifts):
+    """bf16 slabs, every shift list: the ring's output and dx equal ``windowed_nmf_plain``'s and its autograd's on the
+    whole volume bit for bit (the routed factors and rows are f32 and the passes sum in the same order)."""
+    x, u0, v0 = _data()
+    u0, v0 = torch.from_numpy(u0), torch.from_numpy(v0)
+    sh = SHIFT_LISTS[shifts]
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal(SHAPE).astype(np.float32)).bfloat16()
+    xs = _slabs(x, 4, torch.bfloat16, grad=True)
+    y = torch.cat(windowed_nmf_multi_spatial_local(xs, u0, v0, D, P, sh, "hals", ITERS), 1)
+    y.backward(g)
+    whole = torch.from_numpy(x).bfloat16().requires_grad_(True)
+    ref = windowed_nmf_plain(whole, u0, v0, D, P, sh, "hals", ITERS)
+    ref.backward(g)
+    assert y.dtype == torch.bfloat16 and whole.grad.dtype == torch.bfloat16
+    np.testing.assert_array_equal(y.detach().float().numpy(), ref.detach().float().numpy())
+    np.testing.assert_array_equal(torch.cat([t.grad for t in xs], 1).float().numpy(), whole.grad.float().numpy())
+
+
+@pytest.mark.parametrize("shifts", list(SHIFT_LISTS))
+def test_exchanges_per_mixer(shifts, monkeypatch):
+    """A mixer's forward makes 2 exchanges (the halo out, the routed factors back) and its backward 2 (the halos of
+    x and g out, the routed rows back); none where no shift moves rows.  Counted in the local ring's exchange."""
+    x, u0, v0 = _data()
+    calls = []
+
+    def counting(tensors, forward):
+        calls.append(forward)
+        return ring(tensors, forward)
+
+    ring = windowed_sharded._local_ring
+    monkeypatch.setattr(windowed_sharded, "_local_ring", counting)
+    xs = _slabs(x, 4, grad=True)
+    before = windowed_nmf_multi_spatial.exchanges
+    y = torch.cat(windowed_nmf_multi_spatial_local(xs, torch.from_numpy(u0), torch.from_numpy(v0), D, P,
+                                                   SHIFT_LISTS[shifts], "hals", ITERS), 1)
+    forward = list(calls)
+    y.sum().backward()
+    moves = any(_firsts(SHIFT_LISTS[shifts]))
+    assert forward == ([True, False] if moves else [])
+    assert calls[len(forward):] == ([True, False] if moves else [])
+    assert windowed_nmf_multi_spatial.exchanges - before == len(calls)
+
+
+@pytest.mark.parametrize("ring", [2, 4])
+def test_ordered_tail_keeps_pass_order(ring):
+    """s1_first (the first pass routes rows, the second does not): on rings of 2 and 4, dx in f32 equals autograd
+    through ``windowed_nmf_plain`` on the whole volume bit for bit, the slabs' last rows summed by the tail in the
+    passes' order like every other row."""
+    x, u0, v0 = _data()
+    u0, v0 = torch.from_numpy(u0), torch.from_numpy(v0)
+    sh = SHIFT_LISTS["s1_first"]
+    g = torch.from_numpy(np.random.default_rng(7).standard_normal(SHAPE).astype(np.float32))
+    xs = _slabs(x, ring, grad=True)
+    torch.cat(windowed_nmf_multi_spatial_local(xs, u0, v0, D, P, sh, "hals", ITERS), 1).backward(g)
+    whole = torch.from_numpy(x).requires_grad_(True)
+    windowed_nmf_plain(whole, u0, v0, D, P, sh, "hals", ITERS).backward(g)
+    np.testing.assert_array_equal(torch.cat([t.grad for t in xs], 1).numpy(), whole.grad.numpy())
+
+
+class _Line:
+    """One axis of ``n`` processes seen from the first: all that ``FactMixer.gathers`` reads of a mesh."""
+
+    def __init__(self, n: int) -> None:
+        self.n = n
+
+    def axis_size(self, axis: str) -> int:
+        return self.n
+
+    def axis_index(self, axis: str) -> int:
+        return 0
+
+
+@pytest.mark.parametrize("world,whole,gathered", [(2, 32, False), (2, 8, True), (4, 32, False), (4, 16, False)])
+def test_gather_rule_counts_the_bytes_sent(world, whole, gathered):
+    """``FactMixer.gathers`` weighs K5's bytes as the exchanges count them: a small mixer's bytes per slab
+    (``exchange_bytes``) equal ``bytes_sent`` of a forward and backward on a local ring, and the rule gathers where
+    the all-gather's bytes fall below those counted (on 2 slabs of one patch each; on 4 slabs never)."""
+    sw = {**SW, "shifts": list(SHIFT_LISTS["s1_first"])}
+    kw = dict(reshape=(ftt.SWMatricize, sw), factorize_kwargs=dict(rank=1, num_iters=ITERS, init_method="uniform"))
+    x, u0, v0 = _data()
+    mixer = ftt.FactMixer(8, 8, (whole, 16, 16), **kw)
+    mixer.slabs = Slabs(_Line(world), "model")
+    xs = _slabs(x[:, :whole], world, grad=True)
+    before = windowed_nmf_multi_spatial.bytes_sent
+    y = torch.cat(windowed_nmf_multi_spatial_local(xs, torch.from_numpy(u0), torch.from_numpy(v0), *mixer.windowed,
+                                                   "hals", ITERS), 1)
+    y.sum().backward()
+    counted = windowed_nmf_multi_spatial.bytes_sent - before
+    assert world * exchange_bytes(xs[0].shape, 4, *mixer.windowed) == counted
+    gather = 2 * (world - 1) * whole * xs[0][0, 0].numel() * 4
+    assert mixer.gathers(xs[0].detach()) == (gather < counted) == gathered
 
 
 def test_bf16_band():
@@ -166,17 +290,27 @@ def test_bf16_band():
 
 
 def test_passes_on_cpu_are_plain_and_count_nothing():
-    """A CPU slab takes the plain pass: no library is loaded, no launch counted; a pass visits each row once."""
+    """CPU slabs take the plain passes: no library is loaded, no launch counted.  Pass A gives K1's factors of the
+    slab and the routed factors; pass B takes what arrived; a backward pass fills the body, its edge slot and its send
+    slot, and the tail the slab's last rows."""
     x, u0, v0 = _data()
-    slab, left = _slabs(x, 2)[1], _slabs(x, 2)[0]
+    u0, v0 = torch.from_numpy(u0), torch.from_numpy(v0)
+    slab, left = _slabs(x, 2)
+    shifts = ((3, 1, 0), None)
     counts = (windowed_nmf_multi_spatial.launches, windowed_nmf_multi_spatial.backward_launches,
               windowed_nmf_multi_spatial.tail_launches)
-    total = SlabSum(slab, 1)
-    send = windowed_nmf_slab_pass(slab, left[:, -3:].contiguous(), total, torch.from_numpy(u0), torch.from_numpy(v0),
-                                  D, P, (3, 1, 0), "hals", ITERS)
-    assert send.shape == (1, 3, 16, 16, 8) and send.dtype == torch.float32 and total.i == 0
-    windowed_nmf_slab_tail(total, torch.full_like(send, 7.0), 3)
-    assert total.i == 1 and bool((total.out[:, -3:] == 7).all()) and not bool((total.out[:, :-3] == 7).any())
+    U, V, route = windowed_nmf_slab_factors(slab, left[:, -3:].contiguous(), u0, v0, D, P, shifts, "hals", ITERS)
+    assert U.shape == (2, 1, 4 * 4 * 4, 2, D) and V.shape == (2, 1, 64, 2, P**3)
+    assert route.shape == (4 * 4 * 2 * (D + 3 * P**2),) and route.dtype == torch.float32
+    y = windowed_nmf_slab_reconstruct(U, V, route, slab.shape, slab.dtype, D, P, shifts)
+    assert y.shape == slab.shape and y.dtype == slab.dtype
+    total = SlabSum(slab, [(3, 1, 0), (0, 0, 0)], plain=True)
+    halos = torch.stack([left[:, -3:], left[:, -3:]])
+    windowed_nmf_slab_backward_pass(slab, slab, halos, total, 1, u0, v0, D, P, "hals", ITERS, grad_steps=ITERS)
+    windowed_nmf_slab_backward_pass(slab, slab, halos, total, 0, u0, v0, D, P, "hals", ITERS, grad_steps=ITERS)
+    assert total.i == 2 and total.send.shape == (3 * 16 * 16 * 8,)
+    windowed_nmf_slab_tail(total, torch.full_like(total.send, 7.0))
+    assert bool((total.own[0][:, :] == 7).all()) and bool(torch.isfinite(total.out).all())
     assert counts == (windowed_nmf_multi_spatial.launches, windowed_nmf_multi_spatial.backward_launches,
                       windowed_nmf_multi_spatial.tail_launches)
     assert ftt.ops.kernels.build._state["lib"] is None
@@ -236,8 +370,7 @@ def test_four_gloo_processes_equal_the_local_ring(ring_of_four, what):
     for rank, (y, dx, sent) in enumerate(results):
         got, want = (y, ys[rank].detach()) if what == "output" else (dx, xs[rank].grad)
         np.testing.assert_array_equal(got.numpy(), want.numpy())
-        rows = sum((s if isinstance(s, int) else s[0]) % P for s in shifts if s is not None)
-        assert sent == (2 + 3) * rows * 4 * np.prod(SHAPE[2:])  # forward: halo, rows back; backward: two halos, rows back
+        assert sent == _sent(shifts, True, True)  # forward: halo, factors back; backward: two halos, rows back
 
 
 def _load_block(block, variables):
