@@ -133,7 +133,9 @@ Phases, one or more result lines each:
      choose the CNNs' convolutions, its timing search (benchmark mode, as SegmentationTrainer runs) SwinUNETR's and
      UNETR's.  s/volume, s/step, peak memory; every launch counter stays 0.
  25. (run after 21) the spatial train step, train_tp.yaml's: two processes on the one card, make_train_step(model,
-     mesh=model_parallel_mesh(), spatial_axis="model"): factorizer_brats23's network at batch 2 x 128^3 on slabs of 64
+     mesh=model_parallel_mesh(), spatial_axis="model") on a train state sharded over the model axis as train_tp.yaml's
+     trainer holds it (create_train_state(mesh=, model_axis="model"): JAX's param_leaf_rule at 2**14, the weights
+     gathered for each step, AdamW on this process's part): factorizer_brats23's network at batch 2 x 128^3 on slabs of 64
      rows and factorizer_isles22's at 8 x 64^3 on slabs of 32 (1 warm-up and 2 steps each), f32;
      launches per step and process by kernel (K5 on the mixers on slabs, K1 on the gathered ones, K2 in every tail;
      K5's tails, exchanges and bytes sent), loss, gradient norm and parameters against the one-process steps on the whole volume as in 21;
@@ -145,14 +147,24 @@ Phases, one or more result lines each:
      step on the same batch, s/step and peak memory per process beside the one-process step's, launches per step and
      process equal to the one-process step's (54 K3 forward and dx, 27 K3 dw for a Deconver), one more step with each
      exchange timed (the convolutions' halos, the norms' slab sums, the gathers, the loss's sums, the gradient
-     all-reduce).  Its launches are in the kernels line.
+     all-reduce, the weight all-gather and the gradient reduce-scatter, with their bytes).  Each cell prints the
+     leaves sharded and the bytes of parameters and AdamW state held between steps per process; factorizer_brats23 and
+     deconver_brats23 run their steps in turns in the same worker, sharded, with nothing sharded, sharded again:
+     s/step, peak memory, bytes held, the instrumented step's collectives, and the losses and gradient norms (the
+     Factorizer's parameters too) of the sharded run against the other (the f32 band of 21).  Then factorizer_brats23
+     with model_axis and no spatial step (1 warm-up and 1 step, every process the whole batch on gathered weights):
+     launches as one process's, loss against the one-process steps.  Its launches are in the kernels line.
  26. the data-parallel bundle programs: factorizer_brats23's and deconver_brats23's train.yaml + train_multidevice.yaml
      for 1 epoch each through `python -m torch.distributed.run --nproc_per_node 2 -m factorizer_tpu_torch.bundle run`
      on phase 23's cases (each process its 2 of the 4 training cases): exit 0, each process's epoch loss equal, one
-     checkpoint, written by the primary; s/epoch beside train.yaml's first epoch in one process.
+     checkpoint, written by the primary; s/epoch beside train.yaml's first epoch in one process.  deconver_brats23's
+     runs alone, factorizer_brats23's beside 27 and 32.
  27. the spatial bundle programs: deconver_brats23's train.yaml + train_tp.yaml for 1 epoch the same way (2 spatial
-     steps on the 4 cases, no validation), beside factorizer_brats23's, which runs as phase 32.  26 and 27 run inside
-     23's directory and are left out of the kernels line.
+     steps on the 4 cases, no validation), beside factorizer_brats23's, which runs as phase 32; each process reports
+     the parameters its state holds sharded (at least one under train_tp.yaml, none under train_multidevice.yaml).
+     Both spatial programs' checkpoints are whole, in the one-process format (every model entry and AdamW moment at
+     its whole shape), and load through zoo_scripts.load_model_checkpoint; deconver_brats23's inference.yaml runs
+     over its checkpoint.  26 and 27 run inside 23's directory and are left out of the kernels line.
  28. (run after 17) the rest of the factorization engine, selected by network_def keys: factorizer_brats23's unedited
      train.yaml network_def through the port's ConfigParser with the bundle's seed (full width, 128^3, f32) under one
      override set at a time: (a) init_method: nndsvd, (b) solver: nnls, (c) solver: [hals-0, mu-1], (d) factorize:
@@ -860,31 +872,52 @@ def gather_thinner_than_patch(self, x) -> bool:
     return x.shape[1] % self.windowed[1] != 0
 
 
+def _grad_bytes(params, *_, **__) -> int:
+    return sum(p.grad.numel() * p.grad.element_size() for p in params if p.grad is not None)
+
+
+def _flat_bytes(flat, mesh, axis) -> int:
+    return flat.numel() * flat.element_size() * mesh.axis_size(axis)
+
+
+def _flat_bytes_in(flat, *_) -> int:
+    return flat.numel() * flat.element_size()
+
+
 @contextlib.contextmanager
 def exchange_timer(spent: dict):
     """Within the block, each exchange of the spatial step is timed (a synchronize before and after it) into
-    ``spent[label] = [seconds, calls]``: K5's exchanges (halos, routed factors and rows), the convolutions' halos
-    (the stem's, every k3's, Deconv's, the resize's), the norms' statistics (``slab_sum``, forward and backward),
-    the gathered stages, the loss's sums, the gradient all-reduce and the batch broadcast."""
+    ``spent[label] = [seconds, calls, bytes]``: K5's exchanges (halos, routed factors and rows), the convolutions'
+    halos (the stem's, every k3's, Deconv's, the resize's), the norms' statistics (``slab_sum``, forward and
+    backward), the gathered stages, the loss's sums, the gradient all-reduce, the batch broadcast, and a sharded
+    state's weight all-gather and gradient reduce-scatter.  Bytes are counted for the gradient all-reduce, the
+    all-gather and the reduce-scatter: the buffer each call reduces or assembles (``n`` times a flat shard buffer
+    for the all-gather)."""
     import inspect
 
     import torch
 
     import factorizer_tpu_torch.ops.kernels.windowed_sharded as k5
     import factorizer_tpu_torch.parallel.collectives as collectives
+    import factorizer_tpu_torch.parallel.sharding as sharding
     import factorizer_tpu_torch.train.losses as losses
     import factorizer_tpu_torch.train.trainer as trainer
 
-    targets = [(k5, "ring_exchange", "K5 exchanges"), (collectives, "_line_shift", "conv halos"),
-               (collectives._SlabSum, "forward", "norm sums"), (collectives._SlabSum, "backward", "norm sums"),
-               (collectives, "all_gather_cat", "gathers"), (losses, "all_reduce_sum", "loss sums"),
-               (trainer, "_sum_grads", "gradient all-reduce"), (trainer, "broadcast_from_first", "batch broadcast")]
+    targets = [(k5, "ring_exchange", "K5 exchanges", None), (collectives, "_line_shift", "conv halos", None),
+               (collectives._SlabSum, "forward", "norm sums", None), (collectives._SlabSum, "backward", "norm sums", None),
+               (collectives, "all_gather_cat", "gathers", None), (losses, "all_reduce_sum", "loss sums", None),
+               (trainer, "_sum_grads", "gradient all-reduce", _grad_bytes),
+               (trainer, "broadcast_from_first", "batch broadcast", None),
+               (sharding, "_all_gather_flat", "weight all-gather", _flat_bytes),
+               (sharding, "_reduce_scatter_flat", "gradient reduce-scatter", _flat_bytes_in)]
     saved = []
-    for owner, name, label in targets:
+    for owner, name, label, size in targets:
         fn = getattr(owner, name)
-        spent[label] = [0.0, 0]
+        spent[label] = [0.0, 0, 0]
 
-        def timed(*args, _fn=fn, _label=label, **kwargs):
+        def timed(*args, _fn=fn, _label=label, _size=size, **kwargs):
+            if _size is not None:
+                spent[_label][2] += _size(*args, **kwargs)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = _fn(*args, **kwargs)
@@ -902,13 +935,35 @@ def exchange_timer(spent: dict):
             setattr(owner, name, raw)
 
 
+def gathered(state):
+    """A block in which a sharded state's model holds its whole weights (collective on entry); else nothing."""
+    return state.shards.gathered() if state.shards is not None else contextlib.nullcontext()
+
+
+def whole_parameters(state) -> dict:
+    """The state's parameters, whole, on the host (collective where the state is sharded)."""
+    with gathered(state):
+        return {k: p.detach().cpu() for k, p in state.model.named_parameters()}
+
+
+# The cells that `[train tp]` also runs with nothing sharded, in the same worker after the sharded run, and the
+# rule's threshold that shards nothing (above every leaf).
+WHOLE_TURNS = ("factorizer_brats23", "deconver_brats23")
+NOTHING_SHARDED = 2**62
+
+
 def train_tp_worker(rank: int, world: int, init_method: str, settings: dict, cells=None, environ=None) -> dict:
     """The spatial step (``make_train_step(model, mesh=model_parallel_mesh(), spatial_axis="model")``) on this
-    process's slabs: ``TP_CASES`` in turn, 1 warm-up and the case's steps each; launches per step, losses, norms,
-    seconds, peak memory.  After factorizer_brats23's steps: one more step with its exchanges timed, the loss of a
-    forward under each gather rule, and a step under each, :func:`gather_thinner_than_patch` then the rule.
-    Then ``TP_BUNDLES`` the same way, each with one more step with its exchanges timed.  ``cells``: only the cases
-    and bundles named, without the gather rules; ``environ``: set before the join (NCCL reads it then)."""
+    process's slabs, with the train state sharded over ``model`` as ``train_tp.yaml``'s trainer holds it
+    (``create_train_state(mesh=, model_axis="model")``, JAX's rule at 2**14): ``TP_CASES`` in turn, 1 warm-up and
+    the case's steps each; launches per step, losses, norms, seconds, peak memory, the bytes of parameters and AdamW
+    state held between steps.  After factorizer_brats23's steps: one more step with its exchanges timed, the loss of a
+    forward under each gather rule, and a step under each, :func:`gather_thinner_than_patch` then the rule.  Then
+    ``TP_BUNDLES`` the same way, each with one more step with its exchanges timed.  ``WHOLE_TURNS``: in turns, the
+    same steps once more with nothing sharded (then an instrumented step), then the sharded state's steps again.
+    Then factorizer_brats23 with ``model_axis`` and no spatial step: every process the whole batch, 1 warm-up and 1
+    step.  ``cells``: only the cases and bundles named, without the gather rules, the turns with nothing sharded and
+    the model-axis case; ``environ``: set before the join (NCCL reads it then)."""
     import os
 
     import torch
@@ -918,7 +973,7 @@ def train_tp_worker(rank: int, world: int, init_method: str, settings: dict, cel
     from factorizer_tpu_torch.ops.kernels import windowed_nmf_multi_spatial
     from factorizer_tpu_torch.parallel import Slabs, model_parallel_mesh, on_slabs, shard_batch
     from factorizer_tpu_torch.train.losses import dice_ce_loss
-    from factorizer_tpu_torch.train.trainer import create_train_state, make_train_step
+    from factorizer_tpu_torch.train.trainer import create_train_state, make_train_step, state_bytes
 
     os.environ.update(environ or {})
     backend = join_group_on_the_card(rank, world, init_method)
@@ -940,13 +995,8 @@ def train_tp_worker(rank: int, world: int, init_method: str, settings: dict, cel
         return (state, metrics, time.perf_counter() - t0, read_counters(counters),
                 {attr: getattr(windowed_nmf_multi_spatial, attr) for attr in K5_IO})
 
-    for name, (factory, b, c_in, c_out, side, _, _, n_steps) in TP_CASES.items():
-        if cells is not None and name not in cells:
-            continue
-        state = create_train_state(getattr(zoo_scripts, factory)(generator=torch.Generator().manual_seed(0)), **settings)
-        step = make_train_step(state.model, mesh=mesh, spatial_axis="model")
-        batch = synthetic_batch(b, c_in, c_out, side, seed=7)
-        run = {"losses": [], "norms": [], "seconds": [], "counts": [], "k5_io": [], "peak_memory": 0}
+    def steps(state, step, batch, n_steps: int, run: dict) -> dict:
+        """1 warm-up and ``n_steps`` timed steps into ``run``; the state bytes held after them."""
         for i in range(1 + n_steps):
             state, metrics, seconds, counts, k5_io = timed_step(state, step, batch)
             for key, value in zip(("seconds", "counts", "k5_io", "losses", "norms"),
@@ -954,18 +1004,59 @@ def train_tp_worker(rank: int, world: int, init_method: str, settings: dict, cel
                 run[key].append(value)
             if i:
                 run["peak_memory"] = max(run["peak_memory"], torch.cuda.max_memory_allocated())
+        torch.cuda.synchronize()
+        run["state_bytes"] = state_bytes(state)
+        run["sharded"] = 0 if state.shards is None else len(state.shards.names)
+        return run
+
+    def instrumented(state, step, batch) -> tuple:
+        """One more step with each exchange timed: its seconds and the exchanges' seconds, calls and bytes."""
+        spent = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with exchange_timer(spent):
+            step(state, batch)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, spent
+
+    def new_run() -> dict:
+        return {"losses": [], "norms": [], "seconds": [], "counts": [], "k5_io": [], "peak_memory": 0}
+
+    def whole_turn(make, opt: dict, batch, n_steps: int) -> dict:
+        """The same steps from the same weights with nothing sharded, then an instrumented step."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        state = create_train_state(make(), mesh=mesh, model_axis="model", min_weight_size=NOTHING_SHARDED, **opt)
+        step = make_train_step(state.model, mesh=mesh, spatial_axis="model")
+        run = steps(state, step, batch, n_steps, new_run())
+        params = whole_parameters(state)
+        run["params" if rank == 0 else "param_sum"] = (
+            params if rank == 0 else sum(p.double().sum().item() for p in params.values()))
+        run["instrumented"] = instrumented(state, step, batch)
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return run
+
+    for name, (factory, b, c_in, c_out, side, _, _, n_steps) in TP_CASES.items():
+        if cells is not None and name not in cells:
+            continue
+
+        def make(factory=factory):
+            return getattr(zoo_scripts, factory)(generator=torch.Generator().manual_seed(0))
+
+        state = create_train_state(make(), mesh=mesh, model_axis="model", **settings)
+        step = make_train_step(state.model, mesh=mesh, spatial_axis="model")
+        batch = synthetic_batch(b, c_in, c_out, side, seed=7)
+        run = steps(state, step, batch, n_steps, new_run())
+        params = whole_parameters(state)
         if rank == 0:
-            run["params"] = {k: p.detach().cpu() for k, p in state.model.named_parameters()}
+            run["params"] = params
         else:  # a digest is enough to show that the processes made the same update
-            run["param_sum"] = sum(p.detach().double().sum().item() for p in state.model.parameters())
+            run["param_sum"] = sum(p.double().sum().item() for p in params.values())
+        del params
         if name == "factorizer_brats23":
-            spent = {}
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with exchange_timer(spent):
-                state, _ = step(state, batch)
-            torch.cuda.synchronize()
-            run["instrumented"] = (time.perf_counter() - t0, spent)
+            run["instrumented"] = instrumented(state, step, batch)
         if name == "factorizer_brats23" and cells is None:
             # The two gather rules: one forward's loss each from the same weights, then steps in turns.
             mine = shard_batch(batch, mesh, data_axis=None, spatial_axis="model")
@@ -973,7 +1064,7 @@ def train_tp_worker(rank: int, world: int, init_method: str, settings: dict, cel
             try:
                 for label, rule in rules.items():
                     FactMixer.gathers = rule
-                    with torch.no_grad(), on_slabs(state.model, Slabs(mesh, "model")) as model:
+                    with torch.no_grad(), gathered(state), on_slabs(state.model, Slabs(mesh, "model")) as model:
                         loss = dice_ce_loss(model(mine["image"]), mine["label"], slabs=Slabs(mesh, "model"))
                     run["rule_losses"][label] = loss.item()
                 for label in ("other", "rule"):
@@ -982,8 +1073,12 @@ def train_tp_worker(rank: int, world: int, init_method: str, settings: dict, cel
                     run["turns"][label].append((seconds, torch.cuda.max_memory_allocated(), counts))
             finally:
                 FactMixer.gathers = rules["rule"]
+        if name in WHOLE_TURNS and cells is None:  # in turns: sharded, whole, sharded again
+            run["whole"] = whole_turn(make, settings, batch, n_steps)
+            run["again"] = steps(state, step, batch, n_steps, new_run())
+        del state, step
         report[name] = run
-        del state, step, batch
+        del batch
         gc.collect()
         torch.cuda.empty_cache()
     for bundle, (b, roi, n_steps, search) in TP_BUNDLES.items():
@@ -991,32 +1086,98 @@ def train_tp_worker(rank: int, world: int, init_method: str, settings: dict, cel
             continue
         torch.backends.cudnn.benchmark = search
         model, cfg = bundle_network(bundle)
-        state = create_train_state(model, lr=cfg["learning_rate"], weight_decay=cfg["weight_decay"])
+        opt = {"lr": cfg["learning_rate"], "weight_decay": cfg["weight_decay"]}
+        state = create_train_state(model, mesh=mesh, model_axis="model", **opt)
         step = make_train_step(state.model, mesh=mesh, spatial_axis="model")
         net = cfg["network_def"]
         batch = roi_batch(b, net["in_channels"], net["out_channels"], roi, seed=7)
-        run = {"losses": [], "norms": [], "seconds": [], "counts": [], "peak_memory": 0}
-        for i in range(1 + n_steps):
-            state, metrics, seconds, counts, _ = timed_step(state, step, batch)
-            for key, value in zip(("seconds", "counts", "losses", "norms"),
-                                  (seconds, counts, metrics["loss"].item(), metrics["grad_norm"].item())):
-                run[key].append(value)
-            if i:
-                run["peak_memory"] = max(run["peak_memory"], torch.cuda.max_memory_allocated())
-        run["param_sum"] = sum(p.detach().double().sum().item() for p in state.model.parameters())
-        spent = {}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with exchange_timer(spent):
-            state, _ = step(state, batch)
-        torch.cuda.synchronize()
-        run["instrumented"] = (time.perf_counter() - t0, spent)
+        run = steps(state, step, batch, n_steps, new_run())
+        params = whole_parameters(state)
+        run["param_sum"] = sum(p.double().sum().item() for p in params.values())
+        if rank == 0 and bundle in WHOLE_TURNS:
+            run["params"] = params
+        del params
+        run["instrumented"] = instrumented(state, step, batch)
+        del model
+        if bundle in WHOLE_TURNS and cells is None:  # in turns: sharded, whole, sharded again
+            run["whole"] = whole_turn(lambda bundle=bundle: bundle_network(bundle)[0], opt, batch, n_steps)
+            run["again"] = steps(state, step, batch, n_steps, new_run())
+        del state, step
         report[bundle] = run
-        del model, state, step, batch
+        del batch
         gc.collect()
         torch.cuda.empty_cache()
     torch.backends.cudnn.benchmark = True
+    if cells is None:
+        # model_axis without the spatial step: each process the whole batch (the line's first process's) on the
+        # gathered weights, keeping its own part of the same gradient.  cuDNN's heuristics: its timing search of the
+        # whole volume's convolutions would take ~20 s of a 2-step case.
+        torch.backends.cudnn.benchmark = False
+        factory, b, c_in, c_out, side = TP_CASES["factorizer_brats23"][:5]
+        state = create_train_state(getattr(zoo_scripts, factory)(generator=torch.Generator().manual_seed(0)),
+                                   mesh=mesh, model_axis="model", **settings)
+        step = make_train_step(state.model, mesh=mesh, model_axis="model")
+        report["model_axis"] = steps(state, step, synthetic_batch(b, c_in, c_out, side, seed=7), 1, new_run())
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.backends.cudnn.benchmark = True
     return report
+
+
+def sharded_report(name: str, reports: list, lr: float, n_steps: int) -> None:
+    """``[train tp]``'s lines on the sharded state of cell ``name``: the leaves that JAX's rule sharded and the bytes of
+    parameters and AdamW state held between steps per process, one instrumented step's weight all-gather and
+    gradient reduce-scatter (seconds, calls, MB); for ``WHOLE_TURNS`` the turn with nothing sharded in the same
+    worker between two sharded ones: s/step, peak GiB, bytes held and its gradient all-reduce, and the sharded
+    run's losses, gradient norms and (``TP_CASES``) parameters after ``n_steps`` steps against it within the f32
+    band of 21 (``TRAIN_RTOL``; parameters within 2 lr per step, at most 1e-3 of the entries off by more than
+    lr / 10)."""
+    r = reports[0][name]
+    counts = [q[name]["sharded"] for q in reports]
+    check(counts == [r["sharded"]] * len(reports) and r["sharded"] >= 1, f"train tp {name}: sharded leaves {counts}")
+
+    def exchanges(run: dict) -> str:
+        total, spent = run["instrumented"]
+        return ", ".join(f"{label} {spent[label][0]:.4f} s ({spent[label][1]} calls, {spent[label][2] / 1e6:.1f} MB)"
+                         for label in ("weight all-gather", "gradient reduce-scatter", "gradient all-reduce")
+                         if spent[label][1]) + f" of {total:.4f} s"
+
+    held = " / ".join(f"{q[name]['state_bytes'] / 1e6:.2f}" for q in reports)
+    print(f"[train tp] {name}: sharded state (create_train_state(mesh=, model_axis='model'), JAX's param_leaf_rule "
+          f"at 2**14): {r['sharded']} leaves; parameters and AdamW state held between steps per process {held} MB"
+          + (f"; process 0's instrumented step: {exchanges(r)}" if "instrumented" in r else ""))
+    if "whole" not in r:
+        return
+    w = r["whole"]
+    loss_rel = max(abs(a - c) / abs(c) for a, c in zip(r["losses"], w["losses"]))
+    norm_rel = max(abs(a - c) / c for a, c in zip(r["norms"], w["norms"]))
+    diffs = {k: (r["params"][k] - p).abs() for k, p in w["params"].items()}
+    worst = max(diffs, key=lambda k: diffs[k].max().item())
+    far = sum((d > 0.1 * lr).sum().item() for d in diffs.values()) / sum(d.numel() for d in diffs.values())
+    digest = sum(p.double().sum().item() for p in w["params"].values())
+    print(f"[train tp] {name}: sharded against whole weights ({r['sharded']} leaves against none, the same worker, "
+          f"in turns: sharded, whole, sharded again, {n_steps} steps each): s/step per process "
+          f"{' / '.join(f'{statistics.mean(q[name]['seconds'][1:]):.4f}' for q in reports)}, whole "
+          f"{' / '.join(f'{statistics.mean(q[name]['whole']['seconds'][1:]):.4f}' for q in reports)}, sharded again "
+          f"{' / '.join(f'{statistics.mean(q[name]['again']['seconds'][1:]):.4f}' for q in reports)}; peak GiB "
+          f"{' / '.join(f'{q[name]['peak_memory'] / 2**30:.2f}' for q in reports)} against "
+          f"{' / '.join(f'{q[name]['whole']['peak_memory'] / 2**30:.2f}' for q in reports)}; parameters and AdamW "
+          f"state held between steps {held} MB against "
+          f"{' / '.join(f'{q[name]['whole']['state_bytes'] / 1e6:.2f}' for q in reports)} MB; process 0's "
+          f"instrumented step whole: {exchanges(w)}; loss rel {loss_rel:.2e} (tol {TRAIN_RTOL['float32']['loss']:.0e}), "
+          f"grad norm rel {norm_rel:.2e} (tol {TRAIN_RTOL['float32']['grad']:.0e}), parameters max |diff| "
+          f"{diffs[worst].max().item():.2e} at {worst} ({'' if name in TP_CASES else 'not checked, as against one process; '}"
+          f"tol 2 lr per step = {2 * lr * n_steps:.1e}), share of entries off by more than lr / 10: {far:.2e} (tol 1e-3)")
+    check(loss_rel <= TRAIN_RTOL["float32"]["loss"] and norm_rel <= TRAIN_RTOL["float32"]["grad"],
+          f"train tp {name}: sharded losses {r['losses']}, norms {r['norms']}, whole {w['losses']}, {w['norms']}")
+    # The parameters as the cell's own check against one process holds them (the Factorizer's; a bundle's, loss and
+    # norm alone: AdamW turns a sum's last bits into lr-sized steps where a gradient is near zero).
+    check(name not in TP_CASES or (diffs[worst].max().item() <= 2 * lr * n_steps and far <= 1e-3),
+          f"train tp {name}: sharded parameters differ from the whole-weight turn's at {worst}")
+    check(all(q[name]["whole"]["state_bytes"] > q[name]["state_bytes"] for q in reports)
+          and all(abs(q[name]["whole"]["param_sum"] - digest) <= 1e-9 * abs(digest) for q in reports[1:]),
+          f"train tp {name}: the whole-weight turn's bytes or parameters")
 
 
 def train_tp_slice(world: int, settings: dict, keep: dict | None = None) -> dict:
@@ -1096,6 +1257,7 @@ def train_tp_slice(world: int, settings: dict, keep: dict | None = None) -> dict
               f"train tp {name}: parameters differ from the one-process steps: {worst}")
         check(all(abs(q[name]["param_sum"] - digest) <= 1e-9 * abs(digest) for q in reports[1:]),
               f"train tp {name}: the processes hold different parameters")
+        sharded_report(name, reports, lr, n_timed + 1)
         del state, step, batch, diffs
         gc.collect()
         torch.cuda.empty_cache()
@@ -1175,10 +1337,35 @@ def train_tp_slice(world: int, settings: dict, keep: dict | None = None) -> dict
               + f", the rest {total - sum(v[0] for v in spent.values()):.4f} s. " + shared_card_note(world))
         check(loss_rel <= TRAIN_RTOL["float32"]["loss"] and norm_rel <= TRAIN_RTOL["float32"]["grad"],
               f"train tp {bundle}: loss {r['losses']} / {ref_losses}, grad norm {r['norms']} / {ref_norms}")
+        sharded_report(bundle, reports, cfg["learning_rate"], 1 + n_steps)
         del model, state, step, batch
         gc.collect()
         torch.cuda.empty_cache()
     torch.backends.cudnn.benchmark = True
+    # model_axis without the spatial step: every process the whole batch on gathered weights, as one process.
+    factory, b, _, _, side, patch, shifts = TP_CASES["factorizer_brats23"][:7]
+    ref, per_step = keep["one_process"]["factorizer_brats23"], tp_routes(b, side, patch, shifts, 1)[0]
+    axis = [q["model_axis"] for q in reports]
+    for rank, m in enumerate(axis):
+        for counts in m["counts"]:
+            check({k: v for k, v in counts.items() if v} == {k: v for k, v in per_step.items() if v},
+                  f"train tp model_axis rank {rank}: launches {counts}, the one-process step's {per_step}")
+            for k, v in counts.items():
+                launches[k] += v
+        check(m["losses"] == axis[0]["losses"] and m["sharded"] == axis[0]["sharded"] >= 1,
+              f"train tp model_axis: the processes report {m['losses']} / {axis[0]['losses']}")
+    loss_rel = max(abs(a - c) / abs(c) for a, c in zip(axis[0]["losses"], ref["losses"]))
+    print(f"[train tp] model_axis without shard_spatial: make_train_step({factory}(), mesh=model_parallel_mesh(), "
+          f"model_axis='model') ({reports[0]['backend']}), every process the whole batch {b} x {side}^3 on gathered "
+          f"weights ({axis[0]['sharded']} leaves sharded), float32: "
+          f"{' / '.join(f'{statistics.mean(m['seconds'][1:]):.4f}' for m in axis)} s/step per process (after a "
+          f"{axis[0]['seconds'][0]:.2f} s warm-up), one-process step {statistics.mean(ref['seconds']):.4f} s; peak "
+          f"{' / '.join(f'{m['peak_memory'] / 2**30:.2f}' for m in axis)} GiB (one process {ref['peak'] / 2**30:.2f}); "
+          f"state held {' / '.join(f'{m['state_bytes'] / 1e6:.2f}' for m in axis)} MB; launches per step and process "
+          f"{ {k: v for k, v in per_step.items() if v} } as in one process; loss "
+          f"{' -> '.join(f'{v:.6f}' for v in axis[0]['losses'])} against the one-process steps' rel {loss_rel:.2e} (tol "
+          f"{TRAIN_RTOL['float32']['loss']:.0e}). " + shared_card_note(world))
+    check(loss_rel <= TRAIN_RTOL["float32"]["loss"], f"train tp model_axis: {axis[0]['losses']} / {ref['losses']}")
     return launches
 
 
@@ -2202,6 +2389,30 @@ def bundle_slice(counters: dict, seed: int = 123, shape=WORKFLOW_SHAPE, roi=(128
 
         # 26., 27., 32. the multi-device programs under torchrun: two processes on this card (gloo).
         hosts = multidevice_programs(repo, root, {**data, "num_workers": max(1, workers // 2)}, train_epoch_s)
+        # The spatial programs' sharded states were written whole: the one-process format, which the inference
+        # program loads.
+        for bundle, out in (("factorizer_brats23", "factorizer_tp"), ("deconver_brats23", "deconver_tp")):
+            model = bundle_network(bundle)[0]
+            path = root / out / "ckpt" / "step_1.pt"
+            payload = torch.load(path, map_location="cpu", weights_only=True)
+            weights = zoo_scripts.load_model_checkpoint(model, path)  # every entry of the model with its shape
+            shapes = [tuple(p.shape) for p in model.parameters()]
+            moments = payload["optimizer"]["state"]
+            whole = (sorted(payload) == ["model", "optimizer", "step"] and sorted(moments) == list(range(len(shapes)))
+                     and all(tuple(moments[i][m].shape) == shape for i, shape in enumerate(shapes)
+                             for m in ("exp_avg", "exp_avg_sq")))
+            check(whole, f"bundle tp {bundle}: {path.name} is not a whole one-process checkpoint")
+            print(f"[bundle tp] {bundle} train_tp.yaml's checkpoint {path.name} (a state sharded over the model axis, "
+                  f"gathered on both processes, written by the primary): whole, the one-process format ({len(weights)} "
+                  f"model entries, AdamW's moments of all {len(shapes)} parameters at their whole shapes, step "
+                  f"{payload['step']}); zoo_scripts.load_model_checkpoint loads it")
+            del model, payload, weights
+        druns = infer("deconver_brats23", {**data, "ckpt_paths": [str(root / "deconver_tp" / "ckpt")],
+                                           "output_dir": str(root / "dinfer_tp")}, False, k3, 2, 1)
+        print(f"[bundle tp] deconver_brats23 inference.yaml over train_tp.yaml's checkpoint (in this process): "
+              f"{len(druns[0])} predictions, s/volume file to file {', '.join(f'{t:.3f}' for t in druns[3])}, "
+              f"{druns[1]['depthwise_conv']} K3 launches")
+        del druns
     left = child_processes()
     check(not left, f"bundle: processes still alive: {left}")
     reset_counters(counters)
@@ -2213,6 +2424,9 @@ def bundle_slice(counters: dict, seed: int = 123, shape=WORKFLOW_SHAPE, roi=(128
 # A program the bundle CLI runs after `run` in `[bundle multidevice]` / `[bundle tp]` / `[hosts]`: each process prints its
 # epoch losses.
 REPORT_LOSSES = "$print('[losses] %d %s' % (jax.process_index(), [h['loss'] for h in @trainer.history]), flush=True)"
+# ... and the count of parameters its train state holds sharded over the model axis.
+REPORT_SHARDS = ("$print('[shards] %d %d' % (jax.process_index(), 0 if @trainer.state.shards is None else "
+                 "len(@trainer.state.shards.names)), flush=True)")
 
 
 def report_launches() -> str:
@@ -2251,7 +2465,8 @@ def multidevice_programs(repo, root, data: dict, train_epoch_s: float) -> dict:
         program = ["--master_addr", "127.0.0.1", "--master_port", str(port), "-m", "factorizer_tpu_torch.bundle", "run",
                    "--config_file", str(configs / "train.yaml"), "--config_file", str(configs / overlay),
                    "--run_id", "run", "--run_id", "report_losses", "--run_id", "report_launches",
-                   "--report_losses", REPORT_LOSSES, "--report_launches", report_launches()]
+                   "--run_id", "report_shards", "--report_losses", REPORT_LOSSES, "--report_launches",
+                   report_launches(), "--report_shards", REPORT_SHARDS]
         for k, v in overrides.items():
             program += [f"--{k}", json.dumps(v) if not isinstance(v, str) else v]
         out = Path(overrides["output_dir"])
@@ -2284,6 +2499,7 @@ def multidevice_programs(repo, root, data: dict, train_epoch_s: float) -> dict:
                       for rank, values in re.findall(r"\[losses\] (\d+) (\[[^\]]*\])", printed)}
             launches = {int(rank): (int(steps), dict(zip(kernel_counters(), json.loads(counts))))
                         for rank, steps, counts in re.findall(r"\[launches\] (\d+) (\d+) (\[[^\]]*\])", printed)}
+            shards = {int(rank): int(n) for rank, n in re.findall(r"\[shards\] (\d+) (\d+)", printed)}
             history = [json.loads(line) for line in (out / "history.jsonl").read_text().splitlines()]
             saved = sorted(p.name for p in (out / "ckpt").glob("*.pt"))
             check(sorted(losses) == [0, 1] and losses[0] == losses[1] and all(map(math.isfinite, losses[0]))
@@ -2292,8 +2508,11 @@ def multidevice_programs(repo, root, data: dict, train_epoch_s: float) -> dict:
             check(saved == ["step_1.pt"] and len(history) == 1 and history[0]["loss"] == losses[0][0],
                   f"bundle {tag}: checkpoints {saved}, history {history}")
             joined = re.search(r"\[distributed\] (.*)", printed)
+            check(sorted(shards) == [0, 1] and shards[0] == shards[1]
+                  and (shards[0] >= 1) == overlay.endswith("_tp.yaml"),
+                  f"bundle {tag}: parameters sharded by process {shards}")
             return {"seconds": seconds, "record": history[0], "losses": losses, "launches": launches,
-                    "distributed": joined.group(1) if joined else "backend not printed"}
+                    "distributed": joined.group(1) if joined else "backend not printed", "sharded": shards[0]}
 
         return finish
 
@@ -2312,20 +2531,29 @@ def backend_of(run: dict) -> str:
 
 
 def bundle_programs(root, data: dict, train_epoch_s: float, torchrun) -> dict:
-    """The body of :func:`multidevice_programs`: the two data-parallel programs one after the other, then the two
-    spatial ones at the same time, 4 processes on the card (the data-parallel deconver_brats23 alone takes most of
-    it); factorizer_brats23's spatial program under two node agents.  Returns ``[hosts]``' seconds and launches."""
-    for bundle in ("factorizer_brats23", "deconver_brats23"):
-        r = torchrun(bundle, "train_multidevice.yaml", {**data, "output_dir": str(root / f"{bundle}_multidevice"),
-                                                         "max_epochs": 1, "val_interval": 0}, free_port())()
+    """The body of :func:`multidevice_programs`: deconver_brats23's data-parallel program alone (its two processes
+    take most of the card), then factorizer_brats23's data-parallel program and the two spatial ones at the same time,
+    6 processes on the card (one start-up's wait instead of two); factorizer_brats23's spatial program under two node
+    agents.  Returns ``[hosts]``' seconds and launches."""
+
+    def multidevice_line(bundle: str, r: dict, beside: str = "") -> None:
         print(f"[bundle multidevice] {bundle} train.yaml + train_multidevice.yaml (torchrun, 2 processes, "
-              f"{backend_of(r)}, one card): {r['seconds']:.1f} s end to end, epoch {r['record']['time_s']:.3f} s of 1 "
-              f"step a process on its 2 cases (train.yaml's first epoch in one process, 2 steps on 4 cases: "
+              f"{backend_of(r)}, one card{beside}): {r['seconds']:.1f} s end to end, epoch {r['record']['time_s']:.3f} s "
+              f"of 1 step a process on its 2 cases (train.yaml's first epoch in one process, 2 steps on 4 cases: "
               f"{train_epoch_s:.3f} s), loss {r['losses'][0][0]:.6f} on both processes, one checkpoint step_1.pt "
               "written by the primary. " + shared_card_note(2))
-    ports = free_port(), free_port()
-    while ports[1] == ports[0]:
-        ports = ports[0], free_port()
+
+    def multidevice(bundle: str, port: int):
+        return torchrun(bundle, "train_multidevice.yaml", {**data, "output_dir": str(root / f"{bundle}_multidevice"),
+                                                            "max_epochs": 1, "val_interval": 0}, port)
+
+    multidevice_line("deconver_brats23", multidevice("deconver_brats23", free_port())())
+    ports: list = []
+    while len(ports) < 3:
+        port = free_port()
+        if port not in ports:
+            ports.append(port)
+    factorizer_dp = multidevice("factorizer_brats23", ports[2])
     # 32. [hosts]: two node agents of one process each stand in for two hosts; they share this card, so every process
     # must take gloo (a host alone, with a card for its one process, would take NCCL, which refuses two ranks on one
     # device).
@@ -2350,21 +2578,25 @@ def bundle_programs(root, data: dict, train_epoch_s: float, torchrun) -> dict:
             launches[k] += v
     made = hosts["launches"][0][1]
     print(f"[hosts] factorizer_brats23 train.yaml + train_tp.yaml under two torchrun node agents (--nnodes 2, "
-          f"--node_rank 0 / 1, one process each: two hosts on this card, run beside deconver_brats23's [bundle tp]): "
+          f"--node_rank 0 / 1, one process each: two hosts on this card, run beside deconver_brats23's [bundle tp] and "
+          f"factorizer_brats23's [bundle multidevice]): "
           f"[distributed] {hosts['distributed']}; {hosts['seconds']:.1f} s end to end, epoch {record['time_s']:.3f} s of 2 "
           f"spatial steps on 4 cases (train.yaml's first epoch in one process: {train_epoch_s:.3f} s), loss "
           f"{hosts['losses'][0][0]:.6f} on both processes, validation of whole volumes on each process, mean Dice "
           f"{record['mean_dice']:.4f}; one checkpoint step_1.pt written by the primary; per step and process K5 "
           f"{per_step['windowed_nmf_slab']} + {per_step['windowed_nmf_slab_bwd']} bwd, K1 bwd "
-          f"{per_step['windowed_nmf_bwd']}, K2 bwd {per_step['prenorm_mlp_bwd']}; process 0 in all (training and "
+          f"{per_step['windowed_nmf_bwd']}, K2 bwd {per_step['prenorm_mlp_bwd']}; {hosts['sharded']} parameters sharded "
+          f"over the model axis on each process; process 0 in all (training and "
           f"validation) {({k: v for k, v in made.items() if v})}. " + shared_card_note(2))
     check(0.0 <= record["mean_dice"] <= 1.0, f"hosts: mean Dice {record['mean_dice']}")
     r = deconver_tp()
     print(f"[bundle tp] deconver_brats23 train.yaml + train_tp.yaml (torchrun, 2 processes, {backend_of(r)}, one card, "
-          f"a model axis of 2, run beside factorizer_brats23's [hosts]): {r['seconds']:.1f} s end to end, epoch "
+          f"a model axis of 2, run beside [hosts] and factorizer_brats23's [bundle multidevice]): {r['seconds']:.1f} s "
+          f"end to end, epoch "
           f"{r['record']['time_s']:.3f} s of 2 spatial steps on 4 cases, K3 on haloed slabs (the epoch of train.yaml "
-          f"in one process: [bundle]'s line), loss {r['losses'][0][0]:.6f} on both processes; one checkpoint step_1.pt "
-          "written by the primary. " + shared_card_note(2))
+          f"in one process: [bundle]'s line), loss {r['losses'][0][0]:.6f} on both processes, {r['sharded']} parameters "
+          f"sharded over the model axis on each; one checkpoint step_1.pt written by the primary. " + shared_card_note(2))
+    multidevice_line("factorizer_brats23", factorizer_dp(), ", run beside [hosts] and [bundle tp]")
     return {"seconds": hosts["seconds"], "launches": launches}
 
 
@@ -4333,7 +4565,7 @@ def main() -> None:
     phase_done("24 baselines")
     print(f"[time] wall seconds by phase: {', '.join(f'{n} {t:.1f}' for n, t in phase_seconds)}; "
           f"{sum(t for _, t in phase_seconds):.1f} s in all; of 23 bundle, 32 [hosts] {hosts['seconds']:.1f} s end to "
-          f"end beside [bundle tp]'s deconver_brats23")
+          f"end beside [bundle tp]'s deconver_brats23 and [bundle multidevice]'s factorizer_brats23")
 
     sources = {
         "windowed_nmf_factors": ("factorizer_tpu_torch/csrc/windowed_nmf.cu",

@@ -9,12 +9,13 @@ used by the port:
 
     ``data``   the batch: data parallelism, gradients averaged over the axis
     ``model``  the first spatial axis of a volume: slabs with halo exchanges
-               (``parallel.slabs``, ``ops.kernels.windowed_nmf_multi_spatial``)
+               (``parallel.slabs``, ``ops.kernels.windowed_nmf_multi_spatial``),
+               and the large weights, cut by JAX's rule
 
 ``data_parallel_mesh()`` and ``model_parallel_mesh()`` work without a process
 group: one process is then a mesh of one, whose axes have size 1 and no
-group, as a one-device JAX mesh.  ``param_sharding_rules`` is GSPMD's and has
-no counterpart: the port keeps every weight whole on every process.
+group, as a one-device JAX mesh.  ``model`` also carries the parameters that
+JAX's ``param_sharding_rules`` cuts (``parallel.sharding.shard_parameters``).
 """
 
 from __future__ import annotations

@@ -38,9 +38,11 @@ def _to_host(obj: Any) -> Any:
 
 
 def _to_savable(state: Any) -> Any:
-    """TrainState -> ``{"step", "model", "optimizer"}``; a module -> its ``state_dict``; anything else as it is."""
+    """TrainState -> ``{"step", "model", "optimizer"}`` (its ``state_dict()``, whole: collective where the state is
+    sharded, so a sharded run passes that dict, made on every process); a module -> its ``state_dict``; anything
+    else as it is."""
     if hasattr(state, "optimizer") and hasattr(state, "model"):
-        return {"step": int(state.step), "model": state.model.state_dict(), "optimizer": state.optimizer.state_dict()}
+        return state.state_dict()
     if isinstance(state, torch.nn.Module):
         return state.state_dict()
     return state
@@ -55,10 +57,7 @@ def _write(path: Path, payload: Any) -> None:
 def _load_into(template: Any, payload: Any) -> Any:
     """Load ``payload`` into a TrainState or module ``template`` in place and return the template."""
     if hasattr(template, "optimizer") and hasattr(template, "model"):
-        template.model.load_state_dict(payload["model"])
-        template.optimizer.load_state_dict(payload["optimizer"])
-        template.step = int(payload["step"])
-        return template
+        return template.load_state_dict(payload)
     if isinstance(template, torch.nn.Module):
         template.load_state_dict(payload["model"] if "model" in payload else payload)
         return template

@@ -25,6 +25,7 @@ TensorBoard files.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import time
@@ -144,15 +145,23 @@ class SegmentationTrainer:
             process before the first step, which they would otherwise take
             apart and then wait for each other in.
         model_axis, shard_spatial: as the JAX trainer takes them: with
-            ``model_axis`` in ``mesh`` at a size above 1 and ``shard_spatial``,
-            the step is the spatial step over that axis (``make_train_step``'s
-            ``spatial_axis``): the processes of a ``model`` line train on
-            slabs of one batch, the first process's.  A ``model`` axis of size
-            1 (one process) is the plain step.  ``model_axis`` without
-            ``shard_spatial`` is weight tensor parallelism, which the port does
-            not have, and raises.
-        tp_min_weight_size: accepted and unused: in the port every weight is
-            whole on every process, so no weight is sharded at any size.
+            ``model_axis`` in ``mesh`` at a size above 1, the parameters that
+            JAX's ``param_sharding_rules`` cuts are held sharded over that
+            axis, with their AdamW moments (``create_train_state(mesh=,
+            model_axis=)``; the step gathers them whole for the forward and
+            the backward).  With ``shard_spatial`` the step is the spatial
+            step over that axis (``make_train_step``'s ``spatial_axis``): the
+            processes of a ``model`` line train on slabs of one batch, the
+            first process's; without it every process of a line runs the
+            whole model on that batch (``make_train_step``'s ``model_axis``):
+            the state is sharded, the activations are not, unlike GSPMD's.
+            A ``model`` axis of size 1 (one process) is the plain step.
+            Validation gathers the weights once on every process and frees
+            them after; a checkpoint is gathered on every process and written
+            whole, in a one-process run's format, by the primary, and a
+            resume reads the whole file and keeps this process's part.
+        tp_min_weight_size: the rule's ``min_weight_size``: a leaf of fewer
+            elements stays whole.
     """
 
     def __init__(
@@ -188,9 +197,7 @@ class SegmentationTrainer:
         self._model_axis = (model_axis if self.mesh is not None and model_axis is not None
                             and model_axis in self.mesh.shape and self.mesh.axis_size(model_axis) > 1 else None)
         self._spatial_axis = self._model_axis if shard_spatial else None
-        if self._model_axis is not None and self._spatial_axis is None:
-            raise NotImplementedError("SegmentationTrainer: model_axis without shard_spatial is weight tensor "
-                                      "parallelism, which the port does not have (every weight is whole)")
+        self._tp_min_weight_size = tp_min_weight_size
         self._primary = process_is_primary()
         self.device = resolve_device(device)
         self.model = materialize(model, len(roi_size)).to(self.device)
@@ -216,7 +223,8 @@ class SegmentationTrainer:
         if self.mesh is not None:
             _check_equal_shards(train_loader)
         self.train_step = make_train_step(self.model, loss_fn=loss_fn, accum_steps=accum_steps, mesh=self.mesh,
-                                          spatial_axis=self._spatial_axis, local_batch=True)
+                                          spatial_axis=self._spatial_axis, local_batch=True,
+                                          model_axis=None if self._spatial_axis else self._model_axis)
         self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
 
         self._ckpt_best = bool(ckpt_best and val_loader is not None)
@@ -244,9 +252,13 @@ class SegmentationTrainer:
 
     def initialize(self) -> TrainState:
         """Build the train state (AdamW, schedule) and resume from the latest checkpoint, if there is one."""
-        self.state = create_train_state(self.model, device=self.device, **self._optimizer_settings)
+        n_params = sum(p.numel() for p in self.model.parameters())
+        self.state = create_train_state(self.model, device=self.device, mesh=self.mesh, model_axis=self._model_axis,
+                                        min_weight_size=self._tp_min_weight_size, **self._optimizer_settings)
         if self._primary:
-            logger.info("model parameters: %.2fM", sum(p.numel() for p in self.model.parameters()) / 1e6)
+            logger.info("model parameters: %.2fM", n_params / 1e6)
+            if self.state.shards is not None:
+                logger.info("%d parameters sharded over %r", len(self.state.shards.names), self._model_axis)
         if self.ckpt is not None and self.ckpt.latest_step() is not None:
             self.ckpt.restore(template=self.state)
             # The best-validation watermark, so that the first validation after
@@ -372,7 +384,9 @@ class SegmentationTrainer:
             val_metrics = None
             if self.val_loader is not None and self.val_interval and (epoch + 1) % self.val_interval == 0:
                 t_val = time.perf_counter()
-                val_metrics = self.validate()
+                # A sharded state's weights are gathered once, on every process, whatever its loader's length.
+                with state.shards.gathered() if state.shards is not None else contextlib.nullcontext():
+                    val_metrics = self.validate()
                 if self.mesh is not None:
                     # Each process validated its own loader: the mean over the processes (NaN where a process has
                     # none), so that the log, the best metric and the best checkpoints agree on every process.
@@ -388,15 +402,17 @@ class SegmentationTrainer:
                 if val_metrics["mean_dice"] > self.best_metric:
                     self.best_metric = val_metrics["mean_dice"]
 
-            if self.ckpt is not None and self._primary:
-                # The write overlaps the next epoch; the tensors are on the host before save() returns.
-                metrics = {"mean_dice": float(val_metrics["mean_dice"])} if val_metrics is not None else None
-                if not self._ckpt_best or val_metrics is not None:
-                    # Best-by-metric retention saves only validated epochs; latest
-                    # retention saves every epoch and still records the metric, so
-                    # that best_metric survives a resume.
-                    self.ckpt.save(epoch + 1, state, metrics=metrics, block=False)
+            # Best-by-metric retention saves only validated epochs; latest retention saves every epoch and still
+            # records the metric, so that best_metric survives a resume.
+            if self._ckpt_dir and (not self._ckpt_best or val_metrics is not None):
+                # Whole: a sharded state is gathered on every process (collective); the primary writes it.
+                payload = state.state_dict()
+                if self.ckpt is not None and self._primary:
+                    # The write overlaps the next epoch; the tensors are on the host before save() returns.
+                    metrics = {"mean_dice": float(val_metrics["mean_dice"])} if val_metrics is not None else None
+                    self.ckpt.save(epoch + 1, payload, metrics=metrics, block=False)
                     timing["ckpt_blocking_s"] = self.ckpt.timings[-1]["blocking_s"]
+                del payload
 
             self.history.append(record)
             self.timings.append(timing)

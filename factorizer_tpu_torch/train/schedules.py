@@ -16,7 +16,7 @@ from typing import Callable, Iterable, Optional
 
 import torch
 
-__all__ = ["warmup_cosine_schedule", "make_adamw", "global_norm", "clip_by_global_norm"]
+__all__ = ["warmup_cosine_schedule", "make_adamw", "sum_of_squares", "global_norm", "clip_by_global_norm"]
 
 Schedule = Callable[[int], float]
 
@@ -63,20 +63,29 @@ def make_adamw(
     return opt, schedule
 
 
+def sum_of_squares(grads: Iterable[torch.Tensor]):
+    """The sum of the squares of all ``grads``' elements, in float32 (float64 gradients in float64, as optax keeps
+    a leaf's dtype); 0 for no gradient."""
+    return sum(g.detach().to(torch.promote_types(g.dtype, torch.float32)).pow(2).sum() for g in grads)
+
+
 def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
-    """The l2 norm of all ``grads`` taken as one vector, in float32 (``optax.global_norm``)."""
-    return torch.sqrt(sum(g.detach().float().pow(2).sum() for g in grads))
+    """The l2 norm of all ``grads`` taken as one vector (``optax.global_norm``)."""
+    return torch.sqrt(sum_of_squares(grads))
 
 
-def clip_by_global_norm(grads: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(grads: Iterable[torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Scale ``grads`` in place to a global norm of at most ``max_norm``; returns the norm before.
 
     Reproduces ``optax.clip_by_global_norm``: below ``max_norm`` the gradients
     stay as they are, else each becomes ``g / norm * max_norm`` (no epsilon in
-    the denominator, unlike ``torch.nn.utils.clip_grad_norm_``).
+    the denominator, unlike ``torch.nn.utils.clip_grad_norm_``).  ``norm``: the
+    global norm where ``grads`` are parts of the gradient (a sharded state's),
+    computed over every process by the caller.
     """
     grads = list(grads)
-    norm = global_norm(grads)
+    norm = global_norm(grads) if norm is None else norm
     if not bool(norm < max_norm):
         for g in grads:
             g.copy_(g / norm.to(g.dtype) * max_norm)

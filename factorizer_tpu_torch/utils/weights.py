@@ -16,6 +16,8 @@ and undoes the layout changes that ``convert_state_dict`` makes:
 Convolutions of either rank (2-D images, 3-D volumes) go through the same rules.
 
 So ``convert_state_dict(model.state_dict())`` reproduces the variables leaf for leaf.
+:func:`flax_leaf_shapes` undoes the layouts on the shapes alone: the Flax leaf's shape of each parameter, which
+JAX's sharding rule judges (``parallel.sharding.param_sharding_rules``).
 
 Those rules serve the stages of the models laid out as the reference torch
 model (``Factorizer``, ``Deconver``).  Every other module of the port (the
@@ -51,7 +53,7 @@ from torch import nn
 
 from .helpers import materialize
 
-__all__ = ["load_flax_variables", "flax_state_dict", "flax_path"]
+__all__ = ["load_flax_variables", "flax_state_dict", "flax_path", "flax_leaf_paths", "flax_leaf_shapes"]
 
 Transform = Optional[Callable[[np.ndarray], np.ndarray]]
 
@@ -190,6 +192,67 @@ def _flax_named_paths(model: nn.Module) -> dict[str, tuple[str, tuple[str, ...],
     return paths
 
 
+def flax_leaf_paths(model: nn.Module) -> dict[str, tuple[str, tuple[str, ...], Transform]]:
+    """State-dict key -> ``(collection, path, transform)`` for every entry of ``model.state_dict()``."""
+    from ..models.unet import UNet
+
+    named = _flax_named_paths(model)
+    prefix = model.flax_prefix if isinstance(model, UNet) else None
+    rules = {}
+    for key in model.state_dict():
+        rule = None
+        if prefix is not None:
+            with contextlib.suppress(KeyError):
+                rule = flax_path(key, prefix)
+        rule = rule or named.get(key)
+        if rule is None:
+            raise KeyError(f"no Flax counterpart for state-dict key {key!r}")
+        rules[key] = rule
+    return rules
+
+
+# The layouts above, undone on a shape: the port's shape -> the Flax leaf's.
+_FLAX_SHAPES: dict[Callable, Callable[[tuple], tuple]] = {
+    _conv_weight: lambda s: (*s[2:], s[1], s[0]),
+    _tconv_weight: lambda s: (*s[2:], s[0], s[1]),
+    _linear_weight: lambda s: s[::-1],
+    _pos_embed: lambda s: (s[0], *s[2:], s[1]),
+}
+
+
+def flax_leaf_shapes(model: nn.Module) -> dict[str, tuple[int, ...]]:
+    """Parameter name -> the shape of the JAX package's leaf behind it: the layouts of the module docstring undone, and
+    an attention's ``DenseGeneral`` unfolded (query / key / value kernels ``(in, heads, head_dim)`` and biases
+    ``(heads, head_dim)``, the output kernel ``(heads, head_dim, out)``), as Flax's ``MultiHeadDotProductAttention``
+    holds them.  No Flax variables are needed.
+    """
+    from ..layers.basic import Dense
+    from ..models.unetr import MultiHeadAttention
+
+    materialize(model)
+    modules = dict(model.named_modules())
+    heads = {f"{path}.{name}": (name, m.num_heads) for path, m in modules.items() if isinstance(m, MultiHeadAttention)
+             for name in ("query", "key", "value", "out")}
+    rules = flax_leaf_paths(model)
+    out = {}
+    for key, param in model.named_parameters():
+        shape = tuple(param.shape)
+        mpath, _, name = key.rpartition(".")
+        fn = rules[key][2]
+        if mpath in heads:
+            role, h = heads[mpath]
+            if role == "out":
+                shape = (h, shape[1] // h, shape[0]) if name == "weight" else shape
+            else:
+                shape = (shape[1], h, shape[0] // h) if name == "weight" else (h, shape[0] // h)
+        elif fn in _FLAX_SHAPES:
+            shape = _FLAX_SHAPES[fn](shape)
+        elif isinstance(modules.get(mpath), (Dense, nn.Linear)) and name == "weight":
+            shape = shape[::-1]
+        out[key] = shape
+    return out
+
+
 def _leaf_paths(tree: Mapping[str, Any], prefix: tuple[str, ...] = ()) -> set[tuple[str, ...]]:
     out = set()
     for k, v in tree.items():
@@ -216,18 +279,11 @@ def flax_state_dict(model: nn.Module, variables: Mapping[str, Any]) -> dict[str,
     from ..models.unet import UNet
 
     materialize(model)
-    named = _flax_named_paths(model)
     prefix = model.flax_prefix if isinstance(model, UNet) else None
+    rules = flax_leaf_paths(model)
     new_state, used = {}, set()
     for key, current in model.state_dict().items():
-        rule = None
-        if prefix is not None:
-            with contextlib.suppress(KeyError):
-                rule = flax_path(key, prefix)
-        rule = rule or named.get(key)
-        if rule is None:
-            raise KeyError(f"no Flax counterpart for state-dict key {key!r}")
-        collection, path, fn = rule
+        collection, path, fn = rules[key]
         used.add(path)
         value = _get(variables[collection], path)
         if fn is not None:

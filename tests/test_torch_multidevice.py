@@ -18,9 +18,10 @@ axis cut over a ``model`` axis of processes, ``parallel.slabs``):
   shards raise by name;
 * DistributedDataParallel over every model family the bundles build, the
   12 bundles' ``train_multidevice.yaml`` trainers, ``train_tp.yaml``'s
-  spatial step for all 12 bundles (``tests/test_torch_slabs.py`` holds each
-  model family's slab path against one process), and one CLI run under
-  ``torch.distributed.run``.
+  spatial step for all 12 bundles, with the parameters sharded by JAX's
+  rule (``tests/test_torch_slabs.py`` holds each model family's slab path
+  against one process, ``tests/test_torch_tensor_parallel.py`` the
+  sharding), and one CLI run under ``torch.distributed.run``.
 
 The workers are module-level functions run by ``parallel.run_processes``;
 this module imports jax only inside the tests that need it.
@@ -83,6 +84,7 @@ SMALL = {
     "swinunetr_isles22": SWINUNETR_SMALL,
 }
 BUNDLES = sorted(SMALL)
+TP_MIN_WEIGHT_SIZE = 64
 
 
 def _config(bundle: str, *overlays: str, **overrides) -> dict:
@@ -209,7 +211,7 @@ def test_dice_ce_on_slabs_equals_the_whole_volume(spatial):
 
 def test_spatial_step_equals_the_one_process_step(spatial):
     """The spatial step on 2 processes against one process on the whole batch, f64: the loss and every parameter
-    gradient (summed over the slabs) to 1e-10, the grad norm to 1e-6 (taken in float32), on both processes, though
+    gradient (summed over the slabs) to 1e-10, the grad norm to 1e-6, on both processes, though
     the second process started from other parameters; the parameters after two AdamW updates to 1e-10 of lr."""
     reports, ref = spatial
     loss, norm, grads = ref["step"]
@@ -237,7 +239,7 @@ def test_spatial_step_takes_the_first_process_batch(spatial):
 def test_one_process_step_equals_jax(jax_variables):
     """The one-process step the spatial step is held to, against JAX's ``make_train_step`` on the same bridged
     weights and batch, both in f64 (JAX under x64, the flat optimiser, lr 0): the loss to 1e-12, the grad norm to
-    1e-6 (the port takes the norm in float32 whatever the gradients' dtype)."""
+    1e-6."""
     import jax
     import jax.numpy as jnp
 
@@ -427,7 +429,8 @@ def _families_worker(rank, world, init_method):
             losses.append(metrics["loss"].item())
         report["ddp"][bundle] = (losses, sum(p.detach().double().sum().item() for p in model.parameters()))
     for bundle in BUNDLES:
-        parser = ConfigParser(_config(bundle, "train_tp.yaml"))
+        # The reduced widths hold no leaf of 2**14 elements: the rule's size threshold is lowered so that it cuts some.
+        parser = ConfigParser(_config(bundle, "train_tp.yaml", **{"trainer#tp_min_weight_size": TP_MIN_WEIGHT_SIZE}))
         try:
             t = parser["trainer"]
         except NotImplementedError as exc:
@@ -435,7 +438,8 @@ def _families_worker(rank, world, init_method):
             continue
         t.initialize()
         _, metrics = t.train_step(t.state, _family_batch(parser, rank, b=2))
-        report["tp"][bundle] = (t._spatial_axis, metrics["loss"].item())
+        report["tp"][bundle] = (t._spatial_axis, metrics["loss"].item(),
+                                0 if t.state.shards is None else len(t.state.shards.names))
     return report
 
 
@@ -466,10 +470,13 @@ def test_every_model_family_steps_under_ddp(families, bundle):
 def test_train_tp_on_two_processes(families, bundle):
     """``train.yaml`` + ``train_tp.yaml`` on 2 processes (a model axis of 2): every bundle's model has a slab path,
     so each of the 12 builds the spatial step and steps on one batch alike on both processes, none raising
-    ``NotImplementedError`` (SwinUNETR at its reduced roi of 32^3: slabs of 16 rows, its level 5 gathered)."""
+    ``NotImplementedError`` (SwinUNETR at its reduced roi of 32^3: slabs of 16 rows, its level 5 gathered).  The
+    trainer shards its parameters by JAX's rule over the model axis (``trainer#tp_min_weight_size`` 64 at these
+    widths): at least one leaf, as many on both processes, as ``tests/test_multiprocess.py`` asserts of JAX's."""
     got = [r["tp"][bundle] for r in families]
     assert not any(isinstance(g, str) for g in got), got
     assert got[0][0] == got[1][0] == "model" and got[0][1] == got[1][1] and np.isfinite(got[0][1])
+    assert got[0][2] == got[1][2] >= 1
 
 
 @pytest.mark.parametrize("bundle", BUNDLES)
