@@ -187,8 +187,13 @@ Phases, one or more result lines each:
      route with factorize_options {use_windowed: False} against {use_windowed: False, split_shifts: True} (K4 9 and 36
      launches a forward and a step, logits and the first loss against each other, peak memory, the split step against
      reference_kernels()); the generic UNet (DoubleConv blocks, a k3 stem, widths 32...512) plain and with three heads (no
-     launch of the port); deconver_brats23's network_def with num_deep_supr: 2 and dropout: 0.1 (54 + 27 K3 a step).
-     Its launches are in the kernels line; chip_smoke.options_slice(chip_smoke.kernel_counters()) runs it alone.
+     launch of the port); deconver_brats23's network_def with num_deep_supr: 2 and dropout: 0.1 (54 + 27 K3 a step);
+     the unedited network_def under factorize_options {use_pallas: False} (the JAX package's pure-XLA mode: every mixer
+     on the stock decompose chain): one eval forward of a window (no K1 and no K4 launch, 9 K2, the logits in the f32
+     band of the same weights on the default route, the explain log lines of one forward counted: none for the explicit
+     opt-out, 9 under explain), one BraTS-native volume through ensemble_predict, 1 warm-up and 2 steps (no K1 and no K4,
+     9 + 9 K2, s/step, peak memory).  Its launches are in the kernels line;
+     chip_smoke.options_slice(chip_smoke.kernel_counters()) runs it alone.
  30. (run after 25) the spatial step where the slab paths stop, each cell's processes sharing the one card over gloo,
      the bundle's unedited network_def (with the one override named) at full width, batch and roi, f32, 1 warm-up and 1
      step: deconver_brats23 with update_filter: true at 2 x 128^3 on 2 processes (the filter update's correlations
@@ -206,7 +211,12 @@ Phases, one or more result lines each:
      cut: a grid of 16 rows, its bottleneck's 8).  Each prints the route and the slab rows, s/step and peak memory per
      process by slab rows beside the one-process step's, launches per step and process (K5, K1, K2 for the Factorizer;
      K3 and K3 dw for the Deconver, as in one process), loss and gradient norm against the one-process step on the
-     same batch (the f32 band of 30).  Then K5 on a ring of (2,128^3,32) cut 48 / 48 / 32 against K1 on the whole
+     same batch (the f32 band of 30).  Two cells more in the same processes: nnunet_brats23's network_def with
+     anisotropic strides (stride 1 along the cut axis) and a deep-supervision head at 2 x 2 x 128^2, more slabs than
+     rows (1 / 1 / 0: the whole model gathered, the empty slab in every collective), and the same network_def with
+     its three deep-supervision heads at 2 x 16 x 128^2 on 8 / 4 / 4 rows (the third head reads 2 rows, below the
+     cut's grid: its output whole on every process); each its route, which outputs are whole, s/step, peak memory and
+     the loss against one process.  Then K5 on a ring of (2,128^3,32) cut 48 / 48 / 32 against K1 on the whole
      volume bit for bit, forward and dx, K2 forward and backward at the slab shapes (2,48x128^2,32) and
      (2,32x128^2,32), and K3 and K3 dw at the thinnest haloed slab (2,34x128^2,32), each against its plain version.  Its launches are in the kernels line (launches_uneven); chip_smoke.uneven_slabs_slice() runs it
      alone after build.library(), under a __main__ guard (it spawns processes).
@@ -519,14 +529,18 @@ def synthetic_batch(b: int, c_in: int, c_out: int, size: int, seed: int) -> dict
 
 
 def roi_batch(b: int, c_in: int, c_out: int, roi: tuple, seed: int) -> dict:
-    """:func:`synthetic_batch` at a cubic 3-D roi; at a 2-D roi a ``randn`` image and a thresholded smooth field."""
+    """:func:`synthetic_batch` at a cubic 3-D roi; at any other roi a ``randn`` image and a thresholded smooth field."""
     import torch
     import torch.nn.functional as F
 
-    if len(roi) == 3:
+    if len(roi) == 3 and len(set(roi)) == 1:
         return synthetic_batch(b, c_in, c_out, roi[0], seed)
     g = torch.Generator(device="cuda").manual_seed(seed)
-    field = F.interpolate(torch.randn(b, c_out, 16, 16, device="cuda", generator=g), size=roi, mode="bilinear")
+    if len(roi) == 2:
+        field = F.interpolate(torch.randn(b, c_out, 16, 16, device="cuda", generator=g), size=roi, mode="bilinear")
+    else:
+        coarse = torch.randn(b, c_out, *(min(8, s) for s in roi), device="cuda", generator=g)
+        field = F.interpolate(coarse, size=roi, mode="trilinear", align_corners=False)
     return {"image": torch.randn(b, c_in, *roi, device="cuda", generator=g), "label": (field > 0.3).float()}
 
 
@@ -1615,10 +1629,17 @@ def slab_gaps_slice() -> dict:
     return launches
 
 
-# Phase 31's cells: (label, bundle, batch, roi); each on UNEVEN_WORLD slabs, whose count does not divide the rows.
+# Phase 31's cells: (label, bundle, batch, roi, network_def overrides); each on UNEVEN_WORLD slabs, whose count does not
+# divide the rows.  The last two: more slabs than rows (nnU-Net's anisotropic strides, stride 1 along the cut axis, on
+# a volume of 2 slices: slabs of 1 / 1 / 0 rows, the whole model gathered) and a deep-supervision head below the cut's
+# grid (nnU-Net's three deep-supervision heads on 16 rows: 8 / 4 / 4, the third reads 2 rows).
 UNEVEN_CELLS = (
-    ("factorizer_brats23", "factorizer_brats23", 2, (128, 128, 128)),
-    ("deconver_brats23", "deconver_brats23", 2, (128, 128, 128)),
+    ("factorizer_brats23", "factorizer_brats23", 2, (128, 128, 128), {}),
+    ("deconver_brats23", "deconver_brats23", 2, (128, 128, 128), {}),
+    ("nnunet_brats23 more slabs than rows", "nnunet_brats23", 2, (2, 128, 128),
+     {"strides": [[1, 1, 1], [1, 2, 2], [1, 2, 2], [1, 2, 2], [1, 2, 2]], "deep_supervision": True, "deep_supr_num": 1}),
+    ("nnunet_brats23 head below the grid", "nnunet_brats23", 2, (16, 128, 128),
+     {"deep_supervision": True, "deep_supr_num": 3}),
 )
 UNEVEN_WORLD = 3
 UNEVEN_STEPS = 2  # timed steps after one warm-up step
@@ -1626,11 +1647,12 @@ UNEVEN_STEPS = 2  # timed steps after one warm-up step
 
 def uneven_slabs_worker(rank: int, world: int, init_method: str) -> dict:
     """The spatial step on this process's slab of the line's cut for each of ``UNEVEN_CELLS``: the cut and the route,
-    1 warm-up and ``UNEVEN_STEPS`` steps with their seconds, launches, losses, norms and peak memory."""
+    which training outputs every process holds whole (one forward), 1 warm-up and ``UNEVEN_STEPS`` steps with their
+    seconds, launches, losses, norms and peak memory."""
     import torch
 
-    from factorizer_tpu_torch.parallel import model_parallel_mesh
-    from factorizer_tpu_torch.parallel.slabs import slab_cut, slab_route
+    from factorizer_tpu_torch.parallel import Slabs, model_parallel_mesh, on_slabs, shard_batch
+    from factorizer_tpu_torch.parallel.slabs import is_whole, slab_cut, slab_route
     from factorizer_tpu_torch.train.trainer import create_train_state, make_train_step
 
     backend = join_group_on_the_card(rank, world, init_method)
@@ -1638,8 +1660,8 @@ def uneven_slabs_worker(rank: int, world: int, init_method: str) -> dict:
     counters = kernel_counters()
     report = {"backend": backend}
     torch.backends.cudnn.benchmark = False
-    for label, bundle, b, roi in UNEVEN_CELLS:
-        model, cfg = bundle_network(bundle)
+    for label, bundle, b, roi, overrides in UNEVEN_CELLS:
+        model, cfg = bundle_network(bundle, overrides=overrides)
         state = create_train_state(model, lr=cfg["learning_rate"], weight_decay=cfg["weight_decay"])
         step = make_train_step(state.model, mesh=mesh, spatial_axis="model")
         net = cfg["network_def"]
@@ -1647,6 +1669,14 @@ def uneven_slabs_worker(rank: int, world: int, init_method: str) -> dict:
         cut = slab_cut(model, roi[0], world)
         run = {"route": str(slab_route(model, cut)), "rows": cut.sizes(roi[0]), "losses": [], "norms": [],
                "seconds": [], "counts": [], "peak_memory": 0}
+        if overrides:  # the outputs of one training forward on this slab, whole or not
+            x = shard_batch(batch["image"], mesh, data_axis=None, spatial_axis="model", sizes=cut.sizes(roi[0]))
+            with torch.no_grad(), on_slabs(model.train(), Slabs(mesh, "model", cut)):
+                outs = model(x)
+            run["whole"] = [is_whole(t) for t in outs]
+            run["slab_shapes"] = [tuple(t.shape) for t in outs]
+            del x, outs
+            reset_counters(counters)
         for i in range(1 + UNEVEN_STEPS):
             reset_counters(counters)
             torch.cuda.reset_peak_memory_stats()
@@ -1692,8 +1722,8 @@ def uneven_slabs_slice(world: int = UNEVEN_WORLD) -> dict:
     counters = kernel_counters()
     tol = TRAIN_RTOL["float32"]
     torch.backends.cudnn.benchmark = False
-    for label, bundle, b, roi in UNEVEN_CELLS:
-        model, cfg = bundle_network(bundle)
+    for label, bundle, b, roi, overrides in UNEVEN_CELLS:
+        model, cfg = bundle_network(bundle, overrides=overrides)
         state = create_train_state(model, lr=cfg["learning_rate"], weight_decay=cfg["weight_decay"])
         step = make_train_step(state.model)
         net = cfg["network_def"]
@@ -1730,21 +1760,32 @@ def uneven_slabs_slice(world: int = UNEVEN_WORLD) -> dict:
               f"uneven slabs {label}: loss {r['losses']} / {ref['losses']}, grad norm {r['norms']} / {ref['norms']}")
         wanted = (("windowed_nmf_slab", "windowed_nmf_slab_bwd", "windowed_nmf_factors", "windowed_nmf_bwd",
                    "prenorm_mlp", "prenorm_mlp_bwd") if bundle.startswith("factorizer")
-                  else ("depthwise_conv", "depthwise_conv_dw"))
+                  else ("depthwise_conv", "depthwise_conv_dw") if bundle.startswith("deconver") else ())
         check(all(r["counts"][-1].get(k) for k in wanted), f"uneven slabs {label}: a kernel of {wanted} did not launch: "
                                                              f"{r['counts'][-1]}")
+        check(wanted or not any(r["counts"]) and not any(ref["counts"]),
+              f"uneven slabs {label}: a kernel of the port launched: {r['counts']} / {ref['counts']}")
+        whole = ""
+        if overrides:  # more slabs than rows: the whole model gathered; a head below the grid: its output whole
+            empty = 0 in r["rows"]
+            want_whole = [False] * len(r["whole"]) if empty else [False] * (len(r["whole"]) - 1) + [True]
+            check(all(q["whole"] == want_whole for q in runs)
+                  and r["route"].startswith("whole model gathered" if empty else "levels"),
+                  f"uneven slabs {label}: route {r['route']!r}, outputs whole {r['whole']}, expected {want_whole}")
+            whole = (f"training outputs' rows on each slab {[[t[2] for t in q['slab_shapes']] for q in runs]}, whole on "
+                     f"every process: {r['whole']}; ")
         check(all(N_SHIFTS * c.get("windowed_nmf_slab", 0) == 2 * c.get("windowed_nmf_slab_bwd", 0) for c in r["counts"]),
               f"uneven slabs {label}: K5 launches {r['counts']} are not pass A and pass B and a backward pass per shift")
         if bundle.startswith("deconver"):  # no gather: the same K3 launches a process as in one process
             check(r["counts"] == ref["counts"], f"uneven slabs {label}: launches {r['counts']}, one process {ref['counts']}")
         side = "x".join(map(str, roi))
-        print(f"[uneven slabs] {label}: the unedited network_def through make_train_step(mesh=model_parallel_mesh(), "
+        print(f"[uneven slabs] {label}: the network_def ({overrides or 'unedited'}) through make_train_step(mesh=model_parallel_mesh(), "
               f"spatial_axis='model') ({reports[0]['backend']}), batch {b} x {side} on {world} slabs of "
               f"{' / '.join(map(str, r['rows']))} rows, float32, cuDNN's heuristics; route: {r['route']}; s/step per "
               f"process (by slab rows) {' / '.join(f'{statistics.mean(q['seconds'][1:]):.4f}' for q in runs)}, "
               f"one-process step {statistics.mean(ref['seconds'][1:]):.4f} s (warm-up {r['seconds'][0]:.2f} s / "
               f"{ref['seconds'][0]:.2f} s); peak memory per process {' / '.join(f'{q['peak_memory'] / 2**30:.2f}' for q in runs)} "
-              f"GiB, one process {ref_peak / 2**30:.2f} GiB; loss {' -> '.join(f'{v:.6f}' for v in r['losses'])}; launches "
+              f"GiB, one process {ref_peak / 2**30:.2f} GiB; {whole}loss {' -> '.join(f'{v:.6f}' for v in r['losses'])}; launches "
               f"per step and process {r['counts'][-1]} (one process {ref['counts'][-1]}); against the one-process steps: loss "
               f"rel {loss_rel:.2e} (tol {tol['loss']:.0e}), grad norm rel {norm_rel:.2e} (tol {tol['grad']:.0e}). "
               + shared_card_note(world))
@@ -3044,6 +3085,7 @@ def engine_slice(counters: dict) -> dict:
 OPTION_KEYS = {"num_deep_supr": 3, "dropout": 0.1}
 DECONVER_OPTION_KEYS = {"num_deep_supr": 2, "dropout": 0.1}
 FLAT_ROUTES = {"concat": {"use_windowed": False}, "split": {"use_windowed": False, "split_shifts": True}}
+PURE_XLA = {"use_pallas": False}
 
 
 def options_slice(counters: dict) -> dict:
@@ -3063,6 +3105,11 @@ def options_slice(counters: dict) -> dict:
        ``num_deep_supr: True``: 1 warm-up and 3 steps each, s/step, peak GiB, no kernel of the port launched.
     4. ``deconver_brats23``'s ``network_def`` with ``num_deep_supr: 2, dropout: 0.1``: 1 warm-up and 1 step, K3
        launches per step as the default's (54 forward and dx, 27 dw), the loss finite.
+    5. The unedited ``network_def`` under ``factorize_options={"use_pallas": False}`` (JAX's pure-XLA mode): an eval
+       forward of a window with no K1 and no K4 launch and K2's 9, its logits within the f32 band of the same weights
+       on the default route, the ``explain`` lines one forward logs (none for the explicit opt-out, one a mixer under
+       ``explain``); a BraTS-native volume through ``ensemble_predict`` (s/volume); 1 warm-up and 2 steps (s/step,
+       peak GiB, no K1 and no K4, K2's 9 + 9).
 
     Returns the launches made (they are in the kernels line)."""
     from pathlib import Path
@@ -3267,6 +3314,78 @@ def options_slice(counters: dict) -> dict:
     print(f"[options] deconver_brats23 network_def with {DECONVER_OPTION_KEYS}, train 2 x 128^3 f32: "
           f"{line('deconver', run)} (the default's 54 + 27) ({smi})")
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. JAX's pure-XLA mode: no K1, no K4
+    import logging
+
+    from factorizer_tpu_torch.models import factorizer as factorizer_module
+
+    torch.backends.cudnn.benchmark = False
+    default, _ = network("factorizer_brats23", {})
+    model, settings = network("factorizer_brats23", {"factorize_options": PURE_XLA})
+    model.load_state_dict(default.state_dict())
+    mixers = [m for m in model.modules() if isinstance(m, ftt.FactMixer)]
+    check(len(mixers) == N_BLOCKS and all(m.windowed is None and not m.factorize.supports() for m in mixers),
+          "options use_pallas False: a mixer on K1 or its factorizer on K4")
+    take()
+    with torch.inference_mode():
+        ref = default.eval()(window)
+    take()
+    lines = []
+    handler = logging.Handler(logging.INFO)
+    handler.emit = lines.append
+    factorizer_module.logger.addHandler(handler)
+    factorizer_module.logger.setLevel(logging.INFO)
+    try:
+        counted = {}
+        for explain in (False, True):
+            for m in mixers:
+                m.explain = explain
+            lines.clear()
+            with torch.inference_mode():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits = model.eval()(window)
+                torch.cuda.synchronize()
+                fwd_s = time.perf_counter() - t0
+            counted[explain] = len(lines)
+            fwd = {k: v for k, v in take().items() if v}
+            check(fwd == {"prenorm_mlp": N_BLOCKS}, f"options use_pallas False: eval forward launches {fwd}")
+    finally:
+        factorizer_module.logger.removeHandler(handler)
+        factorizer_module.logger.setLevel(logging.NOTSET)
+        for m in mixers:
+            m.explain = False
+    check(counted == {False: 0, True: N_BLOCKS}, f"options use_pallas False: explain lines of one forward {counted}, "
+          f"expected 0 for the explicit opt-out and {N_BLOCKS} under explain")
+    logit_diff, logit_rel = compare(logits, ref)
+    check(logit_rel <= SLICE_RTOL["float32"], f"options use_pallas False: logits against the default route {logit_rel:.3e}")
+    del default, ref, logits
+    volume = torch.randn((1, 4, 240, 240, 155), device=dev, generator=gen.manual_seed(803))
+    for _ in range(2):  # a warm-up, then the timed volume
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mask, probs = ensemble_predict([model], volume, (128, 128, 128), sw_batch_size=2, overlap=0.5)
+        torch.cuda.synchronize()
+        volume_s = time.perf_counter() - t0
+    served = {k: v for k, v in take().items() if v}
+    check(not served.get("windowed_nmf_factors") and not served.get("nmf_reconstruct") and torch.isfinite(probs).all(),
+          f"options use_pallas False: a served volume launched {served}")
+    del volume, mask, probs
+    torch.backends.cudnn.benchmark = True
+    pure = steps(model, settings, batch, 2, "use_pallas False")
+    torch.backends.cudnn.benchmark = False
+    check(pure["per_step"] == {"prenorm_mlp": N_BLOCKS, "prenorm_mlp_bwd": N_BLOCKS},
+          f"options use_pallas False: launches per step {pure['per_step']}, expected K2's {N_BLOCKS} + {N_BLOCKS} alone")
+    print(f"[options] factorize_options {PURE_XLA} (the JAX package's pure-XLA mode: every mixer on the decompose chain), "
+          f"the unedited network_def f32: eval forward of (1, 4, 128^3) {fwd_s:.4f} s, launches {fwd}, logits against the "
+          f"default route (K1) on the same weights max_abs={logit_diff:.3e} max_rel={logit_rel:.3e} (tol "
+          f"{SLICE_RTOL['float32']:.0e}); explain lines in one forward: {counted[False]} (explicit opt-out), "
+          f"{counted[True]} under explain; a (1, 4, 240, 240, 155) volume through ensemble_predict {volume_s:.4f} s "
+          f"(after a warm-up), launches {served}; train 2 x 128^3: {line('use_pallas False', pure)} ({smi})")
+    del model, mixers
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[options] phase {time.perf_counter() - t_phase:.1f} s")

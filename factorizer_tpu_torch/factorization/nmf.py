@@ -12,8 +12,9 @@ the initializer and the solver from their specs (``inits.parse_init``,
 input's dtype or device.  The flat kernel K4 (``ops.kernels.nmf_reconstruct``)
 takes a batch of matrices (``x.ndim >= 3``) under the JAX package's rule for
 its fused kernel: the solver the string ``"hals"`` or ``"mu"``, no
-``project``, a ``RandomInit``, and a rank and size the kernel covers
-(``ops.kernels.nmf.supports``: rank 1 to 4, a launch plan).  There it runs on
+``project``, a ``RandomInit``, a rank and size the kernel covers
+(``ops.kernels.nmf.supports``: rank 1 to 4, a launch plan), and ``use_pallas``
+not False (JAX's pure-XLA mode, here the stock chain).  There it runs on
 the card, reads f32, bf16 or f16 and solves in f32 on chip; on the CPU its
 plain version runs.  Everything else (an SVD init, ``nncd``, a composed or
 projected solver, the default global ``Matricize``) takes the ``decompose``
@@ -64,6 +65,10 @@ class MatrixFactorization(nn.Module):
         num_grad_steps: trailing iterations that are differentiable (None = all).
         eps: the solvers' regulariser (None: theirs, 1e-16).
         project: projection passed to the solver (None: the solver's own).
+        use_pallas: the JAX package's keyword.  False takes the ``decompose`` chain always, as JAX's pure-XLA mode
+            does, so K4 never runs.  None (JAX's auto) and True keep the rule above: the port chooses by
+            configuration, never by platform, so JAX's "True forces the kernel off the TPU" and "None: the kernel
+            on a TPU" are one rule here.
         device, generator: where ``RandomInit`` puts its tables, and what it draws them from.
     """
 
@@ -79,6 +84,7 @@ class MatrixFactorization(nn.Module):
         eps: Optional[float] = None,
         project: Any = None,
         verbose: bool = False,
+        use_pallas: Optional[bool] = None,
         device: Optional[torch.device] = None,
         generator: Optional[torch.Generator] = None,
     ) -> None:
@@ -88,7 +94,7 @@ class MatrixFactorization(nn.Module):
         self.rank_, self.compression_ = infer_rank(self.size, rank, compression)
         self.init_method, self.solver = init_method, solver
         self.num_iters, self.num_grad_steps = num_iters, num_grad_steps
-        self.eps, self.project, self.verbose = eps, project, verbose
+        self.eps, self.project, self.verbose, self.use_pallas = eps, project, verbose, use_pallas
 
         self.init = build_spec(parse_init(init_method), size=self.size, rank=self.rank_,
                                context={"device": device, "generator": generator})
@@ -125,9 +131,10 @@ class MatrixFactorization(nn.Module):
 
     def supports(self, backward: bool = False) -> bool:
         """Whether K4 computes this configuration (the JAX package's rule for its fused kernel, and the kernel's
-        rank, size and iterations), and with ``backward`` whether its gradient can be had there too."""
-        if not (isinstance(self.solver, str) and self.solver in nmf_kernel.SOLVERS and self.project is None
-                and isinstance(self.init, RandomInit)):
+        rank, size and iterations), and with ``backward`` whether its gradient can be had there too.  Never under
+        ``use_pallas=False``."""
+        if not (self.use_pallas is not False and isinstance(self.solver, str) and self.solver in nmf_kernel.SOLVERS
+                and self.project is None and isinstance(self.init, RandomInit)):
             return False
         rule = nmf_kernel.supports_backward if backward else nmf_kernel.supports
         return rule(self.solver, self.rank_, self.size, self.num_iters)
@@ -160,8 +167,9 @@ class NMF(MatrixFactorization):
         eps: Optional[float] = None,
         project: Any = None,
         verbose: bool = False,
+        use_pallas: Optional[bool] = None,
         device: Optional[torch.device] = None,
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__(size, rank, compression, init_method, solver, num_iters, num_grad_steps, eps, project,
-                         verbose, device, generator)
+                         verbose, use_pallas, device, generator)

@@ -13,7 +13,11 @@ the InstanceNorms the whole volume's statistics; the transposed convolutions
 (kernel = stride) and the k1 heads, deep supervision's too, are local to the
 slab.  Levels whose slab holds too few rows (a stride that does not divide
 them, less than one row, a halo wider than the slab) run gathered with every
-deeper one (:meth:`DynUNet.slab_route`, ``parallel.slabs.run_ladder``).
+deeper one and their heads (:meth:`DynUNet.slab_route`,
+``parallel.slabs.run_ladder``); a head whose level the cut does not keep
+whole on every slab returns its whole output on every process
+(``parallel.slabs.whole_on_slabs``).  More slabs than rows: the whole model
+gathered.
 """
 
 from __future__ import annotations
@@ -153,9 +157,7 @@ class DynUNet(nn.Module):
         merge = {i - 1: (lambda skip, u, i=i: getattr(self, f"dec{i}")(torch.cat([skip, u], dim=-1)))
                  for i in range(1, self.n)}
         supr = self.deep_supervision and self.training
-        keep = [j + 1 for j in range(self.deep_supr_num)] if supr else []
-        outs = run_ladder(x, down, up, merge, keep, level, slabs, [self])
-        head = self._out(self.head(outs[0]))
-        if not supr:
-            return head
-        return [head] + [self._out(getattr(self, f"supr{j}")(outs[j + 1])) for j in range(self.deep_supr_num)]
+        names = ["head"] + ([f"supr{j}" for j in range(self.deep_supr_num)] if supr else [])
+        heads = {lv: (lambda y, name=name: self._out(getattr(self, name)(y))) for lv, name in enumerate(names)}
+        outs = run_ladder(x, down, up, merge, (), level, slabs, [self], heads, dim)
+        return [outs[lv] for lv in range(len(names))] if supr else outs[0]

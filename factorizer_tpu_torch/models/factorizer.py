@@ -20,6 +20,14 @@ Three kernels carry the blocks:
   (``MatrixFactorization.supports``), else through the stock ``decompose``
   chain (the default global ``Matricize``, the SVD paths, the other solvers).
   The two routes compute the same function where both apply.
+  ``factorize_options={"use_pallas": False}`` is the JAX package's pure-XLA
+  mode: neither K1 nor K4, every mixer on the ``decompose`` chain (the key
+  reaches the ``MatrixFactorization`` through the keyword filter below).  A
+  mixer off K1 logs why at INFO, in the JAX package's words
+  (:meth:`FactMixer._fused_fallback_reason`): each distinct reason once, an
+  explicit opt-out never, and every forward under ``{"explain": True}``.
+  Only the configuration chooses these routes: no kernel that fails gives way
+  to them, and no environment variable is read.
 * ``FactMixer``, the split route: under ``factorize_options={"split_shifts":
   True}`` a flat-route mixer with an ``SWMatricize`` of more than one shift
   and a ``MatrixFactorization`` folds, factorizes (K4 under its rule) and
@@ -66,6 +74,7 @@ convolutions stay stock PyTorch.
 
 from __future__ import annotations
 
+import logging
 from typing import Any, Optional, Sequence
 
 import torch
@@ -89,13 +98,14 @@ __all__ = ["FactMixer", "FactorizerBlock", "FactorizerStage", "Factorizer"]
 # Reshape spec: a class, or (class, keyword arguments) as the bundle configs write it.
 ReshapeSpec = Any
 DEFAULT_RESHAPE: ReshapeSpec = (Matricize, {"num_heads": 1, "grid_size": 1})
-# The ``factorize_options`` keys that the mixer reads itself; every other key goes to the factorizer where its class
-# takes it, as in the JAX package.
-MIXER_OPTIONS = ("use_windowed", "split_shifts", "spatial_mesh", "spatial_axis")
-# Keys of the JAX package that are refused by name: ``use_pallas`` and ``explain`` steer its TPU kernels (here
-# ``reference_kernels()`` is the pure-torch mode).
-REFUSED_OPTIONS = ("use_pallas", "explain")
+# The ``factorize_options`` keys that the mixer reads itself; every key goes to the factorizer too where its class
+# takes it (``use_pallas`` to a ``MatrixFactorization``), as in the JAX package.
+MIXER_OPTIONS = ("use_windowed", "use_pallas", "explain", "split_shifts", "spatial_mesh", "spatial_axis")
 DEFAULT_ADAPTER = (Linear, {"bias": False})
+logger = logging.getLogger(__name__)
+# The reasons logged so far in this process: each is logged once, as the JAX package logs them (``explain`` logs
+# every forward).
+_LOGGED_FALLBACKS: set[str] = set()
 
 
 def _spatial_option(factorize_options: Optional[dict]) -> Optional[tuple]:
@@ -133,6 +143,10 @@ class FactMixer(nn.Module):
     that the two routes can be held against each other; on one card the flat
     route is the slower one and needs more memory (it copies the tensor for
     every shift), so no single-card deployment should set it.
+    ``factorize_options={"use_pallas": False}``, JAX's pure-XLA mode, takes
+    the flat route too and keeps the factorizer off K4 (its ``use_pallas``).
+    :attr:`fallback_reason` says why a mixer is off K1 (None: on K1); the
+    forward logs it as JAX's does, every time under ``{"explain": True}``.
     ``factorize_options={"spatial_mesh": mesh, "spatial_axis": "model"}``:
     ``forward`` takes this process's slab ``(B, S1 / n, S2, S3, C)`` of the
     volume, one of equal slabs, and mixes it through K5; only a mixer that K1
@@ -163,10 +177,6 @@ class FactMixer(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
-        refused = [key for key in REFUSED_OPTIONS if key in (factorize_options or {})]
-        if refused:
-            raise ValueError(f"factorize_options {refused} are not ported: use_pallas and explain steer the JAX "
-                             "package's TPU kernels (reference_kernels() is the pure-torch mode)")
         fact_fn = partialize(factorize)
         if not has_args(fact_fn, "size"):
             name = getattr(getattr(fact_fn, "func", fact_fn), "__name__", repr(factorize))
@@ -190,16 +200,19 @@ class FactMixer(nn.Module):
                                     context={"device": device, "generator": generator}, **options)
         self.out_proj = Linear(out_channels, out_channels, bias=True, **kw)
         self.drop = Dropout(dropout)
-        opted_out = (factorize_options or {}).get("use_windowed") is False
-        self.windowed = None if opted_out else self._windowed_config(tuple(spatial_size), out_channels)
+        opts = factorize_options or {}
+        self.explain = bool(opts.get("explain"))
+        self.opted_out = opts.get("use_windowed") is False or opts.get("use_pallas") is False
+        self.fallback_reason = self._fused_fallback_reason(tuple(spatial_size), out_channels, opts)
+        self.windowed = None if self.fallback_reason else self._windowed_config()
         self.splits_shifts = self.windowed is None and self._split_shift_eligible(factorize_options)
         self.spatial = _spatial_option(factorize_options)
         if self.spatial is not None:
             if self.windowed is None:
                 raise ValueError(
                     "factorize_options['spatial_mesh'] needs a mixer that the windowed kernel computes (3-D, a head_dim, "
-                    "cubic patches, rank-1 hals or mu from a RandomInit, use_windowed not False): the flat route has no "
-                    "sharded form"
+                    "cubic patches, rank-1 hals or mu from a RandomInit, use_windowed and use_pallas not False): the flat "
+                    f"route has no sharded form ({self.fallback_reason})"
                 )
             mesh, axis = self.spatial
             n, patch = mesh.axis_size(axis), self.windowed[1]
@@ -210,33 +223,56 @@ class FactMixer(nn.Module):
                 )
             self.slab_rows = spatial_size[0] // n
 
-    def _windowed_config(self, spatial_size: tuple, channels: int) -> Optional[tuple[int, int, tuple]]:
-        """``(head_dim, patch, shifts)`` when K1 computes this mixer, else None (the JAX package's
-        ``_fused_fallback_reason`` is None exactly then, its TPU check aside)."""
-        if isinstance(self.reshape, SWMatricize):
-            mats = self.reshape.shifted_windows
-        elif isinstance(self.reshape, Matricize):
-            mats = [self.reshape]
-        else:
-            return None
+    def _fused_fallback_reason(self, spatial_size: tuple, channels: int, options: dict) -> Optional[str]:
+        """Why K1 does not compute this mixer, in the JAX package's words (its ``_fused_fallback_reason``), or None.
+
+        JAX's last check, "not on TPU", has no counterpart: the port's route is
+        chosen by configuration, never by platform.  The same string for the
+        same configuration, since ``explain`` logs it."""
+        if options.get("use_windowed") is False:
+            return "factorize_options['use_windowed'] is False (explicit opt-out)"
+        if options.get("use_pallas") is False:
+            return "factorize_options['use_pallas'] is False (pure-XLA mode)"
         fact = self.factorize
-        if not isinstance(fact, MatrixFactorization) or len(spatial_size) != 3:
-            return None
-        ax = mats[0].axis_sizes
+        mats = (self.reshape.shifted_windows if isinstance(self.reshape, SWMatricize)
+                else [self.reshape] if isinstance(self.reshape, Matricize) else None)
+        if not isinstance(fact, MatrixFactorization):
+            return "factorize op is not a MatrixFactorization"
+        if len(spatial_size) != 3:
+            return "kernel requires a 3-D volume (2-D configs use the flat path)"
+        ax = {} if mats is None else mats[0].axis_sizes
         d, ps = ax.get("d"), [ax.get(f"p{i}") for i in range(3)]
-        if mats[0].data_format != "channels_last" or d is None or ps[0] is None or ps.count(ps[0]) != 3:
-            return None
-        if (
-            not isinstance(fact.solver, str)
-            or fact.project is not None
-            or not isinstance(fact.init, RandomInit)
-            or fact.rank_ != 1
-            or fact.solver not in ("hals", "mu")
-            or channels % d
-            or any(s % ps[0] for s in spatial_size)
-        ):
-            return None
-        return d, ps[0], tuple(m.shifts for m in mats)
+        if mats is None or mats[0].data_format != "channels_last" or d is None or ps[0] is None or ps.count(ps[0]) != 3:
+            return "reshape is not a channels-last (SW)Matricize with cubic patches (p0 == p1 == p2) and a head_dim"
+        if not isinstance(fact.solver, str):
+            return "composite/custom solver objects are outside kernel coverage"
+        if fact.project is not None:
+            return "solver with a projection step is outside kernel coverage"
+        if not isinstance(fact.init, RandomInit):
+            return "kernel covers RandomInit initializers only (svd/nndsvd fall back)"
+        if fact.rank_ != 1:
+            return f"kernel covers rank 1 only (rank={fact.rank_})"
+        if fact.solver not in ("hals", "mu"):
+            return f"kernel covers hals/mu solvers only (solver={fact.solver!r})"
+        if channels % d:
+            return f"channels {channels} not divisible by head_dim {d}"
+        if any(s % ps[0] for s in spatial_size):
+            return f"spatial size {tuple(spatial_size)} not divisible by patch_size {ps[0]}"
+        return None
+
+    def _windowed_config(self) -> tuple[int, int, tuple]:
+        """``(head_dim, patch, shifts)`` of a mixer that K1 computes."""
+        mats = self.reshape.shifted_windows if isinstance(self.reshape, SWMatricize) else [self.reshape]
+        return mats[0].axis_sizes["d"], mats[0].axis_sizes["p0"], tuple(m.shifts for m in mats)
+
+    def _explain(self) -> None:
+        """Log why this mixer takes the flat route, at INFO, as the JAX package's ``_use_fused_windowed`` does: each
+        distinct reason once per process, every forward under ``factorize_options={"explain": True}``, never an
+        explicit opt-out (``use_windowed`` or ``use_pallas`` False) unless explained."""
+        reason = self.fallback_reason
+        if self.explain or (not self.opted_out and reason not in _LOGGED_FALLBACKS):
+            _LOGGED_FALLBACKS.add(reason)
+            logger.info("FactMixer falls back to the unfused factorization path: %s", reason)
 
     def _split_shift_eligible(self, factorize_options: Optional[dict]) -> bool:
         """Whether the flat route runs once per shift: ``split_shifts`` asked for, an ``SWMatricize`` of more than one
@@ -251,7 +287,9 @@ class FactMixer(nn.Module):
 
     def _flat(self, out: torch.Tensor) -> torch.Tensor:
         """fold -> factorize -> unfold of the activated tensor: once per shift under :attr:`splits_shifts`, summed in
-        the JAX package's order (``acc + z``, then ``/ n``), else over the concatenated folds."""
+        the JAX package's order (``acc + z``, then ``/ n``), else over the concatenated folds.  Logs why the mixer is
+        off K1 (:meth:`_explain`)."""
+        self._explain()
         if not self.splits_shifts:
             return self.reshape.inverse_forward(self.factorize(self.reshape.forward(out)))
         acc = None

@@ -46,7 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..layers.basic import Conv, ConvTranspose, Dense, FlaxLayerNorm, InstanceNorm, resolve_activation, truncated_normal
-from ..parallel.slabs import Cut, Route, run_gathered
+from ..parallel.slabs import Cut, Route, empty_route, run_gathered, run_whole
 from ..utils.helpers import resolve_device, to_ntuple
 
 __all__ = ["SwinUNETR", "WindowAttention", "SwinBlock", "PatchMerging"]
@@ -241,7 +241,10 @@ class SwinUNETR(nn.Module):
     def slab_route(self, cut: Cut) -> Route:
         """The route on the cut ``cut`` (``parallel.slabs.Cut``) of the input's rows: the
         transformer gathered, and from the first conv level where some slab holds no whole number of rows (level k
-        holds ``rows / 2^k``) every deeper conv level with it."""
+        holds ``rows / 2^k``) every deeper conv level with it; the whole model on a cut with empty slabs."""
+        route = empty_route(cut)
+        if route is not None:
+            return route
         for level in range(1, len(self._ENCODERS)):
             for size in sorted(set(cut.sizes(cut.rows))):
                 if size % 2**level:
@@ -323,9 +326,12 @@ class SwinUNETR(nn.Module):
         return d
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        slabs, deepest = self.slabs, len(self._ENCODERS) - 1
+        dim = 2 if self.data_format == "channels_first" else 1
+        if slabs is not None and self.slab_route(slabs.line_cut(x.shape[dim])).level == 0:
+            return run_whole(self, x, slabs, dim)
         if self.data_format == "channels_first":
             x = x.movedim(1, -1).contiguous()
-        slabs, deepest = self.slabs, len(self._ENCODERS) - 1
         if slabs is None:
             hidden = self._transformer(self.patch_embed(x))
             out = self._decode(self._encode(deepest, x, hidden), deepest - 1, 0, x, hidden)

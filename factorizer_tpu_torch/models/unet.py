@@ -37,11 +37,17 @@ stages and the patch stem judge themselves, through their own
 ``slab_path_missing``) or a layer whose slab holds too few rows for it (a
 stride that does not divide them, fewer than one row, a halo wider than the
 slab), and levels ℓ and deeper run gathered (``parallel.slabs.run_ladder``); a
-stem or a head that fails makes it the whole model (ℓ = 0).
+stem that fails, or a cut with empty slabs (more slabs than rows), makes it the
+whole model (ℓ = 0).  A head belongs to the level it reads: a gathered level's
+head runs in the gathered part, and where the cut does not keep the level's
+rows whole on every slab (a deep-supervision head below the cut's grid) every
+process returns the head's whole output (``parallel.slabs.whole_on_slabs``),
+whose loss term ``train.losses.deep_supervision_loss`` takes whole.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from fractions import Fraction
 from typing import Any, Optional, Sequence
@@ -66,7 +72,7 @@ from ..layers.basic import (
     _Affine,
 )
 from ..layers.conv_blocks import BasicBlock, DoubleConv, PreActivationBlock, SepConv
-from ..parallel.slabs import Cut, Route, as_now, run_ladder, run_whole
+from ..parallel.slabs import Cut, Route, as_now, empty_route, run_ladder, run_whole
 from ..utils.helpers import has_args, partialize, spec_accepts
 
 __all__ = ["UNet", "Same", "build_block", "dtype_kwargs", "SLAB_LAYERS", "SLAB_NORMS", "slab_path_missing_of",
@@ -209,8 +215,11 @@ def slab_part_missing(module: nn.Module, name: str, rows_in: Fraction, rows_out:
 def first_gathered_level(levels: Sequence[Sequence[tuple]], cut: Cut) -> Route:
     """The route of a U-shaped model on ``cut``: the first level with a part that :func:`slab_part_missing` names on
     any slab of the cut (the thinnest first), where ``levels[l]`` lists level ``l``'s parts as ``(name, module,
-    rows_in, rows_out)``, the whole volume's rows; every level on slabs if none.  Every process judges every slab's
-    rows, so the line takes one route."""
+    rows_in, rows_out)``, the whole volume's rows; every level on slabs if none; the whole model (level 0) on a cut with
+    empty slabs.  Every process judges every slab's rows, so the line takes one route."""
+    route = empty_route(cut)
+    if route is not None:
+        return route
     total = sum(cut.parts)
     shares = [Fraction(p, total) for p in sorted(set(cut.parts))]
     for level, parts in enumerate(levels):
@@ -360,55 +369,58 @@ class UNet(nn.Module):
         """The route on the cut ``cut`` (``parallel.slabs.Cut``) of the input's rows: the
         first level with a part that has no slab path or too few rows on some slab for one of its layers, and all
         deeper levels, run gathered.  Level ``l``'s parts: encoder stage ``l`` (its resampling layer and block), the
-        decoder block at level ``l`` and the upsampling from it; level 0 also the stem and every head (a head runs on
-        its level's slab either way)."""
+        decoder block at level ``l``, the upsampling from it and the head that reads level ``l``; level 0 also the stem.
+        A head of a gathered level runs in the gathered part, on the whole level."""
         rs = self._level_rows(cut.rows)
         n_enc = len(self.encoder.blocks)
         levels = [[] for _ in range(n_enc)]
         levels[0] += [("stem", self.stem, Fraction(cut.rows), rs[0])]
-        levels[0] += [(name, getattr(self, name), rs[1], rs[1]) for name in self.head_names()]
         for i, stage in enumerate(self.encoder.blocks):
             levels[i] += [(f"encoder.blocks.{i}.{name}", m, rs[i], rs[i + 1]) for name, m in stage.named_children()]
         for k, stage in enumerate(self.decoder.blocks):
             lv = n_enc - 2 - k  # the level this stage's block runs at; its upsampling comes from the level below
             levels[lv] += [(f"decoder.blocks.{k}.block", stage.block, rs[lv], rs[lv + 1])]
             levels[lv + 1] += [(f"decoder.blocks.{k}.upsample", stage.upsample, rs[lv + 1], rs[lv + 2])]
+        for name, j in zip(self.head_names(), self._heads()):
+            levels[j] += [(name, getattr(self, name), rs[j + 1], rs[j + 1])]
         return first_gathered_level(levels, cut)
 
     def _heads(self) -> list[int]:
         """The levels the heads read, finest first."""
         return list(range(max(self.num_deep_supr, 1)))
 
-    def forward_features(self, x: torch.Tensor, level: Optional[int] = None) -> list[torch.Tensor]:
+    def forward_features(self, x: torch.Tensor, level: Optional[int] = None, heads: Optional[dict] = None,
+                         head_dim: int = 1) -> list[torch.Tensor]:
         """Channels-last feature pass; returns the outputs the heads read, finest first: the decoder's at each level it
-        reaches, else the encoder's.  ``level``: on slabs, the first level that runs gathered (:meth:`slab_route`)."""
+        reaches, else the encoder's.  ``level``: on slabs, the first level that runs gathered (:meth:`slab_route`).
+        ``heads`` (level -> function): each level's head output instead, whose cut axis is ``head_dim`` (a gathered
+        level's head runs in the gathered part: ``parallel.slabs.run_ladder``)."""
         n_enc = len(self.encoder.blocks)
         up, merge = {}, {}
         for k, stage in enumerate(self.decoder.blocks):
             up[n_enc - 2 - k], merge[n_enc - 2 - k] = stage.upsample, stage.merge
         keep = self._heads()
-        outs = run_ladder(self.stem(x), list(self.encoder.blocks), up, merge, keep, level, self.slabs, [self])
+        outs = run_ladder(self.stem(x), list(self.encoder.blocks), up, merge, keep, level, self.slabs, [self], heads,
+                          head_dim)
         return [outs[j] for j in keep]
+
+    def _head(self, name: str, y: torch.Tensor) -> torch.Tensor:
+        out = getattr(self, name)(y)
+        return out.movedim(-1, 1) if self.data_format == CHANNELS_FIRST else out
 
     def forward(self, x: torch.Tensor):
         """``(B, C_in, *S) -> (B, C_out, *S)`` (channels-last under ``data_format="channels_last"``), or the list of
-        the deep-supervision heads' outputs, finest first.  On slabs, by the route of :meth:`slab_route`."""
+        the deep-supervision heads' outputs, finest first.  On slabs, by the route of :meth:`slab_route`; a head whose
+        level the cut does not keep whole on every slab returns its whole output on every process
+        (``parallel.slabs.whole_on_slabs``)."""
         level, slabs = None, self.slabs
         dim = 2 if self.data_format == CHANNELS_FIRST else 1
         if slabs is not None:
-            cut = slabs.line_cut(x.shape[dim])
-            level = self.slab_route(cut).level
+            level = self.slab_route(slabs.line_cut(x.shape[dim])).level
             if level == 0:
                 return run_whole(self, x, slabs, dim)
-            rs = self._level_rows(cut.rows)
-            for name, j in zip(self.head_names(), self._heads()):
-                if any(r.denominator != 1 for r in cut.shares(rs[j + 1])):
-                    raise ValueError(f"slabs: {name} reads a level of {rs[j + 1]} rows, which the cut "
-                                     f"{cut.describe()} does not keep whole on every slab")
         if self.data_format == CHANNELS_FIRST:
             x = x.movedim(1, -1).contiguous()
-        ys = self.forward_features(x, level)
-        outs = [getattr(self, name)(y) for name, y in zip(self.head_names(), ys)]
-        if self.data_format == CHANNELS_FIRST:
-            outs = [y.movedim(-1, 1) for y in outs]
+        heads = {j: functools.partial(self._head, name) for name, j in zip(self.head_names(), self._heads())}
+        outs = self.forward_features(x, level, heads, dim)
         return outs if self.num_deep_supr else outs[0]

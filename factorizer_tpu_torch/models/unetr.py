@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..layers.basic import Conv, ConvTranspose, Dense, FlaxLayerNorm, truncated_normal
-from ..parallel.slabs import Cut, Route, run_gathered
+from ..parallel.slabs import Cut, Route, empty_route, run_gathered, run_whole
 from ..utils.helpers import resolve_device, to_ntuple
 from .swinunetr import _ConvBlock as _ResBlock  # MONAI's UnetResBlock: the same layers and names
 
@@ -126,7 +126,10 @@ class UNETR(nn.Module):
     def slab_route(self, cut: Cut) -> Route:
         """The route on the cut ``cut`` (``parallel.slabs.Cut``) of the input's rows: the ViT
         gathered; where some slab holds no whole number of patches, levels 1 and deeper with it (the patch embedding
-        and the branches above the finest level)."""
+        and the branches above the finest level); the whole model on a cut with empty slabs."""
+        route = empty_route(cut)
+        if route is not None:
+            return route
         for size in sorted(set(cut.sizes(cut.rows))):
             if size % self.patch_size:
                 return Route(1, f"a slab of {size} rows holds no whole number of patches of {self.patch_size}")
@@ -195,9 +198,12 @@ class UNETR(nn.Module):
         return self._up("decoder2", d3, enc2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        slabs = self.slabs
+        dim = 2 if self.data_format == "channels_first" else 1
+        if slabs is not None and self.slab_route(slabs.line_cut(x.shape[dim])).level == 0:
+            return run_whole(self, x, slabs, dim)
         if self.data_format == "channels_first":
             x = x.movedim(1, -1).contiguous()
-        slabs = self.slabs
         if slabs is None:
             up = self.decoder1_up(self._branches(self._states(self.patch_embed(x))))
         else:

@@ -43,7 +43,7 @@ import torch.distributed as dist
 from .mesh import Mesh
 
 __all__ = ["ring_exchange", "all_gather_cat", "broadcast_from_first", "halo_exchange", "all_reduce_sum", "slab_sum",
-           "gather_slabs", "cut_slab"]
+           "gather_slabs", "cut_slab", "count_once"]
 
 
 def _staged(tensor: torch.Tensor, group) -> bool:
@@ -256,6 +256,14 @@ class _ScaleGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g * ctx.scale, None
+
+
+def count_once(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """``x``, a whole tensor that every process of ``axis`` computes alike from parameters, kept whole (not cut): the
+    backward scales its cotangent by ``1 / n``, as :func:`cut_slab`'s ``count_once`` does, so that the sum over the
+    axis counts the gradient of what computed it once."""
+    n = mesh.axis_size(axis)
+    return x if n == 1 else _ScaleGrad.apply(x, 1.0 / n)
 
 
 def _narrow(t: torch.Tensor, mesh: Mesh, axis: str, dim: int, sizes: tuple) -> torch.Tensor:

@@ -66,7 +66,11 @@ collectives.
   A longer product keeps more levels on slabs, and a gathered level costs
   every process the whole level, so one more level outweighs a few rows of
   balance.
-* Every slab holds at least one row: n > R raises by name, before the step.
+* More slabs than rows (n > R, as JAX's GSPMD pads such a shard): R slabs of
+  one row and n - R empty slabs (parts 0).  Every model's route runs such a
+  cut whole-gathered (ℓ = 0, :func:`run_whole`, :func:`empty_route`), so the
+  empty slabs take part in the gathers, the cut back and the loss's sums
+  with no row, and nothing is saved.
 
 For ``factorizer_brats23`` (128 rows, strides 1, 1, 2, 2, 2, 2 with the stem's,
 so U = 16):
@@ -90,10 +94,15 @@ takes the whole volume's rows.  Equal slabs are the cut whose parts are all 1,
 and take the same code.  ``count_once`` stays ``1 / n``: every process computes the
 gathered part's whole gradient, whatever its slab's rows.
 
-What stays refused: n > R, and a deep-supervision head whose level the cut
-does not keep whole on every slab (below the grid).  A model tells what it
-lacks through ``slab_path_missing()`` (a reason, or None); a model without the
-method has no slab path.
+A level below the grid, whose rows the cut does not keep whole on every slab,
+runs gathered by the route.  Its output, where a deep-supervision head reads
+it, is not cut back: the head runs in the gathered part and every process
+returns the head's whole output (:func:`whole_on_slabs`, its cotangent
+scaled by ``1 / n`` so that the sum over the slabs counts its gradient once),
+and ``train.losses.deep_supervision_loss`` takes that head's term whole,
+against the gathered target.  A model tells what it lacks through
+``slab_path_missing()`` (a reason, or None); a model without the method has no
+slab path.
 """
 
 from __future__ import annotations
@@ -108,11 +117,11 @@ from typing import Any, Callable, Iterator, Optional, Sequence, Union
 import torch
 from torch import nn
 
-from .collectives import broadcast_from_first, cut_slab, gather_slabs
+from .collectives import broadcast_from_first, count_once, cut_slab, gather_slabs
 from .mesh import Mesh
 
-__all__ = ["Cut", "choose_cut", "Slabs", "Route", "on_slabs", "off_slabs", "require_slab_path", "slab_cut",
-           "slab_route", "run_gathered", "run_whole", "run_ladder", "as_now"]
+__all__ = ["Cut", "choose_cut", "Slabs", "Route", "empty_route", "on_slabs", "off_slabs", "require_slab_path",
+           "slab_cut", "slab_route", "run_gathered", "run_whole", "run_ladder", "as_now", "whole_on_slabs", "is_whole"]
 
 
 @dataclass(frozen=True)
@@ -122,7 +131,8 @@ class Cut:
 
     A tensor of ``whole`` rows along the cut axis, at any level, cuts in the
     same proportion (:meth:`shares`, :meth:`sizes`, :meth:`offsets`).  The
-    equal cut has every part 1.
+    equal cut has every part 1; a cut of more slabs than rows has parts 0
+    (empty slabs).
     """
 
     rows: int
@@ -151,10 +161,18 @@ class Cut:
 
     def sizes(self, whole: int) -> list[int]:
         """Each slab's rows of a tensor of ``whole`` rows; raises where a slab would hold no whole number of them."""
-        shares = self.shares(whole)
-        if any(r.denominator != 1 for r in shares):
+        if not self.keeps(whole):
             raise ValueError(f"slabs: a tensor of {whole} rows does not cut into the slabs {self.describe()}")
-        return [int(r) for r in shares]
+        return [int(r) for r in self.shares(whole)]
+
+    def keeps(self, whole: int) -> bool:
+        """Whether a tensor of ``whole`` rows cuts into whole rows on every slab."""
+        return all(r.denominator == 1 for r in self.shares(whole))
+
+    @property
+    def empty(self) -> int:
+        """The count of slabs without a row (more slabs than rows)."""
+        return self.parts.count(0)
 
     def offsets(self, whole: int) -> list[int]:
         """Each slab's first row in a tensor of ``whole`` rows."""
@@ -169,9 +187,12 @@ class Cut:
 def choose_cut(rows: int, n: int, strides: Sequence[int] = ()) -> Cut:
     """The cut of ``rows`` input rows into ``n`` slabs for a model of ``strides`` along the cut axis (the module's
     rule): equal where ``n`` divides ``rows``; else near-equal on the grid of the longest product of ``strides`` that
-    leaves at least ``n`` grid rows.  Raises ``ValueError`` where a slab would hold no row (``n > rows``)."""
-    if n < 1 or n > rows:
-        raise ValueError(f"slabs: {n} slabs of an input of {rows} rows: every slab must hold at least one row")
+    leaves at least ``n`` grid rows; with more slabs than rows, a row each for the first ``rows`` and none for the
+    others."""
+    if n < 1 or rows < 1:
+        raise ValueError(f"slabs: {n} slabs of an input of {rows} rows")
+    if n > rows:
+        return Cut(rows, (1,) * rows + (0,) * (n - rows))
     if rows % n == 0:
         return Cut.equal(rows, n)
     grid = 1
@@ -207,8 +228,16 @@ class Slabs:
         return self.mesh.axis_index(self.axis)
 
     def whole_rows(self, rows: int) -> int:
-        """The whole tensor's rows along the cut axis, where this slab holds ``rows`` of them."""
+        """The whole tensor's rows along the cut axis, where this slab holds ``rows`` of them.
+
+        An empty slab (more slabs than rows) cannot tell them from its own
+        rows: it takes the line's input rows, the only rows the route leaves
+        on such a cut (``empty_route``: the whole model gathered)."""
         parts = self.cut.parts
+        if parts[self.index] == 0:
+            if rows:
+                raise ValueError(f"slabs: the empty slab {self.index} of the cut {self.cut.describe()} holds {rows} rows")
+            return self.cut.rows
         return rows * sum(parts) // parts[self.index]
 
     def offset(self, rows: int) -> int:
@@ -245,6 +274,13 @@ class Route:
         if self.level == 0:
             return f"whole model gathered, no memory saving: {self.reason}"
         return f"levels {self.level} and deeper gathered: {self.reason}"
+
+
+def empty_route(cut: Cut) -> Optional[Route]:
+    """The route ℓ = 0 (the whole model gathered) of a cut with empty slabs, which every model takes; else None."""
+    if not cut.empty:
+        return None
+    return Route(0, f"{cut.n} slabs of an input of {cut.rows} rows: {cut.empty} hold no row")
 
 
 def require_slab_path(model: nn.Module) -> None:
@@ -342,21 +378,41 @@ def run_gathered(fn: Callable, modules: Sequence[nn.Module], slabs: Slabs, *xs: 
         return fn(*whole)
 
 
-def _cutter(slabs: Slabs, dim: int = 1) -> Callable:
-    return lambda t: slabs.cut_slab(t, dim, count_once=True)
+def whole_on_slabs(t: torch.Tensor, slabs: Slabs) -> torch.Tensor:
+    """A gathered part's whole output, alike on every process, returned in place of a slab where the cut does not keep
+    its rows whole on every slab (a deep-supervision head below the grid): its cotangent scaled by ``1 / n``
+    (:func:`~.collectives.count_once`) and the tensor marked (:func:`is_whole`), so that a loss on slabs takes it
+    whole."""
+    t = count_once(t, slabs.mesh, slabs.axis)
+    t.whole_on_slabs = True
+    return t
+
+
+def is_whole(t: torch.Tensor) -> bool:
+    """Whether ``t``, a model's output on slabs, is whole on every process (:func:`whole_on_slabs`), not a slab."""
+    return getattr(t, "whole_on_slabs", False)
+
+
+def _cut_back(slabs: Slabs, t: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """A gathered part's whole output ``t``: this slab of it where the cut keeps its rows whole on every slab
+    (``count_once``), else all of it (:func:`whole_on_slabs`)."""
+    if slabs.cut.keeps(t.shape[dim]):
+        return slabs.cut_slab(t, dim, count_once=True)
+    return whole_on_slabs(t, slabs)
 
 
 def run_whole(model: nn.Module, x: torch.Tensor, slabs: Slabs, dim: int) -> Any:
     """The route ℓ = 0: ``model`` on the whole input, gathered along ``dim``, on every process; its output (a tensor or
-    a list of them) cut back along the same ``dim``."""
+    a list of them) cut back along the same ``dim``, or whole where the cut does not keep its rows (:func:`_cut_back`)."""
     out = run_gathered(model, [model], slabs, x, dim=dim)
-    cut = _cutter(slabs, dim)
-    return [cut(t) for t in out] if isinstance(out, (list, tuple)) else cut(out)
+    if isinstance(out, (list, tuple)):
+        return [_cut_back(slabs, t, dim) for t in out]
+    return _cut_back(slabs, out, dim)
 
 
 def run_ladder(x: torch.Tensor, down: Sequence[Callable], up: dict, merge: dict, keep: Sequence[int] = (),
-               level: Optional[int] = None, slabs: Optional[Slabs] = None,
-               modules: Sequence[nn.Module] = ()) -> dict[int, torch.Tensor]:
+               level: Optional[int] = None, slabs: Optional[Slabs] = None, modules: Sequence[nn.Module] = (),
+               heads: Optional[dict] = None, head_dim: int = 1) -> dict[int, torch.Tensor]:
     """The U-shaped pass, channels-last, on this process's slab down to ``level`` and gathered from it.
 
     ``down[l](t)``: the encoder's level ``l`` from level ``l - 1`` (``x`` is
@@ -364,18 +420,27 @@ def run_ladder(x: torch.Tensor, down: Sequence[Callable], up: dict, merge: dict,
     decoder output up to level ``l``; ``merge[l](skip, u)``: the decoder output
     at level ``l`` from the encoder's and ``u``, for each level the decoder
     reaches (the keys of ``merge``).  Returns each level's output for the levels
-    in ``keep`` and the finest the decoder reaches: the decoder's where it
-    reaches the level, else the encoder's.
+    in ``keep`` and in ``heads`` and the finest the decoder reaches: the
+    decoder's where it reaches the level, else the encoder's; where ``heads``
+    has the level, ``heads[l]`` of that output instead (a head's output, whose
+    cut axis is ``head_dim``).
 
     ``level`` (at least 1, with ``slabs``): levels ``level`` and deeper run in
     one gathered part (:func:`run_gathered` over ``modules``), from the
-    encoder's level ``level - 1`` to ``up[level - 1]``'s output, and the
-    outputs cut back; the others run on the slab.  None: every level as it is.
+    encoder's level ``level - 1`` to ``up[level - 1]``'s output, their heads
+    with them on the whole level, and the outputs cut back, or kept whole where
+    the cut does not keep their rows (a level below the grid,
+    :func:`whole_on_slabs`); the others run on the slab.  None: every level as
+    it is.
     """
+    heads = heads or {}
     n_levels = len(down)
     finest = min(merge, default=n_levels - 1)
-    want = sorted(set(keep) | {finest})
+    want = sorted(set(keep) | set(heads) | {finest})
     first = n_levels if level is None else level
+
+    def head(lv: int, t: torch.Tensor) -> torch.Tensor:
+        return heads[lv](t) if lv in heads else t
 
     def encode(t: torch.Tensor, lo: int, hi: int, outs: dict) -> torch.Tensor:
         for lv in range(lo, hi):
@@ -392,20 +457,19 @@ def run_ladder(x: torch.Tensor, down: Sequence[Callable], up: dict, merge: dict,
     outs = dict(skips)
     if level is None:
         decode(skips[n_levels - 1], finest, n_levels - 2, skips, outs)
-        return {lv: outs[lv] for lv in want}
+        return {lv: head(lv, outs[lv]) for lv in want}
 
     def tail(t: torch.Tensor) -> list:
         deep: dict = {}
         d = encode(t, level, n_levels, deep)
         whole = dict(deep)
         d = decode(d, max(level, finest), n_levels - 2, deep, whole)
-        return [whole[lv] for lv in want if lv >= level] + ([up[level - 1](d)] if level - 1 >= finest else [])
+        return [head(lv, whole[lv]) for lv in want if lv >= level] + ([up[level - 1](d)] if level - 1 >= finest else [])
 
     gathered = run_gathered(tail, modules, slabs, skips[level - 1])
-    cut = _cutter(slabs)
     deep_levels = [lv for lv in want if lv >= level]
-    outs.update({lv: cut(t) for lv, t in zip(deep_levels, gathered)})
+    outs.update({lv: _cut_back(slabs, t, head_dim if lv in heads else 1) for lv, t in zip(deep_levels, gathered)})
     if level - 1 >= finest:
-        d = outs[level - 1] = merge[level - 1](skips[level - 1], cut(gathered[-1]))
+        d = outs[level - 1] = merge[level - 1](skips[level - 1], slabs.cut_slab(gathered[-1], count_once=True))
         decode(d, finest, level - 2, skips, outs)
-    return {lv: outs[lv] for lv in want}
+    return {lv: outs[lv] if lv >= level else head(lv, outs[lv]) for lv in want}

@@ -11,17 +11,23 @@ not): Dice's per-(sample, class) sums are summed over the slabs before the
 quotient, and the BCE is the slab's sum over the whole volume's voxel count
 (the whole volume's rows, ``Slabs.whole_rows``), summed over the slabs.  Every
 process then holds the whole volume's loss, and its backward gives the
-gradient with respect to its own slab (``parallel.all_reduce_sum``).
+gradient with respect to its own slab (``parallel.all_reduce_sum``).  An
+empty slab (more slabs than rows) adds nothing to the sums.  A
+deep-supervision head whose output every process holds whole
+(``parallel.slabs.is_whole``: its level lies below the cut's grid) is taken
+whole against the gathered target.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from ..parallel.collectives import all_reduce_sum
+from ..parallel.slabs import is_whole
 
 __all__ = ["dice_loss", "bce_with_logits", "dice_ce_loss", "deep_supervision_loss"]
 
@@ -78,7 +84,7 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor, slabs=None) -> 
     terms = logits.clamp_min(0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
     if slabs is None:
         return terms.mean()
-    count = terms.numel() // terms.shape[2] * slabs.whole_rows(terms.shape[2])
+    count = math.prod(terms.shape[:2]) * math.prod(terms.shape[3:]) * slabs.whole_rows(terms.shape[2])
     return all_reduce_sum(terms.sum() / count, slabs.mesh, slabs.axis)
 
 
@@ -121,21 +127,30 @@ def deep_supervision_loss(
     halve per level and are normalised to sum to 1.  With ``slabs`` the heads
     and targets are this process's slabs: a head's slab rows divide the
     target's, so each slab pools its own rows, and each head's DiceCE sums
-    over the slabs (see the module).
+    over the slabs (see the module).  A head that every process holds whole
+    (``parallel.slabs.is_whole``) is pooled from the gathered target and taken
+    whole on every process: its value is the whole term, and the head's
+    output, which counts its gradient once over the slabs, carries it back.
     """
     n = len(logits_pyramid)
     if weights is None:
         weights = [0.5**j for j in range(n)]
     pool = {4: F.avg_pool2d, 5: F.avg_pool3d}
 
-    total = 0.0
+    total, gathered = 0.0, None
     for w, logits in zip(weights, logits_pyramid):
-        t = targets
-        if logits.shape != targets.shape:
-            factors = tuple(ts // ls for ts, ls in zip(targets.shape[2:], logits.shape[2:]))
-            if slabs is not None and targets.shape[2] != factors[0] * logits.shape[2]:
-                raise ValueError(f"deep_supervision_loss on slabs: a head of {logits.shape[2]} rows a slab does not "
-                                 f"pool from a target of {targets.shape[2]}")
-            t = pool[targets.ndim](targets.to(_loss_dtype(targets)), factors)
-        total = total + w * dice_ce_loss(logits, t, slabs=slabs, **kwargs)
+        whole = slabs is not None and is_whole(logits)
+        if whole and gathered is None:
+            gathered = slabs.gather_slabs(targets, dim=2)
+        t = gathered if whole else targets
+        if logits.shape != t.shape:
+            if logits.shape[2] == 0:  # an empty slab's head: no row of the target either
+                t = t.new_zeros(logits.shape, dtype=_loss_dtype(t))
+            else:
+                factors = tuple(ts // ls for ts, ls in zip(t.shape[2:], logits.shape[2:]))
+                if slabs is not None and not whole and t.shape[2] != factors[0] * logits.shape[2]:
+                    raise ValueError(f"deep_supervision_loss on slabs: a head of {logits.shape[2]} rows a slab does "
+                                     f"not pool from a target of {t.shape[2]}")
+                t = pool[t.ndim](t.to(_loss_dtype(t)), factors)
+        total = total + w * dice_ce_loss(logits, t, slabs=None if whole else slabs, **kwargs)
     return total / sum(weights)

@@ -19,7 +19,8 @@ With ``spatial_axis=`` as well the step is the whole-model spatial step
 model and the loss on its slab of the volume's first spatial axis
 (``parallel.slabs``): equal slabs where the process count divides its rows,
 else slabs of unequal rows, one cut for the line (``parallel.slabs.choose_cut``),
-as GSPMD pads such a cut.  Gradients are summed over ``spatial_axis``, where
+as GSPMD pads such a cut; with more processes than rows, some slabs hold none
+(the whole model then runs gathered).  Gradients are summed over ``spatial_axis``, where
 each slab gives a part, and averaged over ``data_axis``.  With ``model_axis=``
 instead the processes of a ``model_axis`` line take one batch, the first
 process's, and each runs the whole model on it.

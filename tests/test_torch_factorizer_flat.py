@@ -185,14 +185,30 @@ def test_factmixer_opt_out_matches_jax_and_the_windowed_route():
 
 
 def test_factorize_options_takes_use_windowed_alone():
-    """The TPU-only keys of the JAX package are refused by name; ``use_windowed: True`` and None keep the default;
-    ``split_shifts`` is taken by a flat-route mixer, whose split route equals its concat route bit for bit.
-    (``spatial_mesh`` and ``spatial_axis`` are taken: ``tests/test_torch_windowed_sharded.py``.)"""
+    """The JAX package's kernel keys are taken as it takes them: ``use_pallas: False`` (pure-XLA mode) puts a K1
+    mixer on the flat route with its factorizer off K4, equal to the ``use_windowed: False`` mixer's K4 route within
+    f32 rounding; ``use_pallas: True`` / None and ``explain: True`` keep K1, ``explain`` bit for bit;
+    ``use_windowed: True`` and None keep the default; ``split_shifts`` is taken by a flat-route mixer, whose split
+    route equals its concat route bit for bit.  (``spatial_mesh`` and ``spatial_axis`` are taken:
+    ``tests/test_torch_windowed_sharded.py``.)"""
     sw = (ftt.SWMatricize, {"head_dim": 4, "patch_size": 4})
-    for key in ("use_pallas", "explain"):
-        with pytest.raises(ValueError, match=key):
-            ftt.FactMixer(8, 8, (8, 8, 8), reshape=sw, factorize_options={key: True})
     fk = dict(rank=1, num_iters=3, init_method="uniform", solver="hals")
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal((2, 8, 8, 8, 8)).astype(np.float32))
+    mixers = {key: ftt.FactMixer(8, 8, (8, 8, 8), reshape=sw, factorize_kwargs=fk, factorize_options=options)
+              for key, options in {"default": None, "pure": {"use_pallas": False}, "k4": {"use_windowed": False},
+                                   "explain": {"explain": True}, "pallas": {"use_pallas": True},
+                                   "auto": {"use_pallas": None}}.items()}
+    for m in mixers.values():
+        m.load_state_dict(mixers["default"].state_dict())
+    pure, k4 = mixers["pure"], mixers["k4"]
+    assert pure.windowed is None and pure.factorize.use_pallas is False and not pure.factorize.supports()
+    assert pure.fallback_reason == "factorize_options['use_pallas'] is False (pure-XLA mode)"
+    assert k4.windowed is None and k4.factorize.supports()
+    assert all(mixers[k].windowed == mixers["default"].windowed is not None for k in ("explain", "pallas", "auto"))
+    with torch.no_grad():
+        y = {k: m(x) for k, m in mixers.items()}
+    assert (y["pure"] - y["k4"]).abs().max() <= 1e-6 * y["k4"].abs().max()
+    assert torch.equal(y["explain"], y["default"]) and torch.equal(y["pallas"], y["default"])
     concat = ftt.FactMixer(8, 8, (8, 8, 8), reshape=sw, factorize_kwargs=fk, factorize_options={"use_windowed": False})
     split = ftt.FactMixer(8, 8, (8, 8, 8), reshape=sw, factorize_kwargs=fk,
                           factorize_options={"use_windowed": False, "split_shifts": True})

@@ -4,13 +4,18 @@
   (``factorize_options={"use_windowed": True}``, so the platform does not decide) returns None, and
   ``MatrixFactorization`` takes K4 exactly when JAX's ``_fused_eligible`` (``use_pallas=True``) holds.  On the CPU
   "takes" is the route the module chose, read from it (``FactMixer.windowed``, ``MatrixFactorization.supports``).
-* ``factorize_options``: a key the factorizer's class accepts reaches it, as in the JAX package; the TPU keys
-  ``use_pallas`` and ``explain`` and the unported ``split_shifts`` raise by name.
+* ``factorize_options``: a key the factorizer's class accepts reaches it, as in the JAX package (``use_pallas``
+  too, while ``explain`` stays with the mixer); ``split_shifts`` is the mixer's.
+* ``use_pallas: False``, JAX's pure-XLA mode, on a reduced Factorizer and a bare ``MatrixFactorization`` against
+  JAX's in f64, with neither K1's nor K4's route taken; ``explain``'s reasons against JAX's
+  ``_fused_fallback_reason``, logged once per reason, and every forward under ``explain: True``.
 * ``factorizer_brats23``'s ``network_def`` with the override sets (a)-(g) at roi 8^3, through the port's
   ``ConfigParser`` and JAX's: every ``$ftx.`` name resolves, the two models agree through the weight bridge (the
   randomized SVD's test matrix is JAX's draw in both), and every set has a slab path (the flat route of (a)-(d)
   runs on the gathered tensor).
 """
+
+import logging
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +29,7 @@ from factorizer_tpu import config as jax_config
 from factorizer_tpu.utils.torch_import import convert_state_dict
 from factorizer_tpu_torch.config import ConfigParser
 from factorizer_tpu_torch.factorization import svd as svd_module
+from factorizer_tpu_torch.utils.weights import flax_state_dict
 from torch_bundle_cases import TINY_FACTORIZER, bundle_config
 
 torch.set_num_threads(1)
@@ -103,8 +109,8 @@ def test_routing_matches_jax(case):
 def test_factorize_options_reach_the_factorizer():
     """F7: every key the factorizer's class takes is passed (``eps``, ``init`` read as ``init_method``,
     ``compression``, ``seed``), ``factorize_options`` before the model's own fields, as JAX's ``FactMixer`` does (an
-    ``init_method`` field wins over an ``init`` key there too); a key no class takes is dropped; the TPU keys raise
-    by name; ``split_shifts`` is taken by a flat-route mixer (here a rank-2 one's) and is no factorizer's key, and the
+    ``init_method`` field wins over an ``init`` key there too); a key no class takes is dropped; ``use_pallas``
+    reaches the factorizer and ``explain`` stays with the mixer, as JAX's keys do; ``split_shifts`` is taken by a flat-route mixer (here a rank-2 one's) and is no factorizer's key, and the
     split route equals the concat route bit for bit."""
     sw = (ftt.SWMatricize, SW)
     m = ftt.FactMixer(8, 8, (8, 8, 8), reshape=sw, factorize_kwargs={"rank": 1, "num_iters": 5},
@@ -121,9 +127,11 @@ def test_factorize_options_reach_the_factorizer():
                       factorize_options={"seed": 7})
     assert isinstance(m.factorize, ftt.SVD) and (m.factorize.rank, m.factorize.seed) == (2, 7) and m.windowed is None
     assert ftt.has_args(ftt.NMF, "rank") and ftt.spec_accepts((ftt.NMF, {}), "compression")
-    for key in ("use_pallas", "explain"):
-        with pytest.raises(ValueError, match=key):
-            ftt.FactMixer(8, 8, (8, 8, 8), reshape=sw, factorize_options={key: True})
+    for value in (False, True, None):  # JAX's kernel keys: use_pallas reaches the factorizer, explain the mixer alone
+        m = ftt.FactMixer(8, 8, (8, 8, 8), reshape=sw, factorize_kwargs={"rank": 1},
+                          factorize_options={"use_pallas": value, "explain": True})
+        assert m.factorize.use_pallas is value and m.explain and not hasattr(m.factorize, "explain")
+        assert (m.windowed is None) == (value is False) and m.factorize.supports() == (value is not False)
     fk = {"rank": 2, "num_iters": 2}
     concat = ftt.FactMixer(8, 8, (8, 8, 8), reshape=sw, factorize_kwargs=fk)
     split = ftt.FactMixer(8, 8, (8, 8, 8), reshape=sw, factorize_kwargs=fk, factorize_options={"split_shifts": True})
@@ -230,3 +238,140 @@ def _leaves(tree, prefix=()):
             yield from _leaves(v, (*prefix, k))
         else:
             yield ".".join((*prefix, k)), np.asarray(v)
+
+
+# -- use_pallas: False (JAX's pure-XLA mode) and explain
+
+
+F64_TOL = 1e-10
+PURE_XLA = dict(in_channels=4, out_channels=3, spatial_size=(8, 8, 8), encoder_depth=(1, 1), encoder_width=(8, 16),
+                strides=(1, 2), decoder_depth=(1,), rank=1, num_iters=3, init_method="uniform", solver="hals")
+
+
+def _no_kernel_routes(monkeypatch):
+    """Neither K1's nor K4's route may be taken (their wrappers raise if reached; K5's too)."""
+    from factorizer_tpu_torch.factorization import nmf as port_nmf
+    from factorizer_tpu_torch.models import factorizer as port_factorizer
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a kernel route was taken under use_pallas: False")
+
+    for module, name in ((port_factorizer, "windowed_nmf"), (port_factorizer, "windowed_nmf_multi_spatial"),
+                         (port_nmf.nmf_kernel, "nmf_reconstruct")):
+        monkeypatch.setattr(module, name, refuse)
+
+
+def _close64(got: torch.Tensor, want: np.ndarray, scale: float) -> None:
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=0, atol=F64_TOL * scale)
+
+
+def test_use_pallas_false_factorizer_matches_jax_pure_xla(monkeypatch):
+    """A reduced Factorizer under ``factorize_options={"use_pallas": False}`` against JAX's same model (its pure-XLA
+    mode), f64: the logits and every parameter gradient of ``sum(out * r)`` to 1e-10 of the largest; every mixer on
+    the flat route with its factorizer off K4, and neither kernel's wrapper reached."""
+    sw = {"head_dim": 4, "patch_size": 4, "shifts": [None, 2]}
+    options = {"use_pallas": False}
+    model_j = ftx.Factorizer(**PURE_XLA, reshape=(ftx.SWMatricize, sw), factorize_options=options)
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((2, 4, 8, 8, 8))
+    variables = jax.tree.map(np.asarray, dict(jax.jit(model_j.init)(jax.random.key(0), jnp.zeros((1, 4, 8, 8, 8)))))
+    r = rng.standard_normal((2, 3, 8, 8, 8))
+    with jax.enable_x64(True):
+        v64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), variables)
+
+        def loss(p):
+            out = model_j.apply({**v64, "params": p}, jnp.asarray(x))
+            return jnp.sum(out * r), out
+
+        (_, out_j), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(v64["params"])
+        out_j, grads = np.asarray(out_j), jax.tree.map(np.asarray, grads)
+    model_t = ftt.Factorizer(**PURE_XLA, reshape=(ftt.SWMatricize, sw), factorize_options=options, device="cpu")
+    ftt.load_flax_variables(model_t, variables).double()
+    mixers = [m for m in model_t.modules() if isinstance(m, ftt.FactMixer)]
+    assert len(mixers) == 3 and all(m.windowed is None and not m.factorize.supports() for m in mixers)
+    _no_kernel_routes(monkeypatch)
+    out_t = model_t(torch.from_numpy(x))
+    _close64(out_t, out_j, np.abs(out_j).max())
+    (out_t * torch.from_numpy(r)).sum().backward()
+    want = flax_state_dict(model_t, {**variables, "params": grads})
+    named = dict(model_t.named_parameters())
+    largest = max(np.abs(want[k].numpy()).max() for k in named)
+    for key, p in named.items():
+        _close64(p.grad, want[key].numpy(), largest)
+
+
+def test_use_pallas_false_matrix_factorization_matches_jax(monkeypatch):
+    """A bare ``MatrixFactorization`` (HALS, rank 1, a K4 size) with ``use_pallas=False`` against JAX's, f64: the
+    reconstruction and its gradient with respect to the input to 1e-10; ``NMF`` inherits the keyword; K4 not
+    reached."""
+    size, opts = (8, 16), dict(rank=1, num_iters=3, init_method="uniform", solver="hals")
+    mf_j = ftx.MatrixFactorization(size=size, use_pallas=False, **opts)
+    rng = np.random.default_rng(13)
+    x, r = rng.random((6, *size)), rng.standard_normal((6, *size))
+    variables = jax.tree.map(np.asarray, dict(mf_j.init(jax.random.key(0), jnp.zeros((1, *size)))))
+    with jax.enable_x64(True):
+        v64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), variables)
+        out_j, vjp = jax.vjp(lambda a: mf_j.apply(v64, a), jnp.asarray(x))
+        dx_j = np.asarray(vjp(jnp.asarray(r))[0])
+    mf_t = ftt.MatrixFactorization(size, use_pallas=False, **opts).double()
+    init = variables["buffers"]["initializer"]
+    mf_t.load_state_dict({"init.u0": torch.tensor(init["u0"], dtype=torch.float64),
+                          "init.v0": torch.tensor(init["v0"], dtype=torch.float64)})
+    assert not mf_t.supports() and ftt.MatrixFactorization(size, **opts).supports()
+    assert ftt.NMF(size, use_pallas=False).use_pallas is False
+    _no_kernel_routes(monkeypatch)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out_t = mf_t(xt)
+    _close64(out_t, np.asarray(out_j), np.abs(np.asarray(out_j)).max())
+    out_t.backward(torch.from_numpy(r))
+    _close64(xt.grad, dx_j, np.abs(dx_j).max())
+
+
+# name -> (spatial size, reshape options, factorizer options, factorize_options): the reasons the port can reach
+EXPLAIN_CASES = {
+    "k1": ((8, 8, 8), {}, {}, {}),
+    "rank2": ((8, 8, 8), {}, {"rank": 2}, {}),
+    "cd": ((8, 8, 8), {}, {"solver": "cd"}, {}),
+    "svd-init": ((8, 8, 8), {}, {"init_method": "svd"}, {}),
+    "2d": ((8, 8), {}, {}, {}),
+    "non-cubic": ((8, 8, 8), {"patch_size": (4, 4, 2)}, {}, {}),
+    "use_windowed-false": ((8, 8, 8), {}, {}, {"use_windowed": False}),
+    "use_pallas-false": ((8, 8, 8), {}, {}, {"use_pallas": False}),
+}
+
+
+@pytest.mark.parametrize("case", list(EXPLAIN_CASES))
+def test_explain_logs_jax_reasons(case, caplog):
+    """Why a mixer is off K1, in JAX's words: the port's ``fallback_reason`` equals JAX's ``_fused_fallback_reason``
+    (asked with ``use_windowed: True``, so that its TPU line does not decide).  Logged at INFO once per reason over
+    two forwards, an explicit opt-out not at all; under ``explain: True`` every forward, with the same outputs bit for
+    bit; a K1 mixer logs nothing."""
+    from factorizer_tpu_torch.models import factorizer as port_factorizer
+
+    spatial, reshape_opts, opts, options = EXPLAIN_CASES[case]
+    reshape = {**SW, **reshape_opts}
+    m_j = ftx.FactMixer(8, 8, spatial, reshape=(ftx.SWMatricize, reshape), factorize_options={"use_windowed": True,
+                                                                                             **options},
+                        **_options(ftx, opts))
+    reason, _ = m_j.init_with_output(jax.random.key(0), jnp.zeros((2, *spatial, 8)),
+                                     method=lambda m, out: m._fused_fallback_reason(out))
+    port = {explain: ftt.FactMixer(8, 8, spatial, reshape=(ftt.SWMatricize, reshape), factorize_kwargs=_options(ftt, opts),
+                                   factorize_options={**options, "explain": explain})
+            for explain in (False, True)}
+    port[True].load_state_dict(port[False].state_dict())
+    assert port[False].fallback_reason == port[True].fallback_reason == reason
+    x = torch.from_numpy(np.random.default_rng(14).random((2, *spatial, 8)))
+    logged = {}
+    for explain, m in port.items():
+        port_factorizer._LOGGED_FALLBACKS.discard(reason)
+        caplog.clear()
+        with caplog.at_level(logging.INFO, logger=port_factorizer.logger.name), torch.no_grad():
+            outs = [m(x) for _ in range(2)]
+        logged[explain] = [rec.args[-1] for rec in caplog.records if rec.name == port_factorizer.logger.name]
+        assert torch.equal(outs[0], outs[1])
+        port[explain] = outs[0]
+    assert torch.equal(port[False], port[True])
+    explicit = bool(options)
+    assert logged[False] == ([] if reason is None or explicit else [reason])
+    assert logged[True] == ([] if reason is None else [reason, reason])
