@@ -7,6 +7,9 @@ a gaussian importance map).  The window starts are computed on the host; a
 host loop over groups of ``sw_batch_size`` windows gathers each group from
 the padded volume, predicts, and blend-accumulates into float32 sums on the
 volume's device, or with ``stitch_on_host`` into numpy sums on the host.
+Under a profiler these phases show as spans (``utils.profiling.span``):
+``sliding_window.prepare``, then per group ``.gather``, ``.predict`` and
+``.blend``, and ``.normalize``.
 
 :class:`SlidingWindowInfererAdapt` is the counterpart of the JAX package's
 class of that name (MONAI's ``SlidingWindowInfererAdapt``, the bundles'
@@ -25,6 +28,8 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..utils.profiling import span
 
 __all__ = ["compute_importance_map", "sliding_window_positions", "sliding_window_inference", "SlidingWindowInfererAdapt"]
 
@@ -92,41 +97,46 @@ def sliding_window_inference(
     """
     batch, _, *spatial = inputs.shape
     roi = tuple(roi_size)
-    pad = []
-    for r, s in zip(reversed(roi), reversed(spatial)):  # F.pad lists the last axis first
-        pad += [0, max(r - s, 0)]
-    padded = F.pad(inputs, pad, value=pad_value)
-    pspatial = padded.shape[2:]
+    with span("sliding_window.prepare"):
+        pad = []
+        for r, s in zip(reversed(roi), reversed(spatial)):  # F.pad lists the last axis first
+            pad += [0, max(r - s, 0)]
+        padded = F.pad(inputs, pad, value=pad_value)
+        pspatial = padded.shape[2:]
 
-    importance_np = compute_importance_map(roi, mode)
-    importance = importance_np if stitch_on_host else torch.from_numpy(importance_np).to(inputs.device)
-    jobs = [(b, *pos) for b in range(batch) for pos in sliding_window_positions(pspatial, roi, overlap)]
+        importance_np = compute_importance_map(roi, mode)
+        importance = importance_np if stitch_on_host else torch.from_numpy(importance_np).to(inputs.device)
+        jobs = [(b, *pos) for b in range(batch) for pos in sliding_window_positions(pspatial, roi, overlap)]
     out_sum = weight_sum = None
     for g0 in range(0, len(jobs), sw_batch_size):
         group = jobs[g0 : g0 + sw_batch_size]
         n_valid = len(group)
         group = group + [group[-1]] * (sw_batch_size - n_valid)
-        windows = torch.stack(
-            [padded[(b, slice(None), *(slice(s, s + r) for s, r in zip(start, roi)))] for b, *start in group]
-        )
-        preds = predictor(windows, *predictor_args).float()
-        if stitch_on_host:
-            preds = preds.cpu().numpy()
-        if out_sum is None:
-            shape = (batch, preds.shape[1], *pspatial), (batch, 1, *pspatial)
+        with span("sliding_window.gather"):
+            windows = torch.stack(
+                [padded[(b, slice(None), *(slice(s, s + r) for s, r in zip(start, roi)))] for b, *start in group]
+            )
+        with span("sliding_window.predict"):
+            preds = predictor(windows, *predictor_args).float()
             if stitch_on_host:
-                out_sum, weight_sum = (np.zeros(sh, np.float32) for sh in shape)
-            else:
-                out_sum, weight_sum = (torch.zeros(sh, dtype=torch.float32, device=inputs.device) for sh in shape)
-        for j, (b, *start) in enumerate(group[:n_valid]):
-            win = tuple(slice(s, s + r) for s, r in zip(start, roi))
-            out_sum[(b, slice(None), *win)] += preds[j] * importance
-            weight_sum[(b, slice(None), *win)] += importance
-    if stitch_on_host:
-        result = torch.from_numpy(out_sum / np.maximum(weight_sum, np.float32(1e-8))).to(inputs.device)
-    else:
-        result = out_sum / weight_sum.clamp_min(1e-8)
-    return result[(slice(None), slice(None), *(slice(0, s) for s in spatial))]
+                preds = preds.cpu().numpy()
+        with span("sliding_window.blend"):
+            if out_sum is None:
+                shape = (batch, preds.shape[1], *pspatial), (batch, 1, *pspatial)
+                if stitch_on_host:
+                    out_sum, weight_sum = (np.zeros(sh, np.float32) for sh in shape)
+                else:
+                    out_sum, weight_sum = (torch.zeros(sh, dtype=torch.float32, device=inputs.device) for sh in shape)
+            for j, (b, *start) in enumerate(group[:n_valid]):
+                win = tuple(slice(s, s + r) for s, r in zip(start, roi))
+                out_sum[(b, slice(None), *win)] += preds[j] * importance
+                weight_sum[(b, slice(None), *win)] += importance
+    with span("sliding_window.normalize"):
+        if stitch_on_host:
+            result = torch.from_numpy(out_sum / np.maximum(weight_sum, np.float32(1e-8))).to(inputs.device)
+        else:
+            result = out_sum / weight_sum.clamp_min(1e-8)
+        return result[(slice(None), slice(None), *(slice(0, s) for s in spatial))]
 
 
 class SlidingWindowInfererAdapt:

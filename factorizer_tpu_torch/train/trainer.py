@@ -60,6 +60,7 @@ from ..parallel.mesh import Mesh
 from ..parallel.sharding import ShardedParameters, data_parallel, shard_batch, shard_parameters
 from ..parallel.slabs import Slabs, on_slabs, require_slab_path, slab_cut, slab_route
 from ..utils.helpers import materialize, resolve_device
+from ..utils.profiling import span
 from .losses import deep_supervision_loss, dice_ce_loss
 from .schedules import Schedule, clip_by_global_norm, global_norm, make_adamw, sum_of_squares
 
@@ -222,7 +223,9 @@ def make_train_step(model: nn.Module, loss_fn: Optional[Callable] = None, accum_
     before the single update: with mean-reduced losses that is the full-batch
     gradient at one micro-batch's activation memory.  The gradients of the
     step stay in ``p.grad`` until the next step clears them (a sharded
-    state's in its shards).
+    state's in its shards).  Under a profiler the step opens the spans
+    ``train.forward`` and ``train.backward`` per micro-batch and
+    ``train.update`` once (``utils.profiling.span``).
 
     With ``mesh`` every process calls the step with the same whole batch and
     runs its shard over ``data_axis`` (equal shards, or the call raises); with
@@ -324,29 +327,32 @@ def make_train_step(model: nn.Module, loss_fn: Optional[Callable] = None, accum_
                 else:
                     held = contextlib.nullcontext()
                 with held:
-                    out = net(im)
-                    micro = (loss_fn(out, lb, slabs=slabs) if spatial else loss_fn(out, lb)) / accum_steps
-                    micro.backward()
-                loss = loss + micro.detach()
+                    with span("train.forward"):
+                        out = net(im)
+                        micro = (loss_fn(out, lb, slabs=slabs) if spatial else loss_fn(out, lb)) / accum_steps
+                        loss = loss + micro.detach()
+                    with span("train.backward"):
+                        micro.backward()
         except BaseException:
             if sharded is not None:
                 sharded.release()
             raise
-        if sharded is not None:  # the whole leaves' gradients become the shards' (summed over the slabs), then go
-            sharded.scatter_gradients(summed=spatial)
-        if spatial:  # each slab gave a part of every whole gradient
-            _sum_grads(params if sharded is None else sharded.replicated(), mesh, spatial_axis)
-        updated = [p for g in state.optimizer.param_groups for p in g["params"]]
-        if line is not None and data_size > 1:  # the data lines' gradients are averaged
-            _sum_grads(updated, mesh, data_axis, 1.0 / data_size)
-        grads = [p.grad for p in updated if p.grad is not None]
-        if data_size > 1:  # equal shards: the mean of their mean losses is the batch's
-            dist.all_reduce(loss, group=mesh.group(data_axis))
-            loss = loss / data_size
-        grad_norm = _grad_norm(state, grads)
-        if state.grad_clip_norm is not None:
-            clip_by_global_norm(grads, state.grad_clip_norm, norm=grad_norm)
-        state.apply_gradients()
+        with span("train.update"):
+            if sharded is not None:  # the whole leaves' gradients become the shards' (summed over the slabs), then go
+                sharded.scatter_gradients(summed=spatial)
+            if spatial:  # each slab gave a part of every whole gradient
+                _sum_grads(params if sharded is None else sharded.replicated(), mesh, spatial_axis)
+            updated = [p for g in state.optimizer.param_groups for p in g["params"]]
+            if line is not None and data_size > 1:  # the data lines' gradients are averaged
+                _sum_grads(updated, mesh, data_axis, 1.0 / data_size)
+            grads = [p.grad for p in updated if p.grad is not None]
+            if data_size > 1:  # equal shards: the mean of their mean losses is the batch's
+                dist.all_reduce(loss, group=mesh.group(data_axis))
+                loss = loss / data_size
+            grad_norm = _grad_norm(state, grads)
+            if state.grad_clip_norm is not None:
+                clip_by_global_norm(grads, state.grad_clip_norm, norm=grad_norm)
+            state.apply_gradients()
         return state, {"loss": loss, "grad_norm": grad_norm}
 
     return step

@@ -6,7 +6,8 @@ and convolutions by their shapes (two operations per multiply-add) and nothing
 else, so elementwise work and the port's own kernels count 0; torch gives no
 count of bytes accessed, so ``bytes_accessed`` is NaN.  Latency is the host's
 clock around the calls, ended with ``torch.cuda.synchronize()`` on the card.
-:func:`trace` writes a ``torch.profiler`` Chrome trace.
+:func:`trace` writes a ``torch.profiler`` Chrome trace, in which the
+program's :func:`span` names show.
 """
 
 from __future__ import annotations
@@ -18,9 +19,13 @@ from pathlib import Path
 from typing import Any, Callable, Iterator
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 from torch.utils.flop_counter import FlopCounterMode
 
-__all__ = ["cost_analysis", "measure_latency", "profile_model", "trace", "dump_profile"]
+__all__ = ["cost_analysis", "measure_latency", "profile_model", "span", "trace", "dump_profile"]
+
+SPAN_PREFIX = "ftt."
+_NO_SPAN = contextlib.nullcontext()
 
 
 def _device_of(args: tuple) -> torch.device:
@@ -74,6 +79,25 @@ def profile_model(model: torch.nn.Module, sample_input: torch.Tensor, iters: int
         "input_shape": list(sample_input.shape),
         "backend": sample_input.device.type,
     }
+
+
+def span(name: str):
+    """A phase of the program, named ``ftt.<name>`` in a ``torch.profiler`` trace.
+
+    While a profiler records, the block runs inside
+    ``torch.profiler.record_function("ftt." + name)``; otherwise it runs inside
+    one shared no-op context: no allocation, no clock read, no CUDA event and
+    no synchronisation.  A span never changes what the block computes.  The
+    train step opens ``train.forward`` and ``train.backward`` per micro-batch
+    and ``train.update`` once; the sliding window opens
+    ``sliding_window.prepare`` and ``sliding_window.normalize`` once per call
+    and ``sliding_window.gather`` / ``.predict`` / ``.blend`` per group of
+    windows; ``ensemble_predict`` opens ``serve.combine`` around each fold's
+    sigmoid and sum and around the final mean and threshold.
+    """
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(SPAN_PREFIX + name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager

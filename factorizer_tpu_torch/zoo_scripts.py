@@ -41,6 +41,7 @@ from .train.metrics import dice_metric, hausdorff_distance_95, voxel_spacing_fro
 from .train.observability import write_metrics_reports
 from .train.sliding_window import sliding_window_inference
 from .utils.helpers import materialize, resolve_device
+from .utils.profiling import span
 from .utils.weights import flax_state_dict
 
 logger = logging.getLogger("factorizer_tpu_torch")
@@ -239,7 +240,9 @@ def ensemble_predict(
     ``models`` of the sigmoid of each model's blended logits, both
     ``(B, C_out, *S)``; a deep-supervised model's logits are its first head's.
     Each ``nn.Module`` runs in evaluation mode (no dropout) and is handed back
-    in the mode it came in; ``models`` may also be plain callables.
+    in the mode it came in; ``models`` may also be plain callables.  Under a
+    profiler each fold's sigmoid and sum, and the mean and threshold, open the
+    span ``serve.combine`` (``utils.profiling.span``).
     """
     if not models:
         raise ValueError("ensemble_predict needs at least one model")
@@ -255,10 +258,12 @@ def ensemble_predict(
         finally:
             if training:
                 model.train()
-        p = torch.sigmoid(logits)
-        probs = p if probs is None else probs + p
-    probs = probs / len(models)
-    return (probs > 0.5).to(torch.uint8), probs
+        with span("serve.combine"):
+            p = torch.sigmoid(logits)
+            probs = p if probs is None else probs + p
+    with span("serve.combine"):
+        probs = probs / len(models)
+        return (probs > 0.5).to(torch.uint8), probs
 
 
 def _resolve_checkpoint_dir(ckpt_path) -> Path:
